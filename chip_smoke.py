@@ -1,0 +1,785 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port's commit-verification path on one card.
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass or the script exits non-zero:
+
+1. environment: the card's name and power limit, torch.version.cuda, nvcc;
+2. build: compiles the four kernels from ``cometbft_tpu_torch/csrc``;
+3. kernels: each kernel against its plain PyTorch version on the card, on
+   the same inputs at the main path's shapes (valid, tampered and ZIP-215
+   edge lanes; RLC accept, reject, garbage padding and torsion batches),
+   and against the pure-Python oracle; then one seeded random batch per
+   entry of ``SWEEP_LANES`` through every kernel and its plain version;
+   mismatches must be 0;
+4. commit: the main path, ``VerifyCommit``, ``VerifyCommitLight`` and
+   ``VerifyCommitLightTrusting`` on commits signed by 150 and 1,000
+   validators (keys from a fixed seed), plus a tampered commit that must
+   raise ``ErrInvalidSignature`` at the tampered lane.  The launch
+   counters are zeroed just before and read just after: every kernel
+   must have launched and no plain version may have run;
+5. throughput: 10,000 lanes (the 1,000 signed lanes tiled against a
+   10,000-row validator table) through the RLC and the per-lane kernels.
+
+The line before the last is a JSON object with one entry per kernel
+(launches on the main path, max_abs_err, times, bound); the last line is
+the device line.  Without a CUDA device the script exits 2 and prints no
+result; it never falls back to the CPU.  It imports nothing of the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 memory rate
+INT_LANES_PER_SM = 64            # 32-bit integer lanes per SM per clock
+SHA512_OPS_PER_BLOCK = 5520      # 32-bit integer ops per compression
+SC_REDUCE_PRODUCTS = 78          # 13 folds x 6 digit products
+MUL_MOD_L_PRODUCTS = 91          # 7 x 13 limb products
+FE_MUL_PRODUCTS = 100            # 32 x 32 -> 64-bit products per field mul
+
+CHAIN_ID = "smoke-chain"
+SIZES = (150, 1000)              # validators of the commit phase
+LANES = 10_000                   # lanes of the throughput phase
+REPS = 20                        # timed calls per measurement
+SWEEP_LANES = (1, 77, 128, 129, 300, 640)   # lanes of the sweep's batches
+
+
+def _run(cmd):
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+        return out.stdout.strip()
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"unavailable ({e})"
+
+
+def _sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def time_cuda(fn, reps: int, warm: int = 2) -> float:
+    """Mean ms per call of ``fn`` over ``reps`` calls, CUDA events."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    _sync()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def time_host(fn) -> float:
+    """Wall ms of one synchronized call."""
+    _sync()
+    t0 = time.perf_counter()
+    fn()
+    _sync()
+    return (time.perf_counter() - t0) * 1e3
+
+
+# ----------------------------------------------------------------- fixtures
+
+class Fixtures:
+    """Keys, validator sets and commits made with the port's own oracle
+    from a fixed seed; every signature is made once."""
+
+    def __init__(self, n_keys: int):
+        from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+
+        t0 = time.perf_counter()
+        self.privs = [Ed25519PrivKey.from_secret(b"chip-smoke-%d" % i)
+                      for i in range(n_keys)]
+        self.key_seconds = time.perf_counter() - t0
+        self._sigs: dict = {}
+        self.ts0 = 1_700_000_000_000_000_000
+
+    def commit(self, n_vals: int, height: int = 7):
+        from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+        from cometbft_tpu_torch.types.commit import (BLOCK_ID_FLAG_COMMIT,
+                                                     Commit, CommitSig)
+        from cometbft_tpu_torch.types.validator_set import (Validator,
+                                                            ValidatorSet)
+
+        privs = self.privs[:n_vals]
+        by_addr = {p.pub_key().address(): (i, p) for i, p in enumerate(privs)}
+        vals = ValidatorSet([Validator(p.pub_key(), 10) for p in privs])
+        bid = BlockID(hashlib.sha256(b"block%d" % height).digest(),
+                      PartSetHeader(1, hashlib.sha256(b"parts").digest()))
+        sigs = []
+        for v in vals.validators:
+            i, _ = by_addr[v.address]
+            sigs.append(CommitSig(BLOCK_ID_FLAG_COMMIT, v.address,
+                                  self.ts0 + i, b""))
+        commit = Commit(height, 0, bid, sigs)
+        for lane, v in enumerate(vals.validators):
+            i, p = by_addr[v.address]
+            msg = commit.vote_sign_bytes(CHAIN_ID, lane)
+            key = (i, msg)
+            if key not in self._sigs:
+                self._sigs[key] = p.sign(msg)
+            commit.signatures[lane].signature = self._sigs[key]
+        return vals, commit
+
+
+def lane_arrays(vals, commit):
+    """(pubs, sigs, msgs, lens) numpy rows of every lane of a commit."""
+    import numpy as np
+
+    pubs, _ = vals.dense()
+    n = commit.size()
+    msgs_b = [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(n)]
+    maxlen = max(len(m) for m in msgs_b)
+    msgs = np.zeros((n, maxlen), np.uint8)
+    lens = np.zeros((n,), np.int64)
+    for i, m in enumerate(msgs_b):
+        msgs[i, :len(m)] = np.frombuffer(m, np.uint8)
+        lens[i] = len(m)
+    sigs = np.frombuffer(b"".join(cs.signature for cs in commit.signatures),
+                         np.uint8).reshape(n, 64)
+    return np.array(pubs), sigs.copy(), msgs, lens
+
+
+# --------------------------------------------------------------- edge lanes
+
+def _torsion8(ref, rng):
+    while True:
+        pt = ref.pt_decompress_zip215(rng.bytes(32))
+        if pt is None:
+            continue
+        t = ref.pt_mul(ref.L, pt)
+        if not ref.pt_equal(t, ref.IDENTITY) and \
+           not ref.pt_equal(ref.pt_mul(4, t), ref.IDENTITY):
+            return t
+
+
+def edge_cases(rng):
+    """ZIP-215 edge lanes as (pub, msg, sig): a mixed-order key, the
+    non-canonical identity key with R = [r]B and S = r, the same key
+    with a small-order R and S = 0, a non-square key, an x = 0 key with
+    the sign bit set, and an S >= L signature."""
+    from cometbft_tpu_torch.crypto import _ed25519_py as ref
+
+    L, P = ref.L, ref.P
+    out = []
+    t8 = _torsion8(ref, rng)
+    seed = rng.bytes(32)
+    h0 = hashlib.sha512(seed).digest()
+    a_sc = ref._clamp(h0[:32])
+    mixed = ref.pt_compress(ref.pt_add(ref.pt_mul(a_sc, ref.BASE), t8))
+    m = rng.bytes(50)
+    r_sc = ref.sc_reduce64(hashlib.sha512(h0[32:] + m).digest())
+    r_enc = ref.pt_compress(ref.pt_mul(r_sc, ref.BASE))
+    k_sc = ref.sc_reduce64(hashlib.sha512(r_enc + mixed + m).digest())
+    out.append((mixed, m, r_enc + ((r_sc + k_sc * a_sc) % L).to_bytes(
+        32, "little")))
+    ident_nc = (1 + P).to_bytes(32, "little")
+    r2 = int.from_bytes(rng.bytes(32), "little") % L
+    out.append((ident_nc, b"whatever",
+                ref.pt_compress(ref.pt_mul(r2, ref.BASE))
+                + r2.to_bytes(32, "little")))
+    out.append((ident_nc, b"x", ref.pt_compress(t8) + bytes(32)))
+    while True:
+        cand = bytearray(rng.bytes(32))
+        cand[31] &= 127
+        if ref.pt_decompress_zip215(bytes(cand)) is None:
+            break
+    out.append((bytes(cand), b"m", out[0][2]))
+    out.append(((1 | (1 << 255)).to_bytes(32, "little"), b"y",
+                ref.pt_compress(t8) + bytes(32)))
+    sd = rng.bytes(32)
+    pk = ref.public_key_from_seed(sd)
+    good = ref.sign(sd, b"s")
+    s_int = int.from_bytes(good[32:], "little")
+    out.append((pk, b"s", good[:32] + (s_int + L).to_bytes(32, "little")))
+    return out
+
+
+# ------------------------------------------------------------------- phases
+
+def phase_kernels(fx, dev, reps, rec):
+    """Every kernel against its plain version (and the oracle) at the
+    main path's shapes.  Fills ``rec[name]`` with max_abs_err, mismatches,
+    ms and plain_ms; raises on any mismatch."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.crypto import _ed25519_py as ref
+    from cometbft_tpu_torch.crypto.batch import _padded_lane_args
+    from cometbft_tpu_torch.ops import ed25519 as ed
+    from cometbft_tpu_torch.ops import rlc, sha512
+
+    rng = np.random.default_rng(2026)
+    vals, commit = fx.commit(150)
+    pubs, sigs, msgs, lens = lane_arrays(vals, commit)
+    edges = edge_cases(rng)
+    n_edge = len(edges)
+
+    # validator table: the 150-validator set with its last rows replaced
+    # by the edge keys
+    tab_pubs = pubs.copy()
+    for j, (pk, _, _) in enumerate(edges):
+        tab_pubs[150 - n_edge + j] = np.frombuffer(pk, np.uint8)
+    pub_t = torch.from_numpy(tab_pubs).to(dev)
+
+    def tables_plain():
+        return ed._prepare_plain(pub_t)
+
+    tab_k, ok_k = ed.prepare_pubkey_tables(pub_t)
+    tab_p, ok_p = tables_plain()
+    err = int((ed.tables_canonical(tab_k).long()
+               - ed.tables_canonical(tab_p).long()).abs().max())
+    mism = int((ok_k != ok_p).sum())
+    want_ok = [ref.pt_decompress_zip215(bytes(r)) is not None
+               for r in tab_pubs]
+    mism += sum(int(a) != b for a, b in zip(ok_k.tolist(), want_ok))
+    rec["ed25519_tables"].update(
+        max_abs_err=err, mismatches=mism,
+        ms=time_cuda(lambda: ed.prepare_pubkey_tables(pub_t), reps),
+        plain_ms=time_host(tables_plain), shape=f"N={tab_pubs.shape[0]}")
+
+    # per-lane lanes: the Light shape at 150 validators (101 lanes), with
+    # tampered and edge lanes at the front
+    n_lanes = 101
+    lane_pub, lane_sig, lane_msg, lane_idx = [], [], [], []
+    for i in range(n_lanes):
+        lane_pub.append(pubs[i].tobytes())
+        lane_sig.append(sigs[i].tobytes())
+        lane_msg.append(msgs[i, :lens[i]].tobytes())
+        lane_idx.append(i)
+    for j, (pk, m, s) in enumerate(edges):        # edge lanes
+        k = 10 + j
+        lane_pub[k], lane_msg[k], lane_sig[k] = pk, m, s
+        lane_idx[k] = 150 - n_edge + j
+    s = bytearray(lane_sig[1]); s[40] ^= 1; lane_sig[1] = bytes(s)
+    s = bytearray(lane_sig[2]); s[3] ^= 4; lane_sig[2] = bytes(s)
+    lane_msg[3] = lane_msg[3] + b"!"
+    lane_idx[4] = 5                                 # wrong key row
+    lane_pub[4] = tab_pubs[5].tobytes()
+    want = [ref.verify_zip215(lane_pub[i], lane_msg[i], lane_sig[i])
+            for i in range(n_lanes)]
+    args = _lanes_to_tensors(lane_pub, lane_sig, lane_msg, dev)
+    idx_t = torch.tensor(lane_idx, dtype=torch.int32, device=dev)
+
+    def verify_plain():
+        return ed._verify_gather_plain(tab_k, ok_k, idx_t, *args)
+
+    got_k = ed.verify_padded_gather(tab_k, ok_k, idx_t, *args)
+    got_p = verify_plain()
+    mism = int((got_k != got_p).sum()) + sum(
+        int(a) != b for a, b in zip(got_k.tolist(), want))
+    rec["ed25519_verify_gather"].update(
+        max_abs_err=int((got_k.long() - got_p.long()).abs().max()),
+        mismatches=mism,
+        ms=time_cuda(lambda: ed.verify_padded_gather(tab_k, ok_k, idx_t,
+                                                     *args), reps),
+        plain_ms=time_host(verify_plain), shape=f"B={n_lanes}",
+        expected_rejects=sum(not w for w in want))
+
+    # sha512_scalar at the VerifyCommit shape (150 lanes)
+    rb, sb, blocks, active = _padded_lane_args(
+        pubs, sigs[:, :32], sigs[:, 32:], msgs, lens, dev)
+    h_k = sha512.sha512_scalar(blocks, active)
+    h_p = sha512._sha512_scalar_plain(blocks, active)
+    h_want = [int.from_bytes(hashlib.sha512(
+        sigs[i, :32].tobytes() + pubs[i].tobytes()
+        + msgs[i, :lens[i]].tobytes()).digest(), "little") % ref.L
+        for i in range(150)]
+    mism = int((h_k != h_p).any(1).sum()) + sum(
+        int.from_bytes(bytes(h_k[i].tolist()), "little") != h_want[i]
+        for i in range(150))
+    rec["sha512_scalar"].update(
+        max_abs_err=int((h_k.long() - h_p.long()).abs().max()),
+        mismatches=mism,
+        ms=time_cuda(lambda: sha512.sha512_scalar(blocks, active), reps),
+        plain_ms=time_host(
+            lambda: sha512._sha512_scalar_plain(blocks, active)),
+        shape=f"B=150 NB={blocks.shape[1]}")
+
+    # RLC at the VerifyCommit shape: accept, reject, garbage padding
+    # lanes with z = 0, and a batch whose lanes are ZIP-215 torsion cases
+    idx150 = torch.arange(150, dtype=torch.int32, device=dev)
+    tab_v, ok_v = ed.prepare_pubkey_tables(torch.from_numpy(pubs).to(dev))
+    z = torch.from_numpy(rlc.host_rlc_coeffs(150, rng_bytes=rng.bytes(
+        16 * 150))).to(dev)
+    cases = [("valid", (tab_v, ok_v, idx150, rb, sb, blocks, active, z),
+              True)]
+    sb_bad = sb.clone(); sb_bad[77, 0] ^= 1
+    cases.append(("tampered", (tab_v, ok_v, idx150, rb, sb_bad, blocks,
+                               active, z), False))
+    rb_pad = rb.clone(); rb_pad[140:] = 0xFF
+    sb_pad = sb.clone(); sb_pad[141:] = 0xFF
+    z_pad = z.clone(); z_pad[140:] = 0
+    cases.append(("garbage padding", (tab_v, ok_v, idx150, rb_pad, sb_pad,
+                                      blocks, active, z_pad), True))
+    rb_act = rb.clone(); rb_act[5] = 0xFF
+    cases.append(("garbage active lane", (tab_v, ok_v, idx150, rb_act, sb,
+                                          blocks, active, z), False))
+    tor = [e for e in edges if ref.verify_zip215(*e)]
+    t_pub = [p for p, _, _ in tor] + [pubs[i].tobytes()
+                                       for i in range(150 - len(tor))]
+    t_sig = [s for _, _, s in tor] + [sigs[i].tobytes()
+                                       for i in range(150 - len(tor))]
+    t_msg = [m for _, m, _ in tor] + [msgs[i, :lens[i]].tobytes()
+                                       for i in range(150 - len(tor))]
+    t_tab, t_ok = ed.prepare_pubkey_tables(torch.from_numpy(np.stack(
+        [np.frombuffer(p, np.uint8) for p in t_pub])).to(dev))
+    cases.append(("torsion edges", (t_tab, t_ok, idx150,
+                                    *_lanes_to_tensors(t_pub, t_sig, t_msg,
+                                                       dev), z), True))
+    mism, verdicts = 0, {}
+    for name, a, expect in cases:
+        k = bool(rlc.verify_batch_rlc_gather(*a))
+        p = bool(rlc._rlc_plain(*a))
+        verdicts[name] = (k, p, expect)
+        mism += (k != p) + (k != expect)
+    rec["ed25519_rlc_gather"].update(
+        max_abs_err=int(any(k != p for k, p, _ in verdicts.values())),
+        mismatches=mism,
+        ms=time_cuda(lambda: rlc.verify_batch_rlc_gather(*cases[0][1]),
+                     reps),
+        plain_ms=time_host(lambda: rlc._rlc_plain(*cases[0][1])),
+        shape="B=150", verdicts=verdicts)
+    return {"blocks_nb": int(blocks.shape[1])}
+
+
+def phase_sweep(fx, dev, rec):
+    """One seeded random batch per entry of SWEEP_LANES (one lane to five
+    blocks of 128), each kernel against its plain version on the card:
+    random keys, messages and tampered lanes (the tampered verdicts from
+    the oracle), random encodings in the table, and RLC batches with
+    every lane active and with the bad lanes and a few more as garbage
+    padding.  Adds to ``rec[name]["mismatches"]``."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.crypto import _ed25519_py as ref
+    from cometbft_tpu_torch.ops import ed25519 as ed
+    from cometbft_tpu_torch.ops import rlc, sha512
+
+    mism = dict.fromkeys(rec, 0)
+    for seed, n in enumerate(SWEEP_LANES):
+        rng = np.random.default_rng(1000 + seed)
+        keys = rng.choice(len(fx.privs), size=min(n, 64), replace=False)
+        pick = keys[rng.integers(0, len(keys), size=n)]
+        pubs, msgs, sigs = [], [], []
+        for k in pick:
+            m = rng.bytes(int(rng.integers(0, 200)))
+            pubs.append(fx.privs[k].pub_key().bytes())
+            msgs.append(m)
+            sigs.append(fx.privs[k].sign(m))
+        bad = rng.random(n) < 0.1
+        for i in np.flatnonzero(bad):
+            if rng.random() < 0.5:
+                s = bytearray(sigs[i])
+                s[rng.integers(0, 64)] ^= 1 << int(rng.integers(0, 8))
+                sigs[i] = bytes(s)
+            else:
+                msgs[i] += b"\x00"
+        want = [not bad[i] or ref.verify_zip215(pubs[i], msgs[i], sigs[i])
+                for i in range(n)]
+
+        rows = [fx.privs[k].pub_key().bytes() for k in keys]
+        row_of = {r: j for j, r in enumerate(rows)}
+        rows += [rng.bytes(32) for _ in range(16)]
+        pub_t = torch.from_numpy(np.frombuffer(b"".join(rows), np.uint8)
+                                 .reshape(-1, 32).copy()).to(dev)
+        tab_k, ok_k = ed.prepare_pubkey_tables(pub_t)
+        tab_p, ok_p = ed._prepare_plain(pub_t)
+        mism["ed25519_tables"] += int((ok_k != ok_p).sum()) + int(
+            (ed.tables_canonical(tab_k) != ed.tables_canonical(tab_p))
+            .flatten(1).any(1).sum())
+
+        idx = torch.tensor([row_of[pk] for pk in pubs], dtype=torch.int32,
+                           device=dev)
+        rb, sb, blocks, active = _lanes_to_tensors(pubs, sigs, msgs, dev)
+        h_k = sha512.sha512_scalar(blocks, active)
+        h_p = sha512._sha512_scalar_plain(blocks, active)
+        mism["sha512_scalar"] += int((h_k != h_p).any(1).sum())
+
+        lane = (tab_k, ok_k, idx, rb, sb, blocks, active)
+        v_k = ed.verify_padded_gather(*lane)
+        v_p = ed._verify_gather_plain(*lane)
+        mism["ed25519_verify_gather"] += int((v_k != v_p).sum()) + sum(
+            a != b for a, b in zip(v_k.tolist(), want))
+
+        z = rlc.host_rlc_coeffs(n, rng_bytes=rng.bytes(16 * n))
+        pad = bad | (rng.random(n) < 0.05)
+        z_pad = rlc.host_rlc_coeffs(n, ~pad, rng_bytes=rng.bytes(16 * n))
+        pad_t = torch.from_numpy(pad).to(dev)
+        rb_pad, sb_pad = rb.clone(), sb.clone()
+        garbage = torch.from_numpy(np.frombuffer(
+            rng.bytes(64 * int(pad.sum())), np.uint8).reshape(-1, 2, 32)
+            .copy()).to(dev)
+        rb_pad[pad_t], sb_pad[pad_t] = garbage[:, 0], garbage[:, 1]
+        for args, expect in (
+                ((*lane, torch.from_numpy(z).to(dev)), all(want)),
+                ((tab_k, ok_k, idx, rb_pad, sb_pad, blocks, active,
+                  torch.from_numpy(z_pad).to(dev)), True)):
+            k = bool(rlc.verify_batch_rlc_gather(*args))
+            p = bool(rlc._rlc_plain(*args))
+            mism["ed25519_rlc_gather"] += (k != p) + (k != expect)
+    for k, m in mism.items():
+        rec[k]["mismatches"] += m
+        rec[k]["sweep_mismatches"] = m
+    return mism
+
+
+def _lanes_to_tensors(pubs_b, sigs_b, msgs_b, dev):
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto.batch import _padded_lane_args
+
+    n = len(pubs_b)
+    maxlen = max(max(len(m) for m in msgs_b), 1)
+    msgs = np.zeros((n, maxlen), np.uint8)
+    lens = np.array([len(m) for m in msgs_b], np.int64)
+    for i, m in enumerate(msgs_b):
+        msgs[i, :len(m)] = np.frombuffer(m, np.uint8)
+    pubs = np.stack([np.frombuffer(p, np.uint8) for p in pubs_b])
+    sigs = np.stack([np.frombuffer(s, np.uint8) for s in sigs_b])
+    return _padded_lane_args(pubs, sigs[:, :32], sigs[:, 32:], msgs, lens,
+                             dev)
+
+
+def phase_commit(fx, dev, reps):
+    """The main path.  Returns (launches, per_call launches, latencies)."""
+    import copy
+
+    from cometbft_tpu_torch.crypto.batch import RLC_MIN_LANES
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.types import validation as V
+
+    sets = {n: fx.commit(n) for n in SIZES}
+    tampered = {}
+    for n, (vals, commit) in sets.items():
+        c = copy.deepcopy(commit)
+        bad = (n * 2) // 3 - 7
+        c.signatures[bad].signature = bytes(64)
+        tampered[n] = (c, bad)
+
+    def calls(n):
+        vals, commit = sets[n]
+        return [
+            ("VerifyCommit", lambda: V.VerifyCommit(
+                CHAIN_ID, vals, commit.block_id, commit.height, commit,
+                device=dev)),
+            ("VerifyCommitLight", lambda: V.VerifyCommitLight(
+                CHAIN_ID, vals, commit.block_id, commit.height, commit,
+                device=dev)),
+            ("VerifyCommitLightTrusting", lambda: V.VerifyCommitLightTrusting(
+                CHAIN_ID, vals, commit, device=dev)),
+        ]
+
+    per_call = {}
+    _build.reset_launches()                    # the main path starts here
+    for n in SIZES:
+        for name, fn in calls(n):
+            before = dict(_build.LAUNCHES)
+            fn()
+            per_call[f"{name}@{n}"] = {
+                k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                if v - before.get(k, 0)}
+        vals, commit = sets[n]
+        c, bad = tampered[n]
+        before = dict(_build.LAUNCHES)
+        try:
+            V.VerifyCommit(CHAIN_ID, vals, c.block_id, c.height, c,
+                           device=dev)
+        except V.ErrInvalidSignature as e:
+            if e.idx != bad:
+                raise AssertionError(
+                    f"tampered lane {bad} reported as {e.idx}") from e
+        else:
+            raise AssertionError("tampered commit verified")
+        per_call[f"VerifyCommit(tampered)@{n}"] = {
+            k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+            if v - before.get(k, 0)}
+    _sync()
+    launches = dict(_build.LAUNCHES)           # ... and ends here
+    plain = dict(_build.PLAIN_CALLS)
+    missing = [k for k in _build.KERNELS if not launches.get(k)]
+    if missing or plain:
+        raise AssertionError(f"main path: kernels not launched {missing}, "
+                             f"plain versions run {plain}")
+    for n in SIZES:
+        # Light stops once more than 2/3 of the (equal) power is counted
+        light_lanes = (2 * n) // 3 + 1
+        want = {"VerifyCommit": "ed25519_rlc_gather",
+                "VerifyCommitLight": (
+                    "ed25519_rlc_gather" if light_lanes >= RLC_MIN_LANES
+                    else "ed25519_verify_gather")}
+        for fn_name, kernel in want.items():
+            if not per_call[f"{fn_name}@{n}"].get(kernel):
+                raise AssertionError(f"{fn_name}@{n} did not launch {kernel}")
+    lat = {}
+    for n in SIZES:
+        for name, fn in calls(n):
+            ts = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            lat[f"{name}@{n}"] = statistics.median(ts)
+    return launches, per_call, lat, sets
+
+
+def phase_throughput(sets, dev, n_lanes, reps):
+    """10k lanes: the 1,000 signed lanes tiled against a 10,000-row
+    table.  Kernel rates from CUDA events; the host-inclusive rate of the
+    dense entry point from the wall clock."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.ops import ed25519 as ed
+    from cometbft_tpu_torch.ops import rlc
+
+    n_keys = max(sets)
+    vals, commit = sets[n_keys]
+    pubs, sigs, msgs, lens = lane_arrays(vals, commit)
+    reps_t = -(-n_lanes // n_keys)
+    big_pubs = np.tile(pubs, (reps_t, 1))[:n_lanes]
+    lane = np.arange(n_lanes) % n_keys
+    l_sigs, l_msgs, l_lens = sigs[lane], msgs[lane], lens[lane]
+    pub_t = torch.from_numpy(big_pubs.copy()).to(dev)
+    tables_ms = time_host(lambda: ed.prepare_pubkey_tables(pub_t))
+    tab, ok = ed.prepare_pubkey_tables(pub_t)
+    idx = torch.arange(n_lanes, dtype=torch.int32, device=dev)
+    rb, sb, blocks, active = batch._padded_lane_args(
+        big_pubs, l_sigs[:, :32], l_sigs[:, 32:], l_msgs, l_lens, dev)
+    z = torch.from_numpy(rlc.host_rlc_coeffs(n_lanes)).to(dev)
+    if not bool(rlc.verify_batch_rlc_gather(tab, ok, idx, rb, sb, blocks,
+                                            active, z)):
+        raise AssertionError("10k-lane RLC verdict rejected a valid batch")
+    per = ed.verify_padded_gather(tab, ok, idx, rb, sb, blocks, active)
+    if not bool(per.all()):
+        raise AssertionError("10k-lane per-lane kernel rejected a lane")
+    rlc_ms = time_cuda(lambda: rlc.verify_batch_rlc_gather(
+        tab, ok, idx, rb, sb, blocks, active, z), reps, warm=1)
+    lane_ms = time_cuda(lambda: ed.verify_padded_gather(
+        tab, ok, idx, rb, sb, blocks, active), reps, warm=1)
+    wall = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        ok_all, _ = batch.verify_dense(big_pubs, l_sigs, l_msgs, l_lens,
+                                       device=dev, valset_pubs=big_pubs,
+                                       scope=np.arange(n_lanes))
+        wall.append((time.perf_counter() - t0) * 1e3)
+        if not ok_all:
+            raise AssertionError("10k-lane dense verify rejected")
+    return {"lanes": n_lanes, "tables_ms": tables_ms, "rlc_ms": rlc_ms,
+            "per_lane_ms": lane_ms, "dense_wall_p50_ms": statistics.median(wall),
+            "rlc_sig_per_s": n_lanes / rlc_ms * 1e3,
+            "per_lane_sig_per_s": n_lanes / lane_ms * 1e3,
+            "dense_sig_per_s": n_lanes / statistics.median(wall) * 1e3,
+            "nb": int(blocks.shape[1])}
+
+
+# ------------------------------------------------------------------- bounds
+
+def op_counts():
+    """Field multiplications of each group operation, counted by running
+    the plain versions on one lane on the CPU."""
+    import torch
+
+    from cometbft_tpu_torch.crypto import _ed25519_py as ref
+    from cometbft_tpu_torch.ops import ed25519 as ed
+    from cometbft_tpu_torch.ops import fe, group
+
+    enc = torch.tensor([list(ref.pt_compress(ref.BASE))], dtype=torch.uint8)
+    counts = {}
+
+    def count(name, fn):
+        n0 = fe.MUL_COUNT.n
+        out = fn()
+        counts[name] = fe.MUL_COUNT.n - n0
+        return out
+
+    p, _ = count("decompress", lambda: group.decompress_zip215(enc))
+    count("table", lambda: ed._build_neg_table(p))
+    c = count("cache", lambda: group.cache(p))
+    count("dbl", lambda: group.dbl(p))
+    count("add_cached", lambda: group.add_cached(p, c))
+    count("add_niels", lambda: group.add_niels(
+        p, group.Niels(c.ypx, c.ymx, c.t2d)))
+    count("add_cc", lambda: group.add_cc(c, c))
+    count("is_identity", lambda: group.is_identity(p))
+    return counts
+
+
+def bounds(c, b_verify, b_rlc, n_tab, nb, distinct_rows, rate_ops):
+    """Least time per kernel call on this card at the main path's shapes:
+    the larger of bytes moved / HBM rate and counted integer operations /
+    the integer rate."""
+    ladder = 64 * (4 * c["dbl"] + c["add_niels"] + c["add_cached"])
+    tail = c["cache"] + c["add_cached"] + 3 * c["dbl"]
+    sha_ops = nb * SHA512_OPS_PER_BLOCK + SC_REDUCE_PRODUCTS
+    lane_in = 32 + 32 + nb * 128 + 4 + 4          # rb, sb, blocks, active, idx
+    row = 16 * 4 * 10 * 4 + 1                      # a table row and its ok
+    work = {
+        "ed25519_tables": (
+            n_tab * (c["decompress"] + c["table"]) * FE_MUL_PRODUCTS,
+            n_tab * (32 + row)),
+        "sha512_scalar": (b_rlc * sha_ops,
+                          b_rlc * (nb * 128 + 4 + 32)),
+        "ed25519_verify_gather": (
+            b_verify * ((c["decompress"] + ladder + tail + c["is_identity"])
+                        * FE_MUL_PRODUCTS + sha_ops),
+            b_verify * (lane_in + 1) + distinct_rows["verify"] * row),
+        "ed25519_rlc_gather": (
+            b_rlc * ((c["decompress"] + c["table"]) * FE_MUL_PRODUCTS
+                     + sha_ops + 2 * (MUL_MOD_L_PRODUCTS + SC_REDUCE_PRODUCTS))
+            + 96 * (b_rlc - 1) * c["add_cc"] * FE_MUL_PRODUCTS
+            + (ladder + 32 * c["add_cached"] + 3 * c["dbl"]
+               + c["is_identity"]) * FE_MUL_PRODUCTS,
+            b_rlc * (lane_in + 16) + distinct_rows["rlc"] * row + 1),
+    }
+    out = {}
+    for k, (ops, nbytes) in work.items():
+        t_ops = ops / rate_ops * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out[k] = (max(t_ops, t_bytes),
+                  "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+    return out
+
+
+# --------------------------------------------------------------------- main
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--record", default=None,
+                    help="also write the full record as JSON to this path")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs only on a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from cometbft_tpu_torch.ops import _build
+
+    dev = torch.device("cuda:0")
+    card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"]).splitlines()[0]
+    clock = _run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                  "--format=csv,noheader,nounits"]).splitlines()[0]
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"nvcc: {_run([_build._nvcc(), '--version']).splitlines()[-1]}")
+    props = torch.cuda.get_device_properties(0)
+    sm_mhz = float(clock)
+    rate_ops = props.multi_processor_count * INT_LANES_PER_SM * sm_mhz * 1e6
+    print(f"device: {props.name}, {props.multi_processor_count} SMs, max SM "
+          f"clock {sm_mhz:.0f} MHz -> {rate_ops / 1e12:.2f} T int32 ops/s")
+
+    t0 = time.perf_counter()
+    for k in _build.KERNELS:
+        _build.load(k)
+    print(f"build: {time.perf_counter() - t0:.1f} s "
+          f"({_build.build_dir()})")
+    for line in _build.build_log().splitlines():
+        if "registers" in line or "spill" in line or "==" in line:
+            print("  " + line.strip())
+
+    t0 = time.perf_counter()
+    fx = Fixtures(max(SIZES))
+    print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
+
+    rec = {k: {"name": k, "route": "cuda"} for k in _build.KERNELS}
+    sources = {"sha512_scalar": ("csrc/sha512_scalar.cu",
+                                 "cometbft_tpu/ops/sha512.py:165"),
+               "ed25519_tables": ("csrc/ed25519_tables.cu",
+                                  "cometbft_tpu/ops/ed25519.py:112"),
+               "ed25519_verify_gather": ("csrc/ed25519_verify.cu",
+                                         "cometbft_tpu/ops/ed25519.py:170"),
+               "ed25519_rlc_gather": ("csrc/ed25519_rlc.cu",
+                                      "cometbft_tpu/ops/rlc.py:221")}
+    for k, (src, rep) in sources.items():
+        rec[k]["source"] = "cometbft_tpu_torch/" + src
+        rec[k]["replaces"] = rep
+
+    info = phase_kernels(fx, dev, REPS, rec)
+    t0 = time.perf_counter()
+    sweep = phase_sweep(fx, dev, rec)
+    print(f"sweep: {len(SWEEP_LANES)} random batches of {SWEEP_LANES} "
+          f"lanes in {time.perf_counter() - t0:.1f} s, mismatches {sweep}")
+    bad = {k: r["mismatches"] for k, r in rec.items() if r["mismatches"]}
+    for k, r in rec.items():
+        print(f"kernel {k} [{r['shape']}]: mismatches {r['mismatches']}, "
+              f"max_abs_err {r['max_abs_err']}, {r['ms']:.3f} ms "
+              f"(plain {r['plain_ms']:.1f} ms)")
+    print(f"rlc verdicts (kernel, plain, expected): "
+          f"{rec['ed25519_rlc_gather']['verdicts']}")
+    if bad:
+        raise AssertionError(f"kernel phase mismatches: {bad}")
+
+    launches, per_call, lat, sets = phase_commit(fx, dev, REPS)
+    for k, v in per_call.items():
+        print(f"launches {k}: {v}")
+    for k, v in lat.items():
+        print(f"p50 {k}: {v:.2f} ms  [{card}]")
+
+    tp = phase_throughput(sets, dev, LANES, REPS // 4)
+    print(f"throughput {tp['lanes']} lanes [{card}]: RLC kernel "
+          f"{tp['rlc_sig_per_s']:.0f} sig/s ({tp['rlc_ms']:.2f} ms), "
+          f"per-lane kernel {tp['per_lane_sig_per_s']:.0f} sig/s "
+          f"({tp['per_lane_ms']:.2f} ms), dense entry with host packing "
+          f"{tp['dense_sig_per_s']:.0f} sig/s "
+          f"(p50 {tp['dense_wall_p50_ms']:.1f} ms), table build "
+          f"{tp['tables_ms']:.2f} ms")
+
+    c = op_counts()
+    print(f"field multiplications per group op: {c}")
+    bd = bounds(c, b_verify=101, b_rlc=150, n_tab=150, nb=info["blocks_nb"],
+                distinct_rows={"verify": 101, "rlc": 150},
+                rate_ops=rate_ops)
+    kernels = []
+    for k, r in rec.items():
+        bound_ms, by, ops, nbytes = bd[k]
+        print(f"bound {k}: {ops:.3e} int ops, {nbytes} bytes -> "
+              f"{bound_ms:.4f} ms ({by})")
+        kernels.append({
+            "name": k, "route": "cuda", "source": r["source"],
+            "replaces": r["replaces"], "launches": launches.get(k, 0),
+            "max_abs_err": r["max_abs_err"], "mismatches": r["mismatches"],
+            "sweep_mismatches": r["sweep_mismatches"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": None, "shape": r["shape"]})
+    if args.record:
+        os.makedirs(os.path.dirname(os.path.abspath(args.record)),
+                    exist_ok=True)
+        with open(args.record, "w") as f:
+            json.dump({"card": card, "kernels": kernels,
+                       "per_call": per_call, "p50_ms": lat,
+                       "throughput": tp, "op_counts": c}, f, indent=1,
+                      default=str)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

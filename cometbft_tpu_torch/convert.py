@@ -1,0 +1,79 @@
+"""State carried from the JAX package into the port, from numpy arrays.
+
+With these, both packages verify the same commit against the same
+validator set, and a node's cached per-valset tables move across:
+
+- :func:`tables_from_jax` takes ``cometbft_tpu.ops.ed25519.
+  prepare_pubkey_tables`` output (four ``(16, 20, N)`` int32 arrays of
+  13-bit limbs, limb-major, plus the ``(N,)`` ok mask) and returns the
+  port's ``(N, 16, 4, 10)`` table in canonical limbs;
+- :func:`validator_set_from_arrays` mirrors ``ValidatorSet.dense()``;
+- :func:`commit_from_arrays` mirrors ``Commit.dense_columns()`` plus the
+  header fields and the validator addresses.
+
+Nothing here imports the JAX package: the inputs are plain arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .crypto.keys import Ed25519PubKey
+from .ops import fe
+from .types.block_id import BlockID, PartSetHeader
+from .types.commit import Commit, CommitSig
+from .types.validator_set import Validator, ValidatorSet
+
+__all__ = ["tables_from_jax", "validator_set_from_arrays",
+           "commit_from_arrays"]
+
+_JAX_RADIX = 13
+
+
+def tables_from_jax(ypx, ymx, z2, t2d, ok, device="cpu"):
+    """JAX cached tables -> (tab (N, 16, 4, 10) int32 canonical limbs,
+    ok (N,) bool) on ``device``.  Each element's value is taken mod p,
+    so any limb form the JAX side holds converts exactly."""
+    comps = np.stack([np.asarray(c, np.int64) for c in (ypx, ymx, z2, t2d)])
+    # (4, 16, 20, N) -> (N, 16, 4, 20) limbs of 13 bits
+    limbs = comps.transpose(3, 1, 0, 2).astype(object)
+    shifts = np.array([1 << (_JAX_RADIX * i) for i in range(limbs.shape[-1])],
+                      dtype=object)
+    vals = (limbs * shifts).sum(axis=-1) % fe.P_INT          # (N, 16, 4)
+    out = np.zeros(vals.shape + (10,), np.int64)
+    for i, (o, w) in enumerate(zip(fe.OFFSETS, fe.WIDTHS)):
+        out[..., i] = ((vals >> o) & ((1 << w) - 1)).astype(np.int64)
+    tab = torch.from_numpy(out.astype(np.int32)).to(device)
+    return tab, torch.from_numpy(np.asarray(ok, bool).copy()).to(device)
+
+
+def validator_set_from_arrays(pubs, powers) -> ValidatorSet:
+    """pubs (N, 32) uint8 and powers (N,) int64 -> a ValidatorSet (sorted
+    by address, so rows given in the JAX set's order keep their index)."""
+    pubs = np.asarray(pubs, np.uint8)
+    return ValidatorSet([Validator(Ed25519PubKey(pubs[i].tobytes()),
+                                   int(powers[i]))
+                         for i in range(pubs.shape[0])])
+
+
+def commit_from_arrays(height: int, round_: int, block_hash: bytes,
+                       part_set_total: int, part_set_hash: bytes, flags,
+                       timestamps_ns, addresses, sigs,
+                       sig_lens=None) -> Commit:
+    """Header fields plus per-lane columns -> a Commit.  ``flags`` (N,)
+    uint8, ``timestamps_ns`` (N,) int64, ``addresses`` N 20-byte strings
+    (b"" for absent lanes), ``sigs`` (N, 64) uint8; ``sig_lens`` (N,)
+    optional signature lengths (default 64 on non-absent lanes, 0 on
+    absent ones)."""
+    n = len(flags)
+    lanes = []
+    for i in range(n):
+        fl = int(flags[i])
+        ln = (int(sig_lens[i]) if sig_lens is not None
+              else (0 if fl == 1 else 64))
+        lanes.append(CommitSig(fl, bytes(addresses[i]), int(timestamps_ns[i]),
+                               np.asarray(sigs[i], np.uint8).tobytes()[:ln]))
+    bid = BlockID(bytes(block_hash),
+                  PartSetHeader(int(part_set_total), bytes(part_set_hash)))
+    return Commit(int(height), int(round_), bid, lanes)

@@ -1,0 +1,195 @@
+"""Batch signature verification on the device: the port's dispatch layer.
+
+Counterpart of ``cometbft_tpu/crypto/batch.py`` for the single-device
+Ed25519 path.  Signatures pack into dense byte matrices, hash inputs
+R || A || M pad into SHA-512 blocks on the host (``ops/sha512.host_pad``),
+and the lanes go to the kernels:
+
+- batches of at least ``RLC_MIN_LANES`` lanes first take the one-shot
+  RLC verdict (``ops/rlc.py``); an accept proves every lane;
+- smaller batches, and every RLC reject, take the per-lane ladder
+  (``ops/ed25519.py``), which names the bad lanes.  On a reject the
+  first bad lane is therefore the same one the JAX package names.
+
+``device_verify_ed25519_cached`` reuses per-validator-set tables
+(decode of A and its [j](-A) table) across commits, keyed by the
+identity of the set's pubkey matrix.  The kernels take any lane count,
+so there are no shape buckets; the XLA buckets of ``crypto/plan.py``
+are not needed.  ``device`` is ``None`` (CUDA) or a device; ``"cpu"``
+runs the plain versions, as the tests do.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..ops import ed25519 as _ed
+from ..ops import rlc as _rlc
+from ..ops import sha512 as _sha
+__all__ = ["RLC_MIN_LANES", "BatchVerifier", "create_batch_verifier",
+           "verify_dense", "device_verify_ed25519",
+           "device_verify_ed25519_cached"]
+
+# the one-shot RLC verdict runs first at or above this many lanes
+# (cometbft_tpu/crypto/plan.py:72); smaller batches go per lane
+RLC_MIN_LANES = 128
+# validator sets whose device tables stay cached (oldest evicted first)
+TABLE_CACHE_ENTRIES = 4
+
+
+def _padded_lane_args(pubs, rs, ss, msgs, msg_lens, device):
+    """Host packing shared by the cached and uncached routes: the
+    R || A || M hash inputs padded into SHA-512 blocks, byte matrices as
+    uint8 tensors on ``device``.  Returns (rb, sb, blocks, active)."""
+    b = pubs.shape[0]
+    hin = np.zeros((b, 64 + msgs.shape[1]), np.uint8)
+    hin[:, :32] = rs
+    hin[:, 32:64] = pubs
+    hin[:, 64:] = msgs
+    lens = 64 + np.asarray(msg_lens, np.int64)
+    nb = _sha.max_blocks_for_len(int(lens.max(initial=0)))
+    blocks, active = _sha.host_pad(hin, lens, nb)
+
+    def put(a, dtype=None):
+        return torch.from_numpy(np.array(a if dtype is None else
+                                         a.view(dtype))).to(device)
+
+    return (put(np.asarray(rs, np.uint8)), put(np.asarray(ss, np.uint8)),
+            put(blocks, np.int32), put(active))
+
+
+def _lane_route(tab, ok, idx, rb, sb, blocks, active, rng_bytes):
+    """RLC first at RLC_MIN_LANES lanes, per-lane on small batches and
+    on a reject.  Returns (B,) numpy bool."""
+    b = idx.shape[0]
+    if b >= RLC_MIN_LANES:
+        z = torch.from_numpy(_rlc.host_rlc_coeffs(
+            b, rng_bytes=rng_bytes)).to(idx.device)
+        if bool(_rlc.verify_batch_rlc_gather(tab, ok, idx, rb, sb, blocks,
+                                             active, z)):
+            return np.ones((b,), bool)
+    return _ed.verify_padded_gather(tab, ok, idx, rb, sb, blocks,
+                                    active).cpu().numpy()
+
+
+def device_verify_ed25519(pubs, rs, ss, msgs, msg_lens, device=None,
+                          rng_bytes=None) -> np.ndarray:
+    """Verify B Ed25519 signatures from dense arrays: pubs, rs, ss (B, 32)
+    uint8, msgs (B, L) uint8 zero-padded rows, msg_lens (B,).  Tables are
+    built for these lanes' own keys.  Returns (B,) bool."""
+    b = pubs.shape[0]
+    if b == 0:
+        return np.zeros((0,), bool)
+    dev = resolve_device(device)
+    pub_t = torch.from_numpy(np.array(pubs, np.uint8)).to(dev)
+    tab, ok = _ed.prepare_pubkey_tables(pub_t)
+    idx = torch.arange(b, dtype=torch.int32, device=dev)
+    return _lane_route(tab, ok, idx,
+                       *_padded_lane_args(pubs, rs, ss, msgs, msg_lens, dev),
+                       rng_bytes)
+
+
+# (id of the set's pubkey matrix, device) -> (matrix, tab, ok).  The
+# matrix is ``ValidatorSet.dense()``'s, built once per set; entries hold
+# it, so an id is never reused while cached.
+_TABLES: dict = {}
+
+
+def _valset_tables(valset_pubs: np.ndarray, device: torch.device):
+    key = (id(valset_pubs), str(device))
+    ent = _TABLES.get(key)
+    if ent is not None and ent[0] is valset_pubs:
+        return ent[1], ent[2]
+    pub_t = torch.from_numpy(np.array(valset_pubs, np.uint8)).to(device)
+    tab, ok = _ed.prepare_pubkey_tables(pub_t)
+    while len(_TABLES) >= TABLE_CACHE_ENTRIES:
+        _TABLES.pop(next(iter(_TABLES)))
+    _TABLES[key] = (valset_pubs, tab, ok)
+    return tab, ok
+
+
+def device_verify_ed25519_cached(valset_pubs, scope, pubs_rows, rs, ss,
+                                 msgs, msg_lens, device=None,
+                                 rng_bytes=None) -> np.ndarray:
+    """Dense verify through the per-valset table cache: ``scope`` (B,) are
+    validator indices into ``valset_pubs`` (N, 32); ``pubs_rows`` (B, 32)
+    the gathered keys, still needed for the R || A || M hash."""
+    b = pubs_rows.shape[0]
+    if b == 0:
+        return np.zeros((0,), bool)
+    dev = resolve_device(device)
+    tab, ok = _valset_tables(valset_pubs, dev)
+    idx = torch.from_numpy(np.asarray(scope, np.int32)).to(dev)
+    return _lane_route(tab, ok, idx,
+                       *_padded_lane_args(pubs_rows, rs, ss, msgs, msg_lens,
+                                          dev), rng_bytes)
+
+
+def verify_dense(pubs, sigs, msgs, lens, device=None, valset_pubs=None,
+                 scope=None, rng_bytes=None):
+    """Dense-array verification: ``pubs`` (k, 32) u8, ``sigs`` (k, 64) u8,
+    ``msgs`` (k, L) u8 zero-padded rows, ``lens`` (k,).  With
+    ``valset_pubs``/``scope`` the per-valset tables are reused.  Returns
+    ``(all_ok, oks ndarray)``."""
+    k = pubs.shape[0]
+    if k == 0:
+        return True, np.zeros((0,), bool)
+    rs = np.ascontiguousarray(sigs[:, :32])
+    ss = np.ascontiguousarray(sigs[:, 32:])
+    if valset_pubs is not None and scope is not None:
+        out = device_verify_ed25519_cached(valset_pubs, scope, pubs, rs, ss,
+                                           msgs, lens, device, rng_bytes)
+    else:
+        out = device_verify_ed25519(pubs, rs, ss, msgs, lens, device,
+                                    rng_bytes)
+    return bool(out.all()), out
+
+
+class BatchVerifier:
+    """Accumulate (pubkey, msg, sig) triples and verify them at once on
+    the device (the reference's ``crypto.BatchVerifier``).  ``verify()``
+    returns ``(all_ok, per_sig)``; an empty batch is not ok.  A signature
+    that is not 64 bytes is rejected without a launch."""
+
+    def __init__(self, device=None):
+        self._device = resolve_device(device)
+        self._items: list[tuple] = []
+
+    def add(self, pub, msg: bytes, sig: bytes) -> None:
+        if not isinstance(msg, (bytes, bytearray)):
+            raise TypeError("msg must be bytes")
+        self._items.append((pub, bytes(msg), bytes(sig)))
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    def verify(self) -> tuple[bool, list[bool]]:
+        n = len(self._items)
+        if n == 0:
+            return False, []
+        oks = [False] * n
+        ed = [i for i, (_, _, s) in enumerate(self._items) if len(s) == 64]
+        if ed:
+            items = [self._items[i] for i in ed]
+            maxlen = max(max(len(m) for _, m, _ in items), 1)
+            pubs = np.frombuffer(b"".join(p.bytes() for p, _, _ in items),
+                                 np.uint8).reshape(len(ed), 32)
+            sigs = np.frombuffer(b"".join(s for _, _, s in items),
+                                 np.uint8).reshape(len(ed), 64)
+            msgs = np.zeros((len(ed), maxlen), np.uint8)
+            lens = np.zeros((len(ed),), np.int64)
+            for j, (_, m, _) in enumerate(items):
+                msgs[j, :len(m)] = np.frombuffer(m, np.uint8)
+                lens[j] = len(m)
+            _, out = verify_dense(pubs, sigs, msgs, lens, self._device)
+            for j, i in enumerate(ed):
+                oks[i] = bool(out[j])
+        return all(oks), oks
+
+
+def create_batch_verifier(device=None) -> BatchVerifier:
+    """The device batch verifier (``device=None``: CUDA, raising without
+    a card; ``"cpu"``: the plain versions)."""
+    return BatchVerifier(device)

@@ -1,0 +1,209 @@
+"""Build, load and count the port's CUDA kernels.
+
+The sources in ``csrc/`` compile with ``nvcc`` into one shared library
+per kernel, each with a plain C entry point that ``ctypes`` loads (no
+PyTorch headers, so a build takes seconds).  The four ``nvcc`` processes
+run at once.  The build happens at the first launch, never at import,
+and lands in ``build/cometbft_tpu_torch/<hash>/`` under the checkout,
+keyed by a hash of the sources, the generated constants header and the
+flags, so an edited source rebuilds and an unchanged one loads.
+
+``ed25519_consts.h`` is generated here from the port's own oracle
+(``crypto/_ed25519_py.py``) and from ``ops/fe.py``, ``ops/group.py``,
+``ops/ed25519.py``, ``ops/scalar.py`` and ``ops/sha512.py``, so the kernels and the plain versions share one
+source for every constant.
+
+Each wrapper adds one to ``LAUNCHES[name]`` where it launches its
+kernel and nowhere else, and one to ``PLAIN_CALLS[name]`` where it runs
+the plain version on CPU tensors; ``check`` turns the C entry's
+``cudaGetLastError`` return into an exception.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_launches", "load", "check",
+           "check_arg", "check_index", "stream_of", "build_dir",
+           "consts_header", "build_log"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+ROOT = Path(__file__).resolve().parents[2]
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# kernel -> (source, C entry, argument types)
+KERNELS = {
+    "sha512_scalar": ("sha512_scalar.cu", "sha512_scalar_launch",
+                      [_P, _P, _I, _I, _P, _P]),
+    "ed25519_tables": ("ed25519_tables.cu", "ed25519_tables_launch",
+                       [_P, _I, _P, _P, _P]),
+    "ed25519_verify_gather": ("ed25519_verify.cu",
+                              "ed25519_verify_gather_launch",
+                              [_P] * 7 + [_I, _I, _P, _P]),
+    "ed25519_rlc_gather": ("ed25519_rlc.cu", "ed25519_rlc_gather_launch",
+                           [_P] * 7 + [_I] + [_P] * 10),
+}
+
+LAUNCHES: collections.Counter = collections.Counter()
+PLAIN_CALLS: collections.Counter = collections.Counter()
+_LIBS: dict = {}
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+    PLAIN_CALLS.clear()
+
+
+def _c_array(values, fmt: str = "{}") -> str:
+    if isinstance(values, (list, tuple)):
+        return "{" + ", ".join(_c_array(v, fmt) for v in values) + "}"
+    return fmt.format(values)
+
+
+def consts_header() -> str:
+    """The generated ``ed25519_consts.h``: every constant the device code
+    needs, from the same Python definitions the plain versions use."""
+    from . import fe, group, scalar, sha512
+    from .ed25519 import base_niels_rows
+
+    base = base_niels_rows()
+    consts = [fe.limbs_from_int(v) for v in (
+        fe.D_INT, group.D2_INT, fe.SQRT_M1_INT, group.INV2_INT,
+        group.INV2D_INT)]
+    lines = [
+        "// Generated by cometbft_tpu_torch/ops/_build.py; do not edit.",
+        "#pragma once",
+        "enum { FE_D = 0, FE_D2 = 1, FE_SQRTM1 = 2, FE_INV2 = 3, "
+        "FE_INV2D = 4 };",
+        f"__constant__ int32_t c_fe_consts[5][10] = {_c_array(consts)};",
+        "__constant__ int32_t c_base_niels[16][3][10] = "
+        f"{_c_array(base)};",
+        "__constant__ uint64_t c_sha512_k[80] = "
+        f"{_c_array(sha512.K64, '{}ULL')};",
+        "__constant__ uint64_t c_sha512_iv[8] = "
+        f"{_c_array(sha512.IV64, '{}ULL')};",
+        f"__constant__ int64_t c_sc_mu[6] = {_c_array(scalar.MU, '{}LL')};",
+        "__constant__ uint8_t c_l_bytes[32] = "
+        f"{_c_array(list(scalar.L_INT.to_bytes(32, 'little')))};",
+    ]
+    return "\n".join(lines) + "\n"
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", "") + "/bin/nvcc",
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin and PATH)")
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256()
+    h.update(" ".join(FLAGS).encode())
+    h.update(consts_header().encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return ROOT / "build" / "cometbft_tpu_torch" / h.hexdigest()[:16]
+
+
+def build_log() -> str:
+    """The compiler's output (``-Xptxas -v``: registers, spills) of the
+    current build, or "" before the first build."""
+    log = build_dir() / "build.log"
+    return log.read_text() if log.exists() else ""
+
+
+def _build_all(out: Path) -> None:
+    """Compile every kernel's source at once, one nvcc per source."""
+    nvcc = _nvcc()
+    (out / "ed25519_consts.h").write_text(consts_header())
+    procs = []
+    for name, (src, _, _) in KERNELS.items():
+        tmp = out / f"lib{name}.so.tmp"
+        cmd = [nvcc, *FLAGS, "-I", str(out), "-I", str(CSRC), "-o",
+               str(tmp), str(CSRC / src)]
+        procs.append((name, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    logs, failed = [], []
+    for name, tmp, cmd, proc in procs:
+        text = proc.communicate()[0].decode(errors="replace")
+        logs.append(f"== {name}: {' '.join(cmd)}\n{text}")
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, out / f"lib{name}.so")
+    (out / "build.log").write_text("\n".join(logs))
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+
+
+def load(name: str):
+    """The ctypes entry point of kernel ``name``; builds all kernels on
+    first use in a process (or after a source edit)."""
+    fn = _LIBS.get(name)
+    if fn is not None:
+        return fn
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not all((out / f"lib{k}.so").exists() for k in KERNELS):
+            _build_all(out)
+    for k, (_, entry, argtypes) in KERNELS.items():
+        lib = ctypes.CDLL(str(out / f"lib{k}.so"))
+        f = getattr(lib, entry)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _LIBS[k] = f
+    return _LIBS[name]
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def check_arg(t, name: str, dtype, shape) -> None:
+    """Validate a kernel argument: dtype, shape (None = any) and layout."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, want {dtype}")
+    if len(t.shape) != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def check_index(*checks) -> None:
+    """For each ``(t, n, name)``, every entry of ``t`` must lie in [0, n):
+    a row of an ``n``-row table, or a count of blocks; the kernels read
+    without bounds checks.  One reduction per tensor and, on the card,
+    one synchronization for all of them."""
+    import torch
+
+    live = [c for c in checks if c[0].numel()]
+    if not live:
+        return
+    bad = torch.stack([((t < 0) | (t >= n)).any() for t, n, _ in live])
+    for (_, n, name), b in zip(live, bad.tolist()):
+        if b:
+            raise IndexError(f"{name}: an entry lies outside [0, {n})")
+
+
+def stream_of(t) -> int:
+    """PyTorch's current stream on ``t``'s device, as the C entry's handle."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,97 @@
+"""Validator and ValidatorSet (reference: ``types/validator.go``,
+``types/validator_set.go``).
+
+Counterpart of ``cometbft_tpu/types/validator_set.py`` for what commit
+verification reads: the address-sorted validator list, lookups by index
+and by address, the total voting power, and the dense columnar view.
+Proposer rotation and set updates belong to later slices of the port.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+
+import numpy as np
+
+from ..crypto.keys import Ed25519PubKey
+
+__all__ = ["MAX_TOTAL_VOTING_POWER", "Validator", "ValidatorSet"]
+
+MAX_TOTAL_VOTING_POWER = (2**63 - 1) // 8
+
+
+@dataclass
+class Validator:
+    pub_key: Ed25519PubKey
+    voting_power: int
+    _address: bytes = field(default=b"", repr=False)
+
+    @property
+    def address(self) -> bytes:
+        if not self._address:
+            self._address = self.pub_key.address()
+        return self._address
+
+    def copy(self) -> "Validator":
+        return replace(self)
+
+
+class ValidatorSet:
+    """Validators sorted by address (the reference's order)."""
+
+    def __init__(self, validators: list[Validator]):
+        vals = sorted((v.copy() for v in validators),
+                      key=lambda v: v.address)
+        if len({v.address for v in vals}) != len(vals):
+            raise ValueError("duplicate validator address")
+        if any(v.voting_power < 0 for v in vals):
+            raise ValueError("negative voting power")
+        self.validators: list[Validator] = vals
+        self._total: int | None = None
+
+    def size(self) -> int:
+        return len(self.validators)
+
+    def __len__(self) -> int:
+        return len(self.validators)
+
+    def total_voting_power(self) -> int:
+        if self._total is None:
+            t = sum(v.voting_power for v in self.validators)
+            if t > MAX_TOTAL_VOTING_POWER:
+                raise ValueError("total voting power exceeds cap")
+            self._total = t
+        return self._total
+
+    def get_by_address(self, addr: bytes) -> tuple[int, Validator | None]:
+        i = self.address_index().get(addr)
+        return (-1, None) if i is None else (i, self.validators[i])
+
+    def get_by_index(self, idx: int) -> Validator | None:
+        if 0 <= idx < len(self.validators):
+            return self.validators[idx]
+        return None
+
+    def dense(self):
+        """Cached ``(pubkeys uint8 (N, 32), powers int64 (N,))``: the
+        matrices the dense verify path and the per-valset table cache
+        key on."""
+        d = self.__dict__.get("_dense")
+        if d is None:
+            n = len(self.validators)
+            pubs = np.frombuffer(
+                b"".join(v.pub_key.bytes() for v in self.validators),
+                np.uint8).reshape(n, 32)
+            powers = np.fromiter((v.voting_power for v in self.validators),
+                                 np.int64, n)
+            d = (pubs, powers)
+            self.__dict__["_dense"] = d
+        return d
+
+    def address_index(self) -> dict:
+        """Cached address -> row map."""
+        m = self.__dict__.get("_addr_idx")
+        if m is None:
+            m = {v.address: i for i, v in enumerate(self.validators)}
+            self.__dict__["_addr_idx"] = m
+        return m

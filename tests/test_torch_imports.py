@@ -1,0 +1,82 @@
+"""The port stands alone: no module of ``cometbft_tpu_torch`` and nothing
+``chip_smoke.py`` imports pulls in ``jax`` or the JAX package, at import
+time (checked in a fresh interpreter) or lazily inside a function
+(checked on the source)."""
+
+import ast
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "cometbft_tpu_torch"
+
+
+def _port_modules():
+    import cometbft_tpu_torch
+
+    names = ["cometbft_tpu_torch"]
+    for info in pkgutil.walk_packages(cometbft_tpu_torch.__path__,
+                                      "cometbft_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "cuda_stack_slot_probe.py"]
+
+
+def test_fresh_interpreter_imports_no_jax():
+    mods = _port_modules()
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(ROOT), env=env)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(mods) >= 16
+    bad = [m for m in loaded if m == "jax" or m.startswith("jax.")
+           or m == "cometbft_tpu" or m.startswith("cometbft_tpu.")]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(
+    p.relative_to(ROOT)))
+def test_no_jax_or_reference_import_anywhere_in_source(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "cometbft_tpu"), \
+                f"{path.name}:{node.lineno} imports {name}"
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """Here there is no card: the script exits non-zero and prints no
+    result line."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: this checks the refusal")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(ROOT))
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,281 @@
+"""The port's CUDA kernel sources, built for the host under the sanitizers.
+
+``tests/torch_kernels_host.cpp`` includes the four sources of
+``cometbft_tpu_torch/csrc`` as they are and runs each kernel and launch
+sequence with host threads (a block's threads, a barrier for
+``__syncthreads``).  It is compiled with ``g++ -fsanitize=address,
+undefined``, so undefined behaviour in the device code (a signed
+overflow, a shift out of range, a read out of bounds) stops the run.
+What it computes must equal the plain PyTorch versions exactly: tables
+and window sums as field elements mod p (sums as group elements, since
+the two folds add in different orders), digests and verdicts bit for
+bit.  The tolerance is zero."""
+
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from cometbft_tpu_torch.crypto import _ed25519_py as ref
+from cometbft_tpu_torch.crypto.batch import _padded_lane_args
+from cometbft_tpu_torch.ops import _build, fe, sha512
+from cometbft_tpu_torch.ops import ed25519 as ted
+from cometbft_tpu_torch.ops import rlc as trlc
+
+pytestmark = [
+    pytest.mark.timeout(900),
+    pytest.mark.skipif(shutil.which("g++") is None,
+                       reason="needs g++ to build the kernel sources for "
+                              "the host"),
+]
+
+HERE = Path(__file__).resolve().parent
+L, P = ref.L, ref.P
+
+
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    d = tmp_path_factory.mktemp("kernels_host")
+    (d / "ed25519_consts.h").write_text(_build.consts_header())
+    exe = d / "torch_kernels_host"
+    subprocess.run(
+        ["g++", "-std=c++20", "-O1", "-g", "-fsanitize=address,undefined",
+         "-fno-sanitize-recover=all", "-fno-omit-frame-pointer", "-Wall",
+         "-Werror", "-Wno-unknown-pragmas", "-pthread",
+         "-I", str(_build.CSRC), "-I", str(d), "-o", str(exe),
+         str(HERE / "torch_kernels_host.cpp")],
+        check=True, capture_output=True)
+    env = dict(os.environ, ASAN_OPTIONS="detect_leaks=0:abort_on_error=0",
+               UBSAN_OPTIONS="print_stacktrace=1")
+    count = [0]
+
+    def run(mode, args, inputs, outputs):
+        count[0] += 1
+        io = d / f"call{count[0]}"
+        io.mkdir()
+        for name, a in inputs.items():
+            np.ascontiguousarray(a).tofile(io / f"{name}.bin")
+        proc = subprocess.run([str(exe), mode, str(io), *map(str, args)],
+                              capture_output=True, text=True, env=env)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        return {name: np.fromfile(io / f"{name}.bin", dtype).reshape(shape)
+                for name, (dtype, shape) in outputs.items()}
+
+    return run
+
+
+def _signed_lanes(n, n_keys, seed):
+    rng = np.random.default_rng(seed)
+    seeds = [rng.bytes(32) for _ in range(n_keys)]
+    pks = [ref.public_key_from_seed(s) for s in seeds]
+    lanes = []
+    for i in range(n):
+        m = rng.bytes(int(rng.integers(0, 150)))
+        lanes.append((pks[i % n_keys], m, ref.sign(seeds[i % n_keys], m)))
+    return lanes
+
+
+def _torsion8(rng):
+    while True:
+        pt = ref.pt_decompress_zip215(rng.bytes(32))
+        if pt is None:
+            continue
+        t = ref.pt_mul(L, pt)
+        if not ref.pt_equal(t, ref.IDENTITY) and \
+           not ref.pt_equal(ref.pt_mul(4, t), ref.IDENTITY):
+            return t
+
+
+def _non_square(rng):
+    while True:
+        cand = bytearray(rng.bytes(32))
+        cand[31] &= 127
+        if ref.pt_decompress_zip215(bytes(cand)) is None:
+            return bytes(cand)
+
+
+def _edge_lanes(rng):
+    """ZIP-215-valid torsion lanes: a mixed-order key, the non-canonical
+    identity key with R = [r]B and S = r, and the same key with a
+    small-order R and S = 0."""
+    t8 = _torsion8(rng)
+    h0 = hashlib.sha512(rng.bytes(32)).digest()
+    a_sc = ref._clamp(h0[:32])
+    mixed = ref.pt_compress(ref.pt_add(ref.pt_mul(a_sc, ref.BASE), t8))
+    m = rng.bytes(50)
+    r_sc = ref.sc_reduce64(hashlib.sha512(h0[32:] + m).digest())
+    r_enc = ref.pt_compress(ref.pt_mul(r_sc, ref.BASE))
+    k_sc = ref.sc_reduce64(hashlib.sha512(r_enc + mixed + m).digest())
+    ident = (1 + P).to_bytes(32, "little")
+    r2 = int.from_bytes(rng.bytes(32), "little") % L
+    return [
+        (mixed, m, r_enc + ((r_sc + k_sc * a_sc) % L).to_bytes(32, "little")),
+        (ident, b"whatever", ref.pt_compress(ref.pt_mul(r2, ref.BASE))
+         + r2.to_bytes(32, "little")),
+        (ident, b"x", ref.pt_compress(t8) + bytes(32)),
+    ]
+
+
+def _tampered(lanes, rng):
+    """Bad lanes at the front: S flip, R flip, message, wrong key,
+    S >= L, non-square A, non-square R."""
+    lanes = list(lanes)
+    pk, m, s = lanes[1]
+    lanes[1] = (pk, m, s[:40] + bytes([s[40] ^ 1]) + s[41:])
+    pk, m, s = lanes[2]
+    lanes[2] = (pk, m, bytes([s[0] ^ 4]) + s[1:])
+    pk, m, s = lanes[3]
+    lanes[3] = (pk, m + b"!", s)
+    lanes[4] = (lanes[5][0], lanes[4][1], lanes[4][2])
+    pk, m, s = lanes[6]
+    s_big = (int.from_bytes(s[32:], "little") + L).to_bytes(32, "little")
+    lanes[6] = (pk, m, s[:32] + s_big)
+    lanes[7] = (_non_square(rng), lanes[7][1], lanes[7][2])
+    pk, m, s = lanes[8]
+    lanes[8] = (pk, m, _non_square(rng) + s[32:])
+    return lanes
+
+
+class Lanes:
+    """Lanes as the kernels take them: a table over the distinct keys,
+    indices into it, and the packed R || A || M blocks."""
+
+    def __init__(self, lanes):
+        keys = []
+        for pk, _, _ in lanes:
+            if pk not in keys:
+                keys.append(pk)
+        self.lanes = lanes
+        self.pubs = np.stack([np.frombuffer(k, np.uint8) for k in keys])
+        self.idx = np.array([keys.index(pk) for pk, _, _ in lanes], np.int32)
+        maxlen = max(max(len(m) for _, m, _ in lanes), 1)
+        msgs = np.zeros((len(lanes), maxlen), np.uint8)
+        for i, (_, m, _) in enumerate(lanes):
+            msgs[i, :len(m)] = np.frombuffer(m, np.uint8)
+        lens = np.array([len(m) for _, m, _ in lanes], np.int64)
+        sigs = np.stack([np.frombuffer(s, np.uint8) for _, _, s in lanes])
+        self.rb, self.sb, self.blocks, self.active = _padded_lane_args(
+            self.pubs[self.idx], sigs[:, :32], sigs[:, 32:], msgs, lens,
+            "cpu")
+        self.tab, self.ok = ted.prepare_pubkey_tables(
+            torch.from_numpy(self.pubs.copy()))
+
+    def args(self):
+        return (self.tab, self.ok, torch.from_numpy(self.idx.copy()),
+                self.rb, self.sb, self.blocks, self.active)
+
+    def host_inputs(self):
+        return {"tab": self.tab.numpy(), "ok_a": self.ok.numpy().view(np.uint8),
+                "idx": self.idx, "rb": self.rb.numpy(), "sb": self.sb.numpy(),
+                "blocks": self.blocks.numpy(), "active": self.active.numpy()}
+
+    def sizes(self):
+        return (len(self.lanes), self.blocks.shape[1], self.pubs.shape[0])
+
+    def oracle(self):
+        return [ref.verify_zip215(pk, m, s) for pk, m, s in self.lanes]
+
+
+def _point(c):
+    """A cached (Y+X, Y-X, 2Z, 2dT) limb row of 40 -> affine (x, y)."""
+    ypx, ymx, z2 = (fe.int_from_limbs([int(v) for v in c[k:k + 10]])
+                    for k in (0, 10, 20))
+    zi = pow(z2, P - 2, P)
+    return ((ypx - ymx) * zi % P, (ypx + ymx) * zi % P)
+
+
+def test_tables_match_plain(harness):
+    rng = np.random.default_rng(31)
+    encs = [ref.pt_compress(ref.pt_mul(int(rng.integers(1, 1 << 62)),
+                                       ref.BASE)) for _ in range(8)]
+    encs += [_non_square(rng), (1 + P).to_bytes(32, "little"),
+             (1 | (1 << 255)).to_bytes(32, "little"),
+             ref.pt_compress(_torsion8(rng)), bytes(32), b"\xff" * 32]
+    pub = np.stack([np.frombuffer(e, np.uint8) for e in encs])
+    n = pub.shape[0]
+    got = harness("tables", [n], {"pub": pub},
+                  {"tab": (np.int32, (n, 16, 4, 10)), "ok": (np.uint8, (n,))})
+    tab, ok = ted._prepare_plain(torch.from_numpy(pub))
+    assert got["ok"].astype(bool).tolist() == ok.tolist()
+    assert torch.equal(ted.tables_canonical(torch.from_numpy(got["tab"])),
+                       ted.tables_canonical(tab))
+
+
+def test_sha512_scalar_matches_plain_and_hashlib(harness):
+    rng = np.random.default_rng(32)
+    lens = np.array([0, 1, 111, 112, 127, 128, 17, 239], np.int64)
+    msgs = np.zeros((len(lens), 240), np.uint8)
+    for i, k in enumerate(lens):
+        msgs[i, :k] = np.frombuffer(rng.bytes(int(k)), np.uint8)
+    blocks, active = sha512.host_pad(msgs, lens, 2)
+    b = len(lens)
+    got = harness("sha", [b, 2], {"blocks": blocks, "active": active},
+                  {"h": (np.uint8, (b, 32))})["h"]
+    plain = sha512._sha512_scalar_plain(
+        torch.from_numpy(blocks.view(np.int32).copy()),
+        torch.from_numpy(active.copy()))
+    assert np.array_equal(got, plain.numpy())
+    for i, k in enumerate(lens):
+        want = int.from_bytes(hashlib.sha512(msgs[i, :k].tobytes()).digest(),
+                              "little") % L
+        assert int.from_bytes(got[i].tobytes(), "little") == want
+
+
+def test_verify_gather_matches_plain_and_oracle(harness):
+    rng = np.random.default_rng(33)
+    lanes = _tampered(_signed_lanes(40, 12, 33), rng)
+    lanes[9:12] = _edge_lanes(rng)
+    b = Lanes(lanes)
+    n_lanes, nb, n = b.sizes()
+    got = harness("verify", [n_lanes, nb, n], b.host_inputs(),
+                  {"out": (np.uint8, (n_lanes,))})["out"].astype(bool)
+    plain = ted._verify_gather_plain(*b.args())
+    want = b.oracle()
+    assert got.tolist() == plain.tolist() == want
+    assert not all(want) and sum(want) > 30
+
+
+def _rlc_case(name):
+    rng = np.random.default_rng(34)
+    if name == "valid, 3 blocks":
+        return Lanes(_signed_lanes(300, 40, 34)), None, True
+    if name == "garbage padding, 3 blocks":
+        lanes = _signed_lanes(300, 40, 35)
+        for i in range(280, 300):
+            pk, m, _ = lanes[i]
+            lanes[i] = (pk, m, b"\xff" * 64)
+        return Lanes(lanes), np.arange(300) < 280, True
+    if name == "tampered":
+        return Lanes(_tampered(_signed_lanes(40, 12, 36), rng)), None, False
+    if name == "torsion edges":
+        lanes = _signed_lanes(40, 12, 37)
+        lanes[:3] = _edge_lanes(rng)
+        return Lanes(lanes), None, True
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["valid, 3 blocks",
+                                  "garbage padding, 3 blocks", "tampered",
+                                  "torsion edges"])
+def test_rlc_gather_matches_plain(harness, name):
+    """The verdict and the 96 window sums (three blocks of partials per
+    window in the larger cases, folded per thread before the tree)."""
+    b, active_mask, expect = _rlc_case(name)
+    n_lanes, nb, n = b.sizes()
+    z = trlc.host_rlc_coeffs(n_lanes, active_mask,
+                             rng_bytes=np.random.default_rng(38).bytes(
+                                 16 * n_lanes))
+    got = harness("rlc", [n_lanes, nb, n], {**b.host_inputs(), "z": z},
+                  {"out": (np.uint8, (1,)), "sums": (np.int32, (96, 40))})
+    args = (*b.args(), torch.from_numpy(z))
+    assert bool(got["out"][0]) == bool(trlc._rlc_plain(*args)) == expect
+    sum_a, sum_r, _, _ = trlc._rlc_sums_plain(*args)
+    plain = [torch.cat([c[:, w] for c in sum_a]).tolist() for w in range(64)]
+    plain += [torch.cat([c[:, w] for c in sum_r]).tolist() for w in range(32)]
+    want = [_point(c) for c in plain]
+    assert [_point(c) for c in got["sums"]] == want

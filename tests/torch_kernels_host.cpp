@@ -1,0 +1,169 @@
+// Host build of the port's CUDA kernels (cometbft_tpu_torch/csrc), for
+// tests/test_torch_kernels_host.py, which compiles it with
+// -fsanitize=address,undefined and compares what it computes with the
+// plain PyTorch versions.
+//
+// Every kernel and launch sequence runs as written: a block is blockDim.x
+// host threads, each with its own threadIdx; blocks run one after another,
+// so a __shared__ array is a static one; __syncthreads is a barrier.
+//
+//   torch_kernels_host MODE DIR ARGS...
+//
+// reads DIR/<name>.bin and writes DIR/<name>.bin (raw little-endian
+// arrays, the layouts of the kernels' C entry points):
+//   tables N            pub -> tab, ok
+//   sha B NB            blocks, active -> h
+//   verify B NB N       tab, ok_a, idx, rb, sb, blocks, active -> out
+//   rlc B NB N          tab, ok_a, idx, rb, sb, blocks, active, z -> out,
+//                       sums (the 96 window sums)
+#include <barrier>
+#include <cstdio>
+#include <cstdlib>
+#include <string>
+#include <thread>
+#include <vector>
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
+};
+
+static thread_local dim3 threadIdx, blockIdx;
+static dim3 blockDim, gridDim;
+static std::barrier<> *g_block_barrier;
+
+static void __syncthreads() { g_block_barrier->arrive_and_wait(); }
+static int cudaGetLastError() { return 0; }
+
+#define __global__
+#define __shared__ static
+#define __constant__
+
+template <class... P, class... A>
+static void host_launch(dim3 grid, dim3 block, void (*kernel)(P...),
+                        A... args) {
+  gridDim = grid;
+  blockDim = block;
+  for (unsigned y = 0; y < grid.y; y++)
+    for (unsigned x = 0; x < grid.x; x++) {
+      std::barrier<> bar((std::ptrdiff_t)block.x);
+      g_block_barrier = &bar;
+      std::vector<std::thread> threads;
+      for (unsigned t = 0; t < block.x; t++)
+        threads.emplace_back([&, t] {
+          threadIdx = dim3(t);
+          blockIdx = dim3(x, y);
+          kernel(args...);
+          bar.arrive_and_drop();
+        });
+      for (auto &th : threads) th.join();
+    }
+}
+
+#include "ed25519_rlc.cu"
+#include "ed25519_tables.cu"
+#include "ed25519_verify.cu"
+#include "sha512_scalar.cu"
+
+static std::string g_dir;
+
+template <class T>
+static std::vector<T> load(const char *name, size_t n) {
+  std::vector<T> v(n);
+  FILE *f = fopen((g_dir + "/" + name + ".bin").c_str(), "rb");
+  if (!f || fread(v.data(), sizeof(T), n, f) != n) {
+    fprintf(stderr, "cannot read %zu items of %s\n", n, name);
+    exit(2);
+  }
+  fclose(f);
+  return v;
+}
+
+template <class T>
+static void save(const char *name, const std::vector<T> &v) {
+  FILE *f = fopen((g_dir + "/" + name + ".bin").c_str(), "wb");
+  if (!f || fwrite(v.data(), sizeof(T), v.size(), f) != v.size()) {
+    fprintf(stderr, "cannot write %s\n", name);
+    exit(2);
+  }
+  fclose(f);
+}
+
+static int check(int err) {
+  if (err != 0) {
+    fprintf(stderr, "launch returned %d\n", err);
+    exit(3);
+  }
+  return 0;
+}
+
+int main(int argc, char **argv) {
+  if (argc < 4) {
+    fprintf(stderr, "usage: %s MODE DIR ARGS...\n", argv[0]);
+    return 2;
+  }
+  const std::string mode = argv[1];
+  g_dir = argv[2];
+  const int a0 = atoi(argv[3]);
+  const int a1 = argc > 4 ? atoi(argv[4]) : 0;
+  const int a2 = argc > 5 ? atoi(argv[5]) : 0;
+  if (mode == "tables") {
+    const int N = a0;
+    auto pub = load<uint8_t>("pub", (size_t)N * 32);
+    std::vector<int32_t> tab((size_t)N * 640);
+    std::vector<uint8_t> ok(N);
+    check(ed25519_tables_launch(pub.data(), N, tab.data(), ok.data(),
+                                nullptr));
+    save("tab", tab);
+    save("ok", ok);
+    return 0;
+  }
+  if (mode == "sha") {
+    const int B = a0, NB = a1;
+    auto blocks = load<uint32_t>("blocks", (size_t)B * NB * 32);
+    auto active = load<int32_t>("active", B);
+    std::vector<uint8_t> h((size_t)B * 32);
+    check(sha512_scalar_launch(blocks.data(), active.data(), B, NB, h.data(),
+                               nullptr));
+    save("h", h);
+    return 0;
+  }
+  if (mode != "verify" && mode != "rlc") {
+    fprintf(stderr, "unknown mode %s\n", mode.c_str());
+    return 2;
+  }
+  const int B = a0, NB = a1, N = a2;
+  auto tab = load<int32_t>("tab", (size_t)N * 640);
+  auto ok_a = load<uint8_t>("ok_a", N);
+  auto idx = load<int32_t>("idx", B);
+  auto rb = load<uint8_t>("rb", (size_t)B * 32);
+  auto sb = load<uint8_t>("sb", (size_t)B * 32);
+  auto blocks = load<uint32_t>("blocks", (size_t)B * NB * 32);
+  auto active = load<int32_t>("active", B);
+  if (mode == "verify") {
+    std::vector<uint8_t> out(B);
+    check(ed25519_verify_gather_launch(tab.data(), ok_a.data(), idx.data(),
+                                       rb.data(), sb.data(), blocks.data(),
+                                       active.data(), B, NB, out.data(),
+                                       nullptr));
+    save("out", out);
+    return 0;
+  }
+  auto z = load<uint8_t>("z", (size_t)B * 16);
+  const int nblk = (B + RLC_THREADS - 1) / RLC_THREADS;
+  std::vector<uint8_t> h((size_t)B * 32), zh((size_t)B * 32), lane_ok(B),
+      zs_sum(32), all_ok(1), out(1);
+  std::vector<int32_t> rtab((size_t)B * 640), zs((size_t)B * 12),
+      partials((size_t)RLC_WINDOWS * nblk * 40), sums(RLC_WINDOWS * 40);
+  check(sha512_scalar_launch(blocks.data(), active.data(), B, NB, h.data(),
+                             nullptr));
+  check(ed25519_rlc_gather_launch(
+      tab.data(), ok_a.data(), idx.data(), rb.data(), sb.data(), h.data(),
+      z.data(), B, rtab.data(), zh.data(), zs.data(), lane_ok.data(),
+      partials.data(), sums.data(), zs_sum.data(), all_ok.data(),
+      out.data(), nullptr));
+  save("out", out);
+  save("sums", sums);
+  return 0;
+}
