@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port's commit-verification path on one card.
+"""Smoke run of the PyTorch/CUDA port's commit- and light-header
+verification paths on one card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -8,13 +9,18 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each of which must pass or the script exits non-zero:
 
 1. environment: the card's name and power limit, torch.version.cuda, nvcc;
-2. build: compiles the four kernels from ``cometbft_tpu_torch/csrc``;
+2. build: compiles the kernels from the five sources in
+   ``cometbft_tpu_torch/csrc`` (one nvcc per source, all at once);
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the same inputs at the main path's shapes (valid, tampered and ZIP-215
    edge lanes; RLC accept, reject, garbage padding and torsion batches),
    and against the pure-Python oracle; then one seeded random batch per
    entry of ``SWEEP_LANES`` through every kernel and its plain version;
-   mismatches must be 0;
+   then the merkle kernels ``sha256_leaves`` (10,000 one-block and
+   10,000 two-block leaves) and ``merkle_level`` (5,000 pairs) against
+   their plain versions, and the roots and proofs of a seeded sweep of
+   trees (``MERKLE_SWEEP`` leaves, and leaves over 118 bytes) on the
+   kernel route against hashlib; mismatches must be 0;
 4. commit: the main path, ``VerifyCommit``, ``VerifyCommitLight`` and
    ``VerifyCommitLightTrusting`` on commits signed by 150 and 1,000
    validators (keys from a fixed seed), plus a tampered commit that must
@@ -22,7 +28,22 @@ Phases, each of which must pass or the script exits non-zero:
    counters are zeroed just before and read just after: every kernel
    must have launched and no plain version may have run;
 5. throughput: 10,000 lanes (the 1,000 signed lanes tiled against a
-   10,000-row validator table) through the RLC and the per-lane kernels.
+   10,000-row validator table) through the RLC and the per-lane kernels;
+6. light, 150 validators: ``verify_sequential_batched`` over a linked
+   chain of ``LIGHT_HEADERS`` headers, each fully signed (BASELINE
+   configs[2], cut from 1,000 headers for signing time);
+7. light, 10,000 validators: headers linked by ``ValidatorSet.hash()``
+   on the kernel route; ``verify_adjacent``, ``verify_non_adjacent``,
+   ``verify_sequential_batched``, ``VerifyCommit`` and the set's hash,
+   a forged validator set (``ErrInvalidHeader``) and a tampered
+   signature (``ErrBatchItemInvalid`` with its item and height).
+
+Phases 4, 6 and 7 are the main path: the launch counters are zeroed
+just before each and read just after; each phase's kernels must have
+launched and no plain version may have run.  Keys and signatures of the
+light phases are made in a process pool over ``os.cpu_count()`` workers
+with the port's own signer; the script prints the seconds of each
+fixture and phase.
 
 The line before the last is a JSON object with one entry per kernel
 (launches on the main path, max_abs_err, times, bound); the last line is
@@ -34,8 +55,10 @@ package.
 from __future__ import annotations
 
 import argparse
+import copy
 import hashlib
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -48,12 +71,28 @@ SHA512_OPS_PER_BLOCK = 5520      # 32-bit integer ops per compression
 SC_REDUCE_PRODUCTS = 78          # 13 folds x 6 digit products
 MUL_MOD_L_PRODUCTS = 91          # 7 x 13 limb products
 FE_MUL_PRODUCTS = 100            # 32 x 32 -> 64-bit products per field mul
+# 32-bit integer instructions per SHA-256 compression on sm_90, where a
+# 3-input logic function is one LOP3, a 3-operand add one IADD3 (K a
+# constant-bank operand) and a rotate one funnel shift: 64 rounds of 14
+# (Sigma1 4, Ch 1, Sigma0 4, Maj 1, 4 adds) and 48 schedule steps of 10
+# (sigma0 4, sigma1 4, 2 adds), plus 8 feed-forward adds; checked
+# against the built kernel's SASS by scripts/sha256_sass_count.py
+SHA256_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8
 
 CHAIN_ID = "smoke-chain"
 SIZES = (150, 1000)              # validators of the commit phase
 LANES = 10_000                   # lanes of the throughput phase
 REPS = 20                        # timed calls per measurement
 SWEEP_LANES = (1, 77, 128, 129, 300, 640)   # lanes of the sweep's batches
+COMMIT_KERNELS = ("sha512_scalar", "ed25519_tables", "ed25519_verify_gather",
+                  "ed25519_rlc_gather")
+MERKLE_LEAVES = 10_000           # leaves of the merkle kernel phase
+MERKLE_SWEEP = (1, 63, 64, 2047, 2048, 2049, 4097, 10_000)  # tree sizes
+LIGHT_VALS = 150                 # validators of the 150-validator light phase
+LIGHT_HEADERS = 128              # its chain (BASELINE configs[2]: 1,000)
+BIG_VALS = 10_000                # validators of the 10k light phase
+TRUSTING_PERIOD_NS = 14 * 24 * 3600 * 10**9
+LIGHT_T0 = 1_700_000_000_000_000_000
 
 
 def _run(cmd):
@@ -94,6 +133,44 @@ def time_host(fn) -> float:
     fn()
     _sync()
     return (time.perf_counter() - t0) * 1e3
+
+
+def time_host_spread(fn, reps: int) -> dict:
+    """Wall ms of ``reps`` synchronized calls of ``fn``: p50, min, max and
+    every call, with the CPU ms of the calling thread and the ms the
+    garbage collector ran inside each call."""
+    import gc
+
+    pauses, start = [], [0.0]
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            pauses.append((time.perf_counter() - start[0]) * 1e3)
+
+    walls, cpus, gcs = [], [], []
+    gc.callbacks.append(on_gc)
+    try:
+        for _ in range(reps):
+            pauses.clear()
+            c0 = time.thread_time()
+            walls.append(time_host(fn))
+            cpus.append((time.thread_time() - c0) * 1e3)
+            gcs.append(sum(pauses))
+    finally:
+        gc.callbacks.remove(on_gc)
+    return {"p50_ms": statistics.median(walls), "min_ms": min(walls),
+            "max_ms": max(walls), "all_ms": walls, "cpu_ms": cpus,
+            "gc_ms": gcs}
+
+
+def _spread(t: dict) -> str:
+    cpu = sorted(t["cpu_ms"])
+    return (f"p50 {t['p50_ms']:.2f} ms (min {t['min_ms']:.2f}, max "
+            f"{t['max_ms']:.2f}, {len(t['all_ms'])} calls; thread CPU "
+            f"{cpu[0]:.2f}-{cpu[-1]:.2f} ms; gc in a call up to "
+            f"{max(t['gc_ms']):.2f} ms)")
 
 
 # ----------------------------------------------------------------- fixtures
@@ -156,6 +233,74 @@ def lane_arrays(vals, commit):
     sigs = np.frombuffer(b"".join(cs.signature for cs in commit.signatures),
                          np.uint8).reshape(n, 64)
     return np.array(pubs), sigs.copy(), msgs, lens
+
+
+# ------------------------------------------------- light fixtures (a pool)
+
+def _derive_keys(secrets):
+    """Pool worker: 64-byte private keys (seed || pubkey) from secrets."""
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+
+    return [Ed25519PrivKey.from_secret(s).bytes() for s in secrets]
+
+
+def _sign_all(task):
+    """Pool worker: one validator's signatures over its messages."""
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+
+    raw, msgs = task
+    priv = Ed25519PrivKey(raw)
+    return [priv.sign(m) for m in msgs]
+
+
+def pool_keys(pool, n: int) -> list:
+    """n private keys from the fixed secrets b"chip-smoke-<i>"."""
+    secrets = [b"chip-smoke-%d" % i for i in range(n)]
+    chunks = [secrets[i:i + 250] for i in range(0, n, 250)]
+    return [k for part in pool.map(_derive_keys, chunks) for k in part]
+
+
+def light_chain(pool, keys, n_headers: int, dev):
+    """A linked chain of headers at heights 1..n_headers under one
+    validator set (the keys at power 10), each commit signed by every
+    validator, with its own timestamp per lane.  The validators hash
+    is ``ValidatorSet.hash`` on ``dev`` (the kernel route from 2,048
+    validators).  Returns (validator set, light blocks)."""
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    from cometbft_tpu_torch.light import LightBlock
+    from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.commit import (BLOCK_ID_FLAG_COMMIT,
+                                                 Commit, CommitSig)
+    from cometbft_tpu_torch.types.header import Header
+    from cometbft_tpu_torch.types.validator_set import (Validator,
+                                                        ValidatorSet)
+
+    pubs = [Ed25519PrivKey(k).pub_key() for k in keys]
+    key_of = {pk.address(): k for pk, k in zip(pubs, keys)}
+    vals = ValidatorSet([Validator(pk, 10) for pk in pubs])
+    vh = vals.hash(dev)
+    blocks, prev = [], BlockID()
+    for h in range(1, n_headers + 1):
+        header = Header(chain_id=CHAIN_ID, height=h,
+                        time_ns=LIGHT_T0 + h * 10**9, last_block_id=prev,
+                        validators_hash=vh, next_validators_hash=vh,
+                        proposer_address=vals.validators[0].address)
+        bid = BlockID(header.hash(), PartSetHeader(1, b"\x5a" * 32))
+        commit = Commit(h, 0, bid, [
+            CommitSig(BLOCK_ID_FLAG_COMMIT, v.address,
+                      header.time_ns + 1 + lane % 997, b"")
+            for lane, v in enumerate(vals.validators)])
+        blocks.append(LightBlock(header, commit, vals))
+        prev = bid
+    tasks = [(key_of[v.address],
+              [lb.commit.vote_sign_bytes(CHAIN_ID, lane) for lb in blocks])
+             for lane, v in enumerate(vals.validators)]
+    sigs = pool.map(_sign_all, tasks,
+                    chunksize=max(1, len(tasks) // (8 * os.cpu_count())))
+    for lane, row in enumerate(sigs):
+        for lb, sig in zip(blocks, row):
+            lb.commit.signatures[lane].signature = sig
+    return vals, blocks
 
 
 # --------------------------------------------------------------- edge lanes
@@ -375,7 +520,7 @@ def phase_sweep(fx, dev, rec):
     from cometbft_tpu_torch.ops import ed25519 as ed
     from cometbft_tpu_torch.ops import rlc, sha512
 
-    mism = dict.fromkeys(rec, 0)
+    mism = dict.fromkeys(COMMIT_KERNELS, 0)
     for seed, n in enumerate(SWEEP_LANES):
         rng = np.random.default_rng(1000 + seed)
         keys = rng.choice(len(fx.privs), size=min(n, 64), replace=False)
@@ -516,7 +661,7 @@ def phase_commit(fx, dev, reps):
     _sync()
     launches = dict(_build.LAUNCHES)           # ... and ends here
     plain = dict(_build.PLAIN_CALLS)
-    missing = [k for k in _build.KERNELS if not launches.get(k)]
+    missing = [k for k in COMMIT_KERNELS if not launches.get(k)]
     if missing or plain:
         raise AssertionError(f"main path: kernels not launched {missing}, "
                              f"plain versions run {plain}")
@@ -594,6 +739,334 @@ def phase_throughput(sets, dev, n_lanes, reps):
             "nb": int(blocks.shape[1])}
 
 
+def _kernel_ms(kernels_ms: dict, prefix: str):
+    """Device ms per call of the kernels named ``prefix...`` in a
+    :func:`profile_call` result, or None where the profiler saw none."""
+    hits = [v for k, v in kernels_ms.items() if k.startswith(prefix)]
+    return sum(hits) if hits else None
+
+
+def _rand_leaves(rng, n: int, lo: int, hi: int) -> list:
+    return [rng.bytes(int(k)) for k in rng.integers(lo, hi, size=n)]
+
+
+def phase_merkle(dev, reps, rec):
+    """The merkle kernels against their plain versions on the card, at
+    the main path's shapes, then a seeded sweep of tree sizes through
+    the kernel route against hashlib (roots and every proof).  Fills
+    ``rec`` for ``sha256_leaves`` and ``merkle_level``; returns the
+    extra timings."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.crypto import merkle
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import sha256 as S
+
+    rng = np.random.default_rng(2027)
+    info = {"leaves_ms": {}, "level_ms": {}}
+
+    def leaves(items):
+        blocks, active = merkle._leaf_blocks(items)
+        return (torch.from_numpy(blocks.view(np.int32)).to(dev),
+                torch.from_numpy(active).to(dev))
+
+    # sha256_leaves as the tree calls it (digest words into a slice of a
+    # larger level buffer): 10,000 one-block leaves (validator encodings
+    # are 36 to 46 bytes), 10,000 two-block leaves (CommitSigs), 2,048
+    # leaves; the rows around the slice must stay as they were
+    mism, err = 0, 0
+    for name, n, lo, hi in (("10000x1", MERKLE_LEAVES, 0, 55),
+                            ("10000x2", MERKLE_LEAVES, 55, 119),
+                            ("2048x1", 2048, 36, 47)):
+        items = _rand_leaves(rng, n, lo, hi)
+        bt, at = leaves(items)
+        buf = torch.full((n + 8, 8), 0x5A5A5A5A, dtype=torch.int32,
+                         device=dev)
+        out = buf[3:3 + n]
+        got = S.sha256_leaf_words(bt, at, out=out)
+        plain = S._as_int32(S._leaf_state_plain(bt, at))
+        mism += int((got != plain).any(1).sum())
+        mism += int((torch.cat([buf[:3], buf[3 + n:]]) != 0x5A5A5A5A).sum())
+        err = max(err, int((got.long() - plain.long()).abs().max()))
+        host = S.words_to_bytes(got.cpu().numpy().view(np.uint32))
+        mism += sum(host[i].tobytes() != merkle.leaf_hash(it)
+                    for i, it in enumerate(items))
+        mism += int((S.sha256_blocks(bt, at).cpu().numpy() != host).sum())
+        info["leaves_ms"][name] = {
+            "ms": time_cuda(lambda: S.sha256_leaf_words(bt, at, out=out),
+                            reps),
+            "device_ms": profile_call(
+                lambda: S.sha256_leaf_words(bt, at, out=out),
+                reps)["kernels_ms"],
+            "plain_ms": time_host(
+                lambda: S._as_int32(S._leaf_state_plain(bt, at))),
+            "nb": int(bt.shape[1]), "blocks": int(at.sum())}
+        if name == "10000x1":
+            main_leaves = (bt, at)
+    m = info["leaves_ms"]["10000x1"]
+    rec["sha256_leaves"].update(
+        device_ms=_kernel_ms(m["device_ms"], "sha256_leaves_kernel"),
+        max_abs_err=err, mismatches=mism, ms=m["ms"],
+        plain_ms=m["plain_ms"], shape=f"B={MERKLE_LEAVES} NB=1",
+        bound_inputs=(int(main_leaves[1].sum()), MERKLE_LEAVES, 1))
+
+    # merkle_level: 5,000 pairs, then every level of a 10,000-leaf tree
+    kids = torch.from_numpy(np.frombuffer(rng.bytes(32 * MERKLE_LEAVES),
+                                          np.int32).reshape(-1, 8)
+                            .copy()).to(dev)
+    got = S.merkle_level(kids)
+    plain = S._merkle_level_plain(kids)
+    mism = int((got != plain).any(1).sum())
+    words = S.words_to_bytes(kids.cpu().numpy())
+    par = S.words_to_bytes(got.cpu().numpy())
+    mism += sum(par[i].tobytes() != merkle.inner_hash(
+        words[2 * i].tobytes(), words[2 * i + 1].tobytes())
+        for i in range(0, MERKLE_LEAVES // 2, 97))
+    rec["merkle_level"].update(
+        max_abs_err=int((got.long() - plain.long()).abs().max()),
+        mismatches=mism,
+        ms=time_cuda(lambda: S.merkle_level(kids), reps),
+        plain_ms=time_host(lambda: S._merkle_level_plain(kids)),
+        shape=f"n={MERKLE_LEAVES} ({MERKLE_LEAVES // 2} pairs)",
+        bound_inputs=(MERKLE_LEAVES,))
+    rec["merkle_level"]["device_ms"] = _kernel_ms(profile_call(
+        lambda: S.merkle_level(kids), reps)["kernels_ms"],
+        "merkle_level_kernel")
+    for w in merkle._level_widths(MERKLE_LEAVES)[:-1]:
+        lv = kids[:w].contiguous()
+        info["level_ms"][w] = time_cuda(lambda: S.merkle_level(lv), reps)
+
+    # whole trees, wall clock: the kernel route against hashlib's level
+    # loop on the same items (the 2,048-leaf threshold was sized on a TPU)
+    info["tree_ms"] = {}
+    for n in (2048, MERKLE_LEAVES):
+        items = _rand_leaves(rng, n, 36, 47)
+        info["tree_ms"][n] = {
+            "kernel_route": statistics.median(time_host(
+                lambda: merkle.hash_from_byte_slices_fast(items, device=dev))
+                for _ in range(reps)),
+            "hashlib_levels": statistics.median(time_host(
+                lambda: merkle._levels_hashlib(items)[-1][0])
+                for _ in range(reps))}
+
+    # the tree sweep: kernel route (from 2,048 leaves) against hashlib
+    sweep = {}
+    cases = [(n, _rand_leaves(rng, n, 0, 119)) for n in MERKLE_SWEEP]
+    cases.append((3000, _rand_leaves(rng, 3000, 119, 300)))
+    for n, items in cases:
+        before = dict(_build.LAUNCHES)
+        root = merkle.hash_from_byte_slices_fast(items, device=dev)
+        proot, proofs = merkle.proofs_from_byte_slices(items, device=dev)
+        launched = {k: v - before.get(k, 0)
+                    for k, v in _build.LAUNCHES.items()
+                    if v - before.get(k, 0)}
+        want_root, want = merkle.proofs_from_byte_slices_reference(items)
+        bad = (int(root != merkle.hash_from_byte_slices(items))
+               + int(root != want_root) + int(proot != want_root)
+               + sum(a != b for a, b in zip(proofs, want))
+               + abs(len(proofs) - len(want)))
+        long_leaves = max(map(len, items), default=0) > 118
+        key = f"{n}{' long' if long_leaves else ''}"
+        want_launch = n >= merkle.MERKLE_KERNEL_MIN_LEAVES
+        if bool(launched.get("merkle_level")) != want_launch or \
+                bool(launched.get("sha256_leaves")) != (want_launch
+                                                        and not long_leaves):
+            raise AssertionError(f"tree of {key} leaves took the wrong "
+                                 f"route: launches {launched}")
+        sweep[key] = bad
+    if _build.PLAIN_CALLS:
+        raise AssertionError(f"plain versions ran: {dict(_build.PLAIN_CALLS)}")
+    for k in ("sha256_leaves", "merkle_level"):
+        rec[k]["sweep_mismatches"] = sum(sweep.values())
+        rec[k]["mismatches"] += sum(sweep.values())
+    info["sweep"] = sweep
+    return info
+
+
+def _expect_raise(fn, cls, check=None):
+    try:
+        fn()
+    except cls as e:
+        if check is not None and not check(e):
+            raise AssertionError(f"{cls.__name__} with the wrong details: "
+                                 f"{e}") from e
+        return str(e)
+    raise AssertionError(f"expected {cls.__name__}, nothing raised")
+
+
+def profile_call(fn, calls: int = 1) -> dict:
+    """Wall time of ``calls`` synchronized calls of ``fn`` and the device
+    time of what they ran, by name, from ``torch.profiler`` (a first
+    traced call, whose trace is dropped, warms the tracer up: the first
+    events of a process's first trace were missing on the card; device
+    time is None when the profiler saw no device activity).  Times are
+    per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    _sync()
+    with profile(activities=acts):
+        fn()
+        _sync()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        _sync()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    kernels = {}
+    for e in prof.key_averages():
+        # device-side events only (kernels, copies), not the host ops
+        # that launched them
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            kernels[e.key[:60]] = dev_us / 1e3 / calls
+    busy = sum(kernels.values()) if kernels else None
+    return {"wall_ms": wall, "device_ms": busy,
+            "device_busy_share": None if busy is None else busy / wall,
+            "kernels_ms": dict(sorted(kernels.items(),
+                                      key=lambda kv: -kv[1])[:8])}
+
+
+def _path_launches(fn, required):
+    """Run ``fn`` as a main-path run: counters zeroed just before, read
+    just after; every kernel in ``required`` must have launched and no
+    plain version may have run."""
+    from cometbft_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    out = fn()
+    _sync()
+    launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    missing = [k for k in required if not launches.get(k)]
+    if missing or plain:
+        raise AssertionError(f"main path: kernels not launched {missing}, "
+                             f"plain versions run {plain}")
+    return launches, out
+
+
+def phase_light150(pool, keys, dev, reps):
+    """``verify_sequential_batched`` over a chain of LIGHT_HEADERS headers
+    fully signed by LIGHT_VALS validators: one dispatch of the light lanes
+    of LIGHT_HEADERS - 1 headers."""
+    from cometbft_tpu_torch.light import verify_sequential_batched
+
+    t0 = time.perf_counter()
+    _, chain = light_chain(pool, keys[:LIGHT_VALS], LIGHT_HEADERS, dev)
+    fixture_s = time.perf_counter() - t0
+    now = chain[-1].header.time_ns + 10**9
+
+    def run():
+        verify_sequential_batched(CHAIN_ID, chain[0], chain[1:],
+                                  TRUSTING_PERIOD_NS, now, device=dev)
+
+    t0 = time.perf_counter()
+    launches, _ = _path_launches(run, ("ed25519_tables", "sha512_scalar",
+                                       "ed25519_rlc_gather"))
+    first_s = time.perf_counter() - t0
+    lanes = (LIGHT_HEADERS - 1) * ((2 * LIGHT_VALS) // 3 + 1)
+    return launches, {
+        "fixture_s": fixture_s, "first_call_s": first_s,
+        "headers": LIGHT_HEADERS - 1, "lanes": lanes,
+        "wall": time_host_spread(run, reps), "profile": profile_call(run)}
+
+
+def phase_light10k(pool, keys, dev, reps):
+    """The light path at BIG_VALS validators: every call once as the main
+    path (with a forged set and a tampered signature), then p50s."""
+    from cometbft_tpu_torch.crypto import merkle
+    from cometbft_tpu_torch.light import (ErrInvalidHeader, LightBlock,
+                                          verify_adjacent,
+                                          verify_non_adjacent,
+                                          verify_sequential_batched)
+    from cometbft_tpu_torch.types import validation as V
+    from cometbft_tpu_torch.types.validator_set import (Validator,
+                                                        ValidatorSet)
+
+    t0 = time.perf_counter()
+    vals, (h1, h2, h3) = light_chain(pool, keys[:BIG_VALS], 3, dev)
+    fixture_s = time.perf_counter() - t0
+    now = h3.header.time_ns + 10**9
+    period = TRUSTING_PERIOD_NS
+    forged = LightBlock(h2.header, h2.commit, ValidatorSet(
+        [Validator(v.pub_key, v.voting_power + (i == 0))
+         for i, v in enumerate(vals.validators)]))
+    bad_lane = 100                    # inside the light scope (6,667 lanes)
+    commit = copy.deepcopy(h3.commit)
+    sig = bytearray(commit.signatures[bad_lane].signature)
+    sig[7] ^= 0x20
+    commit.signatures[bad_lane].signature = bytes(sig)
+    tampered = LightBlock(h3.header, commit, vals)
+
+    calls = {
+        "ValidatorSet.hash": lambda: vals.hash(dev),
+        "verify_adjacent": lambda: verify_adjacent(
+            CHAIN_ID, h1, h2, period, now, device=dev),
+        "verify_non_adjacent": lambda: verify_non_adjacent(
+            CHAIN_ID, h1, h3, period, now, device=dev),
+        "verify_sequential_batched": lambda: verify_sequential_batched(
+            CHAIN_ID, h1, [h2, h3], period, now, device=dev),
+        "VerifyCommit": lambda: V.VerifyCommit(
+            CHAIN_ID, vals, h2.commit.block_id, h2.height, h2.commit,
+            device=dev),
+    }
+
+    def main_path():
+        from cometbft_tpu_torch.ops import _build
+
+        per_call = {}
+        for name, fn in calls.items():
+            before = dict(_build.LAUNCHES)
+            fn()
+            per_call[name] = {k: v - before.get(k, 0)
+                              for k, v in _build.LAUNCHES.items()
+                              if v - before.get(k, 0)}
+        if vals.hash(dev) != h2.header.validators_hash:
+            raise AssertionError("kernel-route valset hash changed")
+        _expect_raise(lambda: verify_adjacent(
+            CHAIN_ID, h1, forged, period, now, device=dev), ErrInvalidHeader)
+        _expect_raise(lambda: verify_sequential_batched(
+            CHAIN_ID, h1, [h2, tampered], period, now, device=dev),
+            V.ErrBatchItemInvalid,
+            lambda e: (e.item, e.height, type(e.cause).__name__,
+                       getattr(e.cause, "idx", None))
+            == (1, 3, "ErrInvalidSignature", bad_lane))
+        return per_call
+
+    t0 = time.perf_counter()
+    launches, per_call = _path_launches(main_path, (
+        "sha256_leaves", "merkle_level", *COMMIT_KERNELS))
+    first_s = time.perf_counter() - t0
+    wall = {name: time_host_spread(fn, reps) for name, fn in calls.items()}
+    items = [v.simple_encode() for v in vals.validators]
+    host = {
+        "simple_encode": statistics.median(time_host(
+            lambda: [v.simple_encode() for v in vals.validators])
+            for _ in range(reps)),
+        "tree_kernel_route": statistics.median(time_host(
+            lambda: merkle.hash_from_byte_slices_fast(items, device=dev))
+            for _ in range(reps)),
+        "tree_hashlib_levels": statistics.median(time_host(
+            lambda: merkle._levels_hashlib(items)[-1][0])
+            for _ in range(reps)),
+    }
+    if merkle._levels_hashlib(items)[-1][0] != vals.hash(dev):
+        raise AssertionError("hashlib and kernel-route valset roots differ")
+    return launches, {
+        "fixture_s": fixture_s, "first_path_s": first_s,
+        "per_call_launches": per_call, "wall": wall, "host_ms": host,
+        "profile_verify_adjacent": profile_call(calls["verify_adjacent"]),
+        "profile_verify_commit": profile_call(calls["VerifyCommit"],
+                                              reps // 4),
+        "profile_valset_hash": profile_call(calls["ValidatorSet.hash"])}
+
+
 # ------------------------------------------------------------------- bounds
 
 def op_counts():
@@ -662,6 +1135,25 @@ def bounds(c, b_verify, b_rlc, n_tab, nb, distinct_rows, rate_ops):
     return out
 
 
+def merkle_bounds(rec, rate_ops):
+    """Least time of the two merkle kernels at the phase's main shapes:
+    counted SHA-256 operations over the integer rate against bytes (each
+    input read once, each output written once) over the HBM rate."""
+    blocks, b, nb = rec["sha256_leaves"]["bound_inputs"]
+    (n,) = rec["merkle_level"]["bound_inputs"]
+    work = {"sha256_leaves": (blocks * SHA256_OPS_PER_BLOCK,
+                              b * (nb * 64 + 4) + b * 32),
+            "merkle_level": ((n // 2) * 2 * SHA256_OPS_PER_BLOCK,
+                             n * 32 + (n + 1) // 2 * 32)}
+    out = {}
+    for k, (ops, nbytes) in work.items():
+        t_ops = ops / rate_ops * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out[k] = (max(t_ops, t_bytes),
+                  "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+    return out
+
+
 # --------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -707,7 +1199,11 @@ def main(argv=None) -> int:
     print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
 
     rec = {k: {"name": k, "route": "cuda"} for k in _build.KERNELS}
-    sources = {"sha512_scalar": ("csrc/sha512_scalar.cu",
+    sources = {"sha256_leaves": ("csrc/sha256.cu",
+                                 "cometbft_tpu/ops/sha256.py:115"),
+               "merkle_level": ("csrc/sha256.cu",
+                                "cometbft_tpu/ops/sha256.py:135"),
+               "sha512_scalar": ("csrc/sha512_scalar.cu",
                                  "cometbft_tpu/ops/sha512.py:165"),
                "ed25519_tables": ("csrc/ed25519_tables.cu",
                                   "cometbft_tpu/ops/ed25519.py:112"),
@@ -724,6 +1220,19 @@ def main(argv=None) -> int:
     sweep = phase_sweep(fx, dev, rec)
     print(f"sweep: {len(SWEEP_LANES)} random batches of {SWEEP_LANES} "
           f"lanes in {time.perf_counter() - t0:.1f} s, mismatches {sweep}")
+    t0 = time.perf_counter()
+    mk = phase_merkle(dev, REPS, rec)
+    print(f"merkle: kernels and tree sweep in {time.perf_counter() - t0:.1f} "
+          f"s; sweep mismatches {mk['sweep']}")
+    for k, v in mk["leaves_ms"].items():
+        print(f"  sha256_leaves {k}: {v['ms']:.4f} ms (plain "
+              f"{v['plain_ms']:.1f} ms; device {v['device_ms']})  [{card}]")
+    print(f"  device ms per call (profiler): sha256_leaves "
+          f"{rec['sha256_leaves']['device_ms']}, merkle_level "
+          f"{rec['merkle_level']['device_ms']}")
+    print("  merkle_level per level of a 10,000-leaf tree (ms): "
+          + ", ".join(f"{w}: {t:.4f}" for w, t in mk["level_ms"].items()))
+    print(f"  trees, wall p50 ms: {mk['tree_ms']}  [{card}]")
     bad = {k: r["mismatches"] for k, r in rec.items() if r["mismatches"]}
     for k, r in rec.items():
         print(f"kernel {k} [{r['shape']}]: mismatches {r['mismatches']}, "
@@ -734,6 +1243,7 @@ def main(argv=None) -> int:
     if bad:
         raise AssertionError(f"kernel phase mismatches: {bad}")
 
+    t0 = time.perf_counter()
     launches, per_call, lat, sets = phase_commit(fx, dev, REPS)
     for k, v in per_call.items():
         print(f"launches {k}: {v}")
@@ -748,12 +1258,49 @@ def main(argv=None) -> int:
           f"{tp['dense_sig_per_s']:.0f} sig/s "
           f"(p50 {tp['dense_wall_p50_ms']:.1f} ms), table build "
           f"{tp['tables_ms']:.2f} ms")
+    print(f"phases 4-5: {time.perf_counter() - t0:.1f} s")
+
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(os.cpu_count()) as pool:
+        t0 = time.perf_counter()
+        keys = pool_keys(pool, BIG_VALS)
+        print(f"light fixtures: {len(keys)} keys in "
+              f"{time.perf_counter() - t0:.1f} s over {os.cpu_count()} "
+              f"workers")
+        t0 = time.perf_counter()
+        l150_launches, l150 = phase_light150(pool, keys, dev, REPS)
+        print(f"light {LIGHT_VALS}: fixture {l150['fixture_s']:.1f} s, "
+              f"phase {time.perf_counter() - t0:.1f} s; launches "
+              f"{l150_launches}")
+        print(f"verify_sequential_batched@{LIGHT_VALS} "
+              f"({l150['headers']} headers, {l150['lanes']} lanes): "
+              f"{_spread(l150['wall'])}  [{card}]")
+        t0 = time.perf_counter()
+        l10k_launches, l10k = phase_light10k(pool, keys, dev, REPS)
+    print(f"light {BIG_VALS}: fixture {l10k['fixture_s']:.1f} s, phase "
+          f"{time.perf_counter() - t0:.1f} s; launches {l10k_launches}")
+    for k, v in l10k["per_call_launches"].items():
+        print(f"launches {k}@{BIG_VALS}: {v}")
+    for k, v in l10k["wall"].items():
+        print(f"{k}@{BIG_VALS}: {_spread(v)}  [{card}]")
+    print(f"host@{BIG_VALS} (p50 ms): {l10k['host_ms']}  [{card}]")
+    for name, prof in (("verify_sequential_batched@150", l150["profile"]),
+                       ("verify_adjacent@10k",
+                        l10k["profile_verify_adjacent"]),
+                       ("VerifyCommit@10k", l10k["profile_verify_commit"]),
+                       ("ValidatorSet.hash@10k",
+                        l10k["profile_valset_hash"])):
+        print(f"profile {name}: wall {prof['wall_ms']:.2f} ms, device "
+              f"{prof['device_ms']} ms, kernels {prof['kernels_ms']}")
+    paths = {"commit": launches, f"light{LIGHT_VALS}": l150_launches,
+             f"light{BIG_VALS}": l10k_launches}
 
     c = op_counts()
     print(f"field multiplications per group op: {c}")
     bd = bounds(c, b_verify=101, b_rlc=150, n_tab=150, nb=info["blocks_nb"],
                 distinct_rows={"verify": 101, "rlc": 150},
                 rate_ops=rate_ops)
+    bd.update(merkle_bounds(rec, rate_ops))
     kernels = []
     for k, r in rec.items():
         bound_ms, by, ops, nbytes = bd[k]
@@ -761,10 +1308,13 @@ def main(argv=None) -> int:
               f"{bound_ms:.4f} ms ({by})")
         kernels.append({
             "name": k, "route": "cuda", "source": r["source"],
-            "replaces": r["replaces"], "launches": launches.get(k, 0),
+            "replaces": r["replaces"],
+            "launches": sum(p.get(k, 0) for p in paths.values()),
+            "launches_by_path": {n: p.get(k, 0) for n, p in paths.items()},
             "max_abs_err": r["max_abs_err"], "mismatches": r["mismatches"],
             "sweep_mismatches": r["sweep_mismatches"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
+            "ms": r["ms"], "device_ms": r.get("device_ms"),
+            "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": by, "library_ms": None, "shape": r["shape"]})
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)),
@@ -772,7 +1322,8 @@ def main(argv=None) -> int:
         with open(args.record, "w") as f:
             json.dump({"card": card, "kernels": kernels,
                        "per_call": per_call, "p50_ms": lat,
-                       "throughput": tp, "op_counts": c}, f, indent=1,
+                       "throughput": tp, "op_counts": c, "merkle": mk,
+                       "light150": l150, "light10k": l10k}, f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

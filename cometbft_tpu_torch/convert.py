@@ -9,7 +9,11 @@ validator set, and a node's cached per-valset tables move across:
   port's ``(N, 16, 4, 10)`` table in canonical limbs;
 - :func:`validator_set_from_arrays` mirrors ``ValidatorSet.dense()``;
 - :func:`commit_from_arrays` mirrors ``Commit.dense_columns()`` plus the
-  header fields and the validator addresses.
+  header fields and the validator addresses;
+- :func:`header_from_fields` builds a ``Header`` from a header's field
+  values, and :func:`light_block_from_arrays` a ``LightBlock`` from
+  those, a validator set's arrays and a commit's arrays, so a chain made
+  by the JAX package is verified by both packages.
 
 Nothing here imports the JAX package: the inputs are plain arrays.
 """
@@ -20,13 +24,16 @@ import numpy as np
 import torch
 
 from .crypto.keys import Ed25519PubKey
+from .light.types import LightBlock
 from .ops import fe
 from .types.block_id import BlockID, PartSetHeader
 from .types.commit import Commit, CommitSig
+from .types.header import Header
 from .types.validator_set import Validator, ValidatorSet
 
 __all__ = ["tables_from_jax", "validator_set_from_arrays",
-           "commit_from_arrays"]
+           "commit_from_arrays", "header_from_fields",
+           "light_block_from_arrays"]
 
 _JAX_RADIX = 13
 
@@ -77,3 +84,24 @@ def commit_from_arrays(height: int, round_: int, block_hash: bytes,
     bid = BlockID(bytes(block_hash),
                   PartSetHeader(int(part_set_total), bytes(part_set_hash)))
     return Commit(int(height), int(round_), bid, lanes)
+
+
+def header_from_fields(last_block_id, **fields) -> Header:
+    """A ``Header`` from the values of a header's fields, named as the
+    dataclass fields (chain_id, height, time_ns, the eleven hashes and
+    addresses, version_block, version_app); ``last_block_id`` is
+    ``(hash, part_set_total, part_set_hash)``."""
+    bhash, total, psh = last_block_id
+    return Header(last_block_id=BlockID(bytes(bhash), PartSetHeader(
+        int(total), bytes(psh))), **fields)
+
+
+def light_block_from_arrays(header: dict, pubs, powers,
+                            commit: dict) -> LightBlock:
+    """A ``LightBlock`` from ``header`` (keyword arguments of
+    :func:`header_from_fields`), the validator set's ``pubs`` and
+    ``powers`` (:func:`validator_set_from_arrays`) and ``commit``
+    (keyword arguments of :func:`commit_from_arrays`)."""
+    return LightBlock(header=header_from_fields(**header),
+                      commit=commit_from_arrays(**commit),
+                      validators=validator_set_from_arrays(pubs, powers))

@@ -31,27 +31,7 @@
 // either way (scripts/cuda_stack_slot_probe.py shows both).
 #pragma once
 
-#include <stddef.h>
-#include <stdint.h>
-
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-
-#define DEV __device__ __forceinline__
-#define DEV_NOINLINE __device__ __noinline__
-// kernel<<<grid, block, 0, stream>>>(args...)
-#define LAUNCH(kernel, grid, block, stream, ...) \
-  kernel<<<(grid), (block), 0, (cudaStream_t)(stream)>>>(__VA_ARGS__)
-#else
-// The host build of these sources (tests/torch_kernels_host.cpp) runs
-// every kernel under the sanitizers; it defines dim3, threadIdx,
-// blockIdx, __syncthreads, __global__, __shared__, __constant__,
-// cudaGetLastError and host_launch before including a .cu file.
-#define DEV static inline
-#define DEV_NOINLINE static __attribute__((noinline))
-#define LAUNCH(kernel, grid, block, stream, ...) \
-  host_launch((grid), (block), kernel, __VA_ARGS__)
-#endif
+#include "launch.cuh"
 
 #include "ed25519_consts.h"
 
@@ -650,6 +630,3 @@ DEV bool sc_lt_l(const uint8_t s[32]) {
 DEV int nibble(const uint8_t *b, int w) {
   return (w & 1) ? (b[w >> 1] >> 4) : (b[w >> 1] & 15);
 }
-
-// the C entry points report launch failures to the Python wrappers
-#define RETURN_LAUNCH_ERROR() return (int)cudaGetLastError()

@@ -1,0 +1,152 @@
+// sha256_leaves and merkle_level: the SHA-256 kernels of the merkle tree.
+//
+// Replace the two TPU programs of cometbft_tpu/ops/sha256.py that the
+// merkle tree (crypto/merkle.py) runs at 2,048 leaves or more:
+//
+//   sha256_leaves  <- :115 sha256_blocks, the digests of host-padded
+//                     leaves (B, NB, 16) big-endian words with a per-lane
+//                     active-block count; writes 8 digest words per lane
+//                     (the wrapper splits them into the JAX package's 32
+//                     digest bytes where a caller asks for bytes);
+//   merkle_level   <- :135 merkle_inner_level, one RFC-6962 level,
+//                     SHA-256(0x01 || left || right) per parent.
+//
+// Bound on the H100: 32-bit integer instructions.  sm_90 has 3-input
+// logic (LOP3) and 3-input adds (IADD3), and a rotate is one funnel
+// shift, so a round is about 14 instructions (Sigma0 and Sigma1 4 each,
+// Ch and Maj 1 each, 4 adds) and a schedule step about 10 (sigma0 and
+// sigma1 4 each, 2 adds): some 1,384 per compression for 64 bytes read,
+// which take about 4x as long on the card's 16.7 T integer lanes per
+// second as the bytes take at its 3.35 TB/s.  At the merkle tree's sizes
+// (10,000 leaves, levels of 5,000 down to 1 parent) both kernels are far
+// below a full card and wait on launch latency and one thread's serial
+// chain of 64 rounds; that is expected at these sizes.
+//
+// Design: one thread per lane (sha256_leaves) or per parent
+// (merkle_level), native uint32_t words, rotates by __funnelshift_r,
+// round constants in __constant__ memory (sha256_consts.h, generated by
+// ops/_build.py from ops/sha256.py, the plain versions' source), the
+// round loop fully unrolled so the 16-word schedule window stays in
+// registers.  A parent's two blocks are assembled by shifts from its
+// children's 16 words; the second block is the constant padding of a
+// 65-byte message (0x80 at byte 1, bit length 520).  An odd tail child
+// is promoted unchanged by the thread after the last pair.  active[b]
+// acts as the JAX package's mask (block j counts where j < active), so
+// the kernel reads only blocks [0, min(max(active, 0), NB)).
+#include "launch.cuh"
+#include "sha256_consts.h"
+
+DEV uint32_t rotr32(uint32_t x, int n) {
+#ifdef __CUDACC__
+  return __funnelshift_r(x, x, n);
+#else
+  return (x >> n) | (x << (32 - n));
+#endif
+}
+
+DEV void sha256_compress(uint32_t s[8], const uint32_t block[16]) {
+  uint32_t w[16];
+#pragma unroll
+  for (int i = 0; i < 16; i++) w[i] = block[i];
+  uint32_t a = s[0], b = s[1], c = s[2], d = s[3];
+  uint32_t e = s[4], f = s[5], g = s[6], h = s[7];
+#pragma unroll
+  for (int t = 0; t < 64; t++) {
+    if (t >= 16) {
+      const uint32_t w15 = w[(t + 1) & 15], w2 = w[(t + 14) & 15];
+      w[t & 15] += (rotr32(w15, 7) ^ rotr32(w15, 18) ^ (w15 >> 3)) +
+                   w[(t + 9) & 15] +
+                   (rotr32(w2, 17) ^ rotr32(w2, 19) ^ (w2 >> 10));
+    }
+    const uint32_t t1 = h + (rotr32(e, 6) ^ rotr32(e, 11) ^ rotr32(e, 25)) +
+                        ((e & f) ^ (~e & g)) + c_sha256_k[t] + w[t & 15];
+    const uint32_t t2 = (rotr32(a, 2) ^ rotr32(a, 13) ^ rotr32(a, 22)) +
+                        ((a & b) ^ (a & c) ^ (b & c));
+    h = g;
+    g = f;
+    f = e;
+    e = d + t1;
+    d = c;
+    c = b;
+    b = a;
+    a = t1 + t2;
+  }
+  s[0] += a;
+  s[1] += b;
+  s[2] += c;
+  s[3] += d;
+  s[4] += e;
+  s[5] += f;
+  s[6] += g;
+  s[7] += h;
+}
+
+__global__ void sha256_leaves_kernel(const uint32_t *__restrict__ blocks,
+                                     const int32_t *__restrict__ active,
+                                     int B, int NB,
+                                     uint32_t *__restrict__ out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  uint32_t s[8];
+#pragma unroll
+  for (int i = 0; i < 8; i++) s[i] = c_sha256_iv[i];
+  const int na = active[b] < 0 ? 0 : (active[b] > NB ? NB : active[b]);
+  const uint32_t *p = blocks + (size_t)b * NB * 16;
+  for (int j = 0; j < na; j++) sha256_compress(s, p + (size_t)j * 16);
+  uint32_t *o = out + (size_t)b * 8;
+#pragma unroll
+  for (int i = 0; i < 8; i++) o[i] = s[i];
+}
+
+// children (n, 8) words -> parents ((n + 1) / 2, 8) words
+__global__ void merkle_level_kernel(const uint32_t *__restrict__ children,
+                                    int n, uint32_t *__restrict__ parents) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int m = n / 2;
+  if (i > m || (i == m && !(n & 1))) return;
+  uint32_t *o = parents + (size_t)i * 8;
+  if (i == m) {  // the odd tail child, promoted
+#pragma unroll
+    for (int k = 0; k < 8; k++) o[k] = children[(size_t)(n - 1) * 8 + k];
+    return;
+  }
+  const uint32_t *l = children + (size_t)i * 16, *r = l + 8;
+  uint32_t blk[16];
+  blk[0] = 0x01000000u | (l[0] >> 8);
+#pragma unroll
+  for (int k = 1; k < 8; k++) blk[k] = (l[k - 1] << 24) | (l[k] >> 8);
+  blk[8] = (l[7] << 24) | (r[0] >> 8);
+#pragma unroll
+  for (int k = 1; k < 8; k++) blk[8 + k] = (r[k - 1] << 24) | (r[k] >> 8);
+  uint32_t s[8];
+#pragma unroll
+  for (int k = 0; k < 8; k++) s[k] = c_sha256_iv[k];
+  sha256_compress(s, blk);
+  blk[0] = (r[7] << 24) | 0x00800000u;
+#pragma unroll
+  for (int k = 1; k < 15; k++) blk[k] = 0;
+  blk[15] = 65 * 8;
+  sha256_compress(s, blk);
+#pragma unroll
+  for (int k = 0; k < 8; k++) o[k] = s[k];
+}
+
+extern "C" int sha256_leaves_launch(const void *blocks, const void *active,
+                                    int B, int NB, void *out, void *stream) {
+  if (B <= 0) return 0;
+  const int threads = 128;
+  LAUNCH(sha256_leaves_kernel, (B + threads - 1) / threads, threads, stream,
+         (const uint32_t *)blocks, (const int32_t *)active, B, NB,
+         (uint32_t *)out);
+  RETURN_LAUNCH_ERROR();
+}
+
+extern "C" int merkle_level_launch(const void *children, int n, void *parents,
+                                   void *stream) {
+  if (n <= 0) return 0;
+  const int threads = 128;
+  const int m = (n + 1) / 2;
+  LAUNCH(merkle_level_kernel, (m + threads - 1) / threads, threads, stream,
+         (const uint32_t *)children, n, (uint32_t *)parents);
+  RETURN_LAUNCH_ERROR();
+}

@@ -1,17 +1,19 @@
 """Build, load and count the port's CUDA kernels.
 
 The sources in ``csrc/`` compile with ``nvcc`` into one shared library
-per kernel, each with a plain C entry point that ``ctypes`` loads (no
-PyTorch headers, so a build takes seconds).  The four ``nvcc`` processes
-run at once.  The build happens at the first launch, never at import,
-and lands in ``build/cometbft_tpu_torch/<hash>/`` under the checkout,
-keyed by a hash of the sources, the generated constants header and the
-flags, so an edited source rebuilds and an unchanged one loads.
+per source, each with plain C entry points that ``ctypes`` loads (no
+PyTorch headers, so a build takes seconds).  The ``nvcc`` processes, one
+per source, run at once.  The build happens at the first launch, never
+at import, and lands in ``build/cometbft_tpu_torch/<hash>/`` under the
+checkout, keyed by a hash of the sources, the generated constants
+headers and the flags, so an edited source rebuilds and an unchanged one
+loads.
 
 ``ed25519_consts.h`` is generated here from the port's own oracle
 (``crypto/_ed25519_py.py``) and from ``ops/fe.py``, ``ops/group.py``,
-``ops/ed25519.py``, ``ops/scalar.py`` and ``ops/sha512.py``, so the kernels and the plain versions share one
-source for every constant.
+``ops/ed25519.py``, ``ops/scalar.py`` and ``ops/sha512.py``, and
+``sha256_consts.h`` from ``ops/sha256.py``, so the kernels and the plain
+versions share one source for every constant.
 
 Each wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel and nowhere else, and one to ``PLAIN_CALLS[name]`` where it runs
@@ -32,7 +34,8 @@ from pathlib import Path
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_launches", "load", "check",
            "check_arg", "check_index", "stream_of", "build_dir",
-           "consts_header", "build_log"]
+           "consts_header", "sha256_consts_header", "generated_headers",
+           "build_log"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 ROOT = Path(__file__).resolve().parents[2]
@@ -40,7 +43,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# kernel -> (source, C entry, argument types)
+# kernel -> (source, C entry, argument types); one library per source
 KERNELS = {
     "sha512_scalar": ("sha512_scalar.cu", "sha512_scalar_launch",
                       [_P, _P, _I, _I, _P, _P]),
@@ -51,6 +54,9 @@ KERNELS = {
                               [_P] * 7 + [_I, _I, _P, _P]),
     "ed25519_rlc_gather": ("ed25519_rlc.cu", "ed25519_rlc_gather_launch",
                            [_P] * 7 + [_I] + [_P] * 10),
+    "sha256_leaves": ("sha256.cu", "sha256_leaves_launch",
+                      [_P, _P, _I, _I, _P, _P]),
+    "merkle_level": ("sha256.cu", "merkle_level_launch", [_P, _I, _P, _P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -98,6 +104,27 @@ def consts_header() -> str:
     return "\n".join(lines) + "\n"
 
 
+def sha256_consts_header() -> str:
+    """The generated ``sha256_consts.h``: the SHA-256 round constants and
+    initial state of the plain versions (``ops/sha256.py``)."""
+    from . import sha256
+
+    return "\n".join([
+        "// Generated by cometbft_tpu_torch/ops/_build.py; do not edit.",
+        "#pragma once",
+        "__constant__ uint32_t c_sha256_k[64] = "
+        f"{_c_array([int(k) for k in sha256.K], '{}u')};",
+        "__constant__ uint32_t c_sha256_iv[8] = "
+        f"{_c_array([int(v) for v in sha256.IV], '{}u')};",
+    ]) + "\n"
+
+
+def generated_headers() -> dict:
+    """Header name -> text of every generated header the sources include."""
+    return {"ed25519_consts.h": consts_header(),
+            "sha256_consts.h": sha256_consts_header()}
+
+
 def _nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME", "") + "/bin/nvcc",
                  "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
@@ -110,7 +137,9 @@ def _nvcc() -> str:
 def build_dir() -> Path:
     h = hashlib.sha256()
     h.update(" ".join(FLAGS).encode())
-    h.update(consts_header().encode())
+    for name, text in generated_headers().items():
+        h.update(name.encode())
+        h.update(text.encode())
     for f in sorted(CSRC.iterdir()):
         if f.suffix in (".cu", ".cuh"):
             h.update(f.name.encode())
@@ -125,12 +154,23 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _sources() -> list:
+    """The kernel sources, each built once (in ``KERNELS`` order)."""
+    return list(dict.fromkeys(src for src, _, _ in KERNELS.values()))
+
+
+def _lib_name(src: str) -> str:
+    return src.removesuffix(".cu")
+
+
 def _build_all(out: Path) -> None:
-    """Compile every kernel's source at once, one nvcc per source."""
+    """Compile every kernel source at once, one nvcc per source."""
     nvcc = _nvcc()
-    (out / "ed25519_consts.h").write_text(consts_header())
+    for name, text in generated_headers().items():
+        (out / name).write_text(text)
     procs = []
-    for name, (src, _, _) in KERNELS.items():
+    for src in _sources():
+        name = _lib_name(src)
         tmp = out / f"lib{name}.so.tmp"
         cmd = [nvcc, *FLAGS, "-I", str(out), "-I", str(CSRC), "-o",
                str(tmp), str(CSRC / src)]
@@ -159,11 +199,13 @@ def load(name: str):
     out.mkdir(parents=True, exist_ok=True)
     with open(out / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if not all((out / f"lib{k}.so").exists() for k in KERNELS):
+        if not all((out / f"lib{_lib_name(s)}.so").exists()
+                   for s in _sources()):
             _build_all(out)
-    for k, (_, entry, argtypes) in KERNELS.items():
-        lib = ctypes.CDLL(str(out / f"lib{k}.so"))
-        f = getattr(lib, entry)
+    libs = {s: ctypes.CDLL(str(out / f"lib{_lib_name(s)}.so"))
+            for s in _sources()}
+    for k, (src, entry, argtypes) in KERNELS.items():
+        f = getattr(libs[src], entry)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
         _LIBS[k] = f

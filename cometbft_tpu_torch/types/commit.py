@@ -2,8 +2,10 @@
 
 Counterpart of ``cometbft_tpu/types/commit.py`` for Ed25519 commits: one
 CommitSig per validator (by validator-set index), flagged absent, commit
-or nil.  The BLS aggregate lanes (flag 4) belong to a later slice of the
-port; ``types/validation.py`` refuses a commit that carries them.
+or nil, with the commit's wire encoding, merkle hash and basic checks.
+The BLS aggregate lanes (flag 4) belong to a later slice of the port:
+``types/validation.py`` refuses a commit that carries them, and so do
+``Commit.hash`` and ``Commit.validate_basic``.
 """
 
 from __future__ import annotations
@@ -12,18 +14,20 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from . import canonical
+from ..crypto import merkle
+from . import canonical, wire
 from .block_id import BlockID
 from .vote import PRECOMMIT_TYPE
 
 __all__ = ["BLOCK_ID_FLAG_ABSENT", "BLOCK_ID_FLAG_COMMIT",
-           "BLOCK_ID_FLAG_NIL", "BLOCK_ID_FLAG_AGGREGATE", "CommitSig",
-           "Commit"]
+           "BLOCK_ID_FLAG_NIL", "BLOCK_ID_FLAG_AGGREGATE",
+           "MAX_SIGNATURE_SIZE", "CommitSig", "Commit"]
 
 BLOCK_ID_FLAG_ABSENT = 1
 BLOCK_ID_FLAG_COMMIT = 2
 BLOCK_ID_FLAG_NIL = 3
 BLOCK_ID_FLAG_AGGREGATE = 4
+MAX_SIGNATURE_SIZE = 96
 
 
 @dataclass
@@ -43,6 +47,34 @@ class CommitSig:
     def is_aggregate(self) -> bool:
         return self.block_id_flag == BLOCK_ID_FLAG_AGGREGATE
 
+    def validate_basic(self) -> str | None:
+        if self.block_id_flag not in (BLOCK_ID_FLAG_ABSENT,
+                                      BLOCK_ID_FLAG_COMMIT,
+                                      BLOCK_ID_FLAG_NIL,
+                                      BLOCK_ID_FLAG_AGGREGATE):
+            return "unknown block ID flag"
+        if self.is_absent():
+            if self.validator_address or self.signature:
+                return "absent sig with address/signature"
+        elif self.is_aggregate():
+            if len(self.validator_address) != 20:
+                return "invalid validator address size"
+            if self.signature:
+                return "aggregate lane carries an individual signature"
+        else:
+            if len(self.validator_address) != 20:
+                return "invalid validator address size"
+            if not self.signature or len(self.signature) > MAX_SIGNATURE_SIZE:
+                return "signature absent or too big"
+        return None
+
+    def encode(self) -> bytes:
+        return (wire.field_varint(1, self.block_id_flag)
+                + wire.field_bytes(2, self.validator_address)
+                + wire.field_message(3, canonical.encode_timestamp(
+                    self.timestamp_ns), force=True)
+                + wire.field_bytes(4, self.signature))
+
 
 @dataclass
 class Commit:
@@ -56,6 +88,35 @@ class Commit:
 
     def has_aggregate(self) -> bool:
         return any(cs.is_aggregate() for cs in self.signatures)
+
+    def hash(self, device=None) -> bytes:
+        """Merkle root of the encoded CommitSigs (types/block.go); at
+        ``merkle.MERKLE_KERNEL_MIN_LEAVES`` signatures or more it is hashed
+        by the kernels on ``device`` (None: CUDA).  The aggregate leaf
+        comes with the BLS slice: a commit with aggregate lanes raises
+        ``ValueError``."""
+        if self.has_aggregate():
+            raise ValueError("BLS aggregate lanes are not supported")
+        return merkle.hash_from_byte_slices_fast(
+            [cs.encode() for cs in self.signatures], device=device)
+
+    def validate_basic(self) -> str | None:
+        if self.height < 0:
+            return "negative height"
+        if self.round < 0:
+            return "negative round"
+        if self.height >= 1:
+            if self.block_id.is_nil():
+                return "commit cannot be for nil block"
+            if not self.signatures:
+                return "no signatures in commit"
+            for i, cs in enumerate(self.signatures):
+                err = cs.validate_basic()
+                if err:
+                    return f"invalid signature {i}: {err}"
+            if self.has_aggregate():
+                return "BLS aggregate lanes are not supported"
+        return None
 
     def vote_sign_bytes(self, chain_id: str, idx: int) -> bytes:
         """Canonical vote bytes for signature idx (types/block.go:902):

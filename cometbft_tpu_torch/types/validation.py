@@ -11,7 +11,10 @@ same lane selection, tally, early-exit rules and error classes:
 - ``VerifyCommitLightTrusting``: signers looked up by address in a
   (possibly different) trusted set, threshold = trust level of its
   total; a duplicate address is an invalid commit.
-- ``*AllSignatures``: the evidence variants, with no early exit.
+- ``*AllSignatures``: the evidence variants, with no early exit;
+- ``verify_commits_light_batched``: ``VerifyCommitLight`` over many
+  commits sharing one validator set, in one dense device call (the
+  light client's sequential sync and blocksync's cross-block seam).
 
 Signatures are verified first, then the tally is checked, so a bad
 signature raises ``ErrInvalidSignature`` with the first bad lane (in
@@ -21,8 +24,9 @@ every selected lane goes to one dense device call
 (``crypto/batch.verify_dense``) through the per-valset table cache.
 
 Not in this slice: BLS aggregate lanes (a commit carrying them raises
-``ErrInvalidCommit``) and the verified-signature cache of
-``crypto/scheduler``.  ``device`` is ``None`` (CUDA) or ``"cpu"``.
+``ErrInvalidCommit``), the verified-signature cache of
+``crypto/scheduler`` and blocksync's patient device wait.  ``device`` is
+``None`` (CUDA) or ``"cpu"``.
 """
 
 from __future__ import annotations
@@ -37,10 +41,11 @@ from .commit import BLOCK_ID_FLAG_ABSENT, BLOCK_ID_FLAG_COMMIT, Commit
 from .validator_set import ValidatorSet
 
 __all__ = ["CommitVerificationError", "ErrInvalidCommit",
-           "ErrNotEnoughVotingPower", "ErrInvalidSignature", "VerifyCommit",
-           "VerifyCommitLight", "VerifyCommitLightAllSignatures",
-           "VerifyCommitLightTrusting",
-           "VerifyCommitLightTrustingAllSignatures"]
+           "ErrNotEnoughVotingPower", "ErrInvalidSignature",
+           "ErrBatchItemInvalid", "VerifyCommit", "VerifyCommitLight",
+           "VerifyCommitLightAllSignatures", "VerifyCommitLightTrusting",
+           "VerifyCommitLightTrustingAllSignatures",
+           "verify_commits_light_batched"]
 
 
 class CommitVerificationError(Exception):
@@ -94,28 +99,44 @@ def _light_scope(powers, flags, needed):
     return scope, int(cum[-1]) if cum.size else 0
 
 
+def _sign_rows(chain_id, commit, scope):
+    """Sign bytes of commit lanes ``scope`` as zero-padded rows:
+    (msgs (k, L) uint8, lens (k,) int64)."""
+    msgs_b = [commit.vote_sign_bytes(chain_id, int(i)) for i in scope]
+    maxlen = max((len(m) for m in msgs_b), default=0)
+    msgs = np.zeros((len(msgs_b), maxlen), np.uint8)
+    lens = np.zeros((len(msgs_b),), np.int64)
+    for j, m in enumerate(msgs_b):
+        msgs[j, :len(m)] = np.frombuffer(m, np.uint8)
+        lens[j] = len(m)
+    return msgs, lens
+
+
+def _lane_verdicts(valset_pubs, rows, sigs, sig_ok, msgs, lens, device):
+    """(k,) verdicts of lanes signed by valset rows ``rows``: one dense
+    device call over the lanes whose signature is 64 bytes; the others
+    are bad lanes."""
+    oks = np.zeros((rows.size,), bool)
+    live = np.nonzero(sig_ok)[0]
+    if live.size:
+        _, out = cryptobatch.verify_dense(
+            np.ascontiguousarray(valset_pubs[rows[live]]),
+            np.ascontiguousarray(sigs[live]),
+            np.ascontiguousarray(msgs[live]), lens[live], device=device,
+            valset_pubs=valset_pubs, scope=rows[live])
+        oks[live] = out
+    return oks
+
+
 def _verify_lanes(chain_id, commit, valset_pubs, scope, rows, sigmat,
                   sig_ok, device) -> None:
     """Verify commit lanes ``scope`` (signed by valset rows ``rows``) and
     raise ErrInvalidSignature naming the first bad lane in commit order."""
     if not scope.size:
         return
-    msgs_b = [commit.vote_sign_bytes(chain_id, int(i)) for i in scope]
-    maxlen = max(len(m) for m in msgs_b)
-    msgs = np.zeros((scope.size, maxlen), np.uint8)
-    lens = np.zeros((scope.size,), np.int64)
-    for j, m in enumerate(msgs_b):
-        msgs[j, :len(m)] = np.frombuffer(m, np.uint8)
-        lens[j] = len(m)
-    oks = np.zeros((scope.size,), bool)
-    live = np.nonzero(sig_ok[scope])[0]
-    if live.size:
-        _, out = cryptobatch.verify_dense(
-            np.ascontiguousarray(valset_pubs[rows[live]]),
-            np.ascontiguousarray(sigmat[scope[live]]),
-            np.ascontiguousarray(msgs[live]), lens[live], device=device,
-            valset_pubs=valset_pubs, scope=rows[live])
-        oks[live] = out
+    msgs, lens = _sign_rows(chain_id, commit, scope)
+    oks = _lane_verdicts(valset_pubs, rows, sigmat[scope], sig_ok[scope],
+                         msgs, lens, device)
     if not oks.all():
         raise ErrInvalidSignature(int(scope[np.nonzero(~oks)[0][0]]))
 
@@ -225,3 +246,65 @@ def VerifyCommitLightTrustingAllSignatures(
     """types/validation.go:182 (evidence path: no early exit)."""
     VerifyCommitLightTrusting(chain_id, vals, commit, trust_level,
                               device=device, count_all=True)
+
+
+class ErrBatchItemInvalid(CommitVerificationError):
+    """A commit inside a multi-commit batch failed; ``item`` indexes the
+    offending entry and ``height`` is its height."""
+
+    def __init__(self, item: int, height: int, cause: Exception):
+        self.item = item
+        self.height = height
+        self.cause = cause
+        super().__init__(f"commit #{item} (height {height}): {cause}")
+
+
+def verify_commits_light_batched(chain_id: str, vals: ValidatorSet,
+                                 items: list, device=None) -> int:
+    """``VerifyCommitLight`` over many commits sharing one validator set
+    in one dense device call (``cometbft_tpu/types/validation.py:581``,
+    its dense core at :673).  ``items`` is a list of ``(block_id, height,
+    commit)``.  Returns the number of signatures verified.
+
+    Basics and tally are checked per item in item order; then every
+    selected lane of every commit goes to one ``verify_dense`` call
+    through the per-valset table cache.  Raises ``ErrBatchItemInvalid``
+    naming the first offending item.  When its ``cause`` is
+    ``ErrInvalidSignature``, every item before ``err.item`` had all its
+    selected lanes proven valid (lanes are in item order and every
+    verdict is computed before the first bad lane raises); any other
+    cause is a basics or tally failure found before the dispatch, and
+    earlier items were not signature-checked."""
+    dev = resolve_device(device)
+    pubs, powers = vals.dense()
+    needed = vals.total_voting_power() * 2 // 3
+    rows, sigs, sig_ok, msgs, lens, lanes = [], [], [], [], [], []
+    for k, (block_id, height, commit) in enumerate(items):
+        try:
+            _check_commit_basics(vals, commit, height, block_id)
+            flags, _, sigmat, ok = _columns(commit)
+        except CommitVerificationError as e:
+            raise ErrBatchItemInvalid(k, height, e) from e
+        scope, tally = _light_scope(powers, flags, needed)
+        if tally <= needed:
+            raise ErrBatchItemInvalid(
+                k, height,
+                ErrNotEnoughVotingPower(f"tallied {tally} <= {needed}"))
+        m, ln = _sign_rows(chain_id, commit, scope)
+        rows.append(scope)
+        sigs.append(sigmat[scope])
+        sig_ok.append(ok[scope])
+        msgs.append(m)
+        lens.append(ln)
+        lanes.extend((k, int(i)) for i in scope)
+    if not lanes:
+        return 0
+    stride = max(m.shape[1] for m in msgs)
+    msgs = [np.pad(m, ((0, 0), (0, stride - m.shape[1]))) for m in msgs]
+    oks = _lane_verdicts(pubs, np.concatenate(rows), np.concatenate(sigs),
+                         np.concatenate(sig_ok), np.concatenate(msgs),
+                         np.concatenate(lens), dev)
+    if not oks.all():
+        k, idx = lanes[int(np.nonzero(~oks)[0][0])]
+        raise ErrBatchItemInvalid(k, items[k][1], ErrInvalidSignature(idx))
+    return len(lanes)

@@ -2,9 +2,10 @@
 ``types/validator_set.go``).
 
 Counterpart of ``cometbft_tpu/types/validator_set.py`` for what commit
-verification reads: the address-sorted validator list, lookups by index
-and by address, the total voting power, and the dense columnar view.
-Proposer rotation and set updates belong to later slices of the port.
+and light-header verification read: the address-sorted validator list,
+lookups by index and by address, the total voting power, the dense
+columnar view and the set's merkle hash.  Proposer rotation and set
+updates belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -13,11 +14,18 @@ from dataclasses import dataclass, field, replace
 
 import numpy as np
 
+from ..crypto import merkle
 from ..crypto.keys import Ed25519PubKey
+from . import wire
 
 __all__ = ["MAX_TOTAL_VOTING_POWER", "Validator", "ValidatorSet"]
 
 MAX_TOTAL_VOTING_POWER = (2**63 - 1) // 8
+
+
+def _pubkey_proto(pk: Ed25519PubKey) -> bytes:
+    """cometbft.crypto.v1.PublicKey oneof; field 1 is ed25519."""
+    return wire.field_bytes(1, pk.bytes(), force=True)
 
 
 @dataclass
@@ -34,6 +42,11 @@ class Validator:
 
     def copy(self) -> "Validator":
         return replace(self)
+
+    def simple_encode(self) -> bytes:
+        """SimpleValidator proto for set hashing (types/validator.go)."""
+        return (wire.field_message(1, _pubkey_proto(self.pub_key), force=True)
+                + wire.field_varint(2, self.voting_power))
 
 
 class ValidatorSet:
@@ -87,6 +100,13 @@ class ValidatorSet:
             d = (pubs, powers)
             self.__dict__["_dense"] = d
         return d
+
+    def hash(self, device=None) -> bytes:
+        """Merkle root of the validators' simple encodings; at
+        ``merkle.MERKLE_KERNEL_MIN_LEAVES`` validators or more it is
+        hashed by the kernels on ``device`` (None: CUDA)."""
+        return merkle.hash_from_byte_slices_fast(
+            [v.simple_encode() for v in self.validators], device=device)
 
     def address_index(self) -> dict:
         """Cached address -> row map."""

@@ -87,7 +87,9 @@ def main(argv=None) -> int:
     (work / "early" / "ed25519.cuh").write_text(early)
     nvcc = _build._nvcc()
     base = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17"]
-    incs = {"early": ["-I", str(work / "early"), "-I", str(work)],
+    # the early copy comes first; launch.cuh still comes from csrc
+    incs = {"early": ["-I", str(work / "early"), "-I", str(work), "-I",
+                      str(_build.CSRC)],
             "shipped": ["-I", str(_build.CSRC), "-I", str(work)]}
     variants = {f"{cal}_{fl}": incs[cal] + FLAGS[fl]
                 for cal in incs for fl in FLAGS}

@@ -29,7 +29,8 @@ def _port_modules():
 
 def _sources():
     return sorted(PKG.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "scripts" / "cuda_stack_slot_probe.py"]
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "cuda_stack_slot_probe.py",
+        ROOT / "scripts" / "sha256_sass_count.py"]
 
 
 def test_fresh_interpreter_imports_no_jax():

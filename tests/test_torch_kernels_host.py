@@ -1,6 +1,6 @@
 """The port's CUDA kernel sources, built for the host under the sanitizers.
 
-``tests/torch_kernels_host.cpp`` includes the four sources of
+``tests/torch_kernels_host.cpp`` includes the five sources of
 ``cometbft_tpu_torch/csrc`` as they are and runs each kernel and launch
 sequence with host threads (a block's threads, a barrier for
 ``__syncthreads``).  It is compiled with ``g++ -fsanitize=address,
@@ -23,7 +23,7 @@ import torch
 
 from cometbft_tpu_torch.crypto import _ed25519_py as ref
 from cometbft_tpu_torch.crypto.batch import _padded_lane_args
-from cometbft_tpu_torch.ops import _build, fe, sha512
+from cometbft_tpu_torch.ops import _build, fe, sha256, sha512
 from cometbft_tpu_torch.ops import ed25519 as ted
 from cometbft_tpu_torch.ops import rlc as trlc
 
@@ -41,7 +41,8 @@ L, P = ref.L, ref.P
 @pytest.fixture(scope="module")
 def harness(tmp_path_factory):
     d = tmp_path_factory.mktemp("kernels_host")
-    (d / "ed25519_consts.h").write_text(_build.consts_header())
+    for name, text in _build.generated_headers().items():
+        (d / name).write_text(text)
     exe = d / "torch_kernels_host"
     subprocess.run(
         ["g++", "-std=c++20", "-O1", "-g", "-fsanitize=address,undefined",
@@ -224,6 +225,63 @@ def test_sha512_scalar_matches_plain_and_hashlib(harness):
         want = int.from_bytes(hashlib.sha512(msgs[i, :k].tobytes()).digest(),
                               "little") % L
         assert int.from_bytes(got[i].tobytes(), "little") == want
+
+
+@pytest.mark.parametrize("words", [0, 1], ids=["bytes", "words"])
+def test_sha256_leaves_match_plain_and_hashlib(harness, words):
+    """Ragged one- and two-block leaves (55/56 and 119/120 bytes straddle
+    the block edges), active counts outside [0, NB] acting as the mask's
+    nearest end, at a lane count that leaves a partial thread block.  The
+    kernel's digest words are held against both public wrappers' plain
+    versions: ``sha256_blocks`` (bytes) and ``sha256_leaf_words``."""
+    rng = np.random.default_rng(39)
+    lens = np.array([0, 1, 55, 56, 63, 64, 100, 119] * 20 + [7, 9, 3],
+                    np.int64)
+    b, nb = len(lens), 2
+    msgs = np.zeros((b, 120), np.uint8)
+    for i, k in enumerate(lens):
+        msgs[i, :k] = np.frombuffer(rng.bytes(int(k)), np.uint8)
+    blocks, active = sha256.host_pad(msgs, lens, nb)
+    active[-3:] = [-1, 0, 5]
+    out = harness("sha256", [b, nb], {"blocks": blocks, "active": active},
+                  {"out": (np.uint32, (b, 8))})["out"]
+    got = sha256.words_to_bytes(out)
+    args = (torch.from_numpy(blocks.view(np.int32).copy()),
+            torch.from_numpy(active.copy()))
+    if words:
+        plain = sha256.sha256_leaf_words(*args).numpy()
+        assert np.array_equal(out.view(np.int32), plain)
+        plain = sha256.words_to_bytes(plain)
+    else:
+        plain = sha256.sha256_blocks(*args).numpy()
+    assert np.array_equal(got, plain)
+    empty = hashlib.sha256(b"").digest()
+    for i, k in enumerate(lens[:-3]):
+        assert got[i].tobytes() == hashlib.sha256(
+            msgs[i, :k].tobytes()).digest()
+    # active -1 and 0 leave the initial state; 5 runs both blocks
+    iv = sha256.words_to_bytes(sha256.IV)
+    assert got[-3].tobytes() == got[-2].tobytes() == iv.tobytes()
+    assert got[-1].tobytes() != empty
+
+
+@pytest.mark.parametrize("n", [2, 7, 257])
+def test_merkle_level_matches_plain_and_hashlib(harness, n):
+    rng = np.random.default_rng(40 + n)
+    children = np.frombuffer(rng.bytes(32 * n), np.uint8).reshape(n, 32)
+    words = sha256.bytes_to_words(children)
+    m = (n + 1) // 2
+    got = harness("merkle", [n], {"children": words},
+                  {"parents": (np.uint32, (m, 8))})["parents"]
+    plain = sha256.merkle_level(torch.from_numpy(words.view(np.int32)))
+    assert np.array_equal(got.view(np.int32), plain.numpy())
+    parents = sha256.words_to_bytes(got)
+    for i in range(n // 2):
+        assert parents[i].tobytes() == hashlib.sha256(
+            b"\x01" + children[2 * i].tobytes()
+            + children[2 * i + 1].tobytes()).digest()
+    if n & 1:
+        assert parents[-1].tobytes() == children[-1].tobytes()
 
 
 def test_verify_gather_matches_plain_and_oracle(harness):

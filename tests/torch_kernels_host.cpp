@@ -16,6 +16,8 @@
 //   verify B NB N       tab, ok_a, idx, rb, sb, blocks, active -> out
 //   rlc B NB N          tab, ok_a, idx, rb, sb, blocks, active, z -> out,
 //                       sums (the 96 window sums)
+//   sha256 B NB         blocks, active -> out (B x 8 digest words)
+//   merkle N            children (N x 8 words) -> parents
 #include <barrier>
 #include <cstdio>
 #include <cstdlib>
@@ -64,6 +66,7 @@ static void host_launch(dim3 grid, dim3 block, void (*kernel)(P...),
 #include "ed25519_rlc.cu"
 #include "ed25519_tables.cu"
 #include "ed25519_verify.cu"
+#include "sha256.cu"
 #include "sha512_scalar.cu"
 
 static std::string g_dir;
@@ -127,6 +130,24 @@ int main(int argc, char **argv) {
     check(sha512_scalar_launch(blocks.data(), active.data(), B, NB, h.data(),
                                nullptr));
     save("h", h);
+    return 0;
+  }
+  if (mode == "sha256") {
+    const int B = a0, NB = a1;
+    auto blocks = load<uint32_t>("blocks", (size_t)B * NB * 16);
+    auto active = load<int32_t>("active", B);
+    std::vector<uint32_t> out((size_t)B * 8);
+    check(sha256_leaves_launch(blocks.data(), active.data(), B, NB,
+                               out.data(), nullptr));
+    save("out", out);
+    return 0;
+  }
+  if (mode == "merkle") {
+    const int N = a0;
+    auto children = load<uint32_t>("children", (size_t)N * 8);
+    std::vector<uint32_t> parents((size_t)(N + 1) / 2 * 8);
+    check(merkle_level_launch(children.data(), N, parents.data(), nullptr));
+    save("parents", parents);
     return 0;
   }
   if (mode != "verify" && mode != "rlc") {
