@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port's commit- and light-header
-verification paths on one card.
+"""Smoke run of the PyTorch/CUDA port's commit-, light-header and BLS
+aggregate-commit verification paths on one card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each of which must pass or the script exits non-zero:
 
 1. environment: the card's name and power limit, torch.version.cuda, nvcc;
-2. build: compiles the kernels from the five sources in
+2. build: compiles the kernels from the six sources in
    ``cometbft_tpu_torch/csrc`` (one nvcc per source, all at once);
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the same inputs at the main path's shapes (valid, tampered and ZIP-215
@@ -36,14 +36,27 @@ Phases, each of which must pass or the script exits non-zero:
    on the kernel route; ``verify_adjacent``, ``verify_non_adjacent``,
    ``verify_sequential_batched``, ``VerifyCommit`` and the set's hash,
    a forged validator set (``ErrInvalidHeader``) and a tampered
-   signature (``ErrBatchItemInvalid`` with its item and height).
+   signature (``ErrBatchItemInvalid`` with its item and height);
+8. BLS, 10,000 validators, all BLS, every 50th absent: two linked
+   headers whose commits carry one aggregate signature each (one
+   signature under the signers' summed secret); ``VerifyCommitLight``
+   (cold, with the per-set table build, then 20 calls), ``VerifyCommit``
+   and ``verify_adjacent``, a wrong aggregate (``ErrInvalidSignature`` on
+   the first aggregate lane) and a stray bitmap bit
+   (``ErrInvalidCommit``); the host pairings timed alone; then the G1
+   fold ``aggregate_g1_masked`` against its plain version on the card
+   (``BLS_ROWS`` rows with empty, single, random, cancelling and doubled
+   masks, and the main path's table, also against the host library's
+   sum).  The host BLS library builds with ``g++`` first.
 
-Phases 4, 6 and 7 are the main path: the launch counters are zeroed
+Phases 4, 6, 7 and 8 are the main path: the launch counters are zeroed
 just before each and read just after; each phase's kernels must have
-launched and no plain version may have run.  Keys and signatures of the
-light phases are made in a process pool over ``os.cpu_count()`` workers
-with the port's own signer; the script prints the seconds of each
-fixture and phase.
+launched and no plain version may have run (phase 8 also no Ed25519
+kernel).  Keys and signatures of the light and BLS phases are made in a
+process pool over ``os.cpu_count()`` workers with the port's own
+signers; the script prints the seconds of each fixture and phase.  The
+fold's bound counts its integer instructions from its SASS
+(``scripts/blsg1_sass_count.py``).
 
 The line before the last is a JSON object with one entry per kernel
 (launches on the main path, max_abs_err, times, bound); the last line is
@@ -86,6 +99,7 @@ REPS = 20                        # timed calls per measurement
 SWEEP_LANES = (1, 77, 128, 129, 300, 640)   # lanes of the sweep's batches
 COMMIT_KERNELS = ("sha512_scalar", "ed25519_tables", "ed25519_verify_gather",
                   "ed25519_rlc_gather")
+BLS_KERNELS = ("aggregate_g1_masked",)
 MERKLE_LEAVES = 10_000           # leaves of the merkle kernel phase
 MERKLE_SWEEP = (1, 63, 64, 2047, 2048, 2049, 4097, 10_000)  # tree sizes
 LIGHT_VALS = 150                 # validators of the 150-validator light phase
@@ -93,6 +107,9 @@ LIGHT_HEADERS = 128              # its chain (BASELINE configs[2]: 1,000)
 BIG_VALS = 10_000                # validators of the 10k light phase
 TRUSTING_PERIOD_NS = 14 * 24 * 3600 * 10**9
 LIGHT_T0 = 1_700_000_000_000_000_000
+BLS_VALS = 10_000                # validators of the BLS phase, all BLS
+BLS_ABSENT_EVERY = 50            # every 50th lane absent: 9,800 signers
+BLS_ROWS = (1, 3, 64, 1000)      # table rows of the G1 fold's checks
 
 
 def _run(cmd):
@@ -251,6 +268,18 @@ def _sign_all(task):
     raw, msgs = task
     priv = Ed25519PrivKey(raw)
     return [priv.sign(m) for m in msgs]
+
+
+def _bls_keys(secrets):
+    """Pool worker: (secret scalar, compressed public key) per secret, as
+    ``Bls12381PrivKey.from_secret`` derives them."""
+    from cometbft_tpu_torch.crypto import bls12381 as B
+
+    out = []
+    for s in secrets:
+        sk = B.keygen(s.ljust(48, b"\x9b"))
+        out.append((sk, B.sk_to_pk(sk)))
+    return out
 
 
 def pool_keys(pool, n: int) -> list:
@@ -722,6 +751,23 @@ def phase_throughput(sets, dev, n_lanes, reps):
         tab, ok, idx, rb, sb, blocks, active, z), reps, warm=1)
     lane_ms = time_cuda(lambda: ed.verify_padded_gather(
         tab, ok, idx, rb, sb, blocks, active), reps, warm=1)
+    from cometbft_tpu_torch.ops import sha512
+
+    at_10k = {
+        "sha512_scalar": (lambda: sha512.sha512_scalar(blocks, active),
+                          "sha512_scalar_kernel"),
+        "ed25519_tables": (lambda: ed.prepare_pubkey_tables(pub_t),
+                           "ed25519_tables_kernel"),
+        "ed25519_verify_gather": (lambda: ed.verify_padded_gather(
+            tab, ok, idx, rb, sb, blocks, active), "ed25519_verify_gather"),
+        "ed25519_rlc_gather": (lambda: rlc.verify_batch_rlc_gather(
+            tab, ok, idx, rb, sb, blocks, active, z), "rlc_"),
+    }
+    ms_10k, device_10k = {}, {}
+    for k, (fn, prefix) in at_10k.items():
+        ms_10k[k] = time_cuda(fn, reps, warm=1)
+        device_10k[k] = _kernel_ms(profile_call(fn, reps)["kernels_ms"],
+                                   prefix)
     wall = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -736,7 +782,8 @@ def phase_throughput(sets, dev, n_lanes, reps):
             "rlc_sig_per_s": n_lanes / rlc_ms * 1e3,
             "per_lane_sig_per_s": n_lanes / lane_ms * 1e3,
             "dense_sig_per_s": n_lanes / statistics.median(wall) * 1e3,
-            "nb": int(blocks.shape[1])}
+            "nb": int(blocks.shape[1]), "ms_10k": ms_10k,
+            "device_ms_10k": device_10k}
 
 
 def _kernel_ms(kernels_ms: dict, prefix: str):
@@ -1067,6 +1114,214 @@ def phase_light10k(pool, keys, dev, reps):
         "profile_valset_hash": profile_call(calls["ValidatorSet.hash"])}
 
 
+def bls_chain(pool, dev):
+    """Two linked headers signed by BLS_VALS BLS validators (power 10),
+    every BLS_ABSENT_EVERY-th lane absent and the others folded into the
+    aggregate.  A same-message aggregate is one signature under the sum
+    of the signers' secrets mod r (byte-identical to aggregating their
+    signatures, ``tests/test_torch_bls.py``).  Returns (validator set,
+    light blocks, signer lanes)."""
+    from cometbft_tpu_torch.crypto import bls12381 as B
+    from cometbft_tpu_torch.light import LightBlock
+    from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.commit import (BLOCK_ID_FLAG_AGGREGATE,
+                                                 Commit, CommitSig,
+                                                 signer_bitmap)
+    from cometbft_tpu_torch.types.header import Header
+    from cometbft_tpu_torch.types.validator_set import (Validator,
+                                                        ValidatorSet)
+
+    secrets = [b"chip-smoke-bls-%d" % i for i in range(BLS_VALS)]
+    chunks = [secrets[i:i + 250] for i in range(0, BLS_VALS, 250)]
+    keys = [k for part in pool.map(_bls_keys, chunks) for k in part]
+    sk_of = {}
+    validators = []
+    for sk, pk in keys:
+        pub = B.Bls12381PubKey(pk)
+        sk_of[pub.address()] = sk
+        validators.append(Validator(pub, 10))
+    vals = ValidatorSet(validators)
+    vh = vals.hash(dev)
+    signers = [i for i in range(BLS_VALS) if i % BLS_ABSENT_EVERY]
+    total = sum(sk_of[vals.validators[i].address] for i in signers) % B.R
+    blocks, prev = [], BlockID()
+    for h in (1, 2):
+        header = Header(chain_id=CHAIN_ID, height=h,
+                        time_ns=LIGHT_T0 + h * 10**9, last_block_id=prev,
+                        validators_hash=vh, next_validators_hash=vh,
+                        proposer_address=vals.validators[0].address)
+        bid = BlockID(header.hash(), PartSetHeader(1, b"\x5a" * 32))
+        lanes = [CommitSig() for _ in range(BLS_VALS)]
+        for i in signers:
+            lanes[i] = CommitSig(BLOCK_ID_FLAG_AGGREGATE,
+                                 vals.validators[i].address,
+                                 header.time_ns + 1 + i % 997, b"")
+        commit = Commit(h, 0, bid, lanes)
+        commit.agg_signature = B.sign(total, commit.aggregate_sign_bytes(
+            CHAIN_ID))
+        commit.agg_signers = signer_bitmap(signers, BLS_VALS)
+        blocks.append(LightBlock(header, commit, vals))
+        prev = bid
+    return vals, blocks, signers
+
+
+def phase_bls_kernel(vals, signers, dev, reps, rec):
+    """The G1 fold against its plain version on the card, exactly on the
+    (3, 32) limbs: BLS_ROWS rows with empty, single, random, cancelling
+    (a point and its negation) and doubled (one point in two rows)
+    masks, then the main path's table (BLS_VALS rows, BLS_ABSENT_EVERY-th
+    absent), also against the host library's sum of the selected
+    points.  Fills ``rec["aggregate_g1_masked"]``."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.crypto import bls12381 as B
+    from cometbft_tpu_torch.crypto import blsagg
+    from cometbft_tpu_torch.ops import blsg1 as G
+
+    rng = np.random.default_rng(2029)
+    tbl = blsagg.valset_table(vals)
+    pts = [tbl.affine[i] for i in range(BLS_VALS)]
+
+    def words_of(rows):
+        limbs = np.stack([G.limbs_from_xy(p) for p in rows])
+        return G.words_from_limbs(torch.from_numpy(limbs)).to(dev)
+
+    mism, err, cases = 0, 0, {}
+
+    def check(name, words, mask, want_inf=None):
+        nonlocal mism, err
+        m = torch.from_numpy(mask.astype(np.int32)).to(dev)
+        k = G.g1_masked_sum(words, m)
+        p = G._masked_sum_plain(words, m)
+        bad = int(not torch.equal(k, p))
+        err = max(err, int((k.long() - p.long()).abs().max()))
+        xy = G.xy_from_projective(k.cpu().numpy())
+        if want_inf is not None:
+            bad += int((xy is None) != want_inf)
+        mism += bad
+        cases[name] = bad
+        return xy, m
+
+    for r in BLS_ROWS:
+        rows = list(pts[:r])
+        if r >= 3:
+            rows[r - 2], rows[r - 1] = B.negate_affine(rows[0]), rows[1]
+        words = words_of(rows)
+        single = np.zeros(r, bool)
+        single[r // 2] = True
+        check(f"{r} empty", words, np.zeros(r, bool), True)
+        check(f"{r} single", words, single, False)
+        check(f"{r} random", words, rng.random(r) < 0.5)
+        if r >= 3:
+            cancel = np.zeros(r, bool)
+            cancel[[0, r - 2]] = True
+            check(f"{r} cancelling", words, cancel, True)
+            double = np.zeros(r, bool)
+            double[[1, r - 1]] = True
+            check(f"{r} doubled", words, double, False)
+    sel = np.zeros(BLS_VALS, bool)
+    sel[signers] = True
+    words = words_of(pts)
+    xy, m = check(f"{BLS_VALS} main", words, sel, False)
+    if xy != B.aggregate_affine([pts[i] for i in signers]):
+        mism += 1
+        cases[f"{BLS_VALS} main vs host"] = 1
+    prof = profile_call(lambda: G.g1_masked_sum(words, m), reps)
+    rec["aggregate_g1_masked"].update(
+        max_abs_err=err, mismatches=mism, sweep_mismatches=0, cases=cases,
+        ms=time_cuda(lambda: G.g1_masked_sum(words, m), reps),
+        device_ms=_kernel_ms(prof["kernels_ms"], "g1_"),
+        device_kernels_ms=prof["kernels_ms"],
+        plain_ms=time_host(lambda: G._masked_sum_plain(words, m)),
+        shape=f"R={BLS_VALS} (padded to "
+              f"{1 << (BLS_VALS - 1).bit_length()}), {len(signers)} "
+              "selected",
+        bound_inputs=(BLS_VALS, len(signers)))
+
+
+def phase_bls(pool, dev, reps, rec):
+    """BLS aggregate commits at BLS_VALS validators: the main path once
+    (cold: the per-set table is built in the first call), with a wrong
+    aggregate and a stray bitmap bit, then p50s, the host pairings' share
+    and the fold's checks against its plain version."""
+    import copy as _copy
+
+    from cometbft_tpu_torch.crypto import bls12381 as B
+    from cometbft_tpu_torch.crypto import blsagg
+    from cometbft_tpu_torch.light import verify_adjacent
+    from cometbft_tpu_torch.types import validation as V
+
+    t0 = time.perf_counter()
+    vals, (h1, h2), signers = bls_chain(pool, dev)
+    fixture_s = time.perf_counter() - t0
+    now = h2.header.time_ns + 10**9
+    c2 = h2.commit
+    wrong = _copy.deepcopy(c2)
+    wrong.agg_signature = h1.commit.agg_signature
+    stray = _copy.deepcopy(c2)
+    bm = bytearray(c2.agg_signers)
+    bm[0] |= 1                        # lane 0 is absent
+    stray.agg_signers = bytes(bm)
+    lanes0 = c2.aggregate_lanes()[0]
+    calls = {
+        "VerifyCommitLight": lambda: V.VerifyCommitLight(
+            CHAIN_ID, vals, c2.block_id, c2.height, c2, device=dev),
+        "VerifyCommit": lambda: V.VerifyCommit(
+            CHAIN_ID, vals, c2.block_id, c2.height, c2, device=dev),
+        "verify_adjacent": lambda: verify_adjacent(
+            CHAIN_ID, h1, h2, TRUSTING_PERIOD_NS, now, device=dev),
+    }
+    cold = {}
+
+    def main_path():
+        from cometbft_tpu_torch.ops import _build
+
+        per_call = {}
+        for name, fn in calls.items():
+            before = dict(_build.LAUNCHES)
+            t = time.perf_counter()
+            fn()
+            cold[name] = (time.perf_counter() - t) * 1e3
+            per_call[name] = {k: v - before.get(k, 0)
+                              for k, v in _build.LAUNCHES.items()
+                              if v - before.get(k, 0)}
+        _expect_raise(lambda: V.VerifyCommitLight(
+            CHAIN_ID, vals, wrong.block_id, wrong.height, wrong,
+            device=dev), V.ErrInvalidSignature,
+            lambda e: e.idx == lanes0)
+        _expect_raise(lambda: V.VerifyCommitLight(
+            CHAIN_ID, vals, stray.block_id, stray.height, stray,
+            device=dev), V.ErrInvalidCommit)
+        return per_call
+
+    t0 = time.perf_counter()
+    launches, per_call = _path_launches(main_path, (
+        "aggregate_g1_masked", "sha256_leaves", "merkle_level"))
+    first_s = time.perf_counter() - t0
+    ed = {k: launches[k] for k in COMMIT_KERNELS if launches.get(k)}
+    if ed:
+        raise AssertionError(f"the all-BLS path launched Ed25519 kernels {ed}")
+    if per_call["VerifyCommitLight"] != {"aggregate_g1_masked": 1}:
+        raise AssertionError("VerifyCommitLight launched "
+                             f"{per_call['VerifyCommitLight']}")
+    wall = {name: time_host_spread(fn, reps) for name, fn in calls.items()}
+    tbl = blsagg.valset_table(vals)
+    agg_pk = B.aggregate_affine([tbl.affine[i] for i in signers])
+    msg = c2.aggregate_sign_bytes(CHAIN_ID)
+    pair = time_host_spread(
+        lambda: B.verify_aggregate_affine(agg_pk, msg, c2.agg_signature),
+        reps)
+    prof = profile_call(calls["VerifyCommitLight"], max(1, reps // 4))
+    phase_bls_kernel(vals, signers, dev, reps, rec)
+    return launches, {
+        "fixture_s": fixture_s, "first_path_s": first_s,
+        "cold_ms": cold, "per_call_launches": per_call, "wall": wall,
+        "pairings": pair, "pairing_share": pair["p50_ms"]
+        / wall["VerifyCommitLight"]["p50_ms"],
+        "profile_verify_commit_light": prof, "signers": len(signers)}
+
+
 # ------------------------------------------------------------------- bounds
 
 def op_counts():
@@ -1154,6 +1409,36 @@ def merkle_bounds(rec, rate_ops):
     return out
 
 
+def blsg1_ops():
+    """Integer ALU instructions of one point addition and of one
+    Montgomery product of the built fold, from its SASS
+    (``scripts/blsg1_sass_count.py``)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, os.path.join(here, "scripts", "blsg1_sass_count.py")],
+        capture_output=True, text=True, timeout=300, cwd=here)
+    if out.returncode != 0:
+        raise RuntimeError(f"blsg1_sass_count failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def bls_bound(rec, sass, rate_ops):
+    """Least time of the fold at the main path's shape: every level's
+    additions (n2 - 1 in all) and the conversions (two per selected row
+    in, three out) at their SASS integer counts over the integer rate,
+    against the table, mask and output bytes over the HBM rate."""
+    r, selected = rec["aggregate_g1_masked"]["bound_inputs"]
+    n2 = 1 << max(0, (r - 1).bit_length())
+    ops = ((n2 - 1) * sass["int_alu_per_add"]
+           + (2 * selected + 3) * sass["int_alu_per_mul"])
+    nbytes = r * 2 * 12 * 4 + r * 4 + 3 * 32 * 4
+    t_ops = ops / rate_ops * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"aggregate_g1_masked": (
+        max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+        ops, nbytes)}
+
+
 # --------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -1191,7 +1476,8 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({_build.build_dir()})")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "==" in line:
+        if ("registers" in line or "spill" in line or "==" in line
+                or "entry function" in line):
             print("  " + line.strip())
 
     t0 = time.perf_counter()
@@ -1210,7 +1496,9 @@ def main(argv=None) -> int:
                "ed25519_verify_gather": ("csrc/ed25519_verify.cu",
                                          "cometbft_tpu/ops/ed25519.py:170"),
                "ed25519_rlc_gather": ("csrc/ed25519_rlc.cu",
-                                      "cometbft_tpu/ops/rlc.py:221")}
+                                      "cometbft_tpu/ops/rlc.py:221"),
+               "aggregate_g1_masked": ("csrc/blsg1.cu",
+                                       "cometbft_tpu/ops/blsg1.py:169")}
     for k, (src, rep) in sources.items():
         rec[k]["source"] = "cometbft_tpu_torch/" + src
         rec[k]["replaces"] = rep
@@ -1233,8 +1521,9 @@ def main(argv=None) -> int:
     print("  merkle_level per level of a 10,000-leaf tree (ms): "
           + ", ".join(f"{w}: {t:.4f}" for w, t in mk["level_ms"].items()))
     print(f"  trees, wall p50 ms: {mk['tree_ms']}  [{card}]")
-    bad = {k: r["mismatches"] for k, r in rec.items() if r["mismatches"]}
-    for k, r in rec.items():
+    early = {k: r for k, r in rec.items() if k not in BLS_KERNELS}
+    bad = {k: r["mismatches"] for k, r in early.items() if r["mismatches"]}
+    for k, r in early.items():
         print(f"kernel {k} [{r['shape']}]: mismatches {r['mismatches']}, "
               f"max_abs_err {r['max_abs_err']}, {r['ms']:.3f} ms "
               f"(plain {r['plain_ms']:.1f} ms)")
@@ -1258,6 +1547,9 @@ def main(argv=None) -> int:
           f"{tp['dense_sig_per_s']:.0f} sig/s "
           f"(p50 {tp['dense_wall_p50_ms']:.1f} ms), table build "
           f"{tp['tables_ms']:.2f} ms")
+    for k in COMMIT_KERNELS:
+        print(f"  {k} at {tp['lanes']} lanes: {tp['ms_10k'][k]:.4f} ms, "
+              f"device {tp['device_ms_10k'][k]} ms  [{card}]")
     print(f"phases 4-5: {time.perf_counter() - t0:.1f} s")
 
     ctx = multiprocessing.get_context("spawn")
@@ -1277,14 +1569,43 @@ def main(argv=None) -> int:
               f"{_spread(l150['wall'])}  [{card}]")
         t0 = time.perf_counter()
         l10k_launches, l10k = phase_light10k(pool, keys, dev, REPS)
-    print(f"light {BIG_VALS}: fixture {l10k['fixture_s']:.1f} s, phase "
-          f"{time.perf_counter() - t0:.1f} s; launches {l10k_launches}")
+        print(f"light {BIG_VALS}: fixture {l10k['fixture_s']:.1f} s, phase "
+              f"{time.perf_counter() - t0:.1f} s; launches {l10k_launches}")
+        t0 = time.perf_counter()
+        from cometbft_tpu_torch import native
+        from cometbft_tpu_torch.crypto import bls12381
+
+        bls12381.sk_to_pk(1)              # build and self-test the library
+        print(f"host library: bls12381 built in "
+              f"{native.BUILD_SECONDS['bls12381']:.1f} s with g++")
+        bls_launches, bls = phase_bls(pool, dev, REPS, rec)
+    print(f"bls {BLS_VALS}: fixture {bls['fixture_s']:.1f} s, phase "
+          f"{time.perf_counter() - t0:.1f} s; {bls['signers']} signers; "
+          f"launches {bls_launches}")
+    for k, v in bls["per_call_launches"].items():
+        print(f"launches {k}@bls{BLS_VALS}: {v}")
+    print(f"cold (first call, table built) ms: {bls['cold_ms']}  [{card}]")
+    for k, v in bls["wall"].items():
+        print(f"{k}@bls{BLS_VALS}: {_spread(v)}  [{card}]")
+    print(f"two pairings (verify_aggregate_affine): {_spread(bls['pairings'])};"
+          f" {100 * bls['pairing_share']:.1f}% of the VerifyCommitLight p50"
+          f"  [{card}]")
+    k9 = rec["aggregate_g1_masked"]
+    print(f"kernel aggregate_g1_masked [{k9['shape']}]: mismatches "
+          f"{k9['mismatches']} {k9['cases']}, max_abs_err "
+          f"{k9['max_abs_err']}, {k9['ms']:.4f} ms, device {k9['device_ms']} "
+          f"ms {k9['device_kernels_ms']}, plain {k9['plain_ms']:.1f} ms  "
+          f"[{card}]")
+    if k9["mismatches"]:
+        raise AssertionError(f"G1 fold mismatches: {k9['cases']}")
     for k, v in l10k["per_call_launches"].items():
         print(f"launches {k}@{BIG_VALS}: {v}")
     for k, v in l10k["wall"].items():
         print(f"{k}@{BIG_VALS}: {_spread(v)}  [{card}]")
     print(f"host@{BIG_VALS} (p50 ms): {l10k['host_ms']}  [{card}]")
-    for name, prof in (("verify_sequential_batched@150", l150["profile"]),
+    for name, prof in (("VerifyCommitLight@bls10k",
+                        bls["profile_verify_commit_light"]),
+                       ("verify_sequential_batched@150", l150["profile"]),
                        ("verify_adjacent@10k",
                         l10k["profile_verify_adjacent"]),
                        ("VerifyCommit@10k", l10k["profile_verify_commit"]),
@@ -1293,7 +1614,7 @@ def main(argv=None) -> int:
         print(f"profile {name}: wall {prof['wall_ms']:.2f} ms, device "
               f"{prof['device_ms']} ms, kernels {prof['kernels_ms']}")
     paths = {"commit": launches, f"light{LIGHT_VALS}": l150_launches,
-             f"light{BIG_VALS}": l10k_launches}
+             f"light{BIG_VALS}": l10k_launches, f"bls{BLS_VALS}": bls_launches}
 
     c = op_counts()
     print(f"field multiplications per group op: {c}")
@@ -1301,6 +1622,14 @@ def main(argv=None) -> int:
                 distinct_rows={"verify": 101, "rlc": 150},
                 rate_ops=rate_ops)
     bd.update(merkle_bounds(rec, rate_ops))
+    bd_10k = bounds(c, b_verify=LANES, b_rlc=LANES, n_tab=LANES, nb=tp["nb"],
+                    distinct_rows={"verify": LANES, "rlc": LANES},
+                    rate_ops=rate_ops)
+    sass = blsg1_ops()
+    print(f"G1 fold SASS: {sass['int_alu_per_add']} integer instructions "
+          f"per addition, {sass['int_alu_per_mul']} per product, loops "
+          f"{sass['loops']}")
+    bd.update(bls_bound(rec, sass, rate_ops))
     kernels = []
     for k, r in rec.items():
         bound_ms, by, ops, nbytes = bd[k]
@@ -1315,7 +1644,11 @@ def main(argv=None) -> int:
             "sweep_mismatches": r["sweep_mismatches"],
             "ms": r["ms"], "device_ms": r.get("device_ms"),
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": None, "shape": r["shape"]})
+            "bound_by": by, "library_ms": None, "shape": r["shape"],
+            **({"ms_10k": tp["ms_10k"][k],
+                "device_ms_10k": tp["device_ms_10k"][k],
+                "bound_ms_10k": bd_10k[k][0]}
+               if k in COMMIT_KERNELS else {})})
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)),
                     exist_ok=True)
@@ -1323,7 +1656,8 @@ def main(argv=None) -> int:
             json.dump({"card": card, "kernels": kernels,
                        "per_call": per_call, "p50_ms": lat,
                        "throughput": tp, "op_counts": c, "merkle": mk,
-                       "light150": l150, "light10k": l10k}, f, indent=1,
+                       "light150": l150, "light10k": l10k, "bls": bls,
+                       "g1_sass": sass}, f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the commit-verification path of ``cometbft_tpu``.
+"""PyTorch/CUDA port of the commit-, light-header and BLS aggregate-commit
+verification paths of ``cometbft_tpu``.
 
 The package mirrors the module names of the JAX package, so each module's
 counterpart is found under the same relative path.  It imports ``torch``,

@@ -7,9 +7,12 @@ validator set, and a node's cached per-valset tables move across:
   prepare_pubkey_tables`` output (four ``(16, 20, N)`` int32 arrays of
   13-bit limbs, limb-major, plus the ``(N,)`` ok mask) and returns the
   port's ``(N, 16, 4, 10)`` table in canonical limbs;
-- :func:`validator_set_from_arrays` mirrors ``ValidatorSet.dense()``;
+- :func:`validator_set_from_arrays` mirrors ``ValidatorSet.dense()``,
+  or takes public keys of mixed types (``key_types``: 32-byte Ed25519
+  and 48-byte BLS12-381 keys);
 - :func:`commit_from_arrays` mirrors ``Commit.dense_columns()`` plus the
-  header fields and the validator addresses;
+  header fields, the validator addresses and, for an aggregate commit,
+  its aggregate signature and signer bitmap;
 - :func:`header_from_fields` builds a ``Header`` from a header's field
   values, and :func:`light_block_from_arrays` a ``LightBlock`` from
   those, a validator set's arrays and a commit's arrays, so a chain made
@@ -23,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .crypto.bls12381 import Bls12381PubKey
 from .crypto.keys import Ed25519PubKey
 from .light.types import LightBlock
 from .ops import fe
@@ -55,24 +59,37 @@ def tables_from_jax(ypx, ymx, z2, t2d, ok, device="cpu"):
     return tab, torch.from_numpy(np.asarray(ok, bool).copy()).to(device)
 
 
-def validator_set_from_arrays(pubs, powers) -> ValidatorSet:
-    """pubs (N, 32) uint8 and powers (N,) int64 -> a ValidatorSet (sorted
-    by address, so rows given in the JAX set's order keep their index)."""
-    pubs = np.asarray(pubs, np.uint8)
-    return ValidatorSet([Validator(Ed25519PubKey(pubs[i].tobytes()),
-                                   int(powers[i]))
-                         for i in range(pubs.shape[0])])
+_KEY_CLASSES = {"ed25519": Ed25519PubKey, "bls12_381": Bls12381PubKey}
+
+
+def validator_set_from_arrays(pubs, powers, key_types=None) -> ValidatorSet:
+    """pubs (N, 32) uint8 (or N byte strings) and powers (N,) int64 -> a
+    ValidatorSet (sorted by address, so rows given in the JAX set's order
+    keep their index).  ``key_types``, N strings ("ed25519" or
+    "bls12_381"), gives each key's type; without it every key is
+    Ed25519."""
+    raw = [bytes(p) if isinstance(p, (bytes, bytearray))
+           else np.asarray(p, np.uint8).tobytes() for p in pubs]
+    kinds = key_types if key_types is not None else ["ed25519"] * len(raw)
+    if len(kinds) != len(raw) or len(powers) != len(raw):
+        raise ValueError("pubs, powers and key_types differ in length")
+    return ValidatorSet([Validator(_KEY_CLASSES[kt](r), int(pw))
+                         for r, kt, pw in zip(raw, kinds, powers)])
 
 
 def commit_from_arrays(height: int, round_: int, block_hash: bytes,
                        part_set_total: int, part_set_hash: bytes, flags,
-                       timestamps_ns, addresses, sigs,
-                       sig_lens=None) -> Commit:
+                       timestamps_ns, addresses, sigs, sig_lens=None,
+                       agg_signature: bytes = b"",
+                       agg_signers: bytes = b"") -> Commit:
     """Header fields plus per-lane columns -> a Commit.  ``flags`` (N,)
     uint8, ``timestamps_ns`` (N,) int64, ``addresses`` N 20-byte strings
-    (b"" for absent lanes), ``sigs`` (N, 64) uint8; ``sig_lens`` (N,)
+    (b"" for absent lanes), ``sigs`` (N, W) uint8 with W >= every
+    signature's length (64 for Ed25519, 96 for BLS); ``sig_lens`` (N,)
     optional signature lengths (default 64 on non-absent lanes, 0 on
-    absent ones)."""
+    absent ones).  An aggregate commit also gives its 96-byte
+    ``agg_signature`` and ``agg_signers`` bitmap; its AGGREGATE-flag lanes
+    have length 0."""
     n = len(flags)
     lanes = []
     for i in range(n):
@@ -83,7 +100,8 @@ def commit_from_arrays(height: int, round_: int, block_hash: bytes,
                                np.asarray(sigs[i], np.uint8).tobytes()[:ln]))
     bid = BlockID(bytes(block_hash),
                   PartSetHeader(int(part_set_total), bytes(part_set_hash)))
-    return Commit(int(height), int(round_), bid, lanes)
+    return Commit(int(height), int(round_), bid, lanes, bytes(agg_signature),
+                  bytes(agg_signers))
 
 
 def header_from_fields(last_block_id, **fields) -> Header:
@@ -96,12 +114,13 @@ def header_from_fields(last_block_id, **fields) -> Header:
         int(total), bytes(psh))), **fields)
 
 
-def light_block_from_arrays(header: dict, pubs, powers,
-                            commit: dict) -> LightBlock:
+def light_block_from_arrays(header: dict, pubs, powers, commit: dict,
+                            key_types=None) -> LightBlock:
     """A ``LightBlock`` from ``header`` (keyword arguments of
-    :func:`header_from_fields`), the validator set's ``pubs`` and
-    ``powers`` (:func:`validator_set_from_arrays`) and ``commit``
+    :func:`header_from_fields`), the validator set's ``pubs``, ``powers``
+    and ``key_types`` (:func:`validator_set_from_arrays`) and ``commit``
     (keyword arguments of :func:`commit_from_arrays`)."""
     return LightBlock(header=header_from_fields(**header),
                       commit=commit_from_arrays(**commit),
-                      validators=validator_set_from_arrays(pubs, powers))
+                      validators=validator_set_from_arrays(pubs, powers,
+                                                           key_types))

@@ -148,10 +148,12 @@ def verify_dense(pubs, sigs, msgs, lens, device=None, valset_pubs=None,
 
 
 class BatchVerifier:
-    """Accumulate (pubkey, msg, sig) triples and verify them at once on
-    the device (the reference's ``crypto.BatchVerifier``).  ``verify()``
-    returns ``(all_ok, per_sig)``; an empty batch is not ok.  A signature
-    that is not 64 bytes is rejected without a launch."""
+    """Accumulate (pubkey, msg, sig) triples and verify them at once (the
+    reference's ``crypto.BatchVerifier``): Ed25519 lanes in one dense
+    device call, BLS12-381 lanes one by one on the host, as the JAX
+    package's verifier routes them.  ``verify()`` returns ``(all_ok,
+    per_sig)``; an empty batch is not ok.  An Ed25519 signature that is
+    not 64 bytes is rejected without a launch."""
 
     def __init__(self, device=None):
         self._device = resolve_device(device)
@@ -170,7 +172,11 @@ class BatchVerifier:
         if n == 0:
             return False, []
         oks = [False] * n
-        ed = [i for i, (_, _, s) in enumerate(self._items) if len(s) == 64]
+        for i, (pub, m, s) in enumerate(self._items):
+            if pub.type() == "bls12_381":
+                oks[i] = pub.verify_signature(m, s)
+        ed = [i for i, (p, _, s) in enumerate(self._items)
+              if p.type() == "ed25519" and len(s) == 64]
         if ed:
             items = [self._items[i] for i in ed]
             maxlen = max(max(len(m) for _, m, _ in items), 1)

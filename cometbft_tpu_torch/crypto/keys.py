@@ -1,7 +1,8 @@
-"""Ed25519 keys and addresses for the port.
+"""Ed25519 keys, key type names and addresses for the port.
 
-Counterpart of ``cometbft_tpu/crypto/keys.py`` for the key type the
-commit-verification slice carries: 32-byte public keys, 64-byte private
+Counterpart of ``cometbft_tpu/crypto/keys.py`` for the two key types the
+port carries: ``ed25519`` here and ``bls12_381`` in
+``crypto/bls12381.py``.  Ed25519: 32-byte public keys, 64-byte private
 keys (seed || pubkey), addresses = first 20 bytes of SHA-256 of the
 pubkey, ZIP-215 single-signature verification.  Signing, key derivation
 and single verification use the port's pure-Python oracle
@@ -17,10 +18,11 @@ import os
 
 from . import _ed25519_py as _ref
 
-__all__ = ["ED25519_KEY_TYPE", "ADDRESS_SIZE", "address_hash",
-           "Ed25519PubKey", "Ed25519PrivKey"]
+__all__ = ["ED25519_KEY_TYPE", "BLS12381_KEY_TYPE", "ADDRESS_SIZE",
+           "address_hash", "Ed25519PubKey", "Ed25519PrivKey"]
 
 ED25519_KEY_TYPE = "ed25519"
+BLS12381_KEY_TYPE = "bls12_381"
 ADDRESS_SIZE = 20
 
 

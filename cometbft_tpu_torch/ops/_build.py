@@ -11,9 +11,10 @@ loads.
 
 ``ed25519_consts.h`` is generated here from the port's own oracle
 (``crypto/_ed25519_py.py``) and from ``ops/fe.py``, ``ops/group.py``,
-``ops/ed25519.py``, ``ops/scalar.py`` and ``ops/sha512.py``, and
-``sha256_consts.h`` from ``ops/sha256.py``, so the kernels and the plain
-versions share one source for every constant.
+``ops/ed25519.py``, ``ops/scalar.py`` and ``ops/sha512.py``,
+``sha256_consts.h`` from ``ops/sha256.py`` and ``blsg1_consts.h`` from
+``ops/blsg1.py``, so the kernels and the plain versions share one source
+for every constant.
 
 Each wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel and nowhere else, and one to ``PLAIN_CALLS[name]`` where it runs
@@ -34,7 +35,8 @@ from pathlib import Path
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_launches", "load", "check",
            "check_arg", "check_index", "stream_of", "build_dir",
-           "consts_header", "sha256_consts_header", "generated_headers",
+           "consts_header", "sha256_consts_header", "blsg1_consts_header",
+           "generated_headers",
            "build_log"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -57,6 +59,8 @@ KERNELS = {
     "sha256_leaves": ("sha256.cu", "sha256_leaves_launch",
                       [_P, _P, _I, _I, _P, _P]),
     "merkle_level": ("sha256.cu", "merkle_level_launch", [_P, _I, _P, _P]),
+    "aggregate_g1_masked": ("blsg1.cu", "aggregate_g1_masked_launch",
+                            [_P, _P, _I, _I, _P, _P, _P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -119,10 +123,32 @@ def sha256_consts_header() -> str:
     ]) + "\n"
 
 
+def blsg1_consts_header() -> str:
+    """The generated ``blsg1_consts.h``: p, -p^-1 mod 2^32 and the
+    Montgomery constants of the plain versions (``ops/blsg1.py``), as
+    little-endian 32-bit words."""
+    from . import blsg1
+
+    def words(v: int) -> str:
+        return _c_array([(v >> (32 * i)) & 0xFFFFFFFF
+                         for i in range(blsg1.NWORD)], "{}u")
+
+    return "\n".join([
+        "// Generated by cometbft_tpu_torch/ops/_build.py; do not edit.",
+        "#pragma once",
+        f"__constant__ uint32_t c_bls_p[12] = {words(blsg1.P_INT)};",
+        f"__constant__ uint32_t c_bls_r2[12] = {words(blsg1.R2_INT)};",
+        f"__constant__ uint32_t c_bls_one_m[12] = {words(blsg1.ONE_M_INT)};",
+        f"__constant__ uint32_t c_bls_b3_m[12] = {words(blsg1.B3_M_INT)};",
+        f"__constant__ uint32_t c_bls_n0 = {blsg1.N0_WORD}u;",
+    ]) + "\n"
+
+
 def generated_headers() -> dict:
     """Header name -> text of every generated header the sources include."""
     return {"ed25519_consts.h": consts_header(),
-            "sha256_consts.h": sha256_consts_header()}
+            "sha256_consts.h": sha256_consts_header(),
+            "blsg1_consts.h": blsg1_consts_header()}
 
 
 def _nvcc() -> str:

@@ -19,14 +19,22 @@ same lane selection, tally, early-exit rules and error classes:
 Signatures are verified first, then the tally is checked, so a bad
 signature raises ``ErrInvalidSignature`` with the first bad lane (in
 commit order) before any power error.  Lanes whose signature is not 64
-bytes count as bad lanes.  Sign bytes are built in Python per lane and
-every selected lane goes to one dense device call
+bytes count as bad lanes.  On an all-Ed25519 set, sign bytes are built in
+Python per lane and every selected lane goes to one dense device call
 (``crypto/batch.verify_dense``) through the per-valset table cache.
 
-Not in this slice: BLS aggregate lanes (a commit carrying them raises
-``ErrInvalidCommit``), the verified-signature cache of
-``crypto/scheduler`` and blocksync's patient device wait.  ``device`` is
-``None`` (CUDA) or ``"cpu"``.
+A commit carrying a BLS aggregate (``types/commit.py``) has its whole
+folded cohort verified up front (``_verify_aggregate``: the G1 fold on
+the device, two pairings on the host); ``VerifyCommitLight`` returns as
+soon as that proven power clears 2/3.  Such commits, and every set with a
+BLS member, then go through the lane loop of the JAX package: aggregate
+lanes are tallied, not verified again; Ed25519 lanes go to one device
+batch (``crypto/batch.BatchVerifier``); individual BLS lanes (NIL votes,
+cohorts below 2) are verified one by one by the host library.
+
+Not in this slice: the verified-signature cache of ``crypto/scheduler``
+and blocksync's patient device wait.  ``device`` is ``None`` (CUDA) or
+``"cpu"``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from fractions import Fraction
 import numpy as np
 
 from ..crypto import batch as cryptobatch
+from ..crypto import blsagg as _blsagg
 from ..device import resolve_device
 from .commit import BLOCK_ID_FLAG_ABSENT, BLOCK_ID_FLAG_COMMIT, Commit
 from .validator_set import ValidatorSet
@@ -78,10 +87,157 @@ def _check_commit_basics(vals: ValidatorSet, commit: Commit, height: int,
         raise ErrInvalidCommit("invalid commit: wrong block ID")
 
 
+def _verify_aggregate(chain_id: str, vals: ValidatorSet, commit: Commit, *,
+                      lookup_by_address: bool, device) -> tuple:
+    """Verify the commit's BLS aggregate lane block up front
+    (``cometbft_tpu/types/validation.py:79``).  Returns ``(proven
+    aggregate lane indices, pre-tallied power)``: empty and 0 without an
+    aggregate, or on the trusting path when a signer does not resolve to
+    a BLS validator of the trusted set (the aggregate then contributes
+    nothing).  The power is the proven lanes' power on the index path and
+    0 on the trusting path, whose loop tallies by address.
+
+    Index path: any malformation raises ErrInvalidCommit, a failing
+    aggregate raises ErrInvalidSignature on the first aggregate lane; the
+    lane checks run over numpy columns cached per commit and per set."""
+    if not commit.has_aggregate():
+        return frozenset(), 0
+    err = commit._validate_aggregate()
+    if err:
+        raise ErrInvalidCommit(f"invalid commit: {err}")
+    lanes = commit.aggregate_lanes()
+    power = 0
+    if not lookup_by_address:
+        try:
+            tbl = _blsagg.valset_table(vals)
+        except ValueError:
+            raise ErrInvalidSignature(
+                lanes[0], "invalid BLS cohort pubkey in valset") from None
+        n = len(commit.signatures)
+        if tbl.cohort_mask.shape[0] != n:
+            raise ErrInvalidCommit(
+                f"invalid commit: {n} sigs for {vals.size()} vals")
+        cached = commit.__dict__.get("_agg_np")
+        if cached is None:
+            mask = np.zeros((n,), np.bool_)
+            lane_addrs = np.zeros((len(lanes), 20), np.uint8)
+            for r, idx in enumerate(lanes):
+                mask[idx] = True
+                addr = commit.signatures[idx].validator_address
+                if len(addr) == 20:
+                    lane_addrs[r] = np.frombuffer(addr, np.uint8)
+            cached = (mask, lane_addrs)
+            commit.__dict__["_agg_np"] = cached
+        mask, lane_addrs = cached
+        stray = mask & ~tbl.cohort_mask
+        if bool(stray.any()):
+            raise ErrInvalidCommit(
+                f"aggregate lane {int(np.nonzero(stray)[0][0])} "
+                "is not a BLS validator")
+        addr_bad = (tbl.addr_mat[mask] != lane_addrs).any(axis=1)
+        if bool(addr_bad.any()):
+            raise ErrInvalidCommit(
+                f"aggregate lane {lanes[int(np.nonzero(addr_bad)[0][0])]} "
+                "address does not match valset")
+        power = int(tbl.powers[mask].sum())
+        signers = mask
+    else:
+        signers = []
+        for idx in lanes:
+            vi, val = vals.get_by_address(
+                commit.signatures[idx].validator_address)
+            if vi < 0 or val.pub_key.type() != "bls12_381":
+                return frozenset(), 0       # unattributable: contributes 0
+            signers.append(vi)
+    if not _blsagg.verify_commit_aggregate(
+            vals, signers, commit.aggregate_sign_bytes(chain_id),
+            commit.agg_signature, device=device):
+        raise ErrInvalidSignature(
+            lanes[0], f"wrong aggregate signature (lanes {lanes})")
+    return frozenset(lanes), power
+
+
+def _verify_loop(chain_id, vals, commit, needed, agg_proven, agg_power, *,
+                 count_all, verify_nil_sigs, lookup_by_address,
+                 device) -> None:
+    """The JAX package's lane loop (``types/validation.py:_verify``), for
+    commits with an aggregate and sets with a BLS member: aggregate lanes
+    proven up front are tallied only, every other selected lane goes to
+    one ``BatchVerifier`` (Ed25519 lanes in one device call, BLS lanes on
+    the host)."""
+    bv = cryptobatch.create_batch_verifier(device)
+    lanes: list[int] = []
+    tally = agg_power
+    seen: set[bytes] = set()
+    for idx, cs in enumerate(commit.signatures):
+        if cs.is_absent():
+            continue
+        if not cs.is_commit() and not verify_nil_sigs:
+            # ignored before the lookup and duplicate bookkeeping
+            # (validation.go:243-266)
+            continue
+        if cs.is_aggregate():
+            if not lookup_by_address:
+                # index path: pre-tallied in agg_power
+                if not count_all and tally > needed:
+                    break
+                continue
+            if idx not in agg_proven:
+                continue          # trusting path, unresolved cohort
+        if lookup_by_address:
+            vi, val = vals.get_by_address(cs.validator_address)
+            if vi < 0:
+                continue
+            if cs.validator_address in seen:
+                raise ErrInvalidCommit(
+                    f"duplicate validator {cs.validator_address.hex()} in "
+                    "commit")
+            seen.add(cs.validator_address)
+        else:
+            val = vals.get_by_index(idx)
+        if cs.is_aggregate():
+            tally += val.voting_power       # proven up front
+            if not count_all and tally > needed:
+                break
+            continue
+        bv.add(val.pub_key, commit.vote_sign_bytes_for(
+            chain_id, idx, val.pub_key.type()), cs.signature)
+        lanes.append(idx)
+        if cs.is_commit():
+            tally += val.voting_power
+        if not count_all and tally > needed:
+            break
+    if len(bv) > 0:
+        ok, oks = bv.verify()
+        if not ok:
+            raise ErrInvalidSignature(lanes[oks.index(False)])
+    if tally <= needed:
+        raise ErrNotEnoughVotingPower(
+            f"tallied {tally} <= needed {needed}")
+
+
+def _verify(chain_id, vals, commit, needed, *, count_all, verify_nil_sigs,
+            lookup_by_address, device) -> None:
+    """The aggregate up front, then the dense path on an all-Ed25519 set
+    without aggregate lanes, else the lane loop."""
+    agg_proven, agg_power = _verify_aggregate(
+        chain_id, vals, commit, lookup_by_address=lookup_by_address,
+        device=device)
+    if agg_power > needed and not count_all and not verify_nil_sigs:
+        return        # VerifyCommitLight: the proven aggregate clears 2/3
+    if vals.dense() is None or commit.has_aggregate():
+        _verify_loop(chain_id, vals, commit, needed, agg_proven, agg_power,
+                     count_all=count_all, verify_nil_sigs=verify_nil_sigs,
+                     lookup_by_address=lookup_by_address, device=device)
+    elif lookup_by_address:
+        _verify_by_address(chain_id, vals, commit, needed,
+                           count_all=count_all, device=device)
+    else:
+        _verify_by_index(chain_id, vals, commit, needed, count_all=count_all,
+                         verify_nil_sigs=verify_nil_sigs, device=device)
+
+
 def _columns(commit: Commit):
-    if commit.has_aggregate():
-        raise ErrInvalidCommit(
-            "invalid commit: BLS aggregate lanes are not supported")
     cols = commit.dense_columns()
     if cols is None:
         raise ErrInvalidCommit("invalid commit: flag or timestamp range")
@@ -199,8 +355,8 @@ def VerifyCommit(chain_id: str, vals: ValidatorSet, block_id, height: int,
     dev = resolve_device(device)
     _check_commit_basics(vals, commit, height, block_id)
     needed = vals.total_voting_power() * 2 // 3
-    _verify_by_index(chain_id, vals, commit, needed, count_all=True,
-                     verify_nil_sigs=True, device=dev)
+    _verify(chain_id, vals, commit, needed, count_all=True,
+            verify_nil_sigs=True, lookup_by_address=False, device=dev)
 
 
 def VerifyCommitLight(chain_id: str, vals: ValidatorSet, block_id,
@@ -210,8 +366,8 @@ def VerifyCommitLight(chain_id: str, vals: ValidatorSet, block_id,
     dev = resolve_device(device)
     _check_commit_basics(vals, commit, height, block_id)
     needed = vals.total_voting_power() * 2 // 3
-    _verify_by_index(chain_id, vals, commit, needed, count_all=False,
-                     verify_nil_sigs=False, device=dev)
+    _verify(chain_id, vals, commit, needed, count_all=False,
+            verify_nil_sigs=False, lookup_by_address=False, device=dev)
 
 
 def VerifyCommitLightAllSignatures(chain_id: str, vals: ValidatorSet,
@@ -221,8 +377,8 @@ def VerifyCommitLightAllSignatures(chain_id: str, vals: ValidatorSet,
     dev = resolve_device(device)
     _check_commit_basics(vals, commit, height, block_id)
     needed = vals.total_voting_power() * 2 // 3
-    _verify_by_index(chain_id, vals, commit, needed, count_all=True,
-                     verify_nil_sigs=False, device=dev)
+    _verify(chain_id, vals, commit, needed, count_all=True,
+            verify_nil_sigs=False, lookup_by_address=False, device=dev)
 
 
 def VerifyCommitLightTrusting(chain_id: str, vals: ValidatorSet,
@@ -236,8 +392,8 @@ def VerifyCommitLightTrusting(chain_id: str, vals: ValidatorSet,
     dev = resolve_device(device)
     needed = (vals.total_voting_power() * trust_level.numerator
               // trust_level.denominator)
-    _verify_by_address(chain_id, vals, commit, needed, count_all=count_all,
-                       device=dev)
+    _verify(chain_id, vals, commit, needed, count_all=count_all,
+            verify_nil_sigs=False, lookup_by_address=True, device=dev)
 
 
 def VerifyCommitLightTrustingAllSignatures(
@@ -274,10 +430,16 @@ def verify_commits_light_batched(chain_id: str, vals: ValidatorSet,
     selected lanes proven valid (lanes are in item order and every
     verdict is computed before the first bad lane raises); any other
     cause is a basics or tally failure found before the dispatch, and
-    earlier items were not signature-checked."""
+    earlier items were not signature-checked.
+
+    On a set with a BLS member, or when an item carries an aggregate, the
+    items go through the JAX package's loop (:func:`_batched_loop`)
+    instead, with the same raise order and demux."""
     dev = resolve_device(device)
-    pubs, powers = vals.dense()
     needed = vals.total_voting_power() * 2 // 3
+    if vals.dense() is None or any(c.has_aggregate() for _, _, c in items):
+        return _batched_loop(chain_id, vals, items, needed, dev)
+    pubs, powers = vals.dense()
     rows, sigs, sig_ok, msgs, lens, lanes = [], [], [], [], [], []
     for k, (block_id, height, commit) in enumerate(items):
         try:
@@ -307,4 +469,44 @@ def verify_commits_light_batched(chain_id: str, vals: ValidatorSet,
     if not oks.all():
         k, idx = lanes[int(np.nonzero(~oks)[0][0])]
         raise ErrBatchItemInvalid(k, items[k][1], ErrInvalidSignature(idx))
+    return len(lanes)
+
+
+def _batched_loop(chain_id, vals, items, needed, device) -> int:
+    """``verify_commits_light_batched`` as the JAX package's loop
+    (``cometbft_tpu/types/validation.py:630``): per item, the basics and
+    the aggregate (whose power is pre-tallied), then the light scope of
+    the other commit lanes; one ``BatchVerifier`` over every item's
+    lanes."""
+    bv = cryptobatch.create_batch_verifier(device)
+    lanes: list[tuple[int, int]] = []
+    for k, (block_id, height, commit) in enumerate(items):
+        try:
+            _check_commit_basics(vals, commit, height, block_id)
+            _, tally = _verify_aggregate(chain_id, vals, commit,
+                                         lookup_by_address=False,
+                                         device=device)
+        except CommitVerificationError as e:
+            raise ErrBatchItemInvalid(k, height, e) from e
+        if tally > needed:
+            continue              # the aggregate alone clears the threshold
+        for idx, cs in enumerate(commit.signatures):
+            if not cs.is_commit() or cs.is_aggregate():
+                continue
+            val = vals.get_by_index(idx)
+            bv.add(val.pub_key, commit.vote_sign_bytes_for(
+                chain_id, idx, val.pub_key.type()), cs.signature)
+            lanes.append((k, idx))
+            tally += val.voting_power
+            if tally > needed:
+                break
+        if tally <= needed:
+            raise ErrBatchItemInvalid(
+                k, height,
+                ErrNotEnoughVotingPower(f"tallied {tally} <= {needed}"))
+    if len(bv) > 0:
+        ok, oks = bv.verify()
+        if not ok:
+            k, idx = lanes[oks.index(False)]
+            raise ErrBatchItemInvalid(k, items[k][1], ErrInvalidSignature(idx))
     return len(lanes)

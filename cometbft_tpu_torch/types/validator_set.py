@@ -4,8 +4,9 @@
 Counterpart of ``cometbft_tpu/types/validator_set.py`` for what commit
 and light-header verification read: the address-sorted validator list,
 lookups by index and by address, the total voting power, the dense
-columnar view and the set's merkle hash.  Proposer rotation and set
-updates belong to later slices of the port.
+columnar view of an all-Ed25519 set, the BLS cohort and the set's merkle
+hash.  Validators hold Ed25519 or BLS12-381 keys.  Proposer rotation and
+set updates belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 
 from ..crypto import merkle
-from ..crypto.keys import Ed25519PubKey
 from . import wire
 
 __all__ = ["MAX_TOTAL_VOTING_POWER", "Validator", "ValidatorSet"]
@@ -23,14 +23,16 @@ __all__ = ["MAX_TOTAL_VOTING_POWER", "Validator", "ValidatorSet"]
 MAX_TOTAL_VOTING_POWER = (2**63 - 1) // 8
 
 
-def _pubkey_proto(pk: Ed25519PubKey) -> bytes:
-    """cometbft.crypto.v1.PublicKey oneof; field 1 is ed25519."""
-    return wire.field_bytes(1, pk.bytes(), force=True)
+def _pubkey_proto(pk) -> bytes:
+    """cometbft.crypto.v1.PublicKey oneof: 1=ed25519, 3=bls12_381 (2 is
+    secp256k1, which the port does not carry)."""
+    fld = {"ed25519": 1, "bls12_381": 3}[pk.type()]
+    return wire.field_bytes(fld, pk.bytes(), force=True)
 
 
 @dataclass
 class Validator:
-    pub_key: Ed25519PubKey
+    pub_key: object                  # Ed25519PubKey or Bls12381PubKey
     voting_power: int
     _address: bytes = field(default=b"", repr=False)
 
@@ -88,18 +90,40 @@ class ValidatorSet:
     def dense(self):
         """Cached ``(pubkeys uint8 (N, 32), powers int64 (N,))``: the
         matrices the dense verify path and the per-valset table cache
-        key on."""
-        d = self.__dict__.get("_dense")
-        if d is None:
+        key on; None when the set is empty or any key is not Ed25519 (such
+        sets verify through the lane loop of ``types/validation.py``)."""
+        d = self.__dict__.get("_dense", False)
+        if d is False:
             n = len(self.validators)
-            pubs = np.frombuffer(
-                b"".join(v.pub_key.bytes() for v in self.validators),
-                np.uint8).reshape(n, 32)
-            powers = np.fromiter((v.voting_power for v in self.validators),
-                                 np.int64, n)
-            d = (pubs, powers)
+            d = None
+            if n and all(v.pub_key.type() == "ed25519"
+                         for v in self.validators):
+                pubs = np.frombuffer(
+                    b"".join(v.pub_key.bytes() for v in self.validators),
+                    np.uint8).reshape(n, 32)
+                powers = np.fromiter(
+                    (v.voting_power for v in self.validators), np.int64, n)
+                d = (pubs, powers)
             self.__dict__["_dense"] = d
         return d
+
+    def bls_cohort(self) -> tuple:
+        """Cached ``(indices tuple, pubkeys tuple)`` of the validators with
+        bls12_381 keys, in index order; empty tuples on an all-Ed25519
+        set."""
+        c = self.__dict__.get("_bls_cohort")
+        if c is None:
+            idx, pks = [], []
+            for i, v in enumerate(self.validators):
+                if v.pub_key.type() == "bls12_381":
+                    idx.append(i)
+                    pks.append(v.pub_key.bytes())
+            c = (tuple(idx), tuple(pks))
+            self.__dict__["_bls_cohort"] = c
+        return c
+
+    def has_bls(self) -> bool:
+        return bool(self.bls_cohort()[0])
 
     def hash(self, device=None) -> bytes:
         """Merkle root of the validators' simple encodings; at

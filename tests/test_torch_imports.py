@@ -1,12 +1,14 @@
 """The port stands alone: no module of ``cometbft_tpu_torch`` and nothing
 ``chip_smoke.py`` imports pulls in ``jax`` or the JAX package, at import
 time (checked in a fresh interpreter) or lazily inside a function
-(checked on the source)."""
+(checked on the source), and its CUDA and host C++ sources include only
+headers of the port's own ``csrc/`` (or headers the port generates)."""
 
 import ast
 import json
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -30,7 +32,13 @@ def _port_modules():
 def _sources():
     return sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "cuda_stack_slot_probe.py",
-        ROOT / "scripts" / "sha256_sass_count.py"]
+        ROOT / "scripts" / "sha256_sass_count.py",
+        ROOT / "scripts" / "blsg1_sass_count.py"]
+
+
+def _c_sources():
+    return sorted(p for p in (PKG / "csrc").rglob("*")
+                  if p.suffix in (".cu", ".cuh", ".cpp", ".h"))
 
 
 def test_fresh_interpreter_imports_no_jax():
@@ -81,3 +89,20 @@ def test_chip_smoke_refuses_without_cuda():
                          cwd=str(ROOT))
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("path", _c_sources(), ids=lambda p: str(
+    p.relative_to(ROOT)))
+def test_c_sources_include_only_the_ports_headers(path):
+    from cometbft_tpu_torch.ops import _build
+
+    generated = set(_build.generated_headers())
+    for line in path.read_text().splitlines():
+        m = re.match(r'\s*#\s*include\s+"([^"]+)"', line)
+        if not m:
+            continue
+        name = m.group(1)
+        assert ".." not in name and "cometbft_tpu/" not in name, name
+        assert ((path.parent / name).exists()
+                or (PKG / "csrc" / name).exists()
+                or name in generated), f"{path.name} includes {name}"

@@ -1,6 +1,6 @@
 """The port's CUDA kernel sources, built for the host under the sanitizers.
 
-``tests/torch_kernels_host.cpp`` includes the five sources of
+``tests/torch_kernels_host.cpp`` includes the six sources of
 ``cometbft_tpu_torch/csrc`` as they are and runs each kernel and launch
 sequence with host threads (a block's threads, a barrier for
 ``__syncthreads``).  It is compiled with ``g++ -fsanitize=address,
@@ -23,7 +23,8 @@ import torch
 
 from cometbft_tpu_torch.crypto import _ed25519_py as ref
 from cometbft_tpu_torch.crypto.batch import _padded_lane_args
-from cometbft_tpu_torch.ops import _build, fe, sha256, sha512
+from cometbft_tpu_torch.crypto import bls12381 as tbls
+from cometbft_tpu_torch.ops import _build, blsg1, fe, sha256, sha512
 from cometbft_tpu_torch.ops import ed25519 as ted
 from cometbft_tpu_torch.ops import rlc as trlc
 
@@ -337,3 +338,34 @@ def test_rlc_gather_matches_plain(harness, name):
     plain += [torch.cat([c[:, w] for c in sum_r]).tolist() for w in range(32)]
     want = [_point(c) for c in plain]
     assert [_point(c) for c in got["sums"]] == want
+
+
+@pytest.mark.parametrize("r", [1, 5, 64])
+def test_blsg1_fold_matches_plain(harness, r):
+    """The G1 fold's load, level and store launches on the word table,
+    against the plain version's (3, 32) projective limbs, exactly: all
+    rows, a random mask, an empty mask, and from 5 rows a cancelling pair
+    (row 0 and its negation) and a doubled point (row 1 twice)."""
+    rng = np.random.default_rng(60 + r)
+    pts = [tbls.pk_to_affine(tbls.sk_to_pk(int(s)))
+           for s in rng.integers(1, 1 << 62, size=r)]
+    masks = [np.ones(r, np.int32), (rng.random(r) < 0.5).astype(np.int32),
+             np.zeros(r, np.int32)]
+    if r >= 5:
+        pts[-1], pts[-2] = tbls.negate_affine(pts[0]), pts[1]
+        cancel = np.zeros(r, np.int32)
+        cancel[[0, r - 1]] = 1
+        double = np.zeros(r, np.int32)
+        double[[1, 2, r - 2]] = 1
+        masks += [cancel, double]
+    words = blsg1.words_from_limbs(torch.from_numpy(
+        np.stack([blsg1.limbs_from_xy(p) for p in pts])))
+    n2 = 1 << max(0, (r - 1).bit_length())
+    for mask in masks:
+        got = harness("blsg1", [r, n2], {"rows": words.numpy(),
+                                          "mask": mask},
+                      {"out": (np.int32, (3, 32))})["out"]
+        plain = blsg1.g1_masked_sum(words, torch.from_numpy(mask))
+        assert np.array_equal(got, plain.numpy())
+        if not mask.any() or (r >= 5 and mask is masks[3]):
+            assert blsg1.xy_from_projective(got) is None

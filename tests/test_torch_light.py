@@ -377,9 +377,11 @@ def test_merkle_threshold_is_the_jax_packages():
     assert TM._PROOF_LEVEL_MIN == JM._PROOF_LEVEL_MIN
 
 
-def test_aggregate_lanes_are_refused(port_chain):
-    """BLS aggregate lanes come with a later slice: the commit hash
-    raises, the basic check names them, and a batch names the item."""
+def test_aggregate_lanes_are_refused(port_chain, chain):
+    """AGGREGATE-flag lanes without an aggregate signature: the commit
+    hashes as in the JAX package (no aggregate leaf), the basic check
+    names the missing signature, and a batch names the item."""
+    from cometbft_tpu.types.commit import BLOCK_ID_FLAG_AGGREGATE as JAGG
     from cometbft_tpu_torch.types import validation as TV
     from cometbft_tpu_torch.types.commit import BLOCK_ID_FLAG_AGGREGATE
 
@@ -387,9 +389,12 @@ def test_aggregate_lanes_are_refused(port_chain):
     c = copy.deepcopy(lb.commit)
     c.signatures[3].block_id_flag = BLOCK_ID_FLAG_AGGREGATE
     c.signatures[3].signature = b""
-    with pytest.raises(ValueError):
-        c.hash("cpu")
-    assert c.validate_basic() == "BLS aggregate lanes are not supported"
+    jc = copy.deepcopy(chain[2].commit)
+    jc.signatures[3].block_id_flag = JAGG
+    jc.signatures[3].signature = b""
+    assert c.hash("cpu") == jc.hash()
+    assert c.validate_basic() == jc.validate_basic() == \
+        "aggregate signature must be 96 bytes"
     items = [(port_chain[1].commit.block_id, 2, port_chain[1].commit),
              (c.block_id, 3, c)]
     with pytest.raises(TV.ErrBatchItemInvalid) as err:

@@ -18,6 +18,8 @@
 //                       sums (the 96 window sums)
 //   sha256 B NB         blocks, active -> out (B x 8 digest words)
 //   merkle N            children (N x 8 words) -> parents
+//   blsg1 R N2          rows (R x 2 x 12 words), mask (R) -> out (3 x 32
+//                       12-bit limbs); N2 the padded row count
 #include <barrier>
 #include <cstdio>
 #include <cstdlib>
@@ -63,6 +65,7 @@ static void host_launch(dim3 grid, dim3 block, void (*kernel)(P...),
     }
 }
 
+#include "blsg1.cu"
 #include "ed25519_rlc.cu"
 #include "ed25519_tables.cu"
 #include "ed25519_verify.cu"
@@ -148,6 +151,17 @@ int main(int argc, char **argv) {
     std::vector<uint32_t> parents((size_t)(N + 1) / 2 * 8);
     check(merkle_level_launch(children.data(), N, parents.data(), nullptr));
     save("parents", parents);
+    return 0;
+  }
+  if (mode == "blsg1") {
+    const int R = a0, N2 = a1;
+    auto rows = load<uint32_t>("rows", (size_t)R * 2 * 12);
+    auto mask = load<int32_t>("mask", R);
+    std::vector<uint32_t> scratch((size_t)N2 * 3 * 12);
+    std::vector<int32_t> out(3 * 32);
+    check(aggregate_g1_masked_launch(rows.data(), mask.data(), R, N2,
+                                     scratch.data(), out.data(), nullptr));
+    save("out", out);
     return 0;
   }
   if (mode != "verify" && mode != "rlc") {
