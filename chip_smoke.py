@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port's commit-, light-header and BLS
-aggregate-commit verification paths on one card.
+aggregate-commit verification paths, and of lane-sharded commit
+verification over a device set, on one card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -47,16 +48,34 @@ Phases, each of which must pass or the script exits non-zero:
    fold ``aggregate_g1_masked`` against its plain version on the card
    (``BLS_ROWS`` rows with empty, single, random, cancelling and doubled
    masks, and the main path's table, also against the host library's
-   sum).  The host BLS library builds with ``g++`` first.
+   sum).  The host BLS library builds with ``g++`` first;
+9. mesh, ``MESH_SHARDS`` shards of one card (the device set
+   ``[cuda:0] * 4``; then again over distinct cards, one shard each,
+   where more than one is visible), reusing phase 7's 10,000-validator commit and phase 6's
+   chain: ``VerifyCommit`` (one sharded RLC dispatch: four shard-sums
+   launches, one combine, no single-device verdict), p50/min/max over 20
+   calls beside the single-device p50, ``verify_commits_light_batched``
+   over the 127 headers of phase 6, and a tampered commit whose sharded
+   per-lane route names the same lane as the single-device route; then
+   the sharded RLC verdict (K7: ``ed25519_rlc_sums`` and
+   ``ed25519_rlc_combine``) against its plain version and against K6a's
+   single-device verdict on the same inputs and z, over valid lanes, a
+   bad lane in each shard, garbage padding, a ragged last shard, fewer
+   lanes than shards, and ZIP-215 edge lanes (window sums as points).
 
-Phases 4, 6, 7 and 8 are the main path: the launch counters are zeroed
-just before each and read just after; each phase's kernels must have
-launched and no plain version may have run (phase 8 also no Ed25519
-kernel).  Keys and signatures of the light and BLS phases are made in a
+Phases 4, 6, 7, 8 and 9 are the main path: the launch counters are
+zeroed just before each and read just after; each phase's kernels must
+have launched and no plain version may have run (phase 8 also no
+Ed25519 kernel).  Keys and signatures of the light and BLS phases are made in a
 process pool over ``os.cpu_count()`` workers with the port's own
 signers; the script prints the seconds of each fixture and phase.  The
 fold's bound counts its integer instructions from its SASS
 (``scripts/blsg1_sass_count.py``).
+
+``python3 chip_smoke.py --mesh-cards`` on a host with two or more cards
+runs only phases 1, 2 and 9, over the first ``MESH_SHARDS`` cards, one
+shard each: the cross-card copy of the partial sums and the overlap of
+the cards, which one card cannot show.
 
 The line before the last is a JSON object with one entry per kernel
 (launches on the main path, max_abs_err, times, bound); the last line is
@@ -100,6 +119,8 @@ SWEEP_LANES = (1, 77, 128, 129, 300, 640)   # lanes of the sweep's batches
 COMMIT_KERNELS = ("sha512_scalar", "ed25519_tables", "ed25519_verify_gather",
                   "ed25519_rlc_gather")
 BLS_KERNELS = ("aggregate_g1_masked",)
+MESH_KERNELS = ("ed25519_rlc_sums", "ed25519_rlc_combine")
+MESH_SHARDS = 4                  # shards of the mesh phase, one card each
 MERKLE_LEAVES = 10_000           # leaves of the merkle kernel phase
 MERKLE_SWEEP = (1, 63, 64, 2047, 2048, 2049, 4097, 10_000)  # tree sizes
 LIGHT_VALS = 150                 # validators of the 150-validator light phase
@@ -150,6 +171,20 @@ def time_host(fn) -> float:
     fn()
     _sync()
     return (time.perf_counter() - t0) * 1e3
+
+
+def time_enqueue(fn, reps: int) -> float:
+    """Median host ms of ``reps`` calls of ``fn`` from an idle card until
+    it returns, its device work still queued (a call that reads a result
+    on the host waits for it)."""
+    walls = []
+    for _ in range(reps):
+        _sync()
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    _sync()
+    return statistics.median(walls)
 
 
 def time_host_spread(fn, reps: int) -> dict:
@@ -1021,7 +1056,8 @@ def phase_light150(pool, keys, dev, reps):
     return launches, {
         "fixture_s": fixture_s, "first_call_s": first_s,
         "headers": LIGHT_HEADERS - 1, "lanes": lanes,
-        "wall": time_host_spread(run, reps), "profile": profile_call(run)}
+        "wall": time_host_spread(run, reps),
+        "profile": profile_call(run)}, chain
 
 
 def phase_light10k(pool, keys, dev, reps):
@@ -1111,7 +1147,374 @@ def phase_light10k(pool, keys, dev, reps):
         "profile_verify_adjacent": profile_call(calls["verify_adjacent"]),
         "profile_verify_commit": profile_call(calls["VerifyCommit"],
                                               reps // 4),
-        "profile_valset_hash": profile_call(calls["ValidatorSet.hash"])}
+        "profile_valset_hash": profile_call(calls["ValidatorSet.hash"])}, \
+        (vals, h2)
+
+
+def _window_points(rows):
+    """(96, 40) cached window rows on any device -> 96 affine points."""
+    from cometbft_tpu_torch.crypto import _ed25519_py as ref
+    from cometbft_tpu_torch.ops import fe
+
+    out = []
+    for r in rows.cpu().tolist():
+        ypx, ymx, z2 = (fe.int_from_limbs(r[k:k + 10]) for k in (0, 10, 20))
+        zi = pow(z2 % ref.P, ref.P - 2, ref.P)
+        out.append(((ypx - ymx) * zi % ref.P, (ypx + ymx) * zi % ref.P))
+    return out
+
+
+def mesh_cases(vals, commit, dev, d):
+    """K7's check cases as (name, lane args, expected verdict): the
+    10,000 lanes of ``commit`` through the set's table, a bad lane in
+    each shard's position, garbage padding lanes (z = 0), a ragged last
+    shard, fewer lanes than shards, and 150 lanes carrying the ZIP-215
+    edge lanes (valid torsion cases, then the invalid ones) through their
+    own keys' table."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.crypto import _ed25519_py as ref
+    from cometbft_tpu_torch.crypto.batch import _padded_lane_args
+    from cometbft_tpu_torch.ops import ed25519 as ed
+    from cometbft_tpu_torch.ops import rlc
+
+    rng = np.random.default_rng(2027)
+    pubs, sigs, msgs, lens = lane_arrays(vals, commit)
+    n = pubs.shape[0]
+    tab, ok = ed.prepare_pubkey_tables(torch.from_numpy(pubs).to(dev))
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    rb, sb, blocks, active = _padded_lane_args(
+        pubs, sigs[:, :32], sigs[:, 32:], msgs, lens, dev)
+    z = torch.from_numpy(rlc.host_rlc_coeffs(
+        n, rng_bytes=rng.bytes(16 * n))).to(dev)
+    lanes = (idx, rb, sb, blocks, active, z)
+
+    def cut(b):
+        return (tab, ok, *[t[:b] for t in lanes])
+
+    cases = [("valid", cut(n), True)]
+    step = -(-n // d)
+    for s in range(d):
+        sb_bad = sb.clone()
+        sb_bad[s * step + 17, 0] ^= 1
+        cases.append((f"bad lane in shard {s}",
+                      (tab, ok, idx, rb, sb_bad, blocks, active, z), False))
+    rb_pad, sb_pad, z_pad = rb.clone(), sb.clone(), z.clone()
+    rb_pad[n - 100:] = 0xFF
+    sb_pad[n - 99:] = 0xFF
+    z_pad[n - 100:] = 0
+    cases.append(("garbage padding", (tab, ok, idx, rb_pad, sb_pad, blocks,
+                                      active, z_pad), True))
+    cases.append(("ragged last shard", cut(n - 2), True))
+    cases.append(("fewer lanes than shards", cut(d - 1), True))
+    edges = edge_cases(rng)
+    for name, sel in (("torsion edges",
+                       [e for e in edges if ref.verify_zip215(*e)]),
+                      ("invalid edges",
+                       [e for e in edges if not ref.verify_zip215(*e)])):
+        k = 150 - len(sel)
+        e_pub = [p for p, _, _ in sel] + [pubs[i].tobytes() for i in range(k)]
+        e_sig = [s for _, _, s in sel] + [sigs[i].tobytes() for i in range(k)]
+        e_msg = [m for _, m, _ in sel] + [msgs[i, :lens[i]].tobytes()
+                                          for i in range(k)]
+        e_tab, e_ok = ed.prepare_pubkey_tables(torch.from_numpy(np.stack(
+            [np.frombuffer(p, np.uint8) for p in e_pub])).to(dev))
+        cases.append((name, (e_tab, e_ok, idx[:150],
+                             *_lanes_to_tensors(e_pub, e_sig, e_msg, dev),
+                             z[:150]), name == "torsion edges"))
+    return cases
+
+
+def phase_mesh_kernels(cases, shards, reps, rec):
+    """K7 on the card against its plain version, over the devices
+    ``shards`` (the cases lie on the first): per case the sharded
+    verdict, the kernels' per-shard outputs (each shard's sums on its own
+    device, gathered on the first) and verdict, the plain version's, and
+    K6a's single-device verdict on the same inputs and z; window sums
+    compare as points, sums of z*s mod L and ok bytes exactly.  Fills
+    ``rec`` for the two kernels and returns the whole verdict's times."""
+    from cometbft_tpu_torch.ops import rlc
+    from cometbft_tpu_torch.parallel.mesh import batch_mesh, shard_bounds
+
+    fn = rlc.make_verify_batch_rlc_sharded(batch_mesh(shards), gather=True)
+    d, dev = len(shards), shards[0]
+
+    def shard(args, lo, hi, to=None):
+        return tuple(t.to(to or t.device) for t in
+                     (*args[:2], *[t[lo:hi] for t in args[2:]]))
+
+    def sums_kernel(args):
+        bufs = {x: rlc.rlc_sums_buffers(d, x) for x in dict.fromkeys(shards)}
+        for s, (lo, hi) in enumerate(shard_bounds(args[2].shape[0], d)):
+            rlc.rlc_sums_gather(*shard(args, lo, hi, shards[s]),
+                                out=bufs[shards[s]], slot=s)
+        out = rlc.rlc_sums_buffers(d, dev)
+        for s, x in enumerate(shards):
+            for o, t in zip(out, bufs[x]):
+                o[s] = t[s].to(dev)
+        return out
+
+    def sums_plain(args):
+        out = rlc.rlc_sums_buffers(d, dev)
+        for s, (lo, hi) in enumerate(shard_bounds(args[2].shape[0], d)):
+            rlc._store_sums_plain(*shard(args, lo, hi), out, s)
+        return out
+
+    mism = {"verdict": 0, "window points": 0, "zs": 0, "ok": 0}
+    zs_err, verdicts = 0, {}
+    for name, args, expect in cases:
+        k, p = sums_kernel(args), sums_plain(args)
+        v = [bool(fn(*args)), bool(rlc.rlc_combine(*k)),
+             bool(rlc._rlc_combine_plain(*p)), bool(rlc.rlc_combine(*p)),
+             bool(rlc._rlc_combine_plain(*k)),
+             bool(rlc.verify_batch_rlc_gather(*args))]
+        verdicts[name] = v + [expect]
+        mism["verdict"] += sum(x != expect for x in v)
+        for s in range(d):
+            mism["window points"] += sum(
+                a != b for a, b in zip(_window_points(k.sums[s]),
+                                       _window_points(p.sums[s])))
+        mism["zs"] += int((k.zs != p.zs).any(1).sum())
+        mism["ok"] += int((k.ok != p.ok).sum())
+        zs_err = max(zs_err, int((k.zs.long() - p.zs.long()).abs().max()),
+                     int((k.ok.long() - p.ok.long()).abs().max()))
+    valid = cases[0][1]
+    b = valid[2].shape[0]
+    lo, hi = shard_bounds(b, d)[0]
+    one = shard(valid, lo, hi)
+    k = sums_kernel(valid)
+    p_ms = {"sums": time_host(lambda: rlc._store_sums_plain(
+        *one, rlc.rlc_sums_buffers(1, dev), 0)),
+        "combine": time_host(lambda: rlc._rlc_combine_plain(*k))}
+    # device ms of both kernels from one trace of the whole verdict (a
+    # trace of the combine alone lost events on the card); a shard's
+    # sums count its SHA-512 (sha512_scalar), as its wrapper runs it and
+    # its bound counts it
+    prof = profile_call(lambda: fn(*valid), reps)
+    combine_ms = _kernel_ms(prof["kernels_ms"], "rlc_combine")
+    stages_ms = _kernel_ms(prof["kernels_ms"], "rlc_")
+    sha_ms = _kernel_ms(prof["kernels_ms"], "sha512")
+    n_mism = sum(mism.values())
+    rec["ed25519_rlc_sums"].update(
+        max_abs_err=zs_err, mismatches=n_mism - mism["verdict"],
+        ms=time_cuda(lambda: rlc.rlc_sums_gather(*one), reps),
+        device_ms=(None if stages_ms is None or sha_ms is None
+                   else (stages_ms - (combine_ms or 0) + sha_ms) / d),
+        plain_ms=p_ms["sums"],
+        shape=f"one shard of {hi - lo} lanes (B={b}, D={d})",
+        cases=mism)
+    rec["ed25519_rlc_combine"].update(
+        max_abs_err=int(mism["verdict"] > 0), mismatches=mism["verdict"],
+        ms=time_cuda(lambda: rlc.rlc_combine(*k), reps),
+        device_ms=combine_ms, plain_ms=p_ms["combine"], shape=f"D={d}",
+        verdicts=verdicts)
+    return {"lanes": b, "shards": d,
+            "ms": time_cuda(lambda: fn(*valid), reps),
+            "device_ms": prof["device_ms"],
+            "device_kernels_ms": prof["kernels_ms"],
+            "plain_ms": d * p_ms["sums"] + p_ms["combine"],
+            "k6a_ms": time_cuda(lambda: rlc.verify_batch_rlc_gather(*valid),
+                                reps),
+            "enqueue_ms": time_enqueue(lambda: fn(*valid), reps),
+            "k6a_enqueue_ms": time_enqueue(
+                lambda: rlc.verify_batch_rlc_gather(*valid), reps)}
+
+
+def phase_mesh(fx10k, chain150, shards, reps, rec):
+    """The main path over the device set ``shards`` (MESH_SHARDS shards
+    of one card, or distinct cards): ``VerifyCommit`` at 10,000
+    validators (one sharded RLC dispatch: a shard-sums launch per shard,
+    one combine, no single-device verdict),
+    ``verify_commits_light_batched`` over the 150-validator chain's
+    headers, and a tampered commit whose sharded per-lane route names the
+    same lane as the single-device route; then K7 against its plain
+    version.  The device set is cleared however the phase ends."""
+    from cometbft_tpu_torch.crypto import batch, plan
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.types import validation as V
+
+    vals, h2 = fx10k
+    commit = h2.commit
+    bad = commit.size() * 43 // 100     # lane 4,300 of 10,000
+    tampered = copy.deepcopy(commit)
+    sig = bytearray(tampered.signatures[bad].signature)
+    sig[9] ^= 0x40
+    tampered.signatures[bad].signature = bytes(sig)
+    items = [(lb.commit.block_id, lb.height, lb.commit)
+             for lb in chain150[1:]]
+    lanes150 = len(items) * ((2 * LIGHT_VALS) // 3 + 1)
+
+    def verify_commit(device=None, c=commit):
+        V.VerifyCommit(CHAIN_ID, vals, c.block_id, h2.height, c,
+                       device=device)
+
+    def main_path():
+        runs = {}
+        for name, fn, cls in (
+                ("VerifyCommit@10k", verify_commit, None),
+                (f"verify_commits_light_batched@{LIGHT_VALS}",
+                 lambda: V.verify_commits_light_batched(
+                     CHAIN_ID, chain150[0].validators, items), None),
+                ("VerifyCommit(tampered)@10k",
+                 lambda: verify_commit(c=tampered), V.ErrInvalidSignature)):
+            before = dict(_build.LAUNCHES)
+            batch.DISPATCHES.clear()
+            if cls is None:
+                fn()
+            else:
+                _expect_raise(fn, cls, lambda e: e.idx == bad)
+            runs[name] = ({k: v - before.get(k, 0)
+                           for k, v in _build.LAUNCHES.items()
+                           if v - before.get(k, 0)}, dict(batch.DISPATCHES))
+        return runs
+
+    dev, d = shards[0], len(shards)
+    plan.set_devices(shards)
+    try:
+        launches, runs = _path_launches(main_path, (
+            "sha512_scalar", "ed25519_rlc_sums", "ed25519_rlc_combine",
+            "ed25519_verify_gather"))
+        for name in ("VerifyCommit@10k",
+                     f"verify_commits_light_batched@{LIGHT_VALS}"):
+            launched, disp = runs[name]
+            if (disp != {"rlc_gather_sharded": 1}
+                    or launched.get("ed25519_rlc_sums") != d
+                    or launched.get("ed25519_rlc_combine") != 1
+                    or "ed25519_rlc_gather" in launched
+                    or "ed25519_verify_gather" in launched):
+                raise AssertionError(f"{name} under the device set: "
+                                     f"{runs[name]}")
+        if runs["VerifyCommit(tampered)@10k"][1] != {
+                "rlc_gather_sharded": 1, "gather_sharded": 1}:
+            raise AssertionError(f"tampered: {runs['VerifyCommit(tampered)@10k']}")
+        sharded = time_host_spread(verify_commit, reps)
+        single = time_host_spread(lambda: verify_commit(dev), reps)
+        batched = time_host_spread(lambda: V.verify_commits_light_batched(
+            CHAIN_ID, chain150[0].validators, items), reps // 4)
+        prof = profile_call(verify_commit, reps // 4)
+    finally:
+        plan.set_devices(None)
+    # the single-device route names the same lane
+    _expect_raise(lambda: verify_commit(dev, tampered),
+                  V.ErrInvalidSignature, lambda e: e.idx == bad)
+    t0 = time.perf_counter()
+    verdict = phase_mesh_kernels(mesh_cases(vals, commit, dev, d), shards,
+                                 reps, rec)
+    return launches, {
+        "shards": [str(x) for x in shards], "cards": len(set(shards)),
+        "runs": runs, "sharded": sharded, "single": single,
+        "batched150": batched, "batched150_lanes": lanes150,
+        "profile_verify_commit": prof,
+        "verdict": verdict, "kernel_check_s": time.perf_counter() - t0}
+
+
+def visible_cards() -> list:
+    """The first MESH_SHARDS visible cards, one shard each."""
+    import torch
+
+    return [torch.device("cuda", i)
+            for i in range(min(torch.cuda.device_count(), MESH_SHARDS))]
+
+
+def report_mesh(mesh, launches, k7, card):
+    """Print phase 9's results, ``k7`` the kernel record it filled, and
+    fail on any K7 mismatch."""
+    n, cards = len(mesh["shards"]), mesh["cards"]
+    where = f"{n} shards on {cards} card{'s' * (cards > 1)}"
+    print(f"mesh: {where} {mesh['shards']} (kernel check "
+          f"{mesh['kernel_check_s']:.1f} s); launches {launches}")
+    for k, (launched, disp) in mesh["runs"].items():
+        print(f"launches {k}, {where}: {launched}, dispatches {disp}")
+    print(f"VerifyCommit@{BIG_VALS}, {where}: "
+          f"{_spread(mesh['sharded'])}  [{card}]")
+    print(f"VerifyCommit@{BIG_VALS}, one device (same run): "
+          f"{_spread(mesh['single'])}  [{card}]")
+    print(f"verify_commits_light_batched@{LIGHT_VALS} "
+          f"({mesh['batched150_lanes']} lanes), {where}: "
+          f"{_spread(mesh['batched150'])}  [{card}]")
+    prof = mesh["profile_verify_commit"]
+    print(f"profile VerifyCommit@{BIG_VALS}, {where}: wall "
+          f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']} ms, "
+          f"kernels {prof['kernels_ms']}")
+    mv = mesh["verdict"]
+    print(f"K7 sharded verdict, {mv['lanes']} lanes, {where}: "
+          f"{mv['ms']:.3f} ms, device {mv['device_ms']} ms "
+          f"{mv['device_kernels_ms']}; K6a on the same inputs "
+          f"{mv['k6a_ms']:.3f} ms; plain {mv['plain_ms']:.1f} ms; host "
+          f"enqueue {mv['enqueue_ms']:.3f} ms (K6a {mv['k6a_enqueue_ms']:.3f})"
+          f"  [{card}]")
+    for k in MESH_KERNELS:
+        r = k7[k]
+        print(f"kernel {k} [{r['shape']}]: mismatches {r['mismatches']}, "
+              f"max_abs_err {r['max_abs_err']}, {r['ms']:.4f} ms, device "
+              f"{r['device_ms']} ms, plain {r['plain_ms']:.1f} ms  [{card}]")
+    print(f"K7 mismatches by kind {k7['ed25519_rlc_sums']['cases']}; "
+          "verdicts (sharded, kernels, plain, kernel combine of plain "
+          "sums, plain combine of kernel sums, K6a, expected): "
+          f"{k7['ed25519_rlc_combine']['verdicts']}")
+    if any(k7[k]["mismatches"] for k in MESH_KERNELS):
+        raise AssertionError(f"K7 mismatches, {where}: "
+                             f"{k7['ed25519_rlc_sums']['cases']}")
+
+
+def default_route(vals, h2):
+    """With no device set on a host with several cards, ``device=None``
+    shards over all of them: ``VerifyCommit`` through the set's table,
+    and the uncached dense verify of the same lanes, valid and with one
+    tampered lane, which the per-lane route must name."""
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.types import validation as V
+
+    pubs, sigs, msgs, lens = lane_arrays(vals, h2.commit)
+    bad = pubs.shape[0] * 7 // 9      # lane 7,777 of 10,000
+    sigs_bad = sigs.copy()
+    sigs_bad[bad, 40] ^= 1
+    batch.DISPATCHES.clear()
+    V.VerifyCommit(CHAIN_ID, vals, h2.commit.block_id, h2.height, h2.commit)
+    ok, _ = batch.verify_dense(pubs, sigs, msgs, lens)
+    ok_bad, out_bad = batch.verify_dense(pubs, sigs_bad, msgs, lens)
+    disp = dict(batch.DISPATCHES)
+    want = {"rlc_gather_sharded": 1, "rlc_sharded": 2, "verify_sharded": 1}
+    named = np.flatnonzero(~out_bad).tolist()
+    if not ok or ok_bad or named != [bad] or disp != want:
+        raise AssertionError(f"default route: ok {ok}, tampered ok {ok_bad}"
+                             f", named {named[:5]}, dispatches {disp}")
+    return {"dispatches": disp, "named": named}
+
+
+def mesh_cards(card, record):
+    """``--mesh-cards``: phase 9 alone over distinct cards, on the light
+    phases' 150- and 10,000-validator fixtures (the cross-card copy of
+    the partial sums and the overlap of the cards)."""
+    cards = visible_cards()
+    if len(cards) < 2:
+        raise RuntimeError("--mesh-cards needs two or more visible cards")
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(os.cpu_count()) as pool:
+        keys = pool_keys(pool, BIG_VALS)
+        _, chain150 = light_chain(pool, keys[:LIGHT_VALS], LIGHT_HEADERS,
+                                  cards[0])
+        vals, (_, h2, _) = light_chain(pool, keys, 3, cards[0])
+    print(f"fixtures {time.perf_counter() - t0:.1f} s over "
+          f"{os.cpu_count()} workers")
+    t0 = time.perf_counter()
+    k7 = {k: {} for k in MESH_KERNELS}
+    launches, mesh = phase_mesh((vals, h2), chain150, cards, REPS, k7)
+    print(f"mesh phase over {len(cards)} cards "
+          f"{time.perf_counter() - t0:.1f} s")
+    report_mesh(mesh, launches, k7, card)
+    mesh["default_route"] = default_route(vals, h2)
+    print(f"device=None with no device set, {len(cards)} cards: "
+          f"{mesh['default_route']}")
+    if record:
+        os.makedirs(os.path.dirname(os.path.abspath(record)), exist_ok=True)
+        with open(record, "w") as f:
+            json.dump({"card": card, "mesh": mesh, "k7": k7}, f, indent=1,
+                      default=str)
 
 
 def bls_chain(pool, dev):
@@ -1390,6 +1793,41 @@ def bounds(c, b_verify, b_rlc, n_tab, nb, distinct_rows, rate_ops):
     return out
 
 
+def _bound(ops, nbytes, rate_ops):
+    """(least ms, what binds it, ops, bytes) of ``ops`` integer operations
+    over the integer rate against ``nbytes`` over the HBM rate."""
+    t_ops = ops / rate_ops * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", ops, nbytes)
+
+
+def mesh_bounds(c, b, d, nb, rate_ops):
+    """Least time of K7 at the mesh phase's shapes: one shard's stages 1-4
+    (K6a's, with h, over its ceil(b/d) lanes and their table rows), the
+    combine (96 (d - 1) add_cc and the ladder over d shards' outputs),
+    and the whole verdict: K6a's stages over the b lanes plus the
+    combine."""
+    ladder = (64 * (4 * c["dbl"] + c["add_niels"] + c["add_cached"])
+              + 32 * c["add_cached"] + 3 * c["dbl"] + c["is_identity"])
+    sha_ops = nb * SHA512_OPS_PER_BLOCK + SC_REDUCE_PRODUCTS
+    lane_bytes = 32 + 32 + nb * 128 + 4 + 4 + 16 + 16 * 4 * 10 * 4 + 1
+    part = 96 * 40 * 4 + 32 + 1         # a shard's sums, zs and ok
+
+    def stages(n):
+        return (n * ((c["decompress"] + c["table"]) * FE_MUL_PRODUCTS
+                     + sha_ops + 2 * (MUL_MOD_L_PRODUCTS + SC_REDUCE_PRODUCTS))
+                + 96 * max(n - 1, 0) * c["add_cc"] * FE_MUL_PRODUCTS)
+
+    s = -(-b // d)
+    combine = (96 * (d - 1) * c["add_cc"] + ladder) * FE_MUL_PRODUCTS
+    return {"ed25519_rlc_sums": _bound(stages(s), s * lane_bytes + part,
+                                       rate_ops),
+            "ed25519_rlc_combine": _bound(combine, d * part + 1, rate_ops),
+            "rlc_sharded": _bound(stages(b) + combine, b * lane_bytes + 1,
+                                  rate_ops)}
+
+
 def merkle_bounds(rec, rate_ops):
     """Least time of the two merkle kernels at the phase's main shapes:
     counted SHA-256 operations over the integer rate against bytes (each
@@ -1445,6 +1883,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--record", default=None,
                     help="also write the full record as JSON to this path")
+    ap.add_argument("--mesh-cards", action="store_true",
+                    help="run only the build and phase 9 over the first "
+                    f"{MESH_SHARDS} visible cards, one shard each (needs "
+                    "two or more)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1480,6 +1922,13 @@ def main(argv=None) -> int:
                 or "entry function" in line):
             print("  " + line.strip())
 
+    if args.mesh_cards:
+        mesh_cards(card, args.record)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     t0 = time.perf_counter()
     fx = Fixtures(max(SIZES))
     print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
@@ -1497,6 +1946,10 @@ def main(argv=None) -> int:
                                          "cometbft_tpu/ops/ed25519.py:170"),
                "ed25519_rlc_gather": ("csrc/ed25519_rlc.cu",
                                       "cometbft_tpu/ops/rlc.py:221"),
+               "ed25519_rlc_sums": ("csrc/ed25519_rlc.cu",
+                                    "cometbft_tpu/ops/rlc.py:232"),
+               "ed25519_rlc_combine": ("csrc/ed25519_rlc.cu",
+                                       "cometbft_tpu/ops/rlc.py:290"),
                "aggregate_g1_masked": ("csrc/blsg1.cu",
                                        "cometbft_tpu/ops/blsg1.py:169")}
     for k, (src, rep) in sources.items():
@@ -1521,7 +1974,8 @@ def main(argv=None) -> int:
     print("  merkle_level per level of a 10,000-leaf tree (ms): "
           + ", ".join(f"{w}: {t:.4f}" for w, t in mk["level_ms"].items()))
     print(f"  trees, wall p50 ms: {mk['tree_ms']}  [{card}]")
-    early = {k: r for k, r in rec.items() if k not in BLS_KERNELS}
+    early = {k: r for k, r in rec.items()
+             if k not in BLS_KERNELS + MESH_KERNELS}
     bad = {k: r["mismatches"] for k, r in early.items() if r["mismatches"]}
     for k, r in early.items():
         print(f"kernel {k} [{r['shape']}]: mismatches {r['mismatches']}, "
@@ -1560,7 +2014,8 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t0:.1f} s over {os.cpu_count()} "
               f"workers")
         t0 = time.perf_counter()
-        l150_launches, l150 = phase_light150(pool, keys, dev, REPS)
+        l150_launches, l150, chain150 = phase_light150(pool, keys, dev,
+                                                       REPS)
         print(f"light {LIGHT_VALS}: fixture {l150['fixture_s']:.1f} s, "
               f"phase {time.perf_counter() - t0:.1f} s; launches "
               f"{l150_launches}")
@@ -1568,7 +2023,7 @@ def main(argv=None) -> int:
               f"({l150['headers']} headers, {l150['lanes']} lanes): "
               f"{_spread(l150['wall'])}  [{card}]")
         t0 = time.perf_counter()
-        l10k_launches, l10k = phase_light10k(pool, keys, dev, REPS)
+        l10k_launches, l10k, fx10k = phase_light10k(pool, keys, dev, REPS)
         print(f"light {BIG_VALS}: fixture {l10k['fixture_s']:.1f} s, phase "
               f"{time.perf_counter() - t0:.1f} s; launches {l10k_launches}")
         t0 = time.perf_counter()
@@ -1598,6 +2053,24 @@ def main(argv=None) -> int:
           f"[{card}]")
     if k9["mismatches"]:
         raise AssertionError(f"G1 fold mismatches: {k9['cases']}")
+    t0 = time.perf_counter()
+    mesh_launches, mesh = phase_mesh(fx10k, chain150, [dev] * MESH_SHARDS,
+                                     REPS, rec)
+    print(f"mesh phase {time.perf_counter() - t0:.1f} s")
+    report_mesh(mesh, mesh_launches, rec, card)
+    if torch.cuda.device_count() > 1:
+        t0 = time.perf_counter()
+        cards = visible_cards()
+        k7_cards = {k: {} for k in MESH_KERNELS}
+        _, mesh["across_cards"] = phase_mesh(fx10k, chain150, cards, REPS,
+                                             k7_cards)
+        print(f"mesh phase over {len(cards)} cards "
+              f"{time.perf_counter() - t0:.1f} s")
+        report_mesh(mesh["across_cards"], None, k7_cards, card)
+    else:
+        print(f"mesh: {MESH_SHARDS} shards on 1 card; cross-card copy not "
+              "exercised")
+    mv = mesh["verdict"]
     for k, v in l10k["per_call_launches"].items():
         print(f"launches {k}@{BIG_VALS}: {v}")
     for k, v in l10k["wall"].items():
@@ -1614,7 +2087,8 @@ def main(argv=None) -> int:
         print(f"profile {name}: wall {prof['wall_ms']:.2f} ms, device "
               f"{prof['device_ms']} ms, kernels {prof['kernels_ms']}")
     paths = {"commit": launches, f"light{LIGHT_VALS}": l150_launches,
-             f"light{BIG_VALS}": l10k_launches, f"bls{BLS_VALS}": bls_launches}
+             f"light{BIG_VALS}": l10k_launches, f"bls{BLS_VALS}": bls_launches,
+             f"mesh{MESH_SHARDS}": mesh_launches}
 
     c = op_counts()
     print(f"field multiplications per group op: {c}")
@@ -1630,6 +2104,12 @@ def main(argv=None) -> int:
           f"per addition, {sass['int_alu_per_mul']} per product, loops "
           f"{sass['loops']}")
     bd.update(bls_bound(rec, sass, rate_ops))
+    bd_mesh = mesh_bounds(c, mv["lanes"], mv["shards"], tp["nb"], rate_ops)
+    bd.update({k: bd_mesh[k] for k in MESH_KERNELS})
+    mv["bound_ms"], mv["bound_by"] = bd_mesh["rlc_sharded"][:2]
+    print(f"bound K7 sharded verdict: {bd_mesh['rlc_sharded'][2]:.3e} int "
+          f"ops, {bd_mesh['rlc_sharded'][3]} bytes -> {mv['bound_ms']:.4f} "
+          f"ms ({mv['bound_by']})")
     kernels = []
     for k, r in rec.items():
         bound_ms, by, ops, nbytes = bd[k]
@@ -1641,7 +2121,7 @@ def main(argv=None) -> int:
             "launches": sum(p.get(k, 0) for p in paths.values()),
             "launches_by_path": {n: p.get(k, 0) for n, p in paths.items()},
             "max_abs_err": r["max_abs_err"], "mismatches": r["mismatches"],
-            "sweep_mismatches": r["sweep_mismatches"],
+            "sweep_mismatches": r.get("sweep_mismatches"),
             "ms": r["ms"], "device_ms": r.get("device_ms"),
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": by, "library_ms": None, "shape": r["shape"],
@@ -1657,6 +2137,7 @@ def main(argv=None) -> int:
                        "per_call": per_call, "p50_ms": lat,
                        "throughput": tp, "op_counts": c, "merkle": mk,
                        "light150": l150, "light10k": l10k, "bls": bls,
+                       "mesh": mesh, "build_log": _build.build_log(),
                        "g1_sass": sass}, f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,9 @@
 """Batch signature verification on the device: the port's dispatch layer.
 
-Counterpart of ``cometbft_tpu/crypto/batch.py`` for the single-device
-Ed25519 path.  Signatures pack into dense byte matrices, hash inputs
-R || A || M pad into SHA-512 blocks on the host (``ops/sha512.host_pad``),
-and the lanes go to the kernels:
+Counterpart of ``cometbft_tpu/crypto/batch.py`` for the Ed25519 path.
+Signatures pack into dense byte matrices, hash inputs R || A || M pad
+into SHA-512 blocks on the host (``ops/sha512.host_pad``), and the lanes
+go to the kernels:
 
 - batches of at least ``RLC_MIN_LANES`` lanes first take the one-shot
   RLC verdict (``ops/rlc.py``); an accept proves every lane;
@@ -11,32 +11,49 @@ and the lanes go to the kernels:
   (``ops/ed25519.py``), which names the bad lanes.  On a reject the
   first bad lane is therefore the same one the JAX package names.
 
+``device`` is a device, or ``None`` for the plan's devices
+(``crypto/plan.py:resolve_devices``: the device set, else CUDA; ``"cpu"``
+runs the plain versions, as the tests do).  On one device the kernels
+run as above.  Over several (a device set, which may name one card
+more than once) the lanes are cut into contiguous shards
+(``parallel/mesh.py``): the RLC verdict is the sharded one
+(``ops/rlc.py:make_verify_batch_rlc_sharded``), and the per-lane ladder
+runs shard by shard, its verdicts gathered on the first device.
+
 ``device_verify_ed25519_cached`` reuses per-validator-set tables
 (decode of A and its [j](-A) table) across commits, keyed by the
-identity of the set's pubkey matrix.  The kernels take any lane count,
-so there are no shape buckets; the XLA buckets of ``crypto/plan.py``
-are not needed.  ``device`` is ``None`` (CUDA) or a device; ``"cpu"``
-runs the plain versions, as the tests do.
+identity of the set's pubkey matrix, with a replica per distinct
+device, so a set's table is built once per device.  The kernels take
+any lane count, so there are no shape buckets, no lane cap and no
+chunking.  ``DISPATCHES`` counts the verdict calls by route
+(``rlc_gather``, ``gather``, ``rlc``, ``verify`` and their ``_sharded``
+twins).
 """
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..ops import _build
 from ..ops import ed25519 as _ed
 from ..ops import rlc as _rlc
 from ..ops import sha512 as _sha
-__all__ = ["RLC_MIN_LANES", "BatchVerifier", "create_batch_verifier",
-           "verify_dense", "device_verify_ed25519",
+from ..parallel import mesh as _mesh
+from . import plan as _plan
+
+__all__ = ["RLC_MIN_LANES", "DISPATCHES", "BatchVerifier",
+           "create_batch_verifier", "verify_dense", "device_verify_ed25519",
            "device_verify_ed25519_cached"]
 
-# the one-shot RLC verdict runs first at or above this many lanes
-# (cometbft_tpu/crypto/plan.py:72); smaller batches go per lane
+# Minimum Ed25519 lanes before the RLC verdict
 RLC_MIN_LANES = 128
 # validator sets whose device tables stay cached (oldest evicted first)
 TABLE_CACHE_ENTRIES = 4
+# verdict calls by route
+DISPATCHES: collections.Counter = collections.Counter()
 
 
 def _padded_lane_args(pubs, rs, ss, msgs, msg_lens, device):
@@ -60,54 +77,98 @@ def _padded_lane_args(pubs, rs, ss, msgs, msg_lens, device):
             put(blocks, np.int32), put(active))
 
 
-def _lane_route(tab, ok, idx, rb, sb, blocks, active, rng_bytes):
-    """RLC first at RLC_MIN_LANES lanes, per-lane on small batches and
-    on a reject.  Returns (B,) numpy bool."""
-    b = idx.shape[0]
+def _per_lane_sharded(devices, head, lanes):
+    """The per-lane ladder over lane shards of ``devices``, arguments as
+    :func:`_lane_route`'s: each shard runs its slab through the set's
+    table replica on its device, or through a table of its own lanes'
+    keys.  The batch is checked whole, once; the verdicts come back in
+    lane order on the first device."""
+    b, d0 = lanes[0].shape[0], devices[0]
+    outs = []
+    if len(head) == 3:
+        tabs, oks = (_mesh.replicate(t, devices) for t in head[:2])
+        _build.check_arg(tabs[d0], "tab", torch.int32, (None, 16, 4, 10))
+        _build.check_arg(oks[d0], "ok_a", torch.bool, (tabs[d0].shape[0],))
+        _ed._check_lanes(head[2], tabs[d0].shape[0], *lanes)
+        for dev, part in zip(devices, _mesh.split(devices, head[2], *lanes)):
+            outs.append(_ed._verify_gather(tabs[dev], oks[dev], *part))
+    else:
+        _build.check_arg(head[0], "pub", torch.uint8, (b, 32))
+        _ed._check_lanes(torch.arange(b, dtype=torch.int32, device=d0), b,
+                         *lanes)
+        for dev, (p, *part) in zip(devices,
+                                   _mesh.split(devices, head[0], *lanes)):
+            tab, ok = _ed.prepare_pubkey_tables(p)
+            sidx = torch.arange(p.shape[0], dtype=torch.int32, device=dev)
+            outs.append(_ed._verify_gather(tab, ok, sidx, *part))
+    return torch.cat([o.to(d0) for o in outs])
+
+
+def _lane_route(devices, head, lanes, rng_bytes):
+    """RLC first at ``RLC_MIN_LANES`` lanes, per lane on small batches
+    and on a reject.  ``head`` is ``(tab, ok, idx)`` through a table
+    (over several devices ``tab`` and ``ok`` may map each device to its
+    replica), or ``(pub,)`` over several devices, whose shards build
+    tables from their own keys; ``lanes`` the packed (rb, sb, blocks,
+    active) on the first device.  Returns (B,) numpy bool."""
+    b = lanes[0].shape[0]
+    gather = len(head) == 3
+    suffix = "_sharded" if len(devices) > 1 else ""
     if b >= RLC_MIN_LANES:
         z = torch.from_numpy(_rlc.host_rlc_coeffs(
-            b, rng_bytes=rng_bytes)).to(idx.device)
-        if bool(_rlc.verify_batch_rlc_gather(tab, ok, idx, rb, sb, blocks,
-                                             active, z)):
+            b, rng_bytes=rng_bytes)).to(lanes[0].device)
+        DISPATCHES[("rlc_gather" if gather else "rlc") + suffix] += 1
+        fn = (_rlc.make_verify_batch_rlc_sharded(_mesh.Mesh(devices), gather)
+              if suffix else _rlc.verify_batch_rlc_gather)
+        if bool(fn(*head, *lanes, z)):
             return np.ones((b,), bool)
-    return _ed.verify_padded_gather(tab, ok, idx, rb, sb, blocks,
-                                    active).cpu().numpy()
+    DISPATCHES[("gather" if gather else "verify") + suffix] += 1
+    out = (_per_lane_sharded(devices, head, lanes) if suffix
+           else _ed.verify_padded_gather(*head, *lanes))
+    return out.cpu().numpy()
 
 
 def device_verify_ed25519(pubs, rs, ss, msgs, msg_lens, device=None,
                           rng_bytes=None) -> np.ndarray:
     """Verify B Ed25519 signatures from dense arrays: pubs, rs, ss (B, 32)
     uint8, msgs (B, L) uint8 zero-padded rows, msg_lens (B,).  Tables are
-    built for these lanes' own keys.  Returns (B,) bool."""
+    built for these lanes' own keys (per shard over several devices).
+    Returns (B,) bool."""
     b = pubs.shape[0]
     if b == 0:
         return np.zeros((0,), bool)
-    dev = resolve_device(device)
+    devices = _plan.resolve_devices(device)
+    dev = devices[0]
     pub_t = torch.from_numpy(np.array(pubs, np.uint8)).to(dev)
+    lanes = _padded_lane_args(pubs, rs, ss, msgs, msg_lens, dev)
+    if len(devices) > 1:
+        return _lane_route(devices, (pub_t,), lanes, rng_bytes)
     tab, ok = _ed.prepare_pubkey_tables(pub_t)
     idx = torch.arange(b, dtype=torch.int32, device=dev)
-    return _lane_route(tab, ok, idx,
-                       *_padded_lane_args(pubs, rs, ss, msgs, msg_lens, dev),
-                       rng_bytes)
+    return _lane_route(devices, (tab, ok, idx), lanes, rng_bytes)
 
 
-# (id of the set's pubkey matrix, device) -> (matrix, tab, ok).  The
+# id of the set's pubkey matrix -> (matrix, {device: (tab, ok)}).  The
 # matrix is ``ValidatorSet.dense()``'s, built once per set; entries hold
 # it, so an id is never reused while cached.
 _TABLES: dict = {}
 
 
-def _valset_tables(valset_pubs: np.ndarray, device: torch.device):
-    key = (id(valset_pubs), str(device))
-    ent = _TABLES.get(key)
-    if ent is not None and ent[0] is valset_pubs:
-        return ent[1], ent[2]
-    pub_t = torch.from_numpy(np.array(valset_pubs, np.uint8)).to(device)
-    tab, ok = _ed.prepare_pubkey_tables(pub_t)
-    while len(_TABLES) >= TABLE_CACHE_ENTRIES:
-        _TABLES.pop(next(iter(_TABLES)))
-    _TABLES[key] = (valset_pubs, tab, ok)
-    return tab, ok
+def _valset_tables(valset_pubs: np.ndarray, devices) -> dict:
+    """The set's (tab, ok) on every distinct device of ``devices``, each
+    built on first use there; the cache holds TABLE_CACHE_ENTRIES sets,
+    however many devices each spans."""
+    ent = _TABLES.get(id(valset_pubs))
+    if ent is None:
+        while len(_TABLES) >= TABLE_CACHE_ENTRIES:
+            _TABLES.pop(next(iter(_TABLES)))
+        ent = _TABLES[id(valset_pubs)] = (valset_pubs, {})
+    reps = ent[1]
+    for dev in dict.fromkeys(devices):
+        if dev not in reps:
+            reps[dev] = _ed.prepare_pubkey_tables(torch.from_numpy(
+                np.array(valset_pubs, np.uint8)).to(dev))
+    return reps
 
 
 def device_verify_ed25519_cached(valset_pubs, scope, pubs_rows, rs, ss,
@@ -119,12 +180,18 @@ def device_verify_ed25519_cached(valset_pubs, scope, pubs_rows, rs, ss,
     b = pubs_rows.shape[0]
     if b == 0:
         return np.zeros((0,), bool)
-    dev = resolve_device(device)
-    tab, ok = _valset_tables(valset_pubs, dev)
+    devices = _plan.resolve_devices(device)
+    dev = devices[0]
+    reps = _valset_tables(valset_pubs, devices)
+    if len(devices) > 1:             # replicas keyed by device
+        tab = {d: t for d, (t, _) in reps.items()}
+        ok = {d: o for d, (_, o) in reps.items()}
+    else:
+        tab, ok = reps[dev]
     idx = torch.from_numpy(np.asarray(scope, np.int32)).to(dev)
-    return _lane_route(tab, ok, idx,
-                       *_padded_lane_args(pubs_rows, rs, ss, msgs, msg_lens,
-                                          dev), rng_bytes)
+    return _lane_route(devices, (tab, ok, idx),
+                       _padded_lane_args(pubs_rows, rs, ss, msgs, msg_lens,
+                                         dev), rng_bytes)
 
 
 def verify_dense(pubs, sigs, msgs, lens, device=None, valset_pubs=None,
@@ -156,7 +223,8 @@ class BatchVerifier:
     not 64 bytes is rejected without a launch."""
 
     def __init__(self, device=None):
-        self._device = resolve_device(device)
+        _plan.resolve_devices(device)        # raises without a card
+        self._device = device
         self._items: list[tuple] = []
 
     def add(self, pub, msg: bytes, sig: bytes) -> None:
@@ -196,6 +264,6 @@ class BatchVerifier:
 
 
 def create_batch_verifier(device=None) -> BatchVerifier:
-    """The device batch verifier (``device=None``: CUDA, raising without
-    a card; ``"cpu"``: the plain versions)."""
+    """The device batch verifier (``device=None``: the plan's devices,
+    raising without a card; ``"cpu"``: the plain versions)."""
     return BatchVerifier(device)

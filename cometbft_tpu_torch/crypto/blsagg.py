@@ -14,7 +14,10 @@ validator.
   affine keys are packed once per table into the kernel's word layout
   and kept on the device, keyed by the table's identity, so a changed
   set can never fold stale keys; a call uploads only the row mask.  On
-  ``device="cpu"`` the same call runs the kernel's plain version.  There
+  ``device="cpu"`` the same call runs the kernel's plain version;
+  ``device=None`` folds on the first of the plan's devices: under a
+  device set the fold is not sharded, as the JAX package does not shard
+  it.  There
   is no host fold behind it: the JAX package's complement fold (the
   full-cohort sum minus the absentees) is not a route of the port.
 - :func:`verify_commit_aggregate` returns ``False``, never raises, for a
@@ -29,9 +32,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..ops import blsg1
 from . import bls12381 as _bls
+from . import plan as _plan
 
 __all__ = ["AggTable", "valset_table", "verify_commit_aggregate"]
 
@@ -95,10 +98,10 @@ def verify_commit_aggregate(vals, signer_indices, msg: bytes,
     valset indices (the decoded bitmap), an iterable of ints or a numpy
     bool mask of shape (valset size,); ``msg`` is the shared
     zero-timestamp sign bytes, ``agg_sig`` the 96-byte aggregate.  The
-    signers' keys are folded on ``device`` (None: CUDA) and the two
+    signers' keys are folded on ``device`` (None: the plan's first) and the two
     pairings run on the host.  Returns False, never raises, on any
     failure, a signer outside the valset's BLS cohort included."""
-    dev = resolve_device(device)
+    dev = _plan.resolve_devices(device)[0]
     try:
         tbl = valset_table(vals)
     except ValueError:

@@ -20,8 +20,10 @@ the recursive split.  Routing by leaf count, as in the JAX package:
   their leaves hashed with hashlib instead), then one ``merkle_level``
   launch per level.  The levels stay on the device in one buffer and
   cross to the host once: the root, or every level when proofs are
-  built.  ``device=None`` is CUDA and raises without a card; ``"cpu"``
-  runs the plain versions.
+  built.  ``device=None`` is the first of the plan's devices
+  (``crypto/plan.py:resolve_devices``) and raises without a card:
+  under a device set the tree is not sharded, as the JAX package's
+  live tree is not; ``"cpu"`` runs the plain versions.
 """
 
 from __future__ import annotations
@@ -34,8 +36,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..ops import sha256 as _s
+from . import plan as _plan
 
 __all__ = ["LEAF_PREFIX", "INNER_PREFIX", "MERKLE_KERNEL_MIN_LEAVES",
            "leaf_hash", "inner_hash", "hash_from_byte_slices",
@@ -90,7 +92,7 @@ def hash_from_byte_slices_fast(items: list[bytes], device=None) -> bytes:
         return hash_from_byte_slices(items)
     if n < MERKLE_KERNEL_MIN_LEAVES:
         return _levels_hashlib(items)[-1][0]
-    buf = _kernel_levels(items, resolve_device(device))
+    buf = _kernel_levels(items, _plan.resolve_devices(device)[0])
     return _s.words_to_bytes(buf[-1:].cpu().numpy())[0].tobytes()
 
 
@@ -295,5 +297,5 @@ def proofs_from_byte_slices(items: list[bytes], device=None
     if total < MERKLE_KERNEL_MIN_LEAVES:
         levels = _levels_hashlib(items)
     else:
-        levels = _levels_kernel(items, resolve_device(device))
+        levels = _levels_kernel(items, _plan.resolve_devices(device)[0])
     return _proofs_from_levels(levels, total)

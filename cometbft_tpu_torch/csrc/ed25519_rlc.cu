@@ -1,14 +1,15 @@
-// ed25519_rlc_gather: one random-linear-combination verdict for a batch,
-// through a cached validator-set table.
+// ed25519_rlc: random-linear-combination verdicts for a batch, through a
+// cached validator-set table, on one device or over a set of shards.
 //
 // Replaces cometbft_tpu/ops/rlc.py:221 verify_batch_rlc_gather (with
-// _rlc_sums :136, _tree_reduce_lanes :109, _rlc_ladder :170).  The batch
+// _rlc_sums :136, _tree_reduce_lanes :109, _rlc_ladder :170) and
+// :232 make_verify_batch_rlc_sharded (with _combine :290).  The batch
 // passes iff
 //     [8]( [sum z_i s_i] B - sum [z_i h_i] A_i - sum [z_i] R_i ) == O
 // and every active lane decodes with S < L.  The TPU program runs all of
 // it as one sequential grid; here blocks run in any order and share
-// nothing, so the work is five launches on one stream (h = SHA-512 mod L
-// comes from the sha512_scalar kernel before these):
+// nothing, so the work is a series of launches on one stream (h = SHA-512
+// mod L comes from the sha512_scalar kernel before these):
 //   1. rlc_lane: per lane, decode R and write its [j](-R) table, z*h and
 //      z*s mod L, and the lane-ok bit (padding lanes, z = 0, never veto);
 //   2. rlc_window_partials: per (window, 128-lane block), gather each
@@ -20,9 +21,18 @@
 //   4. rlc_zs_sum: one block sums z*s mod L and ANDs the lane-ok bits;
 //   5. rlc_ladder: one thread runs the width-1 ladder over the window sums
 //      and the cofactored identity test.
+// ed25519_rlc_gather_launch runs 1-5 on one device.  The sharded verdict
+// (K7) runs 1-4 once per shard, ed25519_rlc_sums_launch, each writing its
+// 96 window sums, its sum z*s mod L and its ok byte into its slot of
+// stacked outputs; then ed25519_rlc_combine_launch runs one block of
+// rlc_combine_ladder: 96 threads each fold one window's D partials with
+// add_cc in shard order, thread 0 sums the D scalars mod L and ANDs the
+// oks, then runs stage 5.  An empty shard (B = 0) skips 1-2, and 3-4
+// write the identity, 0 and 1.
 // Bound: 32-bit integer multiplies, dominated by stage 1's R decode and
 // table (~400 field multiplications per lane) and stage 2's ~96 add_cc
-// per lane (11 field multiplications each).
+// per lane (11 field multiplications each); the combine adds 96 (D - 1)
+// add_cc, and the ladder is one thread's serial chain either way.
 #include "ed25519.cuh"
 
 #define RLC_THREADS 128
@@ -146,11 +156,10 @@ __global__ void rlc_zs_sum_kernel(const int32_t *__restrict__ zs,
   }
 }
 
-__global__ void rlc_ladder_kernel(const int32_t *__restrict__ sums,
-                                  const uint8_t *__restrict__ zs_sum,
-                                  const uint8_t *__restrict__ all_ok,
-                                  uint8_t *__restrict__ out) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
+// stage 5 over window sums in global or shared memory: 64 x 4 doublings,
+// one base-niels add and the A (and, below window 32, R) window sums,
+// then the cofactored identity test
+DEV bool rlc_ladder(const int32_t *sums, const uint8_t *zs_sum) {
   ge_ext acc;
   ge_identity(acc);
   ge_niels bn;
@@ -167,36 +176,109 @@ __global__ void rlc_ladder_kernel(const int32_t *__restrict__ sums,
     }
   }
   ge_mul_by_cofactor(acc);
-  out[0] = (all_ok[0] && ge_is_identity(acc)) ? 1 : 0;
+  return ge_is_identity(acc);
 }
 
-// scratch: rtab B*640 int32, zh B*32 u8, zs B*12 int32, lane_ok B u8,
-// partials 96*ceil(B/128)*40 int32, sums 96*40 int32, zs_sum 32 u8,
-// all_ok 1 u8; out 1 u8
+__global__ void rlc_ladder_kernel(const int32_t *__restrict__ sums,
+                                  const uint8_t *__restrict__ zs_sum,
+                                  const uint8_t *__restrict__ all_ok,
+                                  uint8_t *__restrict__ out) {
+  if (threadIdx.x != 0 || blockIdx.x != 0) return;
+  out[0] = (all_ok[0] && rlc_ladder(sums, zs_sum)) ? 1 : 0;
+}
+
+// K7's combine: D shards' (96, 40) window sums, 32-byte sums of z*s mod L
+// and ok bytes -> the verdict.  One block of RLC_WINDOWS threads.
+__global__ void rlc_combine_ladder_kernel(const int32_t *__restrict__ sums,
+                                          const uint8_t *__restrict__ zs,
+                                          const uint8_t *__restrict__ ok,
+                                          int D, uint8_t *__restrict__ out) {
+  __shared__ int32_t sh[RLC_WINDOWS * 40];
+  __shared__ uint8_t zs_sum[32];
+  __shared__ int all_ok;
+  const int w = threadIdx.x;
+  if (w < RLC_WINDOWS) {
+    ge_cached acc, e;
+    ge_load_cached(acc, sums + (size_t)w * 40);
+    for (int d = 1; d < D; d++) {
+      ge_load_cached(e, sums + ((size_t)d * RLC_WINDOWS + w) * 40);
+      ge_add_cc(acc, acc, e);
+    }
+    ge_store_cached(sh + w * 40, acc);
+  }
+  if (w == 0) {
+    int64_t cols[12], t[12], s24[24];
+    for (int i = 0; i < 12; i++) cols[i] = 0;
+    int okv = 1;
+    for (int d = 0; d < D; d++) {
+      sc_from_bytes(t, 12, zs + (size_t)d * 32, 32);
+      for (int i = 0; i < 12; i++) cols[i] += t[i];
+      okv &= ok[d] != 0;
+    }
+    sc_normalize(s24, cols, 12);
+    sc_reduce(s24);
+    sc_to_bytes(zs_sum, s24);
+    all_ok = okv;
+  }
+  __syncthreads();
+  if (w == 0) out[0] = (all_ok && rlc_ladder(sh, zs_sum)) ? 1 : 0;
+}
+
+// Stages 1-4 for one batch or shard.  scratch: rtab B*640 int32, zh B*32
+// u8, zs B*12 int32, lane_ok B u8, partials 96*ceil(B/128)*40 int32;
+// outputs: sums 96*40 int32, zs_sum 32 u8, all_ok 1 u8 (a shard's slot of
+// the stacked outputs)
+extern "C" int ed25519_rlc_sums_launch(
+    const void *tab, const void *ok_a, const void *idx, const void *rb,
+    const void *sb, const void *h, const void *z, int B, void *rtab,
+    void *zh, void *zs, void *lane_ok, void *partials, void *sums,
+    void *zs_sum, void *all_ok, void *stream) {
+  if (B < 0) return 0;
+  const int nblk = (B + RLC_THREADS - 1) / RLC_THREADS;
+  int err;
+  if (B > 0) {
+    LAUNCH(rlc_lane_kernel, nblk, RLC_THREADS, stream, (const uint8_t *)ok_a,
+           (const int32_t *)idx, (const uint8_t *)rb, (const uint8_t *)sb,
+           (const uint8_t *)h, (const uint8_t *)z, B, (int32_t *)rtab,
+           (uint8_t *)zh, (int32_t *)zs, (uint8_t *)lane_ok);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+    LAUNCH(rlc_window_partials_kernel, dim3(nblk, RLC_WINDOWS), RLC_THREADS,
+           stream, (const int32_t *)tab, (const int32_t *)idx,
+           (const uint8_t *)zh, (const int32_t *)rtab, (const uint8_t *)z,
+           B, (int32_t *)partials);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+  }
+  LAUNCH(rlc_fold_kernel, RLC_WINDOWS, RLC_THREADS, stream,
+         (const int32_t *)partials, nblk, (int32_t *)sums);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  LAUNCH(rlc_zs_sum_kernel, 1, ZS_THREADS, stream, (const int32_t *)zs,
+         (const uint8_t *)lane_ok, B, (uint8_t *)zs_sum, (uint8_t *)all_ok);
+  RETURN_LAUNCH_ERROR();
+}
+
+// sums (D, 96, 40) int32, zs (D, 32) u8, ok (D,) u8 -> out 1 u8
+extern "C" int ed25519_rlc_combine_launch(const void *sums, const void *zs,
+                                          const void *ok, int D, void *out,
+                                          void *stream) {
+  if (D <= 0) return 0;
+  LAUNCH(rlc_combine_ladder_kernel, 1, RLC_WINDOWS, stream,
+         (const int32_t *)sums, (const uint8_t *)zs, (const uint8_t *)ok, D,
+         (uint8_t *)out);
+  RETURN_LAUNCH_ERROR();
+}
+
+// the single-device verdict: stages 1-4, then the ladder; scratch and
+// outputs as ed25519_rlc_sums_launch, then out 1 u8
 extern "C" int ed25519_rlc_gather_launch(
     const void *tab, const void *ok_a, const void *idx, const void *rb,
     const void *sb, const void *h, const void *z, int B, void *rtab,
     void *zh, void *zs, void *lane_ok, void *partials, void *sums,
     void *zs_sum, void *all_ok, void *out, void *stream) {
   if (B <= 0) return 0;
-  const int nblk = (B + RLC_THREADS - 1) / RLC_THREADS;
-  int err;
-  LAUNCH(rlc_lane_kernel, nblk, RLC_THREADS, stream, (const uint8_t *)ok_a,
-         (const int32_t *)idx, (const uint8_t *)rb, (const uint8_t *)sb,
-         (const uint8_t *)h, (const uint8_t *)z, B, (int32_t *)rtab,
-         (uint8_t *)zh, (int32_t *)zs, (uint8_t *)lane_ok);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
-  LAUNCH(rlc_window_partials_kernel, dim3(nblk, RLC_WINDOWS), RLC_THREADS,
-         stream, (const int32_t *)tab, (const int32_t *)idx,
-         (const uint8_t *)zh, (const int32_t *)rtab, (const uint8_t *)z, B,
-         (int32_t *)partials);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
-  LAUNCH(rlc_fold_kernel, RLC_WINDOWS, RLC_THREADS, stream,
-         (const int32_t *)partials, nblk, (int32_t *)sums);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
-  LAUNCH(rlc_zs_sum_kernel, 1, ZS_THREADS, stream, (const int32_t *)zs,
-         (const uint8_t *)lane_ok, B, (uint8_t *)zs_sum, (uint8_t *)all_ok);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
+  int err = ed25519_rlc_sums_launch(tab, ok_a, idx, rb, sb, h, z, B, rtab,
+                                    zh, zs, lane_ok, partials, sums, zs_sum,
+                                    all_ok, stream);
+  if (err != 0) return err;
   LAUNCH(rlc_ladder_kernel, 1, 1, stream, (const int32_t *)sums,
          (const uint8_t *)zs_sum, (const uint8_t *)all_ok, (uint8_t *)out);
   RETURN_LAUNCH_ERROR();

@@ -16,10 +16,11 @@ loads.
 ``ops/blsg1.py``, so the kernels and the plain versions share one source
 for every constant.
 
-Each wrapper adds one to ``LAUNCHES[name]`` where it launches its
-kernel and nowhere else, and one to ``PLAIN_CALLS[name]`` where it runs
-the plain version on CPU tensors; ``check`` turns the C entry's
-``cudaGetLastError`` return into an exception.
+Every wrapper launches through :func:`launch`, which adds one to
+``LAUNCHES[name]``, calls the C entry with the tensor's device current
+and PyTorch's current stream there, and turns the entry's
+``cudaGetLastError`` return into an exception.  A wrapper adds one to
+``PLAIN_CALLS[name]`` where it runs the plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_launches", "load", "check",
-           "check_arg", "check_index", "stream_of", "build_dir",
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_launches", "load", "launch",
+           "check_arg", "check_index", "build_dir",
            "consts_header", "sha256_consts_header", "blsg1_consts_header",
            "generated_headers",
            "build_log"]
@@ -56,6 +57,10 @@ KERNELS = {
                               [_P] * 7 + [_I, _I, _P, _P]),
     "ed25519_rlc_gather": ("ed25519_rlc.cu", "ed25519_rlc_gather_launch",
                            [_P] * 7 + [_I] + [_P] * 10),
+    "ed25519_rlc_sums": ("ed25519_rlc.cu", "ed25519_rlc_sums_launch",
+                         [_P] * 7 + [_I] + [_P] * 9),
+    "ed25519_rlc_combine": ("ed25519_rlc.cu", "ed25519_rlc_combine_launch",
+                            [_P, _P, _P, _I, _P, _P]),
     "sha256_leaves": ("sha256.cu", "sha256_leaves_launch",
                       [_P, _P, _I, _I, _P, _P]),
     "merkle_level": ("sha256.cu", "merkle_level_launch", [_P, _I, _P, _P]),
@@ -238,7 +243,17 @@ def load(name: str):
     return _LIBS[name]
 
 
-def check(err: int, name: str) -> None:
+def launch(name: str, t, *args) -> None:
+    """Launch kernel ``name`` on ``t``'s card: the C entry gets ``args``
+    and then PyTorch's current stream on that card, and is called with
+    the card current, since the CUDA runtime launches on the calling
+    thread's current device.  Counts one launch."""
+    import torch
+
+    fn = load(name)
+    LAUNCHES[name] += 1
+    with torch.cuda.device(t.device):
+        err = fn(*args, torch.cuda.current_stream(t.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
@@ -268,10 +283,3 @@ def check_index(*checks) -> None:
     for (_, n, name), b in zip(live, bad.tolist()):
         if b:
             raise IndexError(f"{name}: an entry lies outside [0, {n})")
-
-
-def stream_of(t) -> int:
-    """PyTorch's current stream on ``t``'s device, as the C entry's handle."""
-    import torch
-
-    return torch.cuda.current_stream(t.device).cuda_stream

@@ -273,13 +273,11 @@ def g1_masked_sum(words: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if words.device.type == "cpu":
         _build.PLAIN_CALLS["aggregate_g1_masked"] += 1
         return _masked_sum_plain(words, mask)
-    fn = _build.load("aggregate_g1_masked")
     pow2 = 1 << max(0, (r - 1).bit_length())
     scratch = torch.empty((pow2, 3, NWORD), dtype=torch.int32,
                           device=words.device)
     out = torch.empty((3, NLIMB), dtype=torch.int32, device=words.device)
-    _build.LAUNCHES["aggregate_g1_masked"] += 1
-    _build.check(fn(words.data_ptr(), mask.data_ptr(), r, pow2,
-                    scratch.data_ptr(), out.data_ptr(),
-                    _build.stream_of(words)), "aggregate_g1_masked")
+    _build.launch("aggregate_g1_masked", words, words.data_ptr(),
+                  mask.data_ptr(), r, pow2, scratch.data_ptr(),
+                  out.data_ptr())
     return out

@@ -82,6 +82,10 @@ def _build_neg_table(p: Ext) -> torch.Tensor:
 
 
 def _prepare_plain(pub: torch.Tensor):
+    if pub.shape[0] == 0:                 # an empty shard: no rows
+        return (torch.empty((0, 16, 4, 10), dtype=torch.int32,
+                            device=pub.device),
+                torch.empty((0,), dtype=torch.bool, device=pub.device))
     a, ok = group.decompress_zip215(pub)
     return _build_neg_table(a).to(torch.int32).contiguous(), ok
 
@@ -100,6 +104,8 @@ def _base_entry(digit: torch.Tensor) -> Niels:
 
 def _verify_core_plain(lane_tab, lane_ok, rb, sb, blocks, active):
     b = rb.shape[0]
+    if b == 0:                            # an empty shard: no verdicts
+        return torch.empty((0,), dtype=torch.bool, device=rb.device)
     r, ok_r = group.decompress_zip215(rb)
     ok_s = scalar.lt_l(scalar.bytes32_to_limbs(sb))
     s_dig = scalar.nibbles_k(sb, 64)
@@ -135,11 +141,9 @@ def prepare_pubkey_tables(pub: torch.Tensor):
     n = pub.shape[0]
     tab = torch.empty((n, 16, 4, 10), dtype=torch.int32, device=pub.device)
     ok = torch.empty((n,), dtype=torch.bool, device=pub.device)
-    fn = _build.load("ed25519_tables")
     if n:
-        _build.LAUNCHES["ed25519_tables"] += 1
-        _build.check(fn(pub.data_ptr(), n, tab.data_ptr(), ok.data_ptr(),
-                        _build.stream_of(pub)), "ed25519_tables")
+        _build.launch("ed25519_tables", pub, pub.data_ptr(), n,
+                      tab.data_ptr(), ok.data_ptr())
     return tab, ok
 
 
@@ -150,28 +154,40 @@ def verify_padded_gather(tab, ok_a, idx, rb, sb, blocks, active):
     blocks (B, NB, 32) int32 padded R || A || M, active (B,) int32.
     Returns (B,) bool.  Replaces ``cometbft_tpu/ops/ed25519.py:170``;
     CUDA kernel ``ed25519_verify_gather``."""
-    b = idx.shape[0]
     _build.check_arg(tab, "tab", torch.int32, (None, 16, 4, 10))
     _build.check_arg(ok_a, "ok_a", torch.bool, (tab.shape[0],))
+    _check_lanes(idx, tab.shape[0], rb, sb, blocks, active)
+    return _verify_gather(tab, ok_a, idx, rb, sb, blocks, active)
+
+
+def _check_lanes(idx, n_rows, rb, sb, blocks, active) -> None:
+    """The per-lane arguments' types, shapes and layout, and every index
+    in range: ``idx`` below ``n_rows`` table rows, ``active`` at most the
+    block count (one synchronisation on the card, so a sharded batch is
+    checked whole, once)."""
+    b = idx.shape[0]
     _build.check_arg(idx, "idx", torch.int32, (b,))
     _build.check_arg(rb, "rb", torch.uint8, (b, 32))
     _build.check_arg(sb, "sb", torch.uint8, (b, 32))
     _build.check_arg(blocks, "blocks", torch.int32, (b, None, 32))
     _build.check_arg(active, "active", torch.int32, (b,))
-    _build.check_index((idx, tab.shape[0], "idx"),
+    _build.check_index((idx, n_rows, "idx"),
                        (active, blocks.shape[1] + 1, "active"))
+
+
+def _verify_gather(tab, ok_a, idx, rb, sb, blocks, active):
+    """:func:`verify_padded_gather` on arguments already checked (a lane
+    shard of a batch checked whole, ``parallel/mesh.py``)."""
+    b = idx.shape[0]
     if idx.device.type == "cpu":
         _build.PLAIN_CALLS["ed25519_verify_gather"] += 1
         return _verify_gather_plain(tab, ok_a, idx, rb, sb, blocks, active)
     out = torch.empty((b,), dtype=torch.bool, device=idx.device)
-    fn = _build.load("ed25519_verify_gather")
     if b:
-        _build.LAUNCHES["ed25519_verify_gather"] += 1
-        _build.check(fn(tab.data_ptr(), ok_a.data_ptr(), idx.data_ptr(),
-                        rb.data_ptr(), sb.data_ptr(), blocks.data_ptr(),
-                        active.data_ptr(), b, blocks.shape[1],
-                        out.data_ptr(), _build.stream_of(idx)),
-                     "ed25519_verify_gather")
+        _build.launch("ed25519_verify_gather", idx, tab.data_ptr(),
+                      ok_a.data_ptr(), idx.data_ptr(), rb.data_ptr(),
+                      sb.data_ptr(), blocks.data_ptr(), active.data_ptr(),
+                      b, blocks.shape[1], out.data_ptr())
     return out
 
 

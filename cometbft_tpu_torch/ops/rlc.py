@@ -22,20 +22,35 @@ On CUDA tensors :func:`verify_batch_rlc_gather` launches the
 ``sha512_scalar`` kernel for h, then ``csrc/ed25519_rlc.cu`` (five
 launches on one stream, counted as one launch of ``ed25519_rlc_gather``);
 on CPU tensors it runs the plain version below.
+
+The lane-sharded verdict (:func:`make_verify_batch_rlc_sharded`, K7)
+splits the lanes over a device set: each shard runs the lane stage and
+the window fold (:func:`rlc_sums_gather`, kernel ``ed25519_rlc_sums``)
+into its slot of stacked outputs, and :func:`rlc_combine` (kernel
+``ed25519_rlc_combine``) adds the shards' window sums in shard order,
+sums their z*s mod L, ANDs their lane checks and runs the one ladder.
+Only 96 points, 32 bytes and one flag per shard cross between devices.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from ..parallel.mesh import replicate, split
 from . import _build, group, scalar, sha512
-from .ed25519 import _base_entry, _build_neg_table, prepare_pubkey_tables
+from .ed25519 import (_base_entry, _build_neg_table, _check_lanes,
+                      prepare_pubkey_tables)
 from .group import Cached
 
-__all__ = ["host_rlc_coeffs", "verify_batch_rlc", "verify_batch_rlc_gather"]
+__all__ = ["host_rlc_coeffs", "verify_batch_rlc", "verify_batch_rlc_gather",
+           "RlcSums", "rlc_sums_buffers", "rlc_sums_gather", "rlc_combine",
+           "make_verify_batch_rlc_sharded"]
 
 WINDOWS_A, WINDOWS_R = 64, 32
+WINDOWS = WINDOWS_A + WINDOWS_R
 _RLC_THREADS = 128          # lanes per block of the window-sum kernel
 
 
@@ -93,7 +108,14 @@ def _window_entries(tab: torch.Tensor, digits: torch.Tensor) -> Cached:
 def _rlc_sums_plain(tab, ok_a, idx, rb, sb, blocks, active, z):
     """The lane stage and the window fold: (sum_a, sum_r) cached window
     sums of (10, 64) and (10, 32), the (12,) limbs of sum z*s mod L, and
-    the AND of the active lanes' checks."""
+    the AND of the active lanes' checks.  No lanes: the identity, 0 and
+    True, as the kernel writes for an empty shard."""
+    if idx.shape[0] == 0:
+        ident = group.cache(group.identity(WINDOWS, rb.device))
+        return (Cached(*[c[:, :WINDOWS_A] for c in ident]),
+                Cached(*[c[:, WINDOWS_A:] for c in ident]),
+                torch.zeros(scalar.NS, dtype=torch.int64, device=rb.device),
+                torch.ones((), dtype=torch.bool, device=rb.device))
     idx = idx.long()
     lane_tab, lane_ok = tab[idx], ok_a[idx]
     r, ok_r = group.decompress_zip215(rb)
@@ -112,11 +134,11 @@ def _rlc_sums_plain(tab, ok_a, idx, rb, sb, blocks, active, z):
     return sum_a, sum_r, zs_sum, lanes_ok
 
 
-def _rlc_plain(tab, ok_a, idx, rb, sb, blocks, active, z):
-    sum_a, sum_r, zs_sum, lanes_ok = _rlc_sums_plain(
-        tab, ok_a, idx, rb, sb, blocks, active, z)
+def _rlc_ladder_plain(sum_a: Cached, sum_r: Cached, zs_sum) -> torch.Tensor:
+    """The width-1 ladder over the window sums and the cofactored
+    identity test (``cometbft_tpu/ops/rlc.py:170 _rlc_ladder``)."""
     sum_dig = scalar.nibbles(zs_sum[None])[0]
-    acc = group.identity(1, rb.device)
+    acc = group.identity(1, zs_sum.device)
     for w in range(63, -1, -1):
         for _ in range(4):
             acc = group.dbl(acc)
@@ -126,7 +148,143 @@ def _rlc_plain(tab, ok_a, idx, rb, sb, blocks, active, z):
             acc = group.add_cached(acc, Cached(*[c[:, w:w + 1]
                                                  for c in sum_r]))
     acc = group.mul_by_cofactor(acc)
-    return lanes_ok & group.is_identity(acc)[0]
+    return group.is_identity(acc)[0]
+
+
+def _rlc_plain(tab, ok_a, idx, rb, sb, blocks, active, z):
+    sum_a, sum_r, zs_sum, lanes_ok = _rlc_sums_plain(
+        tab, ok_a, idx, rb, sb, blocks, active, z)
+    return lanes_ok & _rlc_ladder_plain(sum_a, sum_r, zs_sum)
+
+
+# ------------------------------------------------- per-shard sums, combine
+
+class RlcSums(NamedTuple):
+    """Stacked outputs of the lane stage and window fold, one slot per
+    shard: ``sums`` (D, 96, 40) int32 cached window sums (64 A windows,
+    then 32 R windows; ypx, ymx, z2, t2d limbs), ``zs`` (D, 32) uint8
+    sum z*s mod L, ``ok`` (D,) uint8 AND of the active lanes' checks."""
+    sums: torch.Tensor
+    zs: torch.Tensor
+    ok: torch.Tensor
+
+
+def rlc_sums_buffers(d: int, device) -> RlcSums:
+    """Uninitialised stacked outputs for ``d`` shards on ``device``."""
+    return RlcSums(
+        torch.empty((d, WINDOWS, 40), dtype=torch.int32, device=device),
+        torch.empty((d, 32), dtype=torch.uint8, device=device),
+        torch.empty((d,), dtype=torch.uint8, device=device))
+
+
+def _pack_sums(sum_a: Cached, sum_r: Cached) -> torch.Tensor:
+    """(10, 64) and (10, 32) cached window sums -> (96, 40) int32 rows."""
+    return torch.cat([torch.cat([c.T for c in s], 1)
+                      for s in (sum_a, sum_r)]).to(torch.int32)
+
+
+def _unpack_sums(rows: torch.Tensor) -> Cached:
+    """(96, 40) rows -> cached window sums of (10, 96) int64."""
+    return Cached(*[rows[:, 10 * k:10 * k + 10].T.to(torch.int64)
+                    for k in range(4)])
+
+
+def _check_rlc(tab, ok_a, idx, rb, sb, blocks, active, z) -> None:
+    _build.check_arg(tab, "tab", torch.int32, (None, 16, 4, 10))
+    _build.check_arg(ok_a, "ok_a", torch.bool, (tab.shape[0],))
+    _build.check_arg(z, "z", torch.uint8, (idx.shape[0], 16))
+    _check_lanes(idx, tab.shape[0], rb, sb, blocks, active)
+
+
+def rlc_sums_gather(tab, ok_a, idx, rb, sb, blocks, active, z, out=None,
+                    slot: int = 0) -> RlcSums:
+    """The lane stage and window fold of one shard
+    (``cometbft_tpu/ops/rlc.py:136 _rlc_sums``), written into slot
+    ``slot`` of ``out`` (:func:`rlc_sums_buffers` on the lanes' device;
+    one slot when not given).  Arguments as
+    :func:`verify_batch_rlc_gather`; an empty shard writes the identity,
+    0 and 1.  CUDA kernel ``ed25519_rlc_sums``, after ``sha512_scalar``."""
+    _check_rlc(tab, ok_a, idx, rb, sb, blocks, active, z)
+    if out is None:
+        out = rlc_sums_buffers(1, idx.device)
+    d = out.sums.shape[0]
+    _build.check_arg(out.sums, "out.sums", torch.int32, (d, WINDOWS, 40))
+    _build.check_arg(out.zs, "out.zs", torch.uint8, (d, 32))
+    _build.check_arg(out.ok, "out.ok", torch.uint8, (d,))
+    if not 0 <= slot < d:
+        raise IndexError(f"slot {slot} outside [0, {d})")
+    if out.sums.device != idx.device:
+        raise ValueError(f"out on {out.sums.device}, lanes on {idx.device}")
+    return _rlc_sums(tab, ok_a, idx, rb, sb, blocks, active, z, out, slot)
+
+
+def _store_sums_plain(tab, ok_a, idx, rb, sb, blocks, active, z, out,
+                      slot):
+    """The plain version of one shard's sums, written into slot ``slot``
+    of ``out`` in the kernel's layout."""
+    sum_a, sum_r, zs_sum, lanes_ok = _rlc_sums_plain(
+        tab, ok_a, idx, rb, sb, blocks, active, z)
+    out.sums[slot] = _pack_sums(sum_a, sum_r)
+    out.zs[slot] = scalar.limbs_to_bytes32(zs_sum[None])[0]
+    out.ok[slot] = lanes_ok
+    return out
+
+
+def _rlc_sums(tab, ok_a, idx, rb, sb, blocks, active, z, out, slot):
+    """:func:`rlc_sums_gather` on arguments already checked."""
+    if idx.device.type == "cpu":
+        _build.PLAIN_CALLS["ed25519_rlc_sums"] += 1
+        return _store_sums_plain(tab, ok_a, idx, rb, sb, blocks, active, z,
+                                 out, slot)
+    b, dev = idx.shape[0], idx.device
+    h = sha512._sha512_scalar(blocks, active)
+    nblk = -(-b // _RLC_THREADS)
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    scratch = (empty((b, 16, 4, 10), torch.int32), empty((b, 32), torch.uint8),
+               empty((b, 12), torch.int32), empty((b,), torch.uint8),
+               empty((WINDOWS, nblk, 40), torch.int32))
+    _build.launch("ed25519_rlc_sums", idx, tab.data_ptr(), ok_a.data_ptr(),
+                  idx.data_ptr(), rb.data_ptr(), sb.data_ptr(), h.data_ptr(),
+                  z.data_ptr(), b, *[t.data_ptr() for t in scratch],
+                  out.sums[slot].data_ptr(), out.zs[slot].data_ptr(),
+                  out.ok[slot].data_ptr())
+    return out
+
+
+def _rlc_combine_plain(sums, zs, ok):
+    """add_cc chain over the shards' window sums in shard order (as
+    ``cometbft_tpu/ops/rlc.py:290 _combine``), sum z*s mod L, AND of the
+    oks, then the ladder."""
+    acc = _unpack_sums(sums[0])
+    for d in range(1, sums.shape[0]):
+        acc = group.add_cc(acc, _unpack_sums(sums[d]))
+    zs_sum = scalar.sum_mod_l(scalar.bytes_to_limbs(zs, scalar.NS))
+    sum_a = Cached(*[c[:, :WINDOWS_A] for c in acc])
+    sum_r = Cached(*[c[:, WINDOWS_A:] for c in acc])
+    return (ok != 0).all() & _rlc_ladder_plain(sum_a, sum_r, zs_sum)
+
+
+def rlc_combine(sums, zs, ok) -> torch.Tensor:
+    """The verdict (0-d bool tensor) from the stacked per-shard outputs of
+    :func:`rlc_sums_gather` (:class:`RlcSums` fields, D >= 1 shards).
+    CUDA kernel ``ed25519_rlc_combine``: one block, a thread per window,
+    then thread 0 runs the ladder."""
+    d = sums.shape[0]
+    _build.check_arg(sums, "sums", torch.int32, (d, WINDOWS, 40))
+    _build.check_arg(zs, "zs", torch.uint8, (d, 32))
+    _build.check_arg(ok, "ok", torch.uint8, (d,))
+    if d == 0:
+        raise ValueError("rlc_combine needs at least one shard")
+    if sums.device.type == "cpu":
+        _build.PLAIN_CALLS["ed25519_rlc_combine"] += 1
+        return _rlc_combine_plain(sums, zs, ok)
+    out = torch.empty((), dtype=torch.bool, device=sums.device)
+    _build.launch("ed25519_rlc_combine", sums, sums.data_ptr(),
+                  zs.data_ptr(), ok.data_ptr(), d, out.data_ptr())
+    return out
 
 
 def verify_batch_rlc_gather(tab, ok_a, idx, rb, sb, blocks, active, z):
@@ -135,16 +293,7 @@ def verify_batch_rlc_gather(tab, ok_a, idx, rb, sb, blocks, active, z):
     uint8 from :func:`host_rlc_coeffs`.  Replaces
     ``cometbft_tpu/ops/rlc.py:221``; CUDA kernel ``ed25519_rlc_gather``."""
     b = idx.shape[0]
-    _build.check_arg(tab, "tab", torch.int32, (None, 16, 4, 10))
-    _build.check_arg(ok_a, "ok_a", torch.bool, (tab.shape[0],))
-    _build.check_arg(idx, "idx", torch.int32, (b,))
-    _build.check_arg(rb, "rb", torch.uint8, (b, 32))
-    _build.check_arg(sb, "sb", torch.uint8, (b, 32))
-    _build.check_arg(blocks, "blocks", torch.int32, (b, None, 32))
-    _build.check_arg(active, "active", torch.int32, (b,))
-    _build.check_arg(z, "z", torch.uint8, (b, 16))
-    _build.check_index((idx, tab.shape[0], "idx"),
-                       (active, blocks.shape[1] + 1, "active"))
+    _check_rlc(tab, ok_a, idx, rb, sb, blocks, active, z)
     if idx.device.type == "cpu":
         _build.PLAIN_CALLS["ed25519_rlc_gather"] += 1
         return _rlc_plain(tab, ok_a, idx, rb, sb, blocks, active, z)
@@ -164,17 +313,14 @@ def verify_batch_rlc_gather(tab, ok_a, idx, rb, sb, blocks, active, z):
     zs_sum = empty((32,), torch.uint8)
     all_ok = empty((1,), torch.uint8)
     out = torch.full((), b == 0, dtype=torch.bool, device=dev)
-    fn = _build.load("ed25519_rlc_gather")
     if b:
-        _build.LAUNCHES["ed25519_rlc_gather"] += 1
-        _build.check(fn(tab.data_ptr(), ok_a.data_ptr(), idx.data_ptr(),
-                        rb.data_ptr(), sb.data_ptr(), h.data_ptr(),
-                        z.data_ptr(), b, rtab.data_ptr(), zh.data_ptr(),
-                        zs.data_ptr(), lane_ok.data_ptr(),
-                        partials.data_ptr(), sums.data_ptr(),
-                        zs_sum.data_ptr(), all_ok.data_ptr(),
-                        out.data_ptr(), _build.stream_of(idx)),
-                     "ed25519_rlc_gather")
+        _build.launch("ed25519_rlc_gather", idx, tab.data_ptr(),
+                      ok_a.data_ptr(), idx.data_ptr(), rb.data_ptr(),
+                      sb.data_ptr(), h.data_ptr(), z.data_ptr(), b,
+                      rtab.data_ptr(), zh.data_ptr(), zs.data_ptr(),
+                      lane_ok.data_ptr(), partials.data_ptr(),
+                      sums.data_ptr(), zs_sum.data_ptr(), all_ok.data_ptr(),
+                      out.data_ptr())
     return out
 
 
@@ -184,3 +330,64 @@ def verify_batch_rlc(pub, rb, sb, blocks, active, z):
     tab, ok = prepare_pubkey_tables(pub)
     idx = torch.arange(pub.shape[0], dtype=torch.int32, device=pub.device)
     return verify_batch_rlc_gather(tab, ok, idx, rb, sb, blocks, active, z)
+
+
+def make_verify_batch_rlc_sharded(mesh, gather: bool = False):
+    """The RLC verdict sharded over the lanes of ``mesh``
+    (``parallel/mesh.py:Mesh``; ``cometbft_tpu/ops/rlc.py:232``).
+
+    Each device runs the lane stage and the window fold on its own
+    contiguous slab of lanes (:func:`rlc_sums_gather`, into its slot of
+    stacked outputs on that device); the slots of other devices are
+    copied to the first device, where :func:`rlc_combine` folds them and
+    runs the one ladder.  The arguments are checked whole, once, before
+    the split, every shard's slab is copied before any shard's kernel
+    is enqueued (``parallel/mesh.py:split``), and every shard is enqueued
+    before the caller reads the verdict, so distinct cards overlap; a
+    device named twice runs its shards one after another.
+    ``gather=True`` gives the cached-table
+    variant, ``fn(tab, ok_a, idx, rb, sb, blocks, active, z)``, whose
+    table and ok mask are replicated (a tensor, or a mapping from device
+    to its replica); otherwise ``fn(pub, rb, sb, blocks, active, z)``
+    builds each shard's tables from its own keys.  Returns a 0-d bool
+    tensor on the first device."""
+    devices = tuple(mesh.devices)
+    d0 = devices[0]
+
+    def combine(bufs):
+        out = bufs[d0]
+        for d, dev in enumerate(devices):
+            if dev != d0:
+                for o, t in zip(out, bufs[dev]):
+                    o[d] = t[d].to(d0)
+        return rlc_combine(*out)
+
+    def buffers():
+        return {dev: rlc_sums_buffers(len(devices), dev)
+                for dev in dict.fromkeys(devices)}
+
+    if gather:
+        def fn(tab, ok_a, idx, rb, sb, blocks, active, z):
+            tabs, oks = replicate(tab, devices), replicate(ok_a, devices)
+            _check_rlc(tabs[d0], oks[d0], idx, rb, sb, blocks, active, z)
+            bufs = buffers()
+            slabs = split(devices, idx, rb, sb, blocks, active, z)
+            for d, (dev, lane) in enumerate(zip(devices, slabs)):
+                _rlc_sums(tabs[dev], oks[dev], *lane, bufs[dev], d)
+            return combine(bufs)
+        return fn
+
+    def fn(pub, rb, sb, blocks, active, z):
+        b = pub.shape[0]
+        _build.check_arg(pub, "pub", torch.uint8, (b, 32))
+        idx = torch.arange(b, dtype=torch.int32, device=pub.device)
+        _build.check_arg(z, "z", torch.uint8, (b, 16))
+        _check_lanes(idx, b, rb, sb, blocks, active)
+        bufs = buffers()
+        slabs = split(devices, pub, rb, sb, blocks, active, z)
+        for d, (dev, (p, *lane)) in enumerate(zip(devices, slabs)):
+            tab, ok = prepare_pubkey_tables(p)
+            sidx = torch.arange(p.shape[0], dtype=torch.int32, device=dev)
+            _rlc_sums(tab, ok, sidx, *lane, bufs[dev], d)
+        return combine(bufs)
+    return fn

@@ -238,12 +238,9 @@ def sha256_leaf_words(blocks: torch.Tensor, active: torch.Tensor,
     if blocks.device.type == "cpu":
         _build.PLAIN_CALLS["sha256_leaves"] += 1
         return out.copy_(_as_int32(_leaf_state_plain(blocks, active)))
-    fn = _build.load("sha256_leaves")
     if b:
-        _build.LAUNCHES["sha256_leaves"] += 1
-        _build.check(fn(blocks.data_ptr(), active.data_ptr(), b, nb,
-                        out.data_ptr(), _build.stream_of(blocks)),
-                     "sha256_leaves")
+        _build.launch("sha256_leaves", blocks, blocks.data_ptr(),
+                      active.data_ptr(), b, nb, out.data_ptr())
     return out
 
 
@@ -268,11 +265,9 @@ def merkle_level(children: torch.Tensor, out: torch.Tensor | None = None
     if children.device.type == "cpu":
         _build.PLAIN_CALLS["merkle_level"] += 1
         return out.copy_(_merkle_level_plain(children))
-    fn = _build.load("merkle_level")
     if n:
-        _build.LAUNCHES["merkle_level"] += 1
-        _build.check(fn(children.data_ptr(), n, out.data_ptr(),
-                        _build.stream_of(children)), "merkle_level")
+        _build.launch("merkle_level", children, children.data_ptr(), n,
+                      out.data_ptr())
     return out
 
 

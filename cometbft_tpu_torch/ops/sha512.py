@@ -188,10 +188,7 @@ def _sha512_scalar(blocks, active):
         _build.PLAIN_CALLS["sha512_scalar"] += 1
         return _sha512_scalar_plain(blocks, active)
     h = torch.empty((b, 32), dtype=torch.uint8, device=blocks.device)
-    fn = _build.load("sha512_scalar")
     if b:
-        _build.LAUNCHES["sha512_scalar"] += 1
-        _build.check(fn(blocks.data_ptr(), active.data_ptr(), b,
-                        blocks.shape[1], h.data_ptr(), _build.stream_of(blocks)),
-                     "sha512_scalar")
+        _build.launch("sha512_scalar", blocks, blocks.data_ptr(),
+                      active.data_ptr(), b, blocks.shape[1], h.data_ptr())
     return h

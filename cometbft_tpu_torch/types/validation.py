@@ -33,8 +33,10 @@ batch (``crypto/batch.BatchVerifier``); individual BLS lanes (NIL votes,
 cohorts below 2) are verified one by one by the host library.
 
 Not in this slice: the verified-signature cache of ``crypto/scheduler``
-and blocksync's patient device wait.  ``device`` is ``None`` (CUDA) or
-``"cpu"``.
+and blocksync's patient device wait.  ``device`` is a device, ``"cpu"``,
+or ``None`` for the plan's devices (``crypto/plan.py:resolve_devices``:
+the device set, over which the dense verify shards its lanes, else
+CUDA, raising without a card).
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ import numpy as np
 
 from ..crypto import batch as cryptobatch
 from ..crypto import blsagg as _blsagg
-from ..device import resolve_device
+from ..crypto import plan as _plan
 from .commit import BLOCK_ID_FLAG_ABSENT, BLOCK_ID_FLAG_COMMIT, Commit
 from .validator_set import ValidatorSet
 
@@ -55,6 +57,15 @@ __all__ = ["CommitVerificationError", "ErrInvalidCommit",
            "VerifyCommitLightAllSignatures", "VerifyCommitLightTrusting",
            "VerifyCommitLightTrustingAllSignatures",
            "verify_commits_light_batched"]
+
+
+def _devices(device):
+    """``device`` as the dispatch layer takes it: ``None`` stays ``None``
+    (the plan's devices, resolved in ``crypto/batch.py``, so a device set
+    takes effect); checked here first, so a call without a card raises
+    before any work."""
+    _plan.resolve_devices(device)
+    return device
 
 
 class CommitVerificationError(Exception):
@@ -352,7 +363,7 @@ def VerifyCommit(chain_id: str, vals: ValidatorSet, block_id, height: int,
                  commit: Commit, device=None) -> None:
     """All signatures verified; more than 2/3 of the total power must be
     for ``block_id`` (types/validation.go:28)."""
-    dev = resolve_device(device)
+    dev = _devices(device)
     _check_commit_basics(vals, commit, height, block_id)
     needed = vals.total_voting_power() * 2 // 3
     _verify(chain_id, vals, commit, needed, count_all=True,
@@ -363,7 +374,7 @@ def VerifyCommitLight(chain_id: str, vals: ValidatorSet, block_id,
                       height: int, commit: Commit, device=None) -> None:
     """Commit-flag signatures only, early exit past 2/3
     (types/validation.go:63)."""
-    dev = resolve_device(device)
+    dev = _devices(device)
     _check_commit_basics(vals, commit, height, block_id)
     needed = vals.total_voting_power() * 2 // 3
     _verify(chain_id, vals, commit, needed, count_all=False,
@@ -374,7 +385,7 @@ def VerifyCommitLightAllSignatures(chain_id: str, vals: ValidatorSet,
                                    block_id, height: int, commit: Commit,
                                    device=None) -> None:
     """types/validation.go:96 (evidence path: no early exit)."""
-    dev = resolve_device(device)
+    dev = _devices(device)
     _check_commit_basics(vals, commit, height, block_id)
     needed = vals.total_voting_power() * 2 // 3
     _verify(chain_id, vals, commit, needed, count_all=True,
@@ -389,7 +400,7 @@ def VerifyCommitLightTrusting(chain_id: str, vals: ValidatorSet,
     set, looked up by address (types/validation.go:127)."""
     if trust_level <= 0 or trust_level > 1:
         raise ValueError("trust level must be in (0, 1]")
-    dev = resolve_device(device)
+    dev = _devices(device)
     needed = (vals.total_voting_power() * trust_level.numerator
               // trust_level.denominator)
     _verify(chain_id, vals, commit, needed, count_all=count_all,
@@ -435,7 +446,7 @@ def verify_commits_light_batched(chain_id: str, vals: ValidatorSet,
     On a set with a BLS member, or when an item carries an aggregate, the
     items go through the JAX package's loop (:func:`_batched_loop`)
     instead, with the same raise order and demux."""
-    dev = resolve_device(device)
+    dev = _devices(device)
     needed = vals.total_voting_power() * 2 // 3
     if vals.dense() is None or any(c.has_aggregate() for _, _, c in items):
         return _batched_loop(chain_id, vals, items, needed, dev)

@@ -369,3 +369,44 @@ def test_blsg1_fold_matches_plain(harness, r):
         assert np.array_equal(got, plain.numpy())
         if not mask.any() or (r >= 5 and mask is masks[3]):
             assert blsg1.xy_from_projective(got) is None
+
+
+@pytest.mark.parametrize("d,n_lanes,tamper", [
+    (1, 9, None), (3, 10, 9), (4, 9, 4)],
+    ids=["D1", "D3-ragged-tampered", "D4-empty-shard-tampered"])
+def test_rlc_sharded_matches_plain(harness, d, n_lanes, tamper):
+    """The sharded verdict: per shard ``ed25519_rlc_sums`` into its slot
+    (after ``sha512_scalar``), then ``ed25519_rlc_combine``, against
+    ``make_verify_batch_rlc_sharded`` over ``d`` CPU shards: the verdict,
+    each shard's window sums as points, its sum z*s mod L and its ok
+    byte.  Shards are ``ceil(B / d)`` lanes, so 10 lanes over 3 end in a
+    short shard and 9 lanes over 4 in an empty one."""
+    from cometbft_tpu_torch.parallel.mesh import batch_mesh, shard_bounds
+
+    rng = np.random.default_rng(70 + d + n_lanes)
+    lanes = _signed_lanes(n_lanes, 5, 70 + n_lanes)
+    if tamper is not None:
+        pk, m, s = lanes[tamper]
+        lanes[tamper] = (pk, m, s[:40] + bytes([s[40] ^ 1]) + s[41:])
+    b = Lanes(lanes)
+    _, nb, n = b.sizes()
+    z = trlc.host_rlc_coeffs(n_lanes, rng_bytes=rng.bytes(16 * n_lanes))
+    got = harness("rlc_sharded", [n_lanes, nb, n, d],
+                  {**b.host_inputs(), "z": z},
+                  {"out": (np.uint8, (1,)),
+                   "sums": (np.int32, (d, 96, 40)),
+                   "zs": (np.uint8, (d, 32)), "ok": (np.uint8, (d,))})
+    args = (*b.args(), torch.from_numpy(z))
+    fn = trlc.make_verify_batch_rlc_sharded(batch_mesh(["cpu"] * d),
+                                            gather=True)
+    expect = tamper is None
+    assert bool(got["out"][0]) == bool(fn(*args)) == expect
+    assert bool(trlc.verify_batch_rlc_gather(*args)) == expect
+    for s, (lo, hi) in enumerate(shard_bounds(n_lanes, d)):
+        part = trlc.rlc_sums_gather(*[a[lo:hi] if i >= 2 else a
+                                      for i, a in enumerate(args)])
+        assert [_point(c) for c in got["sums"][s]] == \
+            [_point(c) for c in part.sums[0].numpy()]
+        assert got["zs"][s].tolist() == part.zs[0].tolist()
+        assert got["ok"][s] == part.ok[0]
+    assert any(lo == hi for lo, hi in shard_bounds(n_lanes, d)) == (d == 4)

@@ -16,10 +16,17 @@
 //   verify B NB N       tab, ok_a, idx, rb, sb, blocks, active -> out
 //   rlc B NB N          tab, ok_a, idx, rb, sb, blocks, active, z -> out,
 //                       sums (the 96 window sums)
+//   rlc_sharded B NB N D
+//                       the same inputs cut into D contiguous shards of
+//                       ceil(B/D) lanes (the last short, possibly empty):
+//                       per shard sha512_scalar and ed25519_rlc_sums into
+//                       its slot, then ed25519_rlc_combine -> out, sums
+//                       (D x 96 window sums), zs (D x 32), ok (D)
 //   sha256 B NB         blocks, active -> out (B x 8 digest words)
 //   merkle N            children (N x 8 words) -> parents
 //   blsg1 R N2          rows (R x 2 x 12 words), mask (R) -> out (3 x 32
 //                       12-bit limbs); N2 the padded row count
+#include <algorithm>
 #include <barrier>
 #include <cstdio>
 #include <cstdlib>
@@ -164,7 +171,7 @@ int main(int argc, char **argv) {
     save("out", out);
     return 0;
   }
-  if (mode != "verify" && mode != "rlc") {
+  if (mode != "verify" && mode != "rlc" && mode != "rlc_sharded") {
     fprintf(stderr, "unknown mode %s\n", mode.c_str());
     return 2;
   }
@@ -186,6 +193,41 @@ int main(int argc, char **argv) {
     return 0;
   }
   auto z = load<uint8_t>("z", (size_t)B * 16);
+  if (mode == "rlc_sharded") {
+    const int D = argc > 6 ? atoi(argv[6]) : 1;
+    if (D < 1) {
+      fprintf(stderr, "rlc_sharded needs D >= 1\n");
+      return 2;
+    }
+    const int step = (B + D - 1) / D;
+    std::vector<int32_t> sums((size_t)D * RLC_WINDOWS * 40);
+    std::vector<uint8_t> zs_sum((size_t)D * 32), all_ok(D), out(1);
+    for (int d = 0; d < D; d++) {
+      const int lo = std::min(B, d * step), n = std::min(B, lo + step) - lo;
+      const int nblk = (n + RLC_THREADS - 1) / RLC_THREADS;
+      std::vector<uint8_t> h((size_t)n * 32), zh((size_t)n * 32), lane_ok(n);
+      std::vector<int32_t> rtab((size_t)n * 640), zs((size_t)n * 12),
+          partials((size_t)RLC_WINDOWS * nblk * 40);
+      if (n > 0)
+        check(sha512_scalar_launch(blocks.data() + (size_t)lo * NB * 32,
+                                   active.data() + lo, n, NB, h.data(),
+                                   nullptr));
+      check(ed25519_rlc_sums_launch(
+          tab.data(), ok_a.data(), idx.data() + lo,
+          rb.data() + (size_t)lo * 32, sb.data() + (size_t)lo * 32, h.data(),
+          z.data() + (size_t)lo * 16, n, rtab.data(),
+          zh.data(), zs.data(), lane_ok.data(), partials.data(),
+          sums.data() + (size_t)d * RLC_WINDOWS * 40,
+          zs_sum.data() + d * 32, all_ok.data() + d, nullptr));
+    }
+    check(ed25519_rlc_combine_launch(sums.data(), zs_sum.data(),
+                                     all_ok.data(), D, out.data(), nullptr));
+    save("out", out);
+    save("sums", sums);
+    save("zs", zs_sum);
+    save("ok", all_ok);
+    return 0;
+  }
   const int nblk = (B + RLC_THREADS - 1) / RLC_THREADS;
   std::vector<uint8_t> h((size_t)B * 32), zh((size_t)B * 32), lane_ok(B),
       zs_sum(32), all_ok(1), out(1);
