@@ -11,7 +11,9 @@ Phases, each of which must pass or the script exits non-zero:
 
 1. environment: the card's name and power limit, torch.version.cuda, nvcc;
 2. build: compiles the kernels from the six sources in
-   ``cometbft_tpu_torch/csrc`` (one nvcc per source, all at once);
+   ``cometbft_tpu_torch/csrc`` (one nvcc per source, all at once) and
+   prints each function's registers, stack frame, spills and shared
+   memory from ``-Xptxas -v`` (``ptxas_usage``);
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the same inputs at the main path's shapes (valid, tampered and ZIP-215
    edge lanes; RLC accept, reject, garbage padding and torsion batches),
@@ -30,6 +32,9 @@ Phases, each of which must pass or the script exits non-zero:
    must have launched and no plain version may have run;
 5. throughput: 10,000 lanes (the 1,000 signed lanes tiled against a
    10,000-row validator table) through the RLC and the per-lane kernels;
+   the device time of each of the RLC verdict's stages (``RLC_STAGES``)
+   here and at phase 3's 150 lanes, and the ladder stage's chain floor
+   (``chain_floor``);
 6. light, 150 validators: ``verify_sequential_batched`` over a linked
    chain of ``LIGHT_HEADERS`` headers, each fully signed (BASELINE
    configs[2], cut from 1,000 headers for signing time);
@@ -120,6 +125,23 @@ COMMIT_KERNELS = ("sha512_scalar", "ed25519_tables", "ed25519_verify_gather",
                   "ed25519_rlc_gather")
 BLS_KERNELS = ("aggregate_g1_masked",)
 MESH_KERNELS = ("ed25519_rlc_sums", "ed25519_rlc_combine")
+# K6a's launches after sha512_scalar, in order: (stage, kernel)
+RLC_STAGES = (("lane", "rlc_lane_kernel"),
+              ("partials", "rlc_window_partials_kernel"),
+              ("fold", "rlc_fold_kernel"), ("zs", "rlc_zs_sum_kernel"),
+              ("comb", "rlc_comb_kernel"), ("ladder", "rlc_ladder_kernel"))
+# the ladder stage's quad point operations: 255 doublings, 64 window
+# additions and the comb's, and the R-window prologue (about one)
+LADDER_OPS = 255 + 65 + 1
+# the __global__ functions behind each C entry, for the -Xptxas -v lines
+ENTRY_KERNELS = {
+    "sha512_scalar": ("sha512_scalar_kernel",),
+    "ed25519_tables": ("ed25519_tables_kernel",),
+    "ed25519_verify_gather": ("ed25519_verify_gather_kernel",),
+    "ed25519_rlc_gather": tuple(k for _, k in RLC_STAGES),
+    "ed25519_rlc_sums": tuple(k for _, k in RLC_STAGES[:4]),
+    "ed25519_rlc_combine": ("rlc_combine_ladder_kernel",),
+}
 MESH_SHARDS = 4                  # shards of the mesh phase, one card each
 MERKLE_LEAVES = 10_000           # leaves of the merkle kernel phase
 MERKLE_SWEEP = (1, 63, 64, 2047, 2048, 2049, 4097, 10_000)  # tree sizes
@@ -501,7 +523,10 @@ def phase_kernels(fx, dev, reps, rec):
         ms=time_cuda(lambda: ed.verify_padded_gather(tab_k, ok_k, idx_t,
                                                      *args), reps),
         plain_ms=time_host(verify_plain), shape=f"B={n_lanes}",
-        expected_rejects=sum(not w for w in want))
+        expected_rejects=sum(not w for w in want),
+        device_ms=_kernel_ms(profile_call(
+            lambda: ed.verify_padded_gather(tab_k, ok_k, idx_t, *args),
+            reps)["kernels_ms"], "ed25519_verify_gather"))
 
     # sha512_scalar at the VerifyCommit shape (150 lanes)
     rb, sb, blocks, active = _padded_lane_args(
@@ -567,6 +592,10 @@ def phase_kernels(fx, dev, reps, rec):
                      reps),
         plain_ms=time_host(lambda: rlc._rlc_plain(*cases[0][1])),
         shape="B=150", verdicts=verdicts)
+    stages = rlc_stage_ms(lambda: rlc.verify_batch_rlc_gather(*cases[0][1]),
+                          reps)
+    rec["ed25519_rlc_gather"].update(stages_ms=stages,
+                                     device_ms=stages["sum"])
     return {"blocks_nb": int(blocks.shape[1])}
 
 
@@ -812,7 +841,9 @@ def phase_throughput(sets, dev, n_lanes, reps):
         wall.append((time.perf_counter() - t0) * 1e3)
         if not ok_all:
             raise AssertionError("10k-lane dense verify rejected")
+    stages_10k = rlc_stage_ms(at_10k["ed25519_rlc_gather"][0], reps)
     return {"lanes": n_lanes, "tables_ms": tables_ms, "rlc_ms": rlc_ms,
+            "rlc_stages_ms_10k": stages_10k,
             "per_lane_ms": lane_ms, "dense_wall_p50_ms": statistics.median(wall),
             "rlc_sig_per_s": n_lanes / rlc_ms * 1e3,
             "per_lane_sig_per_s": n_lanes / lane_ms * 1e3,
@@ -826,6 +857,59 @@ def _kernel_ms(kernels_ms: dict, prefix: str):
     :func:`profile_call` result, or None where the profiler saw none."""
     hits = [v for k, v in kernels_ms.items() if k.startswith(prefix)]
     return sum(hits) if hits else None
+
+
+def rlc_stage_ms(fn, reps: int) -> dict:
+    """Device ms per call of each stage kernel of K6a (``RLC_STAGES``)
+    in ``reps`` traced calls of ``fn``, and their sum."""
+    kernels = profile_call(fn, reps, top=None)["kernels_ms"]
+    out = {}
+    for stage, name in RLC_STAGES:
+        hits = [v for k, v in kernels.items()
+                if k == name or k.startswith(name + "(")]
+        out[stage] = sum(hits) if hits else None
+    known = [v for v in out.values() if v is not None]
+    out["sum"] = sum(known) if known else None
+    return out
+
+
+def chain_floor(stages: dict):
+    """K6a's latency floor from the ladder stage's device time: ms per
+    quad point operation (its ``LADDER_OPS`` operations, each two product
+    latencies and two gathers) times the 255 doublings any width-1
+    combination of the 64 windows needs.  None without the stage."""
+    if stages.get("ladder") is None:
+        return None
+    per_op = stages["ladder"] / LADDER_OPS
+    return {"ns_per_op": per_op * 1e6, "floor_ms": 255 * per_op}
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers, stack frame, spills and shared memory of every function
+    in an ``nvcc -Xptxas -v`` log, by unmangled name."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?_Z(\d+)(\w+)", line)
+        if m:
+            cur = out.setdefault(m.group(2)[:int(m.group(1))], {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["smem"] = int(m.group(1))
+    return out
 
 
 def _rand_leaves(rng, n: int, lo: int, hi: int) -> list:
@@ -977,13 +1061,13 @@ def _expect_raise(fn, cls, check=None):
     raise AssertionError(f"expected {cls.__name__}, nothing raised")
 
 
-def profile_call(fn, calls: int = 1) -> dict:
+def profile_call(fn, calls: int = 1, top=8) -> dict:
     """Wall time of ``calls`` synchronized calls of ``fn`` and the device
-    time of what they ran, by name, from ``torch.profiler`` (a first
-    traced call, whose trace is dropped, warms the tracer up: the first
-    events of a process's first trace were missing on the card; device
-    time is None when the profiler saw no device activity).  Times are
-    per call."""
+    time of what they ran, by name (the ``top`` longest, or all for
+    None), from ``torch.profiler`` (a first traced call, whose trace is
+    dropped, warms the tracer up: the first events of a process's first
+    trace were missing on the card; device time is None when the
+    profiler saw no device activity).  Times are per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1013,7 +1097,7 @@ def profile_call(fn, calls: int = 1) -> dict:
     return {"wall_ms": wall, "device_ms": busy,
             "device_busy_share": None if busy is None else busy / wall,
             "kernels_ms": dict(sorted(kernels.items(),
-                                      key=lambda kv: -kv[1])[:8])}
+                                      key=lambda kv: -kv[1])[:top])}
 
 
 def _path_launches(fn, required):
@@ -1917,10 +2001,12 @@ def main(argv=None) -> int:
         _build.load(k)
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({_build.build_dir()})")
-    for line in _build.build_log().splitlines():
-        if ("registers" in line or "spill" in line or "==" in line
-                or "entry function" in line):
-            print("  " + line.strip())
+    usage = ptxas_usage(_build.build_log())
+    for name, u in sorted(usage.items()):
+        print(f"  ptxas {name}: {u.get('registers')} registers, "
+              f"{u.get('stack')} bytes stack, spill stores "
+              f"{u.get('spill_stores')} / loads {u.get('spill_loads')}, "
+              f"{u.get('smem')} bytes smem")
 
     if args.mesh_cards:
         mesh_cards(card, args.record)
@@ -1983,6 +2069,11 @@ def main(argv=None) -> int:
               f"(plain {r['plain_ms']:.1f} ms)")
     print(f"rlc verdicts (kernel, plain, expected): "
           f"{rec['ed25519_rlc_gather']['verdicts']}")
+    print(f"K5b ed25519_verify_gather at B=101: "
+          f"{rec['ed25519_verify_gather']['ms']:.4f} ms, device "
+          f"{rec['ed25519_verify_gather']['device_ms']} ms  [{card}]")
+    print(f"K6a stages at B=150, device ms: "
+          f"{rec['ed25519_rlc_gather']['stages_ms']}  [{card}]")
     if bad:
         raise AssertionError(f"kernel phase mismatches: {bad}")
 
@@ -2004,6 +2095,15 @@ def main(argv=None) -> int:
     for k in COMMIT_KERNELS:
         print(f"  {k} at {tp['lanes']} lanes: {tp['ms_10k'][k]:.4f} ms, "
               f"device {tp['device_ms_10k'][k]} ms  [{card}]")
+    print(f"K6a stages at B={tp['lanes']}, device ms: "
+          f"{tp['rlc_stages_ms_10k']}  [{card}]")
+    floors = {"B=150": chain_floor(rec["ed25519_rlc_gather"]["stages_ms"]),
+              f"B={tp['lanes']}": chain_floor(tp["rlc_stages_ms_10k"])}
+    for shape, f in floors.items():
+        if f is not None:
+            print(f"K6a chain floor at {shape}: 255 doublings x "
+                  f"{f['ns_per_op']:.1f} ns (ladder stage over {LADDER_OPS}"
+                  f" quad operations) = {f['floor_ms']:.4f} ms  [{card}]")
     print(f"phases 4-5: {time.perf_counter() - t0:.1f} s")
 
     ctx = multiprocessing.get_context("spawn")
@@ -2128,7 +2228,13 @@ def main(argv=None) -> int:
             **({"ms_10k": tp["ms_10k"][k],
                 "device_ms_10k": tp["device_ms_10k"][k],
                 "bound_ms_10k": bd_10k[k][0]}
-               if k in COMMIT_KERNELS else {})})
+               if k in COMMIT_KERNELS else {}),
+            **({"stages_ms": r["stages_ms"],
+                "stages_ms_10k": tp["rlc_stages_ms_10k"],
+                "chain_floor": floors}
+               if k == "ed25519_rlc_gather" else {}),
+            **({"ptxas": {n: usage.get(n) for n in ENTRY_KERNELS[k]}}
+               if k in ENTRY_KERNELS else {})})
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)),
                     exist_ok=True)
@@ -2138,6 +2244,7 @@ def main(argv=None) -> int:
                        "throughput": tp, "op_counts": c, "merkle": mk,
                        "light150": l150, "light10k": l10k, "bls": bls,
                        "mesh": mesh, "build_log": _build.build_log(),
+                       "ptxas": usage,
                        "g1_sass": sass}, f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))

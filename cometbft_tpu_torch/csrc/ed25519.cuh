@@ -1,34 +1,48 @@
 // Ed25519 ZIP-215 device arithmetic shared by the port's CUDA kernels.
 //
 // Counterpart of cometbft_tpu/ops/{fe_lm,group,sha512,scalar}.py, which
-// XLA inlines into the TPU verify programs.  Every function here mirrors
-// a plain PyTorch function of cometbft_tpu_torch/ops/{fe,group,sha512,
-// scalar}.py operation for operation and with the same carry schedule,
-// so a kernel and its plain version compute the same limbs:
+// XLA inlines into the TPU verify programs.  What binds a kernel to its
+// plain PyTorch version (cometbft_tpu_torch/ops/{fe,group,ed25519,rlc}.py)
+// is its boundary, not its limbs: verdict bytes and digests bit for bit,
+// scalars byte for byte, table rows and window sums as field elements mod
+// p (rows are stored here in canonical limbs, and any row of limbs below
+// 2^26 / 2^25 + 64 in magnitude is read).  Inside, the arithmetic is its
+// own:
 //
-//   field    ref10 representation, 10 signed limbs of 26/25 bits held in
-//            int32, 32 x 32 -> 64-bit products, three parallel floor
-//            carry passes after a product, one after an add or subtract;
+//   field    ref10's representation: 10 signed limbs of 26/25 bits in
+//            int32.  A product takes 100 (a square 55) 32 x 32 -> 64-bit
+//            products of operands pre-scaled by 2 and 19 as ref10 does,
+//            then one chain of rounded carries; add and subtract do not
+//            carry.  A product's output is "carried": limbs within
+//            2^25 / 2^24 (plus a little on limb 1).  An operand of a
+//            product is a sum of at most three carried values, or a
+//            boundary row, so every limb stays below 1.65 * 2^26 / 2^25,
+//            19 * limb fits int32 and every column fits int64 (ref10's
+//            bounds; UBSan checks them in the host build);
 //   group    extended twisted-Edwards (a = -1) hwcd-2008 formulas with
-//            cached and niels operands, permissive ZIP-215 decoding;
+//            cached and niels operands, permissive ZIP-215 decoding; every
+//            coordinate of an extended point is carried;
+//   quad     the same formulas spread over the four threads of a quad
+//            (hwcd-2008's 4-way form): each thread holds the whole point,
+//            an operation's four products of a round run one per thread
+//            and a shuffle gathers them, so a doubling or an addition
+//            costs two product latencies instead of eight;
 //   sha512   native 64-bit words over host-padded big-endian blocks;
 //   scalars  ref10 sc_reduce over 21-bit signed limbs in int64, fully
 //            reduced below L.
 //
-// One thread owns one lane; nothing here touches shared memory.  The
-// constants (d, 2d, sqrt(-1), 1/2, 1/(2d), the [j]B niels table, the
-// SHA-512 round constants, the sc_reduce fold digits and L) come from
-// the generated header ed25519_consts.h, which ops/_build.py writes from
-// the port's Python oracle before compiling.
+// Every function is inlined and indexes its arrays with constants after
+// unrolling, so the kernels keep their points in registers (-Xptxas -v
+// reports the stack of each kernel).  No function here is __noinline__;
+// one that becomes so must read all of its inputs before it writes an
+// output, since nvcc 12.9's front-end optimizer may give a caller's
+// dying input and the call's output one stack slot
+// (scripts/cuda_stack_slot_probe.py).
 //
-// Every __noinline__ function reads all of its inputs before it writes
-// an output.  nvcc's front-end optimizer (nvcc 12.9 at -O1 and above;
-// not -G, not -Xcicc -O0) may give a caller's input object that dies at
-// a call the same stack slot as the object the call writes: compiled
-// so, the inlined ge_identity_cached passed one address as both the
-// output and the input of ge_cache, which then read a half-written
-// point.  A callee that finishes reading before it writes is right
-// either way (scripts/cuda_stack_slot_probe.py shows both).
+// The constants (d, 2d, sqrt(-1), 1/2, 1/(2d), the [j]B niels table, the
+// [16^w j]B comb, the SHA-512 round constants, the sc_reduce fold digits
+// and L) come from the generated header ed25519_consts.h, which
+// ops/_build.py writes from the port's Python oracle before compiling.
 #pragma once
 
 #include "launch.cuh"
@@ -43,23 +57,32 @@ struct fe {
 
 DEV int limb_width(int i) { return (i & 1) ? 25 : 26; }
 
-DEV void fe_carry(int64_t h[10], int passes) {
-  for (int p = 0; p < passes; p++) {
-    int64_t c[10];
-#pragma unroll
-    for (int i = 0; i < 10; i++) {
-      c[i] = h[i] >> limb_width(i);
-      h[i] &= (int64_t(1) << limb_width(i)) - 1;
-    }
-    h[0] += 19 * c[9];
-#pragma unroll
-    for (int i = 1; i < 10; i++) h[i] += c[i - 1];
-  }
+// one rounded carry out of column i into column i + 1 (9 into 0, times 19)
+DEV void carry_step(int64_t h[10], int i) {
+  const int wd = limb_width(i);
+  const int64_t c = (h[i] + (int64_t(1) << (wd - 1))) >> wd;
+  h[i] -= c * (int64_t(1) << wd);
+  if (i == 9)
+    h[0] += 19 * c;
+  else
+    h[i + 1] += c;
 }
 
-DEV void fe_store(fe &o, const int64_t h[10]) {
+// columns -> carried limbs, ref10's carry order (two interleaved chains,
+// 0..5 and 4..9, 0, 1)
+DEV void fe_carry64(fe &o, int64_t h[10]) {
+  const int order[12] = {0, 4, 1, 5, 2, 6, 3, 7, 4, 8, 9, 0};
+#pragma unroll
+  for (int s = 0; s < 12; s++) carry_step(h, order[s]);
 #pragma unroll
   for (int i = 0; i < 10; i++) o.v[i] = (int32_t)h[i];
+}
+
+DEV void fe_carry(fe &o, const fe &a) {
+  int64_t h[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++) h[i] = a.v[i];
+  fe_carry64(o, h);
 }
 
 DEV void fe_const(fe &o, int which) {
@@ -74,33 +97,46 @@ DEV void fe_set_small(fe &o, int32_t x) {
 }
 
 DEV void fe_add(fe &o, const fe &a, const fe &b) {
-  int64_t h[10];
 #pragma unroll
-  for (int i = 0; i < 10; i++) h[i] = (int64_t)a.v[i] + b.v[i];
-  fe_carry(h, 1);
-  fe_store(o, h);
+  for (int i = 0; i < 10; i++) o.v[i] = a.v[i] + b.v[i];
 }
 
 DEV void fe_sub(fe &o, const fe &a, const fe &b) {
-  int64_t h[10];
 #pragma unroll
-  for (int i = 0; i < 10; i++) h[i] = (int64_t)a.v[i] - b.v[i];
-  fe_carry(h, 1);
-  fe_store(o, h);
+  for (int i = 0; i < 10; i++) o.v[i] = a.v[i] - b.v[i];
 }
 
 DEV void fe_neg(fe &o, const fe &a) {
-  int64_t h[10];
 #pragma unroll
-  for (int i = 0; i < 10; i++) h[i] = -(int64_t)a.v[i];
-  fe_carry(h, 1);
-  fe_store(o, h);
+  for (int i = 0; i < 10; i++) o.v[i] = -a.v[i];
 }
 
-// 100 products into 10 columns: limb i times limb j lands in column
-// (i + j) mod 10, doubled when both limbs are odd (bit-offset mismatch)
-// and times 19 when it wraps past 2^255.  Columns stay below 2^61.
+DEV void fe_load(fe &o, const int32_t *src) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) o.v[i] = src[i];
+}
+
+// acc += a * b, 32 x 32 -> 64 bits signed: on the card one mad.wide.s32
+// (one IMAD.WIDE), where nvcc would otherwise emit an unsigned wide
+// product and a sign correction, two instructions
+DEV void mac64(int64_t &acc, int32_t a, int32_t b) {
+#ifdef __CUDACC__
+  asm("mad.wide.s32 %0, %1, %2, %0;" : "+l"(acc) : "r"(a), "r"(b));
+#else
+  acc += (int64_t)a * b;
+#endif
+}
+
+// f * g: limb i times limb j lands in column (i + j) mod 10, doubled when
+// both limbs are odd (bit-offset mismatch) and times 19 when it wraps past
+// 2^255; the doubling rides on f, the 19 on g.
 DEV void fe_mul(fe &o, const fe &f, const fe &g) {
+  int32_t f2[10], g19[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    f2[i] = 2 * f.v[i];
+    g19[i] = 19 * g.v[i];
+  }
   int64_t h[10];
 #pragma unroll
   for (int k = 0; k < 10; k++) h[k] = 0;
@@ -108,54 +144,64 @@ DEV void fe_mul(fe &o, const fe &f, const fe &g) {
   for (int i = 0; i < 10; i++) {
 #pragma unroll
     for (int j = 0; j < 10; j++) {
-      const int k = (i + j) % 10;
-      const int64_t coef =
-          (((i & 1) && (j & 1)) ? 2 : 1) * ((i + j >= 10) ? 19 : 1);
-      h[k] += (int64_t)f.v[i] * (int64_t)g.v[j] * coef;
+      const int32_t a = ((i & 1) && (j & 1)) ? f2[i] : f.v[i];
+      const int32_t b = (i + j >= 10) ? g19[j] : g.v[j];
+      mac64(h[(i + j) % 10], a, b);
     }
   }
-  fe_carry(h, 3);
-  fe_store(o, h);
+  fe_carry64(o, h);
 }
 
-DEV void fe_sq(fe &o, const fe &f) { fe_mul(o, f, f); }
-
-DEV void fe_seq_carry(int64_t x[10]) {
-#pragma unroll
-  for (int i = 0; i < 9; i++) {
-    int64_t c = x[i] >> limb_width(i);
-    x[i] &= (int64_t(1) << limb_width(i)) - 1;
-    x[i + 1] += c;
-  }
-  int64_t c = x[9] >> 25;
-  x[9] &= (int64_t(1) << 25) - 1;
-  x[0] += 19 * c;
-}
-
-// canonical limbs of the value mod p (ops/fe.py:freeze)
-DEV void fe_freeze(fe &o, const fe &a) {
-  int64_t x[10];
+// f^2, times 2 when `twice`: the 55 products i <= j, the cross terms
+// doubled on the left operand, the odd-odd doubling and the 19 on the
+// right one.
+DEV void fe_sq_scaled(fe &o, const fe &f, bool twice) {
+  int32_t f2[10], f19[10], f38[10];
 #pragma unroll
   for (int i = 0; i < 10; i++) {
-    int64_t p_limb = (int64_t(1) << limb_width(i)) - 1;
-    if (i == 0) p_limb -= 18;
-    x[i] = (int64_t)a.v[i] + 2 * p_limb;
+    f2[i] = 2 * f.v[i];
+    f19[i] = 19 * f.v[i];
+    f38[i] = (i & 1) ? 38 * f.v[i] : 0;   // used on odd limbs only
   }
-  fe_seq_carry(x);
-  fe_seq_carry(x);
-  fe_seq_carry(x);
-  int64_t q = (x[0] + 19) >> 26;
+  int64_t h[10];
 #pragma unroll
-  for (int i = 1; i < 10; i++) q = (x[i] + q) >> limb_width(i);
-  x[0] += 19 * q;
+  for (int k = 0; k < 10; k++) h[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+#pragma unroll
+    for (int j = i; j < 10; j++) {
+      const int32_t a = (i != j) ? f2[i] : f.v[i];
+      const bool odd = (i & 1) && (j & 1), wrap = i + j >= 10;
+      const int32_t b = wrap ? (odd ? f38[j] : f19[j])
+                             : (odd ? f2[j] : f.v[j]);
+      mac64(h[(i + j) % 10], a, b);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 10; k++) h[k] += twice ? h[k] : 0;
+  fe_carry64(o, h);
+}
+
+DEV void fe_sq(fe &o, const fe &f) { fe_sq_scaled(o, f, false); }
+
+// canonical limbs of the value mod p, from any limbs below 2^30: carry,
+// then ref10's fe_tobytes (q = floor(value / p) from the top, subtract
+// q p, carry with floors)
+DEV void fe_freeze(fe &o, const fe &a) {
+  fe t;
+  fe_carry(t, a);
+  int32_t q = (19 * t.v[9] + (1 << 24)) >> 25;
+#pragma unroll
+  for (int i = 0; i < 10; i++) q = (t.v[i] + q) >> limb_width(i);
+  t.v[0] += 19 * q;
 #pragma unroll
   for (int i = 0; i < 9; i++) {
-    int64_t c = x[i] >> limb_width(i);
-    x[i] &= (int64_t(1) << limb_width(i)) - 1;
-    x[i + 1] += c;
+    const int32_t c = t.v[i] >> limb_width(i);
+    t.v[i] -= c * (1 << limb_width(i));
+    t.v[i + 1] += c;
   }
-  x[9] &= (int64_t(1) << 25) - 1;
-  fe_store(o, x);
+  t.v[9] &= (1 << 25) - 1;
+  o = t;
 }
 
 DEV bool fe_is_zero(const fe &a) {
@@ -173,13 +219,26 @@ DEV bool fe_eq(const fe &a, const fe &b) {
   return fe_is_zero(t);
 }
 
+// selects by masks, not by ?:, which nvcc may turn into a branch per
+// limb, divergent where the condition differs across a warp
 DEV void fe_select(fe &o, bool m, const fe &a, const fe &b) {
+  const int32_t ma = -(int32_t)m;
 #pragma unroll
-  for (int i = 0; i < 10; i++) o.v[i] = m ? a.v[i] : b.v[i];
+  for (int i = 0; i < 10; i++) o.v[i] = (a.v[i] & ma) | (b.v[i] & ~ma);
+}
+
+// (a, b, c, d)[k] without indexing a register array at run time
+DEV void fe_pick4(fe &o, int k, const fe &a, const fe &b, const fe &c,
+                  const fe &d) {
+  const int32_t m0 = -(int32_t)(k == 0), m1 = -(int32_t)(k == 1),
+                m2 = -(int32_t)(k == 2), m3 = -(int32_t)(k == 3);
+#pragma unroll
+  for (int i = 0; i < 10; i++)
+    o.v[i] = (a.v[i] & m0) | (b.v[i] & m1) | (c.v[i] & m2) | (d.v[i] & m3);
 }
 
 // raw 255-bit value of 32 little-endian bytes (bit 255 dropped, no
-// reduction: ZIP-215 accepts y >= p)
+// reduction: ZIP-215 accepts y >= p), carried
 DEV void fe_frombytes(fe &out, const uint8_t *s) {
   uint64_t w[4];
 #pragma unroll
@@ -191,19 +250,25 @@ DEV void fe_frombytes(fe &out, const uint8_t *s) {
   }
   w[3] &= 0x7fffffffffffffffULL;
   const int off[10] = {0, 26, 51, 77, 102, 128, 153, 179, 204, 230};
+  fe raw;
 #pragma unroll
   for (int i = 0; i < 10; i++) {
     const int wd = limb_width(i);
     const int q = off[i] >> 6, r = off[i] & 63;
     uint64_t x = w[q] >> r;
     if (r + wd > 64) x |= w[q + 1] << (64 - r);
-    out.v[i] = (int32_t)(x & ((uint64_t(1) << wd) - 1));
+    raw.v[i] = (int32_t)(x & ((uint64_t(1) << wd) - 1));
   }
+  fe_carry(out, raw);
 }
 
-DEV_NOINLINE void fe_pow22523(fe &out, const fe &z) {
-  fe z2, z9, z11, t, z_5_0, z_10_0, z_20_0, z_40_0, z_50_0, z_100_0,
-      z_200_0, z_250_0;
+DEV void fe_sq_n(fe &t, int n) {
+  for (int i = 0; i < n; i++) fe_sq(t, t);
+}
+
+// z^((p - 5) / 8), ref10's addition chain
+DEV void fe_pow22523(fe &out, const fe &z) {
+  fe z2, z9, z11, t, z_5_0, z_10_0, z_20_0, z_50_0, z_100_0;
   fe_sq(z2, z);
   fe_sq(t, z2);
   fe_sq(t, t);
@@ -212,33 +277,30 @@ DEV_NOINLINE void fe_pow22523(fe &out, const fe &z) {
   fe_sq(t, z11);
   fe_mul(z_5_0, z9, t);
   t = z_5_0;
-  for (int i = 0; i < 5; i++) fe_sq(t, t);
+  fe_sq_n(t, 5);
   fe_mul(z_10_0, t, z_5_0);
   t = z_10_0;
-  for (int i = 0; i < 10; i++) fe_sq(t, t);
+  fe_sq_n(t, 10);
   fe_mul(z_20_0, t, z_10_0);
   t = z_20_0;
-  for (int i = 0; i < 20; i++) fe_sq(t, t);
-  fe_mul(z_40_0, t, z_20_0);
-  t = z_40_0;
-  for (int i = 0; i < 10; i++) fe_sq(t, t);
+  fe_sq_n(t, 20);
+  fe_mul(t, t, z_20_0);
+  fe_sq_n(t, 10);
   fe_mul(z_50_0, t, z_10_0);
   t = z_50_0;
-  for (int i = 0; i < 50; i++) fe_sq(t, t);
+  fe_sq_n(t, 50);
   fe_mul(z_100_0, t, z_50_0);
   t = z_100_0;
-  for (int i = 0; i < 100; i++) fe_sq(t, t);
-  fe_mul(z_200_0, t, z_100_0);
-  t = z_200_0;
-  for (int i = 0; i < 50; i++) fe_sq(t, t);
-  fe_mul(z_250_0, t, z_50_0);
-  t = z_250_0;
-  for (int i = 0; i < 2; i++) fe_sq(t, t);
+  fe_sq_n(t, 100);
+  fe_mul(t, t, z_100_0);
+  fe_sq_n(t, 50);
+  fe_mul(t, t, z_50_0);
+  fe_sq_n(t, 2);
   fe_mul(out, t, z);
 }
 
 // x with x^2 = u / v; returns whether a root exists (ops/fe.py:sqrt_ratio)
-DEV_NOINLINE bool fe_sqrt_ratio(fe &x, const fe &u, const fe &v) {
+DEV bool fe_sqrt_ratio(fe &x, const fe &u, const fe &v) {
   fe v2, v3, uv3, v4, uv7, p, r, vxx, x2, nu, sm1, t;
   fe_sq(v2, v);
   fe_mul(v3, v2, v);
@@ -277,15 +339,13 @@ DEV void ge_identity(ge_ext &p) {
   fe_set_small(p.t, 0);
 }
 
-DEV_NOINLINE void ge_cache(ge_cached &c, const ge_ext &p) {
+DEV void ge_cache(ge_cached &c, const ge_ext &p) {
   fe d2;
   fe_const(d2, FE_D2);
-  ge_cached r;
-  fe_add(r.ypx, p.y, p.x);
-  fe_sub(r.ymx, p.y, p.x);
-  fe_add(r.z2, p.z, p.z);
-  fe_mul(r.t2d, p.t, d2);
-  c = r;
+  fe_add(c.ypx, p.y, p.x);
+  fe_sub(c.ymx, p.y, p.x);
+  fe_add(c.z2, p.z, p.z);
+  fe_mul(c.t2d, p.t, d2);
 }
 
 DEV void ge_neg(ge_ext &o, const ge_ext &p) {
@@ -295,66 +355,79 @@ DEV void ge_neg(ge_ext &o, const ge_ext &p) {
   fe_neg(o.t, p.t);
 }
 
-DEV_NOINLINE void ge_dbl(ge_ext &o, const ge_ext &p) {
-  fe a, b, zz, c, h, e, g, ff, xy, t;
+// the outputs of both formulas: (E F, G H, F G, E H)
+DEV void ge_finish(ge_ext &o, const fe &e, const fe &f, const fe &g,
+                   const fe &h) {
+  fe_mul(o.x, e, f);
+  fe_mul(o.y, g, h);
+  fe_mul(o.z, f, g);
+  fe_mul(o.t, e, h);
+}
+
+// dbl-2008-hwcd for a = -1, with every one of E, F, G, H negated as in
+// ops/group.py:dbl (so the products, and a table's limbs mod p, are the
+// plain version's): with A = X^2, B = Y^2, C = 2 Z^2, S = (X + Y)^2 it
+// takes H = A + B, G = A - B, E = H - S, F = C + G; every operand is a
+// sum of at most three carried values
+DEV void ge_dbl_operands(fe &e, fe &f, fe &g, fe &h, const fe &a,
+                         const fe &b, const fe &c, const fe &s) {
+  fe_add(h, a, b);
+  fe_sub(g, a, b);
+  fe_sub(e, h, s);
+  fe_add(f, c, g);
+}
+
+DEV void ge_dbl(ge_ext &o, const ge_ext &p) {
+  fe a, b, c, s, xy, e, f, g, h;
   fe_sq(a, p.x);
   fe_sq(b, p.y);
-  fe_sq(zz, p.z);
-  fe_add(c, zz, zz);
-  fe_add(h, a, b);
+  fe_sq_scaled(c, p.z, true);
   fe_add(xy, p.x, p.y);
-  fe_sq(t, xy);
-  fe_sub(e, h, t);
-  fe_sub(g, a, b);
-  fe_add(ff, c, g);
-  fe_mul(o.x, e, ff);
-  fe_mul(o.y, g, h);
-  fe_mul(o.z, ff, g);
-  fe_mul(o.t, e, h);
+  fe_sq(s, xy);
+  ge_dbl_operands(e, f, g, h, a, b, c, s);
+  ge_finish(o, e, f, g, h);
 }
 
-DEV void ge_finish(ge_ext &o, const fe &a, const fe &b, const fe &c,
-                   const fe &d) {
-  fe e, ff, g, h;
+// add-2008-hwcd-3: with A = (Y1-X1)(Y2-X2), B = (Y1+X1)(Y2+X2),
+// C = 2d T1 T2, D = 2 Z1 Z2 it takes E = B - A, F = D - C, G = D + C,
+// H = B + A
+DEV void ge_add_operands(fe &e, fe &f, fe &g, fe &h, const fe &a,
+                         const fe &b, const fe &c, const fe &d) {
   fe_sub(e, b, a);
-  fe_sub(ff, d, c);
+  fe_sub(f, d, c);
   fe_add(g, d, c);
   fe_add(h, b, a);
-  fe_mul(o.x, e, ff);
-  fe_mul(o.y, g, h);
-  fe_mul(o.z, ff, g);
-  fe_mul(o.t, e, h);
 }
 
-DEV_NOINLINE void ge_add_cached(ge_ext &o, const ge_ext &p,
-                                const ge_cached &q) {
-  fe a, b, c, d, t;
+DEV void ge_add(ge_ext &o, const ge_ext &p, const ge_cached &q) {
+  fe a, b, c, d, t, e, f, g, h;
   fe_sub(t, p.y, p.x);
   fe_mul(a, t, q.ymx);
   fe_add(t, p.y, p.x);
   fe_mul(b, t, q.ypx);
   fe_mul(c, p.t, q.t2d);
   fe_mul(d, p.z, q.z2);
-  ge_finish(o, a, b, c, d);
+  ge_add_operands(e, f, g, h, a, b, c, d);
+  ge_finish(o, e, f, g, h);
 }
 
-DEV_NOINLINE void ge_add_niels(ge_ext &o, const ge_ext &p,
-                               const ge_niels &q) {
-  fe a, b, c, d, t;
+DEV void ge_add_niels(ge_ext &o, const ge_ext &p, const ge_niels &q) {
+  fe a, b, c, d, t, e, f, g, h;
   fe_sub(t, p.y, p.x);
   fe_mul(a, t, q.ymx);
   fe_add(t, p.y, p.x);
   fe_mul(b, t, q.ypx);
   fe_mul(c, p.t, q.t2d);
   fe_add(d, p.z, p.z);
-  ge_finish(o, a, b, c, d);
+  ge_add_operands(e, f, g, h, a, b, c, d);
+  ge_finish(o, e, f, g, h);
 }
 
-// cached + cached -> cached (ops/group.py:add_cc); complete, so identity
-// operands are fine
-DEV_NOINLINE void ge_add_cc(ge_cached &o, const ge_cached &p,
-                            const ge_cached &q) {
-  fe a, b, c, d, t, k;
+// cached + cached -> cached (ops/group.py:add_cc): the add operands
+// recovered through the constant factors 1/(2d) and 1/2; complete, so
+// identity operands are fine
+DEV void ge_add_cc(ge_cached &o, const ge_cached &p, const ge_cached &q) {
+  fe a, b, c, d, t, k, e, f, g, h;
   fe_mul(a, p.ymx, q.ymx);
   fe_mul(b, p.ypx, q.ypx);
   fe_mul(t, p.t2d, q.t2d);
@@ -363,14 +436,15 @@ DEV_NOINLINE void ge_add_cc(ge_cached &o, const ge_cached &p,
   fe_mul(t, p.z2, q.z2);
   fe_const(k, FE_INV2);
   fe_mul(d, t, k);
+  ge_add_operands(e, f, g, h, a, b, c, d);
   ge_ext r;
-  ge_finish(r, a, b, c, d);
+  ge_finish(r, e, f, g, h);
   ge_cache(o, r);
 }
 
 // ZIP-215 decoding: y >= p accepted, x = 0 with the sign bit accepted,
 // small and mixed order accepted; only a non-square x^2 fails
-DEV_NOINLINE bool ge_decompress_zip215(ge_ext &p, const uint8_t *enc) {
+DEV bool ge_decompress_zip215(ge_ext &p, const uint8_t *enc) {
   const int sign = enc[31] >> 7;
   fe y, yy, one, u, v, dd, x, xf, nx;
   fe_frombytes(y, enc);
@@ -384,7 +458,8 @@ DEV_NOINLINE bool ge_decompress_zip215(ge_ext &p, const uint8_t *enc) {
   fe_freeze(xf, x);
   const bool flip = (xf.v[0] & 1) != sign;
   fe_neg(nx, xf);
-  fe_select(p.x, flip, nx, xf);
+  fe_select(x, flip, nx, xf);
+  fe_carry(p.x, x);
   p.y = y;
   p.z = one;
   fe_mul(p.t, p.x, y);
@@ -395,53 +470,43 @@ DEV bool ge_is_identity(const ge_ext &p) {
   return fe_is_zero(p.x) && fe_eq(p.y, p.z);
 }
 
-DEV void ge_mul_by_cofactor(ge_ext &p) {
-  for (int i = 0; i < 3; i++) ge_dbl(p, p);
-}
-
-DEV void ge_base_niels(ge_niels &n, int digit) {
-#pragma unroll
-  for (int i = 0; i < 10; i++) {
-    n.ypx.v[i] = c_base_niels[digit][0][i];
-    n.ymx.v[i] = c_base_niels[digit][1][i];
-    n.t2d.v[i] = c_base_niels[digit][2][i];
-  }
+DEV void ge_load_niels(ge_niels &n, const int32_t *src) {
+  fe_load(n.ypx, src);
+  fe_load(n.ymx, src + 10);
+  fe_load(n.t2d, src + 20);
 }
 
 // a table entry is 4 x 10 int32 in the order ypx, ymx, z2, t2d
 DEV void ge_load_cached(ge_cached &c, const int32_t *src) {
-#pragma unroll
-  for (int i = 0; i < 10; i++) {
-    c.ypx.v[i] = src[i];
-    c.ymx.v[i] = src[10 + i];
-    c.z2.v[i] = src[20 + i];
-    c.t2d.v[i] = src[30 + i];
-  }
+  fe_load(c.ypx, src);
+  fe_load(c.ymx, src + 10);
+  fe_load(c.z2, src + 20);
+  fe_load(c.t2d, src + 30);
 }
 
+DEV void fe_store(int32_t *dst, const fe &a) {
+  fe t;
+  fe_freeze(t, a);
+#pragma unroll
+  for (int i = 0; i < 10; i++) dst[i] = t.v[i];
+}
+
+// stores canonical limbs
 DEV void ge_store_cached(int32_t *dst, const ge_cached &c) {
-#pragma unroll
-  for (int i = 0; i < 10; i++) {
-    dst[i] = c.ypx.v[i];
-    dst[10 + i] = c.ymx.v[i];
-    dst[20 + i] = c.z2.v[i];
-    dst[30 + i] = c.t2d.v[i];
-  }
-}
-
-DEV void ge_identity_cached(ge_cached &c) {
-  ge_ext id;
-  ge_identity(id);
-  ge_cache(c, id);
+  fe_store(dst, c.ypx);
+  fe_store(dst + 10, c.ymx);
+  fe_store(dst + 20, c.z2);
+  fe_store(dst + 30, c.t2d);
 }
 
 // the 16-entry table [j](-P), j = 0..15, written as 16 x 40 int32
 // (ops/ed25519.py:_build_neg_table)
-DEV_NOINLINE void ge_write_neg_table(int32_t *dst, const ge_ext &p) {
-  ge_ext np, acc;
+DEV void ge_write_neg_table(int32_t *dst, const ge_ext &p) {
+  ge_ext np, acc, id;
   ge_neg(np, p);
   ge_cached c1, c;
-  ge_identity_cached(c);
+  ge_identity(id);
+  ge_cache(c, id);
   ge_store_cached(dst, c);
   ge_cache(c1, np);
   ge_store_cached(dst + 40, c1);
@@ -449,9 +514,129 @@ DEV_NOINLINE void ge_write_neg_table(int32_t *dst, const ge_ext &p) {
   ge_cache(c, acc);
   ge_store_cached(dst + 80, c);
   for (int j = 3; j < 16; j++) {
-    ge_add_cached(acc, acc, c1);
+    ge_add(acc, acc, c1);
     ge_cache(c, acc);
     ge_store_cached(dst + 40 * j, c);
+  }
+}
+
+// ------------------------------------------------------------------- quad
+//
+// A quad is four consecutive threads (threadIdx.x & ~3); thread k =
+// threadIdx.x & 3.  Every thread of the quad holds the same extended
+// point.  An operation's first round runs four products, thread k the
+// k-th, and gathers them; its second round runs the four output products
+// X3 = E F, Y3 = G H, Z3 = F G, T3 = E H, thread k the k-th, and gathers
+// those.  All 32 threads of a warp call every quad function together
+// (eight quads, each on its own point, or spare quads repeating one):
+// the shuffles name the whole warp, since a mask computed per quad makes
+// nvcc wrap each shuffle in a convergence loop.
+
+DEV int quad_k() { return threadIdx.x & 3; }
+
+// out[j] = thread j's `mine`, for the four threads of this quad
+DEV void fe_gather4(fe out[4], const fe &mine) {
+#ifdef __CUDACC__
+#pragma unroll
+  for (int j = 0; j < 4; j++)
+#pragma unroll
+    for (int i = 0; i < 10; i++)
+      out[j].v[i] = __shfl_sync(0xffffffffu, mine.v[i], j, 4);
+#else
+  host_quad_gather(out, &mine, sizeof(fe));
+#endif
+}
+
+DEV void geq_finish(ge_ext &p, int k, const fe &e, const fe &f, const fe &g,
+                    const fe &h) {
+  fe l, r, m, q[4];
+  fe_pick4(l, k, e, g, f, e);
+  fe_pick4(r, k, f, h, g, h);
+  fe_mul(m, l, r);
+  fe_gather4(q, m);
+  p.x = q[0];
+  p.y = q[1];
+  p.z = q[2];
+  p.t = q[3];
+}
+
+// p = 2 p: thread k squares X, Y, Z (doubled) or X + Y
+DEV void geq_dbl(ge_ext &p, int k) {
+  fe xy, in, s, q[4], e, f, g, h;
+  fe_add(xy, p.x, p.y);
+  fe_pick4(in, k, p.x, p.y, p.z, xy);
+  fe_sq_scaled(s, in, k == 2);
+  fe_gather4(q, s);
+  ge_dbl_operands(e, f, g, h, q[0], q[1], q[2], q[3]);
+  geq_finish(p, k, e, f, g, h);
+}
+
+// p += q, where this thread holds component k of q in the order
+// (Y - X, Y + X, 2d T, 2 Z) of a cached point; of a niels point, with the
+// constant 2 for 2 Z
+DEV void geq_add(ge_ext &p, int k, const fe &qk) {
+  fe ypx, ymx, in, m, q[4], e, f, g, h;
+  fe_add(ypx, p.y, p.x);
+  fe_sub(ymx, p.y, p.x);
+  fe_pick4(in, k, ymx, ypx, p.t, p.z);
+  fe_mul(m, in, qk);
+  fe_gather4(q, m);
+  ge_add_operands(e, f, g, h, q[0], q[1], q[2], q[3]);
+  geq_finish(p, k, e, f, g, h);
+}
+
+// component k of a cached row (ypx, ymx, z2, t2d) for geq_add
+DEV void geq_cached_part(fe &o, const int32_t *row, int k) {
+  fe_load(o, row + (k == 0 ? 10 : k == 1 ? 0 : k == 2 ? 30 : 20));
+}
+
+// component k of a niels row (ypx, ymx, t2d) for geq_add
+DEV void geq_niels_part(fe &o, const int32_t *row, int k) {
+  fe two;
+  fe_set_small(two, 2);
+  fe_load(o, row + (k == 0 ? 10 : k == 1 ? 0 : 20));
+  fe_select(o, k == 3, two, o);
+}
+
+// component k of the cached form of p, held whole: in geq_add's order
+// (Y - X, Y + X, 2d T, 2 Z) when `add_order`, else in a row's order
+// (Y + X, Y - X, 2 Z, 2d T); one product on every thread
+DEV void geq_cache_part(fe &o, const ge_ext &p, int k, bool add_order) {
+  fe ypx, ymx, one, two, d2, l, r;
+  fe_add(ypx, p.y, p.x);
+  fe_sub(ymx, p.y, p.x);
+  fe_set_small(one, 1);
+  fe_set_small(two, 2);
+  fe_const(d2, FE_D2);
+  if (add_order) {
+    fe_pick4(l, k, ymx, ypx, p.t, p.z);
+    fe_pick4(r, k, one, one, d2, two);
+  } else {
+    fe_pick4(l, k, ypx, ymx, p.z, p.t);
+    fe_pick4(r, k, one, one, two, d2);
+  }
+  fe_mul(o, l, r);
+}
+
+// the 16-entry table [j](-P), j = 0..15 (ge_write_neg_table's chain),
+// computed by a quad: thread k stores component k of every entry, where
+// `store` (a spare quad computes and stores nothing)
+DEV void geq_write_neg_table(int32_t *dst, const ge_ext &p, int k,
+                             bool store) {
+  ge_ext acc, id;
+  ge_neg(acc, p);
+  fe c1, part;
+  geq_cache_part(c1, acc, k, true);
+  ge_identity(id);
+  geq_cache_part(part, id, k, false);
+  if (store) fe_store(dst + 10 * k, part);
+  geq_cache_part(part, acc, k, false);
+  if (store) fe_store(dst + 40 + 10 * k, part);
+  geq_dbl(acc, k);
+  for (int j = 2; j < 16; j++) {
+    if (j > 2) geq_add(acc, k, c1);
+    geq_cache_part(part, acc, k, false);
+    if (store) fe_store(dst + 40 * j + 10 * k, part);
   }
 }
 
@@ -459,61 +644,48 @@ DEV_NOINLINE void ge_write_neg_table(int32_t *dst, const ge_ext &p) {
 
 DEV uint64_t rotr64(uint64_t x, int n) { return (x >> n) | (x << (64 - n)); }
 
+DEV void sha512_round(uint64_t s[8], int r, uint64_t wt) {
+  const uint64_t a = s[(8 - r) & 7], b = s[(9 - r) & 7], c = s[(10 - r) & 7],
+                 e = s[(12 - r) & 7], f = s[(13 - r) & 7],
+                 g = s[(14 - r) & 7], h = s[(15 - r) & 7];
+  const uint64_t S1 = rotr64(e, 14) ^ rotr64(e, 18) ^ rotr64(e, 41);
+  const uint64_t ch = (e & f) ^ (~e & g);
+  const uint64_t S0 = rotr64(a, 28) ^ rotr64(a, 34) ^ rotr64(a, 39);
+  const uint64_t mj = (a & b) ^ (a & c) ^ (b & c);
+  const uint64_t t1 = h + S1 + ch + wt;
+  // the state rotates by index: h's slot takes the new a, d's the new e
+  s[(15 - r) & 7] = t1 + S0 + mj;
+  s[(11 - r) & 7] += t1;
+}
+
 // SHA-512 over the first `active` of this lane's host-padded blocks
-// (32 big-endian 32-bit words each) -> 64 digest bytes
-DEV_NOINLINE void sha512_lane(uint8_t out[64], const uint32_t *blocks,
-                              int active) {
-  uint64_t st[8];
+// (32 big-endian 32-bit words each) -> the 8 state words
+DEV void sha512_lane(uint64_t st[8], const uint32_t *blocks, int active) {
 #pragma unroll
   for (int i = 0; i < 8; i++) st[i] = c_sha512_iv[i];
   for (int blk = 0; blk < active; blk++) {
     const uint32_t *wd = blocks + 32 * blk;
-    uint64_t w[16];
+    uint64_t w[16], s[8];
 #pragma unroll
-    for (int i = 0; i < 16; i++)
+    for (int i = 0; i < 8; i++) s[i] = st[i];
+#pragma unroll
+    for (int i = 0; i < 16; i++) {
       w[i] = ((uint64_t)wd[2 * i] << 32) | (uint64_t)wd[2 * i + 1];
-    uint64_t a = st[0], b = st[1], c = st[2], d = st[3], e = st[4],
-             f = st[5], g = st[6], h = st[7];
-#pragma unroll 16
-    for (int t = 0; t < 80; t++) {
-      uint64_t wt;
-      if (t < 16) {
-        wt = w[t];
-      } else {
-        const uint64_t w15 = w[(t + 1) & 15], w2 = w[(t + 14) & 15];
+      sha512_round(s, i & 7, w[i] + c_sha512_k[i]);
+    }
+    for (int m = 1; m < 5; m++) {
+#pragma unroll
+      for (int u = 0; u < 16; u++) {
+        const uint64_t w15 = w[(u + 1) & 15], w2 = w[(u + 14) & 15];
         const uint64_t s0 = rotr64(w15, 1) ^ rotr64(w15, 8) ^ (w15 >> 7);
         const uint64_t s1 = rotr64(w2, 19) ^ rotr64(w2, 61) ^ (w2 >> 6);
-        wt = w[t & 15] + s0 + w[(t + 9) & 15] + s1;
-        w[t & 15] = wt;
+        w[u] += s0 + w[(u + 9) & 15] + s1;
+        sha512_round(s, u & 7, w[u] + c_sha512_k[16 * m + u]);
       }
-      const uint64_t S1 = rotr64(e, 14) ^ rotr64(e, 18) ^ rotr64(e, 41);
-      const uint64_t ch = (e & f) ^ (~e & g);
-      const uint64_t t1 = h + S1 + ch + c_sha512_k[t] + wt;
-      const uint64_t S0 = rotr64(a, 28) ^ rotr64(a, 34) ^ rotr64(a, 39);
-      const uint64_t mj = (a & b) ^ (a & c) ^ (b & c);
-      const uint64_t t2 = S0 + mj;
-      h = g;
-      g = f;
-      f = e;
-      e = d + t1;
-      d = c;
-      c = b;
-      b = a;
-      a = t1 + t2;
     }
-    st[0] += a;
-    st[1] += b;
-    st[2] += c;
-    st[3] += d;
-    st[4] += e;
-    st[5] += f;
-    st[6] += g;
-    st[7] += h;
+#pragma unroll
+    for (int i = 0; i < 8; i++) st[i] += s[i];
   }
-#pragma unroll
-  for (int i = 0; i < 8; i++)
-#pragma unroll
-    for (int b = 0; b < 8; b++) out[8 * i + b] = (uint8_t)(st[i] >> (56 - 8 * b));
 }
 
 // ---------------------------------------------------------------- scalars
@@ -521,20 +693,29 @@ DEV_NOINLINE void sha512_lane(uint8_t out[64], const uint32_t *blocks,
 #define SC_BITS 21
 #define SC_MASK ((int64_t(1) << SC_BITS) - 1)
 
-// nbytes little-endian bytes -> n 21-bit limbs; the last limb takes every
-// remaining bit (ops/scalar.py:bytes_to_limbs)
-DEV void sc_from_bytes(int64_t *s, int n, const uint8_t *b, int nbytes) {
-  for (int i = 0; i < n; i++) {
-    const int o = SC_BITS * i;
-    const bool last = i == n - 1;
-    int end = last ? nbytes : (o + SC_BITS + 7) / 8;
-    if (end > nbytes) end = nbytes;
-    int64_t acc = 0;
-    for (int j = o / 8; j < end; j++) {
-      const int sh = 8 * j - o;
-      acc |= sh >= 0 ? ((int64_t)b[j] << sh) : ((int64_t)b[j] >> -sh);
-    }
-    s[i] = last ? acc : (acc & SC_MASK);
+// 64-bit little-endian words -> N 21-bit limbs; the last limb takes
+// every remaining bit of the NW words
+template <int N, int NW>
+DEV void sc_from_words(int64_t s[N], const uint64_t w[NW]) {
+#pragma unroll
+  for (int i = 0; i < N; i++) {
+    const int o = SC_BITS * i, q = o >> 6, r = o & 63;
+    uint64_t x = w[q] >> r;
+    if (r > 0 && q + 1 < NW) x |= w[q + 1] << (64 - r);
+    const bool last = i == N - 1;
+    s[i] = last ? (int64_t)x : (int64_t)(x & SC_MASK);
+  }
+}
+
+// NB little-endian bytes -> 64-bit words
+template <int NB>
+DEV void words_from_bytes(uint64_t w[NB / 8], const uint8_t *b) {
+#pragma unroll
+  for (int k = 0; k < NB / 8; k++) {
+    uint64_t x = 0;
+#pragma unroll
+    for (int j = 7; j >= 0; j--) x = (x << 8) | b[8 * k + j];
+    w[k] = x;
   }
 }
 
@@ -559,33 +740,45 @@ DEV void sc_carry_floor(int64_t s[24], int i) {
 }
 
 // ref10 sc_reduce: 24 limbs of a value < 2^512 -> s[0..11] = value mod L
-DEV_NOINLINE void sc_reduce(int64_t s[24]) {
+DEV void sc_reduce(int64_t s[24]) {
+#pragma unroll
   for (int k = 23; k > 17; k--) sc_fold(s, k);
+#pragma unroll
   for (int i = 6; i <= 16; i += 2) sc_carry_round(s, i);
+#pragma unroll
   for (int i = 7; i <= 15; i += 2) sc_carry_round(s, i);
+#pragma unroll
   for (int k = 17; k > 11; k--) sc_fold(s, k);
+#pragma unroll
   for (int i = 0; i <= 10; i += 2) sc_carry_round(s, i);
+#pragma unroll
   for (int i = 1; i <= 11; i += 2) sc_carry_round(s, i);
   sc_fold(s, 12);
+#pragma unroll
   for (int i = 0; i < 12; i++) sc_carry_floor(s, i);
   sc_fold(s, 12);
+#pragma unroll
   for (int i = 0; i < 11; i++) sc_carry_floor(s, i);
 }
 
-// sequential floor carry of nonnegative columns into 24 limbs
-DEV void sc_normalize(int64_t s[24], const int64_t *cols, int ncols) {
+// sequential floor carry of NCOLS nonnegative columns into 24 limbs
+template <int NCOLS>
+DEV void sc_normalize(int64_t s[24], const int64_t *cols) {
   int64_t c = 0;
+#pragma unroll
   for (int i = 0; i < 24; i++) {
-    const int64_t t = (i < ncols ? cols[i] : 0) + c;
+    const int64_t t = (i < NCOLS ? cols[i] : 0) + c;
     s[i] = t & SC_MASK;
     c = t >> SC_BITS;
   }
 }
 
 // 12 reduced limbs -> 32 little-endian bytes
-DEV void sc_to_bytes(uint8_t out[32], const int64_t s[12]) {
+DEV void sc_to_bytes(uint8_t *out, const int64_t s[12]) {
+#pragma unroll
   for (int k = 0; k < 32; k++) {
     int64_t acc = 0;
+#pragma unroll
     for (int i = 0; i < 12; i++) {
       const int o = SC_BITS * i;
       if (o + SC_BITS <= 8 * k || o >= 8 * k + 8) continue;
@@ -596,30 +789,47 @@ DEV void sc_to_bytes(uint8_t out[32], const int64_t s[12]) {
   }
 }
 
-// 64 digest bytes -> 32 bytes of h mod L
-DEV void sc_reduce512_bytes(uint8_t out[32], const uint8_t digest[64]) {
+DEV uint64_t bswap64(uint64_t x) {
+  uint64_t y = 0;
+#pragma unroll
+  for (int b = 0; b < 8; b++) y = (y << 8) | ((x >> (8 * b)) & 255);
+  return y;
+}
+
+// a SHA-512 state (big-endian digest words) -> 32 bytes of h mod L
+DEV void sc_reduce_digest(uint8_t *out, const uint64_t st[8]) {
+  uint64_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; i++) w[i] = bswap64(st[i]);
   int64_t s[24];
-  sc_from_bytes(s, 24, digest, 64);
+  sc_from_words<24, 8>(s, w);
   sc_reduce(s);
   sc_to_bytes(out, s);
 }
 
 // (x < 2^256 as 32 bytes) * (z < 2^128 as 16 bytes) mod L -> 12 limbs
-DEV_NOINLINE void sc_mul_mod_l(int64_t out[12], const uint8_t x32[32],
-                               const uint8_t z16[16]) {
+DEV void sc_mul_mod_l(int64_t out[12], const uint8_t *x32,
+                      const uint8_t *z16) {
+  uint64_t xw[4], zw[2];
+  words_from_bytes<32>(xw, x32);
+  words_from_bytes<16>(zw, z16);
   int64_t x[13], z[7], cols[19], s[24];
-  sc_from_bytes(x, 13, x32, 32);
-  sc_from_bytes(z, 7, z16, 16);
+  sc_from_words<13, 4>(x, xw);
+  sc_from_words<7, 2>(z, zw);
+#pragma unroll
   for (int k = 0; k < 19; k++) cols[k] = 0;
+#pragma unroll
   for (int i = 0; i < 7; i++)
+#pragma unroll
     for (int j = 0; j < 13; j++) cols[i + j] += z[i] * x[j];
-  sc_normalize(s, cols, 19);
+  sc_normalize<19>(s, cols);
   sc_reduce(s);
+#pragma unroll
   for (int i = 0; i < 12; i++) out[i] = s[i];
 }
 
 // S < L on the raw 32 bytes (ops/scalar.py:lt_l)
-DEV bool sc_lt_l(const uint8_t s[32]) {
+DEV bool sc_lt_l(const uint8_t *s) {
   for (int i = 31; i >= 0; i--) {
     if (s[i] < c_l_bytes[i]) return true;
     if (s[i] > c_l_bytes[i]) return false;

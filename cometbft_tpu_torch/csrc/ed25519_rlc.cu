@@ -10,138 +10,183 @@
 // it as one sequential grid; here blocks run in any order and share
 // nothing, so the work is a series of launches on one stream (h = SHA-512
 // mod L comes from the sha512_scalar kernel before these):
-//   1. rlc_lane: per lane, decode R and write its [j](-R) table, z*h and
-//      z*s mod L, and the lane-ok bit (padding lanes, z = 0, never veto);
-//   2. rlc_window_partials: per (window, 128-lane block), gather each
-//      lane's table entry for its digit and reduce with an add_cc tree in
-//      shared memory (64 A windows from z*h digits, 32 R windows from the
+//   1. rlc_lane: per lane (64 lanes a block, so 10,000 lanes fill every
+//      SM), one thread decodes R, computes z*h and z*s mod L and the
+//      lane-ok bit (padding lanes, z = 0, never veto); then the block's
+//      quads (ed25519.cuh) write the lanes' [j](-R) tables;
+//   2. rlc_window_partials: per (window, 1,024-lane block), each thread
+//      adds up to 8 lanes' table entries for their digits into an
+//      extended point (8 products an addition), then a tree over the
+//      threads (64 A windows from z*h digits, 32 R windows from the
 //      128-bit z digits);
-//   3. rlc_fold: per window, one block adds up the block partials: each
-//      thread its strided share, then the same shared-memory tree;
+//   3. rlc_fold: per window, one block adds up the block partials the
+//      same way and writes the 96 window sums;
 //   4. rlc_zs_sum: one block sums z*s mod L and ANDs the lane-ok bits;
-//   5. rlc_ladder: one thread runs the width-1 ladder over the window sums
-//      and the cofactored identity test.
-// ed25519_rlc_gather_launch runs 1-5 on one device.  The sharded verdict
+//   5. rlc_comb: [sum z s]B by the fixed-base comb, 64 threads each
+//      loading one entry [16^w d_w]B of the generated table, then a tree;
+//   6. rlc_ladder: 32 threads add R window w into A window w, then a
+//      quad (ed25519.cuh; one warp of them, each the same chain) runs the
+//      Horner chain over the 64 windows, adds the comb's point and runs
+//      the cofactored identity test.
+// ed25519_rlc_gather_launch runs 1-6 on one device.  The sharded verdict
 // (K7) runs 1-4 once per shard, ed25519_rlc_sums_launch, each writing its
 // 96 window sums, its sum z*s mod L and its ok byte into its slot of
 // stacked outputs; then ed25519_rlc_combine_launch runs one block of
 // rlc_combine_ladder: 96 threads each fold one window's D partials with
-// add_cc in shard order, thread 0 sums the D scalars mod L and ANDs the
-// oks, then runs stage 5.  An empty shard (B = 0) skips 1-2, and 3-4
-// write the identity, 0 and 1.
+// add_cc in shard order, one thread sums the D scalars mod L and ANDs
+// the oks, then 5 and 6 in the same block.  An empty shard (B = 0) skips
+// 1-2, and 3-4 write the identity, 0 and 1.
 // Bound: 32-bit integer multiplies, dominated by stage 1's R decode and
-// table (~400 field multiplications per lane) and stage 2's ~96 add_cc
-// per lane (11 field multiplications each); the combine adds 96 (D - 1)
-// add_cc, and the ladder is one thread's serial chain either way.
+// table (~300 field multiplications per lane) and stage 2's 96 additions
+// per lane; the verdict's latency floor is stage 6's chain, 255 doublings
+// and 64 additions of two product latencies each on the quad.
 #include "ed25519.cuh"
 
+#define RLC_LANE_THREADS 64
 #define RLC_THREADS 128
+#define RLC_LANES_PER_THREAD 8
+#define RLC_BLOCK_LANES (RLC_THREADS * RLC_LANES_PER_THREAD)
 #define RLC_WINDOWS 96
+#define RLC_COMB_THREADS 64
 
-__global__ void rlc_lane_kernel(
+__global__ void BOUNDS(RLC_LANE_THREADS) rlc_lane_kernel(
     const uint8_t *__restrict__ ok_a, const int32_t *__restrict__ idx,
     const uint8_t *__restrict__ rb, const uint8_t *__restrict__ sb,
     const uint8_t *__restrict__ h, const uint8_t *__restrict__ z, int B,
     int32_t *__restrict__ rtab, uint8_t *__restrict__ zh,
     int32_t *__restrict__ zs, uint8_t *__restrict__ lane_ok) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const uint8_t *zb = z + (size_t)b * 16;
-  const uint8_t *s = sb + (size_t)b * 32;
-  bool active = false;
-  for (int i = 0; i < 16; i++) active |= zb[i] != 0;
-  const bool ok_s = sc_lt_l(s);
-  ge_ext r;
-  const bool ok_r = ge_decompress_zip215(r, rb + (size_t)b * 32);
-  ge_write_neg_table(rtab + (size_t)b * 640, r);
-  int64_t t[12];
-  sc_mul_mod_l(t, h + (size_t)b * 32, zb);
-  sc_to_bytes(zh + (size_t)b * 32, t);
-  sc_mul_mod_l(t, s, zb);
-  for (int i = 0; i < 12; i++) zs[(size_t)b * 12 + i] = (int32_t)t[i];
-  lane_ok[b] = ((ok_a[idx[b]] && ok_r && ok_s) || !active) ? 1 : 0;
+  __shared__ int32_t r_sh[RLC_LANE_THREADS][40];
+  const int tid = threadIdx.x;
+  const int lo = blockIdx.x * RLC_LANE_THREADS;
+  const int n = B - lo < RLC_LANE_THREADS ? B - lo : RLC_LANE_THREADS;
+  if (tid < n) {
+    const int b = lo + tid;
+    const uint8_t *zb = z + (size_t)b * 16;
+    const uint8_t *s = sb + (size_t)b * 32;
+    ge_ext r;
+    const bool ok_r = ge_decompress_zip215(r, rb + (size_t)b * 32);
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+      r_sh[tid][i] = r.x.v[i];
+      r_sh[tid][10 + i] = r.y.v[i];
+      r_sh[tid][20 + i] = r.z.v[i];
+      r_sh[tid][30 + i] = r.t.v[i];
+    }
+    int64_t t[12];
+    sc_mul_mod_l(t, h + (size_t)b * 32, zb);
+    sc_to_bytes(zh + (size_t)b * 32, t);
+    sc_mul_mod_l(t, s, zb);
+#pragma unroll
+    for (int i = 0; i < 12; i++) zs[(size_t)b * 12 + i] = (int32_t)t[i];
+    bool active = false;
+    for (int i = 0; i < 16; i++) active |= zb[i] != 0;
+    lane_ok[b] = ((ok_a[idx[b]] && ok_r && sc_lt_l(s)) || !active) ? 1 : 0;
+  }
+  __syncthreads();
+  // the block's quads write the lanes' tables, four lanes each in turn
+  // (the same count on every quad; past the last lane, a repeat unstored)
+  const int k = quad_k();
+  for (int j = tid >> 2; j < RLC_LANE_THREADS; j += RLC_LANE_THREADS / 4) {
+    const int l = j < n ? j : n - 1;
+    ge_ext r;
+    fe_load(r.x, r_sh[l]);
+    fe_load(r.y, r_sh[l] + 10);
+    fe_load(r.z, r_sh[l] + 20);
+    fe_load(r.t, r_sh[l] + 30);
+    geq_write_neg_table(rtab + (size_t)(lo + l) * 640, r, k, j < n);
+  }
 }
 
-DEV void tree_reduce_shared(ge_cached *sh) {
+// the points of threads [0, n) of the block (n block-uniform, at most
+// blockDim.x), added in a tree: sh[0] ends as the cached sum (the
+// identity for n = 0); each level adds a cached point into an extended
+// one and caches the result
+DEV void tree_sum(ge_ext acc, ge_cached *sh, int n) {
   const int tid = threadIdx.x;
-  for (int s = RLC_THREADS / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      ge_cached t;
-      ge_add_cc(t, sh[tid], sh[tid + s]);
-      sh[tid] = t;
+  ge_cached c;
+  ge_cache(c, acc);
+  if (tid < n || tid == 0) sh[tid] = c;
+  int m = 1;
+  while (m < n) m <<= 1;
+  __syncthreads();
+  for (int s = m / 2; s > 0; s >>= 1) {
+    if (tid < s && tid + s < n) {
+      ge_add(acc, acc, sh[tid + s]);
+      ge_cache(c, acc);
+      sh[tid] = c;
     }
     __syncthreads();
   }
 }
 
-__global__ void rlc_window_partials_kernel(
+__global__ void BOUNDS(RLC_THREADS) rlc_window_partials_kernel(
     const int32_t *__restrict__ tab, const int32_t *__restrict__ idx,
     const uint8_t *__restrict__ zh, const int32_t *__restrict__ rtab,
     const uint8_t *__restrict__ z, int B, int32_t *__restrict__ partials) {
   __shared__ ge_cached sh[RLC_THREADS];
   const int tid = threadIdx.x;
-  const int lane = blockIdx.x * RLC_THREADS + tid;
   const int w = blockIdx.y;
-  ge_cached e;
-  if (lane < B) {
-    if (w < 64) {
-      const int d = nibble(zh + (size_t)lane * 32, w);
-      ge_load_cached(e, tab + (size_t)idx[lane] * 640 + 40 * d);
-    } else {
-      const int d = nibble(z + (size_t)lane * 16, w - 64);
-      ge_load_cached(e, rtab + (size_t)lane * 640 + 40 * d);
-    }
-  } else {
-    ge_identity_cached(e);
+  const int lo = blockIdx.x * RLC_BLOCK_LANES;
+  const int n = B - lo < RLC_BLOCK_LANES ? B - lo : RLC_BLOCK_LANES;
+  ge_ext acc;
+  ge_identity(acc);
+  for (int lane = lo + tid; lane < lo + n; lane += RLC_THREADS) {
+    const int32_t *e;
+    if (w < 64)
+      e = tab + (size_t)idx[lane] * 640 + 40 * nibble(zh + (size_t)lane * 32, w);
+    else
+      e = rtab + (size_t)lane * 640 + 40 * nibble(z + (size_t)lane * 16, w - 64);
+    ge_cached c;
+    ge_load_cached(c, e);
+    ge_add(acc, acc, c);
   }
-  sh[tid] = e;
-  __syncthreads();
-  tree_reduce_shared(sh);
+  tree_sum(acc, sh, n < RLC_THREADS ? n : RLC_THREADS);
   if (tid == 0)
     ge_store_cached(partials + ((size_t)w * gridDim.x + blockIdx.x) * 40,
                     sh[0]);
 }
 
 // the cross-block fold: block w adds up window w's n block partials
-__global__ void rlc_fold_kernel(const int32_t *__restrict__ partials, int n,
-                                int32_t *__restrict__ sums) {
+__global__ void BOUNDS(RLC_THREADS) rlc_fold_kernel(
+    const int32_t *__restrict__ partials, int n, int32_t *__restrict__ sums) {
   __shared__ ge_cached sh[RLC_THREADS];
   const int tid = threadIdx.x;
   const int w = blockIdx.x;
-  ge_cached acc;
-  ge_identity_cached(acc);
+  ge_ext acc;
+  ge_identity(acc);
   for (int j = tid; j < n; j += RLC_THREADS) {
     ge_cached e;
     ge_load_cached(e, partials + ((size_t)w * n + j) * 40);
-    ge_add_cc(acc, acc, e);
+    ge_add(acc, acc, e);
   }
-  sh[tid] = acc;
-  __syncthreads();
-  tree_reduce_shared(sh);
+  tree_sum(acc, sh, n < RLC_THREADS ? n : RLC_THREADS);
   if (tid == 0) ge_store_cached(sums + (size_t)w * 40, sh[0]);
 }
 
 #define ZS_THREADS 256
 
-__global__ void rlc_zs_sum_kernel(const int32_t *__restrict__ zs,
-                                  const uint8_t *__restrict__ lane_ok, int B,
-                                  uint8_t *__restrict__ zs_sum,
-                                  uint8_t *__restrict__ all_ok) {
+__global__ void BOUNDS(ZS_THREADS) rlc_zs_sum_kernel(
+    const int32_t *__restrict__ zs, const uint8_t *__restrict__ lane_ok,
+    int B, uint8_t *__restrict__ zs_sum, uint8_t *__restrict__ all_ok) {
   __shared__ int64_t sh[ZS_THREADS][12];
   __shared__ int sh_ok[ZS_THREADS];
   const int tid = threadIdx.x;
   int64_t acc[12];
+#pragma unroll
   for (int i = 0; i < 12; i++) acc[i] = 0;
   int ok = 1;
   for (int b = tid; b < B; b += ZS_THREADS) {
+#pragma unroll
     for (int i = 0; i < 12; i++) acc[i] += zs[(size_t)b * 12 + i];
     ok &= lane_ok[b];
   }
+#pragma unroll
   for (int i = 0; i < 12; i++) sh[tid][i] = acc[i];
   sh_ok[tid] = ok;
   __syncthreads();
   for (int s = ZS_THREADS / 2; s > 0; s >>= 1) {
     if (tid < s) {
+#pragma unroll
       for (int i = 0; i < 12; i++) sh[tid][i] += sh[tid + s][i];
       sh_ok[tid] &= sh_ok[tid + s];
     }
@@ -149,83 +194,135 @@ __global__ void rlc_zs_sum_kernel(const int32_t *__restrict__ zs,
   }
   if (tid == 0) {
     int64_t s24[24];
-    sc_normalize(s24, sh[0], 12);
+    sc_normalize<12>(s24, sh[0]);
     sc_reduce(s24);
     sc_to_bytes(zs_sum, s24);
     all_ok[0] = (uint8_t)sh_ok[0];
   }
 }
 
-// stage 5 over window sums in global or shared memory: 64 x 4 doublings,
-// one base-niels add and the A (and, below window 32, R) window sums,
-// then the cofactored identity test
-DEV bool rlc_ladder(const int32_t *sums, const uint8_t *zs_sum) {
+// [zs_sum]B = sum over the 64 windows w of [16^w d_w]B, thread w loading
+// its entry of the comb; every thread of the block calls it, and sh (64
+// entries) ends with the cached sum in sh[0]
+DEV void rlc_base_comb(const uint8_t *zs_sum, ge_cached *sh) {
+  const int w = threadIdx.x;
   ge_ext acc;
   ge_identity(acc);
-  ge_niels bn;
-  ge_cached c;
-  for (int w = 63; w >= 0; w--) {
-    for (int i = 0; i < 4; i++) ge_dbl(acc, acc);
-    ge_base_niels(bn, nibble(zs_sum, w));
-    ge_add_niels(acc, acc, bn);
-    ge_load_cached(c, sums + (size_t)w * 40);
-    ge_add_cached(acc, acc, c);
-    if (w < 32) {
-      ge_load_cached(c, sums + (size_t)(64 + w) * 40);
-      ge_add_cached(acc, acc, c);
-    }
+  if (w < 64) {
+    ge_niels e;
+    ge_load_niels(e, &c_base_comb[w][nibble(zs_sum, w)][0][0]);
+    ge_add_niels(acc, acc, e);
   }
-  ge_mul_by_cofactor(acc);
+  tree_sum(acc, sh, 64);
+}
+
+__global__ void BOUNDS(RLC_COMB_THREADS) rlc_comb_kernel(
+    const uint8_t *__restrict__ zs_sum, int32_t *__restrict__ out) {
+  __shared__ ge_cached sh[RLC_COMB_THREADS];
+  rlc_base_comb(zs_sum, sh);
+  if (threadIdx.x == 0) ge_store_cached(out, sh[0]);
+}
+
+// the 64 ladder windows from 96 window sums (rows of 40): R window w
+// added into A window w below 32, by threads 0..63 of the block
+DEV void rlc_add_r_windows(int32_t *win, const int32_t *sums) {
+  const int w = threadIdx.x;
+  if (w < 64) {
+    ge_cached a;
+    ge_load_cached(a, sums + (size_t)w * 40);
+    if (w < 32) {
+      ge_cached r;
+      ge_load_cached(r, sums + (size_t)(64 + w) * 40);
+      ge_add_cc(a, a, r);
+    }
+    ge_store_cached(win + w * 40, a);
+  }
+}
+
+// [8](sum_w 16^w W_w + C) == O over the 64 cached windows W (rows of 40)
+// and the cached point C: the Horner chain, 255 doublings and 64
+// additions, run by the quads of one warp (each the same chain)
+DEV bool rlc_horner_quad(const int32_t *win, const int32_t *comb) {
+  const int k = quad_k();
+  ge_ext acc;
+  ge_identity(acc);
+  fe q;
+  for (int w = 63; w >= 0; w--) {
+    if (w < 63)
+      for (int i = 0; i < 4; i++) geq_dbl(acc, k);
+    geq_cached_part(q, win + w * 40, k);
+    geq_add(acc, k, q);
+  }
+  geq_cached_part(q, comb, k);
+  geq_add(acc, k, q);
+  for (int i = 0; i < 3; i++) geq_dbl(acc, k);
   return ge_is_identity(acc);
 }
 
-__global__ void rlc_ladder_kernel(const int32_t *__restrict__ sums,
-                                  const uint8_t *__restrict__ zs_sum,
-                                  const uint8_t *__restrict__ all_ok,
-                                  uint8_t *__restrict__ out) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
-  out[0] = (all_ok[0] && rlc_ladder(sums, zs_sum)) ? 1 : 0;
+__global__ void BOUNDS(64) rlc_ladder_kernel(
+    const int32_t *__restrict__ sums, const int32_t *__restrict__ comb,
+    const uint8_t *__restrict__ all_ok, uint8_t *__restrict__ out) {
+  __shared__ int32_t win[64 * 40];
+  rlc_add_r_windows(win, sums);
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const bool ok = rlc_horner_quad(win, comb);
+    if (threadIdx.x == 0) out[0] = (all_ok[0] && ok) ? 1 : 0;
+  }
 }
 
 // K7's combine: D shards' (96, 40) window sums, 32-byte sums of z*s mod L
-// and ok bytes -> the verdict.  One block of RLC_WINDOWS threads.
-__global__ void rlc_combine_ladder_kernel(const int32_t *__restrict__ sums,
-                                          const uint8_t *__restrict__ zs,
-                                          const uint8_t *__restrict__ ok,
-                                          int D, uint8_t *__restrict__ out) {
-  __shared__ int32_t sh[RLC_WINDOWS * 40];
+// and ok bytes -> the verdict.  One block of 128 threads: the fold of the
+// shards (a thread per window) and the scalar sum, then the comb and the
+// ladder of the single-device verdict.
+__global__ void BOUNDS(128) rlc_combine_ladder_kernel(
+    const int32_t *__restrict__ sums, const uint8_t *__restrict__ zs,
+    const uint8_t *__restrict__ ok, int D, uint8_t *__restrict__ out) {
+  __shared__ int32_t folded[RLC_WINDOWS * 40];
+  __shared__ int32_t win[64 * 40];
+  __shared__ ge_cached comb[RLC_COMB_THREADS];
   __shared__ uint8_t zs_sum[32];
   __shared__ int all_ok;
-  const int w = threadIdx.x;
-  if (w < RLC_WINDOWS) {
+  const int t = threadIdx.x;
+  if (t < RLC_WINDOWS) {
     ge_cached acc, e;
-    ge_load_cached(acc, sums + (size_t)w * 40);
+    ge_load_cached(acc, sums + (size_t)t * 40);
     for (int d = 1; d < D; d++) {
-      ge_load_cached(e, sums + ((size_t)d * RLC_WINDOWS + w) * 40);
+      ge_load_cached(e, sums + ((size_t)d * RLC_WINDOWS + t) * 40);
       ge_add_cc(acc, acc, e);
     }
-    ge_store_cached(sh + w * 40, acc);
+    ge_store_cached(folded + t * 40, acc);
   }
-  if (w == 0) {
-    int64_t cols[12], t[12], s24[24];
+  if (t == RLC_WINDOWS) {
+    int64_t cols[12], s24[24];
+#pragma unroll
     for (int i = 0; i < 12; i++) cols[i] = 0;
     int okv = 1;
     for (int d = 0; d < D; d++) {
-      sc_from_bytes(t, 12, zs + (size_t)d * 32, 32);
-      for (int i = 0; i < 12; i++) cols[i] += t[i];
+      uint64_t w4[4];
+      int64_t l12[12];
+      words_from_bytes<32>(w4, zs + (size_t)d * 32);
+      sc_from_words<12, 4>(l12, w4);
+#pragma unroll
+      for (int i = 0; i < 12; i++) cols[i] += l12[i];
       okv &= ok[d] != 0;
     }
-    sc_normalize(s24, cols, 12);
+    sc_normalize<12>(s24, cols);
     sc_reduce(s24);
     sc_to_bytes(zs_sum, s24);
     all_ok = okv;
   }
   __syncthreads();
-  if (w == 0) out[0] = (all_ok && rlc_ladder(sh, zs_sum)) ? 1 : 0;
+  rlc_add_r_windows(win, folded);
+  rlc_base_comb(zs_sum, comb);
+  if (t < 32) {
+    const bool v = rlc_horner_quad(win, (const int32_t *)&comb[0]);
+    if (t == 0) out[0] = (all_ok && v) ? 1 : 0;
+  }
 }
 
 // Stages 1-4 for one batch or shard.  scratch: rtab B*640 int32, zh B*32
-// u8, zs B*12 int32, lane_ok B u8, partials 96*ceil(B/128)*40 int32;
+// u8, zs B*12 int32, lane_ok B u8, partials 96*ceil(B/1024)*40 int32;
 // outputs: sums 96*40 int32, zs_sum 32 u8, all_ok 1 u8 (a shard's slot of
 // the stacked outputs)
 extern "C" int ed25519_rlc_sums_launch(
@@ -234,10 +331,11 @@ extern "C" int ed25519_rlc_sums_launch(
     void *zh, void *zs, void *lane_ok, void *partials, void *sums,
     void *zs_sum, void *all_ok, void *stream) {
   if (B < 0) return 0;
-  const int nblk = (B + RLC_THREADS - 1) / RLC_THREADS;
+  const int nblk = (B + RLC_BLOCK_LANES - 1) / RLC_BLOCK_LANES;
   int err;
   if (B > 0) {
-    LAUNCH(rlc_lane_kernel, nblk, RLC_THREADS, stream, (const uint8_t *)ok_a,
+    LAUNCH(rlc_lane_kernel, (B + RLC_LANE_THREADS - 1) / RLC_LANE_THREADS,
+           RLC_LANE_THREADS, stream, (const uint8_t *)ok_a,
            (const int32_t *)idx, (const uint8_t *)rb, (const uint8_t *)sb,
            (const uint8_t *)h, (const uint8_t *)z, B, (int32_t *)rtab,
            (uint8_t *)zh, (int32_t *)zs, (uint8_t *)lane_ok);
@@ -261,14 +359,15 @@ extern "C" int ed25519_rlc_combine_launch(const void *sums, const void *zs,
                                           const void *ok, int D, void *out,
                                           void *stream) {
   if (D <= 0) return 0;
-  LAUNCH(rlc_combine_ladder_kernel, 1, RLC_WINDOWS, stream,
-         (const int32_t *)sums, (const uint8_t *)zs, (const uint8_t *)ok, D,
-         (uint8_t *)out);
+  LAUNCH(rlc_combine_ladder_kernel, 1, 128, stream, (const int32_t *)sums,
+         (const uint8_t *)zs, (const uint8_t *)ok, D, (uint8_t *)out);
   RETURN_LAUNCH_ERROR();
 }
 
-// the single-device verdict: stages 1-4, then the ladder; scratch and
-// outputs as ed25519_rlc_sums_launch, then out 1 u8
+// the single-device verdict: stages 1-4, then the comb and the ladder;
+// scratch and outputs as ed25519_rlc_sums_launch, then out 1 u8.  The
+// comb's point (40 int32) goes to the start of `partials`, which the fold
+// has read by then.
 extern "C" int ed25519_rlc_gather_launch(
     const void *tab, const void *ok_a, const void *idx, const void *rb,
     const void *sb, const void *h, const void *z, int B, void *rtab,
@@ -279,7 +378,10 @@ extern "C" int ed25519_rlc_gather_launch(
                                     zh, zs, lane_ok, partials, sums, zs_sum,
                                     all_ok, stream);
   if (err != 0) return err;
-  LAUNCH(rlc_ladder_kernel, 1, 1, stream, (const int32_t *)sums,
-         (const uint8_t *)zs_sum, (const uint8_t *)all_ok, (uint8_t *)out);
+  LAUNCH(rlc_comb_kernel, 1, RLC_COMB_THREADS, stream,
+         (const uint8_t *)zs_sum, (int32_t *)partials);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  LAUNCH(rlc_ladder_kernel, 1, 64, stream, (const int32_t *)sums,
+         (const int32_t *)partials, (const uint8_t *)all_ok, (uint8_t *)out);
   RETURN_LAUNCH_ERROR();
 }

@@ -5,7 +5,8 @@
 // _build_neg_a_table, :75), which the JAX package jits once per validator
 // set.  One thread per validator: decompress (one exponentiation, ~275
 // field multiplications), negate, one doubling and 13 cached additions,
-// then 16 x 40 int32 written contiguously (2,560 bytes per validator).
+// then 16 x 40 int32 in canonical limbs written contiguously (2,560 bytes
+// per validator).
 // Bound: 32-bit integer multiplies; it runs once per validator set, so
 // its cost is amortized across commits.
 #include "ed25519.cuh"

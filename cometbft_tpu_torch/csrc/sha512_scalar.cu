@@ -15,9 +15,9 @@ __global__ void sha512_scalar_kernel(const uint32_t *__restrict__ blocks,
                                      int B, int NB, uint8_t *__restrict__ h) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  uint8_t digest[64];
-  sha512_lane(digest, blocks + (size_t)b * NB * 32, active[b]);
-  sc_reduce512_bytes(h + (size_t)b * 32, digest);
+  uint64_t st[8];
+  sha512_lane(st, blocks + (size_t)b * NB * 32, active[b]);
+  sc_reduce_digest(h + (size_t)b * 32, st);
 }
 
 extern "C" int sha512_scalar_launch(const void *blocks, const void *active,

@@ -88,7 +88,7 @@ def consts_header() -> str:
     """The generated ``ed25519_consts.h``: every constant the device code
     needs, from the same Python definitions the plain versions use."""
     from . import fe, group, scalar, sha512
-    from .ed25519 import base_niels_rows
+    from .ed25519 import base_comb_rows, base_niels_rows
 
     base = base_niels_rows()
     consts = [fe.limbs_from_int(v) for v in (
@@ -102,6 +102,8 @@ def consts_header() -> str:
         f"__constant__ int32_t c_fe_consts[5][10] = {_c_array(consts)};",
         "__constant__ int32_t c_base_niels[16][3][10] = "
         f"{_c_array(base)};",
+        "DEV_TABLE int32_t c_base_comb[64][16][3][10] = "
+        f"{_c_array(base_comb_rows())};",
         "__constant__ uint64_t c_sha512_k[80] = "
         f"{_c_array(sha512.K64, '{}ULL')};",
         "__constant__ uint64_t c_sha512_iv[8] = "

@@ -22,31 +22,54 @@ components (Y+X, Y-X, 2Z, 2dT) in the carried limbs of ``ops/fe.py``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build, fe, group, scalar, sha512
 from .group import Cached, Ext, Niels
 
 __all__ = ["prepare_pubkey_tables", "verify_padded", "verify_padded_gather",
-           "base_niels_rows", "base_niels_table", "tables_canonical"]
+           "base_niels_rows", "base_comb_rows", "base_niels_table",
+           "tables_canonical"]
 
 
-def base_niels_rows() -> list:
-    """Niels limbs (Y+X, Y-X, 2dXY) of [j]B, j = 0..15 (j = 0 is the
-    identity): the plain versions' table and the kernels' constant one."""
+def _niels_rows(pt) -> list:
+    """Niels limbs (Y+X, Y-X, 2dXY) of [j]pt, j = 0..15 (j = 0 is the
+    identity), from the oracle's extended point ``pt``."""
     from ..crypto import _ed25519_py as ref
 
     p = fe.P_INT
-    rows = []
-    for j in range(16):
-        if j == 0:
-            x, y = 0, 1
-        else:
-            pt = ref.pt_mul(j, ref.BASE)
-            zi = pow(pt[2], p - 2, p)
-            x, y = pt[0] * zi % p, pt[1] * zi % p
+    rows, acc = [], ref.IDENTITY
+    for _ in range(16):
+        zi = pow(acc[2], p - 2, p)
+        x, y = acc[0] * zi % p, acc[1] * zi % p
         rows.append([fe.limbs_from_int(y + x), fe.limbs_from_int(y - x),
                      fe.limbs_from_int(2 * fe.D_INT * x * y)])
+        acc = ref.pt_add(acc, pt)
+    return rows
+
+
+def base_niels_rows() -> list:
+    """Niels limbs of [j]B, j = 0..15: the plain versions' table and the
+    kernels' constant one."""
+    from ..crypto import _ed25519_py as ref
+
+    return _niels_rows(ref.BASE)
+
+
+@functools.lru_cache(maxsize=1)
+def base_comb_rows() -> list:
+    """Niels limbs of [16^w j]B, w = 0..63, j = 0..15: the fixed-base
+    comb of the RLC verdict, which adds one entry per 4-bit window of a
+    scalar (``csrc/ed25519_rlc.cu``)."""
+    from ..crypto import _ed25519_py as ref
+
+    rows, pt = [], ref.BASE
+    for _ in range(64):
+        rows.append(_niels_rows(pt))
+        for _ in range(4):
+            pt = ref.pt_add(pt, pt)
     return rows
 
 

@@ -5,8 +5,9 @@ element as 20 limbs of 13 bits because the TPU's vector units have no
 64-bit products; the port uses the ref10 representation instead: 10
 signed limbs of alternately 26 and 25 bits (bit offsets ``OFFSETS``),
 multiplied as 32 x 32 -> 64-bit products.  The CUDA kernels
-(``csrc/ed25519.cuh``) implement exactly these operations with the same
-carry schedule, so the plain functions here compute the same limbs.
+(``csrc/ed25519.cuh``) use the same representation with their own carry
+schedule (rounded carries, no carry after an addition), so they compute
+the same values mod p, not the same limbs.
 
 Elements are int64 tensors of shape ``(10, n)``: limbs on axis 0, lanes
 on axis 1 (the layout the CUDA side has per thread).  "Carried" limbs lie

@@ -3,7 +3,8 @@
 Counterpart of ``cometbft_tpu/ops/group.py:make_group``: the same
 extended-coordinate hwcd-2008 formulas, the same cached and niels forms,
 the same permissive ZIP-215 decoding.  ``csrc/ed25519.cuh`` carries the
-same formulas as ``__device__`` functions, operation for operation.
+same formulas, with the same signs, as ``__device__`` functions, and
+also spread over the four threads of a quad.
 
 Representations (each component a ``(10, n)`` limb tensor):
 - extended: ``(X, Y, Z, T)``  with x = X/Z, y = Y/Z, T = XY/Z

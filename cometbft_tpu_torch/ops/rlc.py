@@ -19,7 +19,7 @@ is exactly the active mask.  The verdict is all-or-nothing: on a reject
 the caller localizes with the per-lane kernel (``ops/ed25519.py``).
 
 On CUDA tensors :func:`verify_batch_rlc_gather` launches the
-``sha512_scalar`` kernel for h, then ``csrc/ed25519_rlc.cu`` (five
+``sha512_scalar`` kernel for h, then ``csrc/ed25519_rlc.cu`` (six
 launches on one stream, counted as one launch of ``ed25519_rlc_gather``);
 on CPU tensors it runs the plain version below.
 
@@ -51,7 +51,7 @@ __all__ = ["host_rlc_coeffs", "verify_batch_rlc", "verify_batch_rlc_gather",
 
 WINDOWS_A, WINDOWS_R = 64, 32
 WINDOWS = WINDOWS_A + WINDOWS_R
-_RLC_THREADS = 128          # lanes per block of the window-sum kernel
+_RLC_BLOCK_LANES = 1024     # lanes per block of the window-sum kernel
 
 
 def host_rlc_coeffs(n: int, active_mask=None, rng_bytes=None) -> np.ndarray:
@@ -238,7 +238,7 @@ def _rlc_sums(tab, ok_a, idx, rb, sb, blocks, active, z, out, slot):
                                  out, slot)
     b, dev = idx.shape[0], idx.device
     h = sha512._sha512_scalar(blocks, active)
-    nblk = -(-b // _RLC_THREADS)
+    nblk = -(-b // _RLC_BLOCK_LANES)
 
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -271,7 +271,7 @@ def rlc_combine(sums, zs, ok) -> torch.Tensor:
     """The verdict (0-d bool tensor) from the stacked per-shard outputs of
     :func:`rlc_sums_gather` (:class:`RlcSums` fields, D >= 1 shards).
     CUDA kernel ``ed25519_rlc_combine``: one block, a thread per window,
-    then thread 0 runs the ladder."""
+    then the comb and the ladder of :func:`verify_batch_rlc_gather`."""
     d = sums.shape[0]
     _build.check_arg(sums, "sums", torch.int32, (d, WINDOWS, 40))
     _build.check_arg(zs, "zs", torch.uint8, (d, 32))
@@ -299,7 +299,7 @@ def verify_batch_rlc_gather(tab, ok_a, idx, rb, sb, blocks, active, z):
         return _rlc_plain(tab, ok_a, idx, rb, sb, blocks, active, z)
     dev = idx.device
     h = sha512._sha512_scalar(blocks, active)
-    nblk = max(1, -(-b // _RLC_THREADS))
+    nblk = max(1, -(-b // _RLC_BLOCK_LANES))
 
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)

@@ -1,19 +1,45 @@
 // Reproducer of an nvcc front-end fault that cometbft_tpu_torch/csrc
-// works around (see the note at the top of ed25519.cuh).
+// guards against (see the note at the top of ed25519.cuh).
 //
-// fold_kernel is the RLC window fold of ed25519_rlc.cu: each thread
-// starts from the identity (ge_identity_cached), adds its strided share
-// of n cached points, then the block's shared-memory tree adds the 128
-// thread sums.  scripts/cuda_stack_slot_probe.py builds it against the
-// shipped ed25519.cuh and against a copy whose ge_cache writes its output
-// before its last read of the input, as it was first written.  If the
-// compiler gives the identity ge_ext (dead after the call) and the
-// thread's sum (first written by the call) one stack slot, that copy
-// reads a half-written point and every window sum is wrong.  With
+// fold_kernel is an RLC window fold: each thread starts from the identity
+// (probe_identity_cached), adds its strided share of n cached points,
+// then the block's shared-memory tree adds the 128 thread sums.
+// probe_cache is a __noinline__ cache of an extended point.  Built as it
+// is, it reads its input whole before it writes, as the rule in
+// ed25519.cuh asks of any __noinline__ function; with -DEARLY_CACHE it
+// writes its output before its last read of the input, as ge_cache was
+// first written.  If the compiler gives the identity ge_ext (dead after
+// the call) and the thread's sum (first written by the call) one stack
+// slot, the early build reads a half-written point and every window sum
+// is wrong.  Whether it does depends on the code around the call: against
+// the header of the first port, whose group functions were all
+// __noinline__, nvcc 12.9 shared the slot and the early build was wrong
+// in every window; around the inlined core it may not.  With
 // -DPER_THREAD_OUT each thread's sum before the tree is written out too.
 #include "ed25519.cuh"
 
 #define T 128
+
+DEV_NOINLINE void probe_cache(ge_cached &c, const ge_ext &p) {
+#ifdef EARLY_CACHE
+  fe d2;
+  fe_const(d2, FE_D2);
+  fe_add(c.ypx, p.y, p.x);
+  fe_sub(c.ymx, p.y, p.x);
+  fe_add(c.z2, p.z, p.z);
+  fe_mul(c.t2d, p.t, d2);
+#else
+  ge_cached r;
+  ge_cache(r, p);
+  c = r;
+#endif
+}
+
+DEV void probe_identity_cached(ge_cached &c) {
+  ge_ext id;
+  ge_identity(id);
+  probe_cache(c, id);
+}
 
 DEV void tree_reduce_shared(ge_cached *sh) {
   const int tid = threadIdx.x;
@@ -34,7 +60,7 @@ __global__ void fold_kernel(const int32_t *__restrict__ in, int n,
   const int tid = threadIdx.x;
   const int w = blockIdx.x;
   ge_cached acc;
-  ge_identity_cached(acc);
+  probe_identity_cached(acc);
   for (int j = tid; j < n; j += T) {
     ge_cached e;
     ge_load_cached(e, in + ((size_t)w * n + j) * 40);

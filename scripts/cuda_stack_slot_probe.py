@@ -4,16 +4,17 @@ device code works around, and show that the workaround holds.
 
     python3 scripts/cuda_stack_slot_probe.py [--out PATH]
 
-Builds ``scripts/cuda_stack_slot_probe.cu`` in several ways: against the
-shipped ``csrc/ed25519.cuh`` or against a copy whose ``ge_cache`` writes
-early (its body as first written, patched in here), with ``-O3``,
-``-Xcicc -O1``, ``-Xcicc -O0`` or ``-G``.  Each folds 96 windows of random
-cached points; the probe counts the windows whose sum differs, as a
-group element, from the plain PyTorch fold (and, for the per-thread
-build, the thread sums that differ).  For the ``-O3`` builds it reads the
-PTX and reports, for each call of ``ge_cache``, whether one address is
-passed as both output and input.  Prints one JSON object and writes it
-to ``--out``.
+Builds ``scripts/cuda_stack_slot_probe.cu`` (over the shipped
+``csrc/ed25519.cuh``) in several ways: with its ``__noinline__``
+``probe_cache`` reading its input before it writes ("shipped", the rule
+``ed25519.cuh`` states) or writing early (``-DEARLY_CACHE``, the body
+``ge_cache`` was first written with), with ``-O3``, ``-Xcicc -O1``,
+``-Xcicc -O0`` or ``-G``.  Each folds 96 windows of random cached points;
+the probe counts the windows whose sum differs, as a group element, from
+the plain PyTorch fold (and, for the per-thread build, the thread sums
+that differ).  For the ``-O3`` builds it reads the PTX and reports, for
+each call of ``probe_cache``, whether one address is passed as both
+output and input.  Prints one JSON object and writes it to ``--out``.
 """
 
 from __future__ import annotations
@@ -33,18 +34,6 @@ WINDOWS = 96
 FLAGS = {"O3": ["-O3"], "O3_perthread": ["-O3", "-DPER_THREAD_OUT"],
          "cicc_O1": ["-O3", "-Xcicc", "-O1"],
          "cicc_O0": ["-O3", "-Xcicc", "-O0"], "G": ["-G"]}
-# ge_cache as first written: c.ypx is stored before p.x is read again
-EARLY_GE_CACHE = """DEV_NOINLINE void ge_cache(ge_cached &c, const ge_ext &p) {
-  fe d2;
-  fe_const(d2, FE_D2);
-  fe_add(c.ypx, p.y, p.x);
-  fe_sub(c.ymx, p.y, p.x);
-  fe_add(c.z2, p.z, p.z);
-  fe_mul(c.t2d, p.t, d2);
-}
-"""
-
-
 def same_slot_calls(ptx: str, callee: str) -> list:
     """For each call of ``callee`` in ``ptx``: whether param0 and param1
     are the same register."""
@@ -77,20 +66,10 @@ def main(argv=None) -> int:
 
     work = Path(tempfile.mkdtemp(prefix="stack_slot_probe_"))
     (work / "ed25519_consts.h").write_text(_build.consts_header())
-    header = (_build.CSRC / "ed25519.cuh").read_text()
-    early, n_sub = re.subn(
-        r"DEV_NOINLINE void ge_cache\(ge_cached &c, const ge_ext &p\) \{"
-        r".*?\n\}\n", EARLY_GE_CACHE, header, count=1, flags=re.S)
-    if n_sub != 1:
-        raise RuntimeError("ge_cache not found in ed25519.cuh")
-    (work / "early").mkdir()
-    (work / "early" / "ed25519.cuh").write_text(early)
     nvcc = _build._nvcc()
     base = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17"]
-    # the early copy comes first; launch.cuh still comes from csrc
-    incs = {"early": ["-I", str(work / "early"), "-I", str(work), "-I",
-                      str(_build.CSRC)],
-            "shipped": ["-I", str(_build.CSRC), "-I", str(work)]}
+    inc = ["-I", str(_build.CSRC), "-I", str(work)]
+    incs = {"early": inc + ["-DEARLY_CACHE"], "shipped": inc}
     variants = {f"{cal}_{fl}": incs[cal] + FLAGS[fl]
                 for cal in incs for fl in FLAGS}
     # the .cu sits apart from csrc, so "ed25519.cuh" comes from -I
@@ -104,7 +83,7 @@ def main(argv=None) -> int:
         subprocess.run([nvcc, *base, *variants[k], "-ptx", "-o",
                         str(work / f"{k}.ptx"), str(SRC)], check=True)
         ptx[k] = same_slot_calls((work / f"{k}.ptx").read_text(),
-                                 "_Z8ge_cacheR")
+                                 "_Z11probe_cacheR")
     built = {}
     for k, p in procs.items():
         log = p.communicate()[0].decode(errors="replace")

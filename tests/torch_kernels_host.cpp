@@ -5,7 +5,10 @@
 //
 // Every kernel and launch sequence runs as written: a block is blockDim.x
 // host threads, each with its own threadIdx; blocks run one after another,
-// so a __shared__ array is a static one; __syncthreads is a barrier.
+// so a __shared__ array is a static one; __syncthreads is a barrier over
+// the block, and the quad exchange of ed25519.cuh (a shuffle among four
+// threads on the card) goes through static slots between two barriers
+// over the quad.
 //
 //   torch_kernels_host MODE DIR ARGS...
 //
@@ -16,6 +19,9 @@
 //   verify B NB N       tab, ok_a, idx, rb, sb, blocks, active -> out
 //   rlc B NB N          tab, ok_a, idx, rb, sb, blocks, active, z -> out,
 //                       sums (the 96 window sums)
+//   ladder              sums (96 x 40), zs (32), ok (1) -> out (2): the
+//                       single-device verdict's last launches (comb,
+//                       ladder) and the combine entry over one shard
 //   rlc_sharded B NB N D
 //                       the same inputs cut into D contiguous shards of
 //                       ceil(B/D) lanes (the last short, possibly empty):
@@ -30,6 +36,8 @@
 #include <barrier>
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
+#include <memory>
 #include <string>
 #include <thread>
 #include <vector>
@@ -43,9 +51,23 @@ struct dim3 {
 static thread_local dim3 threadIdx, blockIdx;
 static dim3 blockDim, gridDim;
 static std::barrier<> *g_block_barrier;
+static std::vector<std::unique_ptr<std::barrier<>>> g_quad_barriers;
+static unsigned char g_quad_slots[1024][64];
 
 static void __syncthreads() { g_block_barrier->arrive_and_wait(); }
 static int cudaGetLastError() { return 0; }
+
+// out[j] = thread j's value of `mine` (n bytes), for the quad of the
+// calling thread
+static void host_quad_gather(void *out, const void *mine, size_t n) {
+  const unsigned t = threadIdx.x, q = t & ~3u;
+  std::barrier<> &bar = *g_quad_barriers[t >> 2];
+  memcpy(g_quad_slots[t], mine, n);
+  bar.arrive_and_wait();
+  for (unsigned j = 0; j < 4; j++)
+    memcpy((unsigned char *)out + j * n, g_quad_slots[q + j], n);
+  bar.arrive_and_wait();
+}
 
 #define __global__
 #define __shared__ static
@@ -56,6 +78,14 @@ static void host_launch(dim3 grid, dim3 block, void (*kernel)(P...),
                         A... args) {
   gridDim = grid;
   blockDim = block;
+  if (block.x > 1024) {
+    fprintf(stderr, "block of %u threads\n", block.x);
+    exit(2);
+  }
+  g_quad_barriers.clear();
+  for (unsigned q = 0; q < block.x; q += 4)
+    g_quad_barriers.emplace_back(
+        new std::barrier<>((std::ptrdiff_t)std::min(4u, block.x - q)));
   for (unsigned y = 0; y < grid.y; y++)
     for (unsigned x = 0; x < grid.x; x++) {
       std::barrier<> bar((std::ptrdiff_t)block.x);
@@ -171,6 +201,21 @@ int main(int argc, char **argv) {
     save("out", out);
     return 0;
   }
+  if (mode == "ladder") {
+    auto sums = load<int32_t>("sums", RLC_WINDOWS * 40);
+    auto zs = load<uint8_t>("zs", 32);
+    auto ok = load<uint8_t>("ok", 1);
+    std::vector<int32_t> comb(40);
+    std::vector<uint8_t> out(2);
+    LAUNCH(rlc_comb_kernel, 1, RLC_COMB_THREADS, nullptr, zs.data(),
+           comb.data());
+    LAUNCH(rlc_ladder_kernel, 1, 64, nullptr, sums.data(), comb.data(),
+           ok.data(), out.data());
+    check(ed25519_rlc_combine_launch(sums.data(), zs.data(), ok.data(), 1,
+                                     out.data() + 1, nullptr));
+    save("out", out);
+    return 0;
+  }
   if (mode != "verify" && mode != "rlc" && mode != "rlc_sharded") {
     fprintf(stderr, "unknown mode %s\n", mode.c_str());
     return 2;
@@ -204,7 +249,7 @@ int main(int argc, char **argv) {
     std::vector<uint8_t> zs_sum((size_t)D * 32), all_ok(D), out(1);
     for (int d = 0; d < D; d++) {
       const int lo = std::min(B, d * step), n = std::min(B, lo + step) - lo;
-      const int nblk = (n + RLC_THREADS - 1) / RLC_THREADS;
+      const int nblk = (n + RLC_BLOCK_LANES - 1) / RLC_BLOCK_LANES;
       std::vector<uint8_t> h((size_t)n * 32), zh((size_t)n * 32), lane_ok(n);
       std::vector<int32_t> rtab((size_t)n * 640), zs((size_t)n * 12),
           partials((size_t)RLC_WINDOWS * nblk * 40);
@@ -228,7 +273,7 @@ int main(int argc, char **argv) {
     save("ok", all_ok);
     return 0;
   }
-  const int nblk = (B + RLC_THREADS - 1) / RLC_THREADS;
+  const int nblk = (B + RLC_BLOCK_LANES - 1) / RLC_BLOCK_LANES;
   std::vector<uint8_t> h((size_t)B * 32), zh((size_t)B * 32), lane_ok(B),
       zs_sum(32), all_ok(1), out(1);
   std::vector<int32_t> rtab((size_t)B * 640), zs((size_t)B * 12),
