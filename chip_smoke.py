@@ -20,10 +20,12 @@ Phases, each of which must pass or the script exits non-zero:
    and against the pure-Python oracle; then one seeded random batch per
    entry of ``SWEEP_LANES`` through every kernel and its plain version;
    then the merkle kernels ``sha256_leaves`` (10,000 one-block and
-   10,000 two-block leaves) and ``merkle_level`` (5,000 pairs) against
-   their plain versions, and the roots and proofs of a seeded sweep of
-   trees (``MERKLE_SWEEP`` leaves, and leaves over 118 bytes) on the
-   kernel route against hashlib; mismatches must be 0;
+   10,000 two-block leaves), ``merkle_level`` (5,000 pairs) and
+   ``merkle_tree`` (every level of trees of ``MERKLE_TREES`` leaves,
+   against the plain level loop and hashlib) against their plain
+   versions, and the roots and proofs of a seeded sweep of trees
+   (``MERKLE_SWEEP`` leaves, and leaves over 118 bytes) on the kernel
+   route against hashlib; mismatches must be 0;
 4. commit: the main path, ``VerifyCommit``, ``VerifyCommitLight`` and
    ``VerifyCommitLightTrusting`` on commits signed by 150 and 1,000
    validators (keys from a fixed seed), plus a tampered commit that must
@@ -57,8 +59,9 @@ Phases, each of which must pass or the script exits non-zero:
 9. mesh, ``MESH_SHARDS`` shards of one card (the device set
    ``[cuda:0] * 4``; then again over distinct cards, one shard each,
    where more than one is visible), reusing phase 7's 10,000-validator commit and phase 6's
-   chain: ``VerifyCommit`` (one sharded RLC dispatch: four shard-sums
-   launches, one combine, no single-device verdict), p50/min/max over 20
+   chain: ``VerifyCommit`` (one sharded RLC dispatch: one shard-sums
+   call per distinct card, one combine, no single-device verdict),
+   p50/min/max over 20
    calls beside the single-device p50, ``verify_commits_light_batched``
    over the 127 headers of phase 6, and a tampered commit whose sharded
    per-lane route names the same lane as the single-device route; then
@@ -66,7 +69,12 @@ Phases, each of which must pass or the script exits non-zero:
    ``ed25519_rlc_combine``) against its plain version and against K6a's
    single-device verdict on the same inputs and z, over valid lanes, a
    bad lane in each shard, garbage padding, a ragged last shard, fewer
-   lanes than shards, and ZIP-215 edge lanes (window sums as points).
+   lanes than shards, and ZIP-215 edge lanes (window sums as points),
+   and on one card over ``K7_SPLITS`` (1 to 4 shards of 10,000 lanes,
+   150 lanes over 4); the one-shard ``rlc_sums_gather`` against the
+   plain version's first shard; the sums timed as the verdict runs them
+   (no index check): one 2,500-lane shard alone, and four shards of one
+   card in one call.
 
 Phases 4, 6, 7, 8 and 9 are the main path: the launch counters are
 zeroed just before each and read just after; each phase's kernels must
@@ -92,6 +100,7 @@ package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import hashlib
 import json
@@ -133,18 +142,28 @@ RLC_STAGES = (("lane", "rlc_lane_kernel"),
 # the ladder stage's quad point operations: 255 doublings, 64 window
 # additions and the comb's, and the R-window prologue (about one)
 LADDER_OPS = 255 + 65 + 1
+# lanes a block of the lane stage, as ops/rlc.py:lane_block picks them
+LANE_LAYOUTS = (16, 32)
 # the __global__ functions behind each C entry, for the -Xptxas -v lines
+# (a template's instances by their arguments)
+_LANE_KERNELS = tuple(f"rlc_lane_kernel<{n}>" for n in LANE_LAYOUTS)
 ENTRY_KERNELS = {
     "sha512_scalar": ("sha512_scalar_kernel",),
     "ed25519_tables": ("ed25519_tables_kernel",),
     "ed25519_verify_gather": ("ed25519_verify_gather_kernel",),
-    "ed25519_rlc_gather": tuple(k for _, k in RLC_STAGES),
-    "ed25519_rlc_sums": tuple(k for _, k in RLC_STAGES[:4]),
+    "ed25519_rlc_gather": _LANE_KERNELS + tuple(k for _, k in RLC_STAGES[1:]),
+    "ed25519_rlc_sums": _LANE_KERNELS + tuple(k for _, k in RLC_STAGES[1:4]),
     "ed25519_rlc_combine": ("rlc_combine_ladder_kernel",),
+    "sha256_leaves": ("sha256_leaves_kernel",),
+    "merkle_level": ("merkle_subtree_kernel",),
+    "merkle_tree": ("merkle_subtree_kernel",),
 }
 MESH_SHARDS = 4                  # shards of the mesh phase, one card each
+# (lanes, shards) of K7's shard-count checks on one card
+K7_SPLITS = ((10_000, 1), (10_000, 2), (10_000, 3), (150, 4))
 MERKLE_LEAVES = 10_000           # leaves of the merkle kernel phase
 MERKLE_SWEEP = (1, 63, 64, 2047, 2048, 2049, 4097, 10_000)  # tree sizes
+MERKLE_TREES = (2048, 2049, 4097, 10_000, 16_384)  # whole-tree checks
 LIGHT_VALS = 150                 # validators of the 150-validator light phase
 LIGHT_HEADERS = 128              # its chain (BASELINE configs[2]: 1,000)
 BIG_VALS = 10_000                # validators of the 10k light phase
@@ -543,7 +562,9 @@ def phase_kernels(fx, dev, reps, rec):
     rec["sha512_scalar"].update(
         max_abs_err=int((h_k.long() - h_p.long()).abs().max()),
         mismatches=mism,
-        ms=time_cuda(lambda: sha512.sha512_scalar(blocks, active), reps),
+        ms=time_cuda(lambda: sha512._sha512_scalar(blocks, active), reps),
+        ms_checked=time_cuda(lambda: sha512.sha512_scalar(blocks, active),
+                             reps),
         plain_ms=time_host(
             lambda: sha512._sha512_scalar_plain(blocks, active)),
         shape=f"B=150 NB={blocks.shape[1]}")
@@ -605,7 +626,8 @@ def phase_sweep(fx, dev, rec):
     random keys, messages and tampered lanes (the tampered verdicts from
     the oracle), random encodings in the table, and RLC batches with
     every lane active and with the bad lanes and a few more as garbage
-    padding.  Adds to ``rec[name]["mismatches"]``."""
+    padding, the lane stage at each of ``LANE_LAYOUTS`` lanes a block.
+    Adds to ``rec[name]["mismatches"]``."""
     import numpy as np
     import torch
 
@@ -672,9 +694,11 @@ def phase_sweep(fx, dev, rec):
                 ((*lane, torch.from_numpy(z).to(dev)), all(want)),
                 ((tab_k, ok_k, idx, rb_pad, sb_pad, blocks, active,
                   torch.from_numpy(z_pad).to(dev)), True)):
-            k = bool(rlc.verify_batch_rlc_gather(*args))
             p = bool(rlc._rlc_plain(*args))
-            mism["ed25519_rlc_gather"] += (k != p) + (k != expect)
+            for lpb in LANE_LAYOUTS:
+                with lane_layout(lpb):
+                    k = bool(rlc.verify_batch_rlc_gather(*args))
+                mism["ed25519_rlc_gather"] += (k != p) + (k != expect)
     for k, m in mism.items():
         rec[k]["mismatches"] += m
         rec[k]["sweep_mismatches"] = m
@@ -817,8 +841,10 @@ def phase_throughput(sets, dev, n_lanes, reps):
         tab, ok, idx, rb, sb, blocks, active), reps, warm=1)
     from cometbft_tpu_torch.ops import sha512
 
+    # sha512_scalar as the RLC wrappers run it, without the index check
+    # of its public wrapper
     at_10k = {
-        "sha512_scalar": (lambda: sha512.sha512_scalar(blocks, active),
+        "sha512_scalar": (lambda: sha512._sha512_scalar(blocks, active),
                           "sha512_scalar_kernel"),
         "ed25519_tables": (lambda: ed.prepare_pubkey_tables(pub_t),
                            "ed25519_tables_kernel"),
@@ -842,7 +868,10 @@ def phase_throughput(sets, dev, n_lanes, reps):
         if not ok_all:
             raise AssertionError("10k-lane dense verify rejected")
     stages_10k = rlc_stage_ms(at_10k["ed25519_rlc_gather"][0], reps)
+    checked_10k = time_cuda(lambda: sha512.sha512_scalar(blocks, active),
+                            reps, warm=1)
     return {"lanes": n_lanes, "tables_ms": tables_ms, "rlc_ms": rlc_ms,
+            "sha512_checked_ms_10k": checked_10k,
             "rlc_stages_ms_10k": stages_10k,
             "per_lane_ms": lane_ms, "dense_wall_p50_ms": statistics.median(wall),
             "rlc_sig_per_s": n_lanes / rlc_ms * 1e3,
@@ -852,10 +881,26 @@ def phase_throughput(sets, dev, n_lanes, reps):
             "device_ms_10k": device_10k}
 
 
+@contextlib.contextmanager
+def lane_layout(lpb: int):
+    """The RLC lane stage at ``lpb`` lanes a block whatever the lane
+    count (``ops/rlc.py:lane_block``), inside the block."""
+    from cometbft_tpu_torch.ops import rlc
+
+    chosen = rlc.lane_block
+    rlc.lane_block = lambda b: lpb
+    try:
+        yield
+    finally:
+        rlc.lane_block = chosen
+
+
 def _kernel_ms(kernels_ms: dict, prefix: str):
     """Device ms per call of the kernels named ``prefix...`` in a
-    :func:`profile_call` result, or None where the profiler saw none."""
-    hits = [v for k, v in kernels_ms.items() if k.startswith(prefix)]
+    :func:`profile_call` result (a template instance's name may start
+    with its return type), or None where the profiler saw none."""
+    hits = [v for k, v in kernels_ms.items()
+            if k.removeprefix("void ").startswith(prefix)]
     return sum(hits) if hits else None
 
 
@@ -866,7 +911,9 @@ def rlc_stage_ms(fn, reps: int) -> dict:
     out = {}
     for stage, name in RLC_STAGES:
         hits = [v for k, v in kernels.items()
-                if k == name or k.startswith(name + "(")]
+                if k.removeprefix("void ").startswith((name + "(",
+                                                       name + "<"))
+                or k == name]
         out[stage] = sum(hits) if hits else None
     known = [v for v in out.values() if v is not None]
     out["sum"] = sum(known) if known else None
@@ -894,7 +941,9 @@ def ptxas_usage(log: str) -> dict:
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?_Z(\d+)(\w+)", line)
         if m:
-            cur = out.setdefault(m.group(2)[:int(m.group(1))], {})
+            name = m.group(2)[:int(m.group(1))]
+            t = re.match(r"ILi(\d+)EE", m.group(2)[int(m.group(1)):])
+            cur = out.setdefault(name + (f"<{t.group(1)}>" if t else ""), {})
             continue
         if cur is None:
             continue
@@ -920,8 +969,8 @@ def phase_merkle(dev, reps, rec):
     """The merkle kernels against their plain versions on the card, at
     the main path's shapes, then a seeded sweep of tree sizes through
     the kernel route against hashlib (roots and every proof).  Fills
-    ``rec`` for ``sha256_leaves`` and ``merkle_level``; returns the
-    extra timings."""
+    ``rec`` for ``sha256_leaves``, ``merkle_level`` and ``merkle_tree``;
+    returns the extra timings."""
     import numpy as np
     import torch
 
@@ -930,7 +979,7 @@ def phase_merkle(dev, reps, rec):
     from cometbft_tpu_torch.ops import sha256 as S
 
     rng = np.random.default_rng(2027)
-    info = {"leaves_ms": {}, "level_ms": {}}
+    info = {"leaves_ms": {}}
 
     def leaves(items):
         blocks, active = merkle._leaf_blocks(items)
@@ -977,7 +1026,7 @@ def phase_merkle(dev, reps, rec):
         plain_ms=m["plain_ms"], shape=f"B={MERKLE_LEAVES} NB=1",
         bound_inputs=(int(main_leaves[1].sum()), MERKLE_LEAVES, 1))
 
-    # merkle_level: 5,000 pairs, then every level of a 10,000-leaf tree
+    # merkle_level: 5,000 pairs
     kids = torch.from_numpy(np.frombuffer(rng.bytes(32 * MERKLE_LEAVES),
                                           np.int32).reshape(-1, 8)
                             .copy()).to(dev)
@@ -998,10 +1047,48 @@ def phase_merkle(dev, reps, rec):
         bound_inputs=(MERKLE_LEAVES,))
     rec["merkle_level"]["device_ms"] = _kernel_ms(profile_call(
         lambda: S.merkle_level(kids), reps)["kernels_ms"],
-        "merkle_level_kernel")
-    for w in merkle._level_widths(MERKLE_LEAVES)[:-1]:
-        lv = kids[:w].contiguous()
-        info["level_ms"][w] = time_cuda(lambda: S.merkle_level(lv), reps)
+        "merkle_subtree_kernel")
+
+    # merkle_tree: every level of whole trees of random leaf digests,
+    # against the plain level loop on the card and hashlib's level order
+    mism, err, info["trees"] = 0, 0, {}
+    for n in MERKLE_TREES:
+        leaves = np.frombuffer(rng.bytes(32 * n), np.uint8).reshape(n, 32)
+        rows = S.tree_rows(n)
+        buf = torch.zeros((rows, 8), dtype=torch.int32, device=dev)
+        buf[:n] = torch.from_numpy(S.bytes_to_words(leaves).view(
+            np.int32)).to(dev)
+        plain = S._merkle_tree_plain(buf.clone(), n)
+        before = _build.LAUNCHES["merkle_tree"]
+        got = S.merkle_tree(buf, n)
+        calls = _build.LAUNCHES["merkle_tree"] - before
+        lv = [r.tobytes() for r in leaves]
+        want = []
+        while True:
+            want += lv
+            if len(lv) == 1:
+                break
+            lv = [merkle.inner_hash(lv[2 * i], lv[2 * i + 1])
+                  for i in range(len(lv) // 2)] + lv[len(lv) - len(lv) % 2:]
+        host = S.words_to_bytes(got.cpu().numpy().view(np.uint32))
+        bad = (int((got != plain).any(1).sum())
+               + sum(host[i].tobytes() != w for i, w in enumerate(want))
+               + int(calls != 1))
+        mism += bad
+        err = max(err, int((got.long() - plain.long()).abs().max()))
+        info["trees"][n] = {"levels": len(merkle._level_widths(n)),
+                            "mismatches": bad}
+        if n == MERKLE_LEAVES:
+            tree = (buf, n)
+    buf, n = tree
+    prof = profile_call(lambda: S.merkle_tree(buf, n), reps)
+    rec["merkle_tree"].update(
+        max_abs_err=err, mismatches=mism,
+        ms=time_cuda(lambda: S.merkle_tree(buf, n), reps),
+        device_ms=_kernel_ms(prof["kernels_ms"], "merkle_subtree_kernel"),
+        plain_ms=time_host(lambda: S._merkle_tree_plain(buf, n)),
+        shape=f"n={n} ({len(merkle._level_widths(n)) - 1} levels)",
+        bound_inputs=(n,))
 
     # whole trees, wall clock: the kernel route against hashlib's level
     # loop on the same items (the 2,048-leaf threshold was sized on a TPU)
@@ -1035,7 +1122,8 @@ def phase_merkle(dev, reps, rec):
         long_leaves = max(map(len, items), default=0) > 118
         key = f"{n}{' long' if long_leaves else ''}"
         want_launch = n >= merkle.MERKLE_KERNEL_MIN_LEAVES
-        if bool(launched.get("merkle_level")) != want_launch or \
+        if launched.get("merkle_tree", 0) != 2 * want_launch or \
+                "merkle_level" in launched or \
                 bool(launched.get("sha256_leaves")) != (want_launch
                                                         and not long_leaves):
             raise AssertionError(f"tree of {key} leaves took the wrong "
@@ -1043,7 +1131,7 @@ def phase_merkle(dev, reps, rec):
         sweep[key] = bad
     if _build.PLAIN_CALLS:
         raise AssertionError(f"plain versions ran: {dict(_build.PLAIN_CALLS)}")
-    for k in ("sha256_leaves", "merkle_level"):
+    for k in ("sha256_leaves", "merkle_tree"):
         rec[k]["sweep_mismatches"] = sum(sweep.values())
         rec[k]["mismatches"] += sum(sweep.values())
     info["sweep"] = sweep
@@ -1208,7 +1296,7 @@ def phase_light10k(pool, keys, dev, reps):
 
     t0 = time.perf_counter()
     launches, per_call = _path_launches(main_path, (
-        "sha256_leaves", "merkle_level", *COMMIT_KERNELS))
+        "sha256_leaves", "merkle_tree", *COMMIT_KERNELS))
     first_s = time.perf_counter() - t0
     wall = {name: time_host_spread(fn, reps) for name, fn in calls.items()}
     items = [v.simple_encode() for v in vals.validators]
@@ -1312,88 +1400,127 @@ def mesh_cases(vals, commit, dev, d):
 
 def phase_mesh_kernels(cases, shards, reps, rec):
     """K7 on the card against its plain version, over the devices
-    ``shards`` (the cases lie on the first): per case the sharded
-    verdict, the kernels' per-shard outputs (each shard's sums on its own
-    device, gathered on the first) and verdict, the plain version's, and
-    K6a's single-device verdict on the same inputs and z; window sums
-    compare as points, sums of z*s mod L and ok bytes exactly.  Fills
-    ``rec`` for the two kernels and returns the whole verdict's times."""
+    ``shards`` (the cases lie on the first), and on the first card alone
+    over ``K7_SPLITS``: per case the sharded verdict, the kernels'
+    per-shard outputs (one sums call per distinct device, as the verdict
+    runs them, gathered on the first) and verdict, the plain version's,
+    and K6a's single-device verdict on the same inputs and z; the
+    one-shard ``rlc_sums_gather`` against the plain first shard.  Window
+    sums compare as points, sums of z*s mod L and ok bytes exactly.
+    Fills ``rec`` for the two kernels and returns the whole verdict's
+    times."""
     from cometbft_tpu_torch.ops import rlc
-    from cometbft_tpu_torch.parallel.mesh import batch_mesh, shard_bounds
+    from cometbft_tpu_torch.parallel.mesh import (batch_mesh, replicate,
+                                                  shard_bounds,
+                                                  split_by_device)
 
-    fn = rlc.make_verify_batch_rlc_sharded(batch_mesh(shards), gather=True)
-    d, dev = len(shards), shards[0]
+    dev = shards[0]
 
-    def shard(args, lo, hi, to=None):
-        return tuple(t.to(to or t.device) for t in
-                     (*args[:2], *[t[lo:hi] for t in args[2:]]))
+    def shard(args, lo, hi):
+        return (*args[:2], *[t[lo:hi] for t in args[2:]])
 
-    def sums_kernel(args):
-        bufs = {x: rlc.rlc_sums_buffers(d, x) for x in dict.fromkeys(shards)}
-        for s, (lo, hi) in enumerate(shard_bounds(args[2].shape[0], d)):
-            rlc.rlc_sums_gather(*shard(args, lo, hi, shards[s]),
-                                out=bufs[shards[s]], slot=s)
-        out = rlc.rlc_sums_buffers(d, dev)
-        for s, x in enumerate(shards):
+    def sums_kernel(args, devs):
+        tabs, oks = replicate(args[0], devs), replicate(args[1], devs)
+        bufs = {x: rlc.rlc_sums_buffers(len(devs), x)
+                for x in dict.fromkeys(devs)}
+        for x, slots, offs, lanes in split_by_device(devs, *args[2:]):
+            rlc._rlc_sums_card(tabs[x], oks[x], *lanes, offs, slots,
+                               bufs[x])
+        out = rlc.rlc_sums_buffers(len(devs), dev)
+        for s, x in enumerate(devs):
             for o, t in zip(out, bufs[x]):
                 o[s] = t[s].to(dev)
         return out
 
-    def sums_plain(args):
-        out = rlc.rlc_sums_buffers(d, dev)
-        for s, (lo, hi) in enumerate(shard_bounds(args[2].shape[0], d)):
+    def sums_plain(args, n):
+        out = rlc.rlc_sums_buffers(n, dev)
+        for s, (lo, hi) in enumerate(shard_bounds(args[2].shape[0], n)):
             rlc._store_sums_plain(*shard(args, lo, hi), out, s)
         return out
 
-    mism = {"verdict": 0, "window points": 0, "zs": 0, "ok": 0}
+    def points_differ(a, b):
+        return sum(x != y for x, y in zip(_window_points(a),
+                                          _window_points(b)))
+
+    valid = cases[0][1]
+    runs = [(name, args, expect, tuple(shards))
+            for name, args, expect in cases]
+    for b, n in K7_SPLITS:
+        runs.append((f"{b} lanes, {n} shard{'s' * (n > 1)} of one card",
+                     shard(valid, 0, b), True, (dev,) * n))
+    mism = {"verdict": 0, "window points": 0, "zs": 0, "ok": 0,
+            "one shard": 0}
     zs_err, verdicts = 0, {}
-    for name, args, expect in cases:
-        k, p = sums_kernel(args), sums_plain(args)
+    for name, args, expect, devs in runs:
+        n = len(devs)
+        fn = rlc.make_verify_batch_rlc_sharded(batch_mesh(devs), gather=True)
+        k, p = sums_kernel(args, devs), sums_plain(args, n)
         v = [bool(fn(*args)), bool(rlc.rlc_combine(*k)),
              bool(rlc._rlc_combine_plain(*p)), bool(rlc.rlc_combine(*p)),
              bool(rlc._rlc_combine_plain(*k)),
              bool(rlc.verify_batch_rlc_gather(*args))]
         verdicts[name] = v + [expect]
         mism["verdict"] += sum(x != expect for x in v)
-        for s in range(d):
-            mism["window points"] += sum(
-                a != b for a, b in zip(_window_points(k.sums[s]),
-                                       _window_points(p.sums[s])))
+        for s in range(n):
+            mism["window points"] += points_differ(k.sums[s], p.sums[s])
         mism["zs"] += int((k.zs != p.zs).any(1).sum())
         mism["ok"] += int((k.ok != p.ok).sum())
         zs_err = max(zs_err, int((k.zs.long() - p.zs.long()).abs().max()),
                      int((k.ok.long() - p.ok.long()).abs().max()))
-    valid = cases[0][1]
+        lo, hi = shard_bounds(args[2].shape[0], n)[0]
+        one = rlc.rlc_sums_gather(*shard(args, lo, hi))
+        mism["one shard"] += (points_differ(one.sums[0], p.sums[0])
+                              + int((one.zs[0] != p.zs[0]).any())
+                              + int(one.ok[0] != p.ok[0]))
+    # the sums as the verdict runs them (no index check): one shard of
+    # ceil(b / 4) lanes alone, and all four shards of one card in one call
     b = valid[2].shape[0]
+    d = MESH_SHARDS
     lo, hi = shard_bounds(b, d)[0]
     one = shard(valid, lo, hi)
-    k = sums_kernel(valid)
+    buf1, buf4 = rlc.rlc_sums_buffers(1, dev), rlc.rlc_sums_buffers(d, dev)
+    offs = [lo for lo, _ in shard_bounds(b, d)] + [b]
+
+    def sums_one():
+        rlc._rlc_sums_card(*one, [0, hi - lo], [0], buf1)
+
+    def sums_card():
+        rlc._rlc_sums_card(*valid, offs, list(range(d)), buf4)
+
+    k = sums_kernel(valid, tuple(shards))
     p_ms = {"sums": time_host(lambda: rlc._store_sums_plain(
         *one, rlc.rlc_sums_buffers(1, dev), 0)),
         "combine": time_host(lambda: rlc._rlc_combine_plain(*k))}
-    # device ms of both kernels from one trace of the whole verdict (a
-    # trace of the combine alone lost events on the card); a shard's
-    # sums count its SHA-512 (sha512_scalar), as its wrapper runs it and
-    # its bound counts it
+    fn = rlc.make_verify_batch_rlc_sharded(batch_mesh(shards), gather=True)
+    # device ms of the combine from one trace of the whole verdict (a
+    # trace of the combine alone lost events on the card); the sums count
+    # their SHA-512 (sha512_scalar), as their wrapper runs it and their
+    # bound counts it
     prof = profile_call(lambda: fn(*valid), reps)
     combine_ms = _kernel_ms(prof["kernels_ms"], "rlc_combine")
-    stages_ms = _kernel_ms(prof["kernels_ms"], "rlc_")
-    sha_ms = _kernel_ms(prof["kernels_ms"], "sha512")
+    sums_dev = {}
+    for key, f in (("one", sums_one), ("card", sums_card)):
+        kms = profile_call(f, reps, top=None)["kernels_ms"]
+        st = {stage: _kernel_ms(kms, name) for stage, name in
+              (("sha512", "sha512_scalar_kernel"), *RLC_STAGES[:4])}
+        st["sum"] = (None if None in st.values() else sum(st.values()))
+        sums_dev[key] = st
     n_mism = sum(mism.values())
     rec["ed25519_rlc_sums"].update(
         max_abs_err=zs_err, mismatches=n_mism - mism["verdict"],
-        ms=time_cuda(lambda: rlc.rlc_sums_gather(*one), reps),
-        device_ms=(None if stages_ms is None or sha_ms is None
-                   else (stages_ms - (combine_ms or 0) + sha_ms) / d),
+        ms=time_cuda(sums_one, reps), device_ms=sums_dev["one"]["sum"],
+        card_ms=time_cuda(sums_card, reps),
+        card_device_ms=sums_dev["card"]["sum"], stages_ms=sums_dev,
         plain_ms=p_ms["sums"],
-        shape=f"one shard of {hi - lo} lanes (B={b}, D={d})",
+        shape=f"one shard of {hi - lo} lanes alone (B={b}, D={d}); card: "
+              f"{d} shards of one card in one call",
         cases=mism)
     rec["ed25519_rlc_combine"].update(
         max_abs_err=int(mism["verdict"] > 0), mismatches=mism["verdict"],
         ms=time_cuda(lambda: rlc.rlc_combine(*k), reps),
-        device_ms=combine_ms, plain_ms=p_ms["combine"], shape=f"D={d}",
-        verdicts=verdicts)
-    return {"lanes": b, "shards": d,
+        device_ms=combine_ms, plain_ms=p_ms["combine"],
+        shape=f"D={len(shards)}", verdicts=verdicts)
+    return {"lanes": b, "shards": len(shards),
             "ms": time_cuda(lambda: fn(*valid), reps),
             "device_ms": prof["device_ms"],
             "device_kernels_ms": prof["kernels_ms"],
@@ -1408,8 +1535,8 @@ def phase_mesh_kernels(cases, shards, reps, rec):
 def phase_mesh(fx10k, chain150, shards, reps, rec):
     """The main path over the device set ``shards`` (MESH_SHARDS shards
     of one card, or distinct cards): ``VerifyCommit`` at 10,000
-    validators (one sharded RLC dispatch: a shard-sums launch per shard,
-    one combine, no single-device verdict),
+    validators (one sharded RLC dispatch: a shard-sums call per distinct
+    card, one combine, no single-device verdict),
     ``verify_commits_light_batched`` over the 150-validator chain's
     headers, and a tampered commit whose sharded per-lane route names the
     same lane as the single-device route; then K7 against its plain
@@ -1463,7 +1590,7 @@ def phase_mesh(fx10k, chain150, shards, reps, rec):
                      f"verify_commits_light_batched@{LIGHT_VALS}"):
             launched, disp = runs[name]
             if (disp != {"rlc_gather_sharded": 1}
-                    or launched.get("ed25519_rlc_sums") != d
+                    or launched.get("ed25519_rlc_sums") != len(set(shards))
                     or launched.get("ed25519_rlc_combine") != 1
                     or "ed25519_rlc_gather" in launched
                     or "ed25519_verify_gather" in launched):
@@ -1533,6 +1660,11 @@ def report_mesh(mesh, launches, k7, card):
         print(f"kernel {k} [{r['shape']}]: mismatches {r['mismatches']}, "
               f"max_abs_err {r['max_abs_err']}, {r['ms']:.4f} ms, device "
               f"{r['device_ms']} ms, plain {r['plain_ms']:.1f} ms  [{card}]")
+    r = k7["ed25519_rlc_sums"]
+    print(f"K7 sums, {MESH_SHARDS} shards of one card in one call: "
+          f"{r['card_ms']:.4f} ms, device {r['card_device_ms']} ms; stages "
+          f"(one shard alone, and the card's call), device ms: "
+          f"{r['stages_ms']}  [{card}]")
     print(f"K7 mismatches by kind {k7['ed25519_rlc_sums']['cases']}; "
           "verdicts (sharded, kernels, plain, kernel combine of plain "
           "sums, plain combine of kernel sums, K6a, expected): "
@@ -1784,7 +1916,7 @@ def phase_bls(pool, dev, reps, rec):
 
     t0 = time.perf_counter()
     launches, per_call = _path_launches(main_path, (
-        "aggregate_g1_masked", "sha256_leaves", "merkle_level"))
+        "aggregate_g1_masked", "sha256_leaves", "merkle_tree"))
     first_s = time.perf_counter() - t0
     ed = {k: launches[k] for k in COMMIT_KERNELS if launches.get(k)}
     if ed:
@@ -1889,9 +2021,9 @@ def _bound(ops, nbytes, rate_ops):
 def mesh_bounds(c, b, d, nb, rate_ops):
     """Least time of K7 at the mesh phase's shapes: one shard's stages 1-4
     (K6a's, with h, over its ceil(b/d) lanes and their table rows), the
-    combine (96 (d - 1) add_cc and the ladder over d shards' outputs),
-    and the whole verdict: K6a's stages over the b lanes plus the
-    combine."""
+    d shards of one card in one call, the combine (96 (d - 1) add_cc and
+    the ladder over d shards' outputs), and the whole verdict: K6a's
+    stages over the b lanes plus the combine."""
     ladder = (64 * (4 * c["dbl"] + c["add_niels"] + c["add_cached"])
               + 32 * c["add_cached"] + 3 * c["dbl"] + c["is_identity"])
     sha_ops = nb * SHA512_OPS_PER_BLOCK + SC_REDUCE_PRODUCTS
@@ -1907,6 +2039,9 @@ def mesh_bounds(c, b, d, nb, rate_ops):
     combine = (96 * (d - 1) * c["add_cc"] + ladder) * FE_MUL_PRODUCTS
     return {"ed25519_rlc_sums": _bound(stages(s), s * lane_bytes + part,
                                        rate_ops),
+            # all d shards of one card in one call
+            "sums_card": _bound(d * stages(s), b * lane_bytes + d * part,
+                                rate_ops),
             "ed25519_rlc_combine": _bound(combine, d * part + 1, rate_ops),
             "rlc_sharded": _bound(stages(b) + combine, b * lane_bytes + 1,
                                   rate_ops)}
@@ -1916,12 +2051,18 @@ def merkle_bounds(rec, rate_ops):
     """Least time of the two merkle kernels at the phase's main shapes:
     counted SHA-256 operations over the integer rate against bytes (each
     input read once, each output written once) over the HBM rate."""
+    from cometbft_tpu_torch.ops import sha256 as S
+
     blocks, b, nb = rec["sha256_leaves"]["bound_inputs"]
     (n,) = rec["merkle_level"]["bound_inputs"]
+    (t,) = rec["merkle_tree"]["bound_inputs"]
     work = {"sha256_leaves": (blocks * SHA256_OPS_PER_BLOCK,
                               b * (nb * 64 + 4) + b * 32),
             "merkle_level": ((n // 2) * 2 * SHA256_OPS_PER_BLOCK,
-                             n * 32 + (n + 1) // 2 * 32)}
+                             n * 32 + (n + 1) // 2 * 32),
+            # a tree of t leaves has t - 1 inner nodes, two blocks each
+            "merkle_tree": ((t - 1) * 2 * SHA256_OPS_PER_BLOCK,
+                            S.tree_rows(t) * 32)}
     out = {}
     for k, (ops, nbytes) in work.items():
         t_ops = ops / rate_ops * 1e3
@@ -2024,6 +2165,8 @@ def main(argv=None) -> int:
                                  "cometbft_tpu/ops/sha256.py:115"),
                "merkle_level": ("csrc/sha256.cu",
                                 "cometbft_tpu/ops/sha256.py:135"),
+               "merkle_tree": ("csrc/sha256.cu",
+                               "cometbft_tpu/ops/sha256.py:135"),
                "sha512_scalar": ("csrc/sha512_scalar.cu",
                                  "cometbft_tpu/ops/sha512.py:165"),
                "ed25519_tables": ("csrc/ed25519_tables.cu",
@@ -2057,8 +2200,10 @@ def main(argv=None) -> int:
     print(f"  device ms per call (profiler): sha256_leaves "
           f"{rec['sha256_leaves']['device_ms']}, merkle_level "
           f"{rec['merkle_level']['device_ms']}")
-    print("  merkle_level per level of a 10,000-leaf tree (ms): "
-          + ", ".join(f"{w}: {t:.4f}" for w, t in mk["level_ms"].items()))
+    mt = rec["merkle_tree"]
+    print(f"  merkle_tree, one call per tree: {mk['trees']}; at "
+          f"{mt['shape']}: {mt['ms']:.4f} ms (CUDA events), device "
+          f"{mt['device_ms']} ms, plain {mt['plain_ms']:.1f} ms  [{card}]")
     print(f"  trees, wall p50 ms: {mk['tree_ms']}  [{card}]")
     early = {k: r for k, r in rec.items()
              if k not in BLS_KERNELS + MESH_KERNELS}
@@ -2097,6 +2242,8 @@ def main(argv=None) -> int:
               f"device {tp['device_ms_10k'][k]} ms  [{card}]")
     print(f"K6a stages at B={tp['lanes']}, device ms: "
           f"{tp['rlc_stages_ms_10k']}  [{card}]")
+    print(f"sha512_scalar at {tp['lanes']} lanes through its checked public "
+          f"wrapper: {tp['sha512_checked_ms_10k']:.4f} ms  [{card}]")
     floors = {"B=150": chain_floor(rec["ed25519_rlc_gather"]["stages_ms"]),
               f"B={tp['lanes']}": chain_floor(tp["rlc_stages_ms_10k"])}
     for shape, f in floors.items():
@@ -2233,6 +2380,13 @@ def main(argv=None) -> int:
                 "stages_ms_10k": tp["rlc_stages_ms_10k"],
                 "chain_floor": floors}
                if k == "ed25519_rlc_gather" else {}),
+            **({"ms_checked": r["ms_checked"],
+                "ms_checked_10k": tp["sha512_checked_ms_10k"]}
+               if k == "sha512_scalar" else {}),
+            **({"card_ms": r["card_ms"],
+                "card_device_ms": r["card_device_ms"],
+                "card_bound_ms": bd_mesh["sums_card"][0]}
+               if k == "ed25519_rlc_sums" else {}),
             **({"ptxas": {n: usage.get(n) for n in ENTRY_KERNELS[k]}}
                if k in ENTRY_KERNELS else {})})
     if args.record:

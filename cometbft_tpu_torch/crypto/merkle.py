@@ -17,10 +17,10 @@ the recursive split.  Routing by leaf count, as in the JAX package:
 - at ``MERKLE_KERNEL_MIN_LEAVES`` leaves or more, the SHA-256 kernels of
   ``ops/sha256.py`` on ``device``: one ``sha256_leaves`` launch over the
   padded leaves (items longer than ``_LEAF_KERNEL_MAX_LEN`` bytes have
-  their leaves hashed with hashlib instead), then one ``merkle_level``
-  launch per level.  The levels stay on the device in one buffer and
-  cross to the host once: the root, or every level when proofs are
-  built.  ``device=None`` is the first of the plan's devices
+  their leaves hashed with hashlib instead), then one ``merkle_tree``
+  call for every level above them.  The levels stay on the device in one
+  buffer and cross to the host once: the root, or every level when
+  proofs are built.  ``device=None`` is the first of the plan's devices
   (``crypto/plan.py:resolve_devices``) and raises without a card:
   under a device set the tree is not sharded, as the JAX package's
   live tree is not; ``"cpu"`` runs the plain versions.
@@ -144,10 +144,9 @@ def _leaf_blocks(items: list[bytes]):
 def _kernel_levels(items: list[bytes], dev: torch.device) -> torch.Tensor:
     """Every level of the tree as digest words in one (nodes, 8) int32
     tensor on ``dev``, leaves first, the root last: one leaf launch, then
-    one level launch per level, each writing into its slice."""
+    one tree call for the levels above, each level in its slice."""
     n = len(items)
-    widths = _level_widths(n)
-    buf = torch.empty((sum(widths), 8), dtype=torch.int32, device=dev)
+    buf = torch.empty((_s.tree_rows(n), 8), dtype=torch.int32, device=dev)
     if max(map(len, items)) > _LEAF_KERNEL_MAX_LEN:
         leaves = b"".join(_sha(LEAF_PREFIX + it) for it in items)
         words = _s.bytes_to_words(
@@ -157,12 +156,7 @@ def _kernel_levels(items: list[bytes], dev: torch.device) -> torch.Tensor:
         blocks, active = _leaf_blocks(items)
         _s.sha256_leaf_words(torch.from_numpy(blocks.view(np.int32)).to(dev),
                              torch.from_numpy(active).to(dev), out=buf[:n])
-    start = 0
-    for w, parent_w in zip(widths, widths[1:]):
-        _s.merkle_level(buf[start:start + w],
-                        out=buf[start + w:start + w + parent_w])
-        start += w
-    return buf
+    return _s.merkle_tree(buf, n)
 
 
 def _levels_kernel(items: list[bytes], dev) -> list[list[bytes]]:

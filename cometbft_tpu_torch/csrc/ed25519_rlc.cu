@@ -10,36 +10,49 @@
 // it as one sequential grid; here blocks run in any order and share
 // nothing, so the work is a series of launches on one stream (h = SHA-512
 // mod L comes from the sha512_scalar kernel before these):
-//   1. rlc_lane: per lane (64 lanes a block, so 10,000 lanes fill every
-//      SM), one thread decodes R, computes z*h and z*s mod L and the
-//      lane-ok bit (padding lanes, z = 0, never veto); then the block's
-//      quads (ed25519.cuh) write the lanes' [j](-R) tables;
-//   2. rlc_window_partials: per (window, 1,024-lane block), each thread
-//      adds up to 8 lanes' table entries for their digits into an
-//      extended point (8 products an addition), then a tree over the
-//      threads (64 A windows from z*h digits, 32 R windows from the
-//      128-bit z digits);
-//   3. rlc_fold: per window, one block adds up the block partials the
-//      same way and writes the 96 window sums;
-//   4. rlc_zs_sum: one block sums z*s mod L and ANDs the lane-ok bits;
+//   1. rlc_lane: per lane, one thread decodes R, computes z*h and z*s mod
+//      L and the lane-ok bit (padding lanes, z = 0, never veto); then the
+//      block's 16 quads (ed25519.cuh) write the lanes' [j](-R) tables.  A
+//      block of 64 threads takes LPB lanes: 32 (a quad writes two tables
+//      in turn) where there are enough lanes to fill the card, 16 (a quad
+//      a table, the decode on half a warp) where there are not, chosen by
+//      the caller from the lane count;
+//   2. rlc_window_partials: per (window, block of at most 1,024 lanes of
+//      one shard), each thread adds up to 8 lanes' table entries for their
+//      digits into an extended point (8 products an addition), then a tree
+//      over the threads (64 A windows from z*h digits, 32 R windows from
+//      the 128-bit z digits).  A shard's lanes split into equal blocks,
+//      and no block straddles two shards;
+//   3. rlc_fold: per (window, shard), one block adds up the shard's block
+//      partials the same way and writes the window sum into the shard's
+//      slot;
+//   4. rlc_zs_sum: per shard, one block sums z*s mod L and ANDs the
+//      lane-ok bits into the shard's slot;
 //   5. rlc_comb: [sum z s]B by the fixed-base comb, 64 threads each
 //      loading one entry [16^w d_w]B of the generated table, then a tree;
 //   6. rlc_ladder: 32 threads add R window w into A window w, then a
 //      quad (ed25519.cuh; one warp of them, each the same chain) runs the
 //      Horner chain over the 64 windows, adds the comb's point and runs
 //      the cofactored identity test.
-// ed25519_rlc_gather_launch runs 1-6 on one device.  The sharded verdict
-// (K7) runs 1-4 once per shard, ed25519_rlc_sums_launch, each writing its
-// 96 window sums, its sum z*s mod L and its ok byte into its slot of
-// stacked outputs; then ed25519_rlc_combine_launch runs one block of
-// rlc_combine_ladder: 96 threads each fold one window's D partials with
-// add_cc in shard order, one thread sums the D scalars mod L and ANDs
-// the oks, then 5 and 6 in the same block.  An empty shard (B = 0) skips
-// 1-2, and 3-4 write the identity, 0 and 1.
-// Bound: 32-bit integer multiplies, dominated by stage 1's R decode and
-// table (~300 field multiplications per lane) and stage 2's 96 additions
-// per lane; the verdict's latency floor is stage 6's chain, 255 doublings
-// and 64 additions of two product latencies each on the quad.
+// ed25519_rlc_gather_launch runs 1-6 on one device, as one shard.  The
+// sharded verdict (K7) runs 1-4 once per card, ed25519_rlc_sums_launch,
+// over all of that card's lanes and shards (the shards a device set names
+// on that card, RLC_MAX_SHARDS of them a pass), each shard writing its 96
+// window sums, its sum z*s mod L and its ok byte into its slot of stacked
+// outputs; then
+// ed25519_rlc_combine_launch runs one block of rlc_combine_ladder: 96
+// threads each fold one window's D partials with add_cc in shard order,
+// one thread sums the D scalars mod L and ANDs the oks, then 5 and 6 in
+// the same block.  An empty shard has no partial blocks, and 3-4 write
+// the identity, 0 and 1.
+// Bound: 32-bit integer multiplies (a wide product costs a warp about 8
+// issue cycles), dominated by stage 1's R decode and table (~300 field
+// multiplications per lane) and stage 2's 96 additions per lane.  Stage 1
+// is a serial chain per lane (the decode's ~265 products, then the
+// table): at a few thousand lanes the card holds fewer warps than it has
+// schedulers, so the stage takes one chain, and a quad a table shortens
+// it.  The verdict's latency floor is stage 6's chain, 255 doublings and
+// 64 additions of two product latencies each on the quad.
 #include "ed25519.cuh"
 
 #define RLC_LANE_THREADS 64
@@ -48,17 +61,33 @@
 #define RLC_BLOCK_LANES (RLC_THREADS * RLC_LANES_PER_THREAD)
 #define RLC_WINDOWS 96
 #define RLC_COMB_THREADS 64
+#ifndef RLC_MAX_SHARDS
+#define RLC_MAX_SHARDS 64  // shards a pass of ed25519_rlc_sums_launch
+#endif
 
+// The shards of one card's lanes, passed by value: shard i holds lanes
+// [lo[i], lo[i + 1]) and partial blocks [blk[i], blk[i + 1]) of stage 2,
+// and writes slot slot[i] of the stacked outputs.
+struct RlcShards {
+  int n;
+  int lo[RLC_MAX_SHARDS + 1];
+  int blk[RLC_MAX_SHARDS + 1];
+  int slot[RLC_MAX_SHARDS];
+};
+
+// LPB lanes a block: threads [0, LPB) decode, then the 16 quads write the
+// LPB tables, LPB / 16 each
+template <int LPB>
 __global__ void BOUNDS(RLC_LANE_THREADS) rlc_lane_kernel(
     const uint8_t *__restrict__ ok_a, const int32_t *__restrict__ idx,
     const uint8_t *__restrict__ rb, const uint8_t *__restrict__ sb,
     const uint8_t *__restrict__ h, const uint8_t *__restrict__ z, int B,
     int32_t *__restrict__ rtab, uint8_t *__restrict__ zh,
     int32_t *__restrict__ zs, uint8_t *__restrict__ lane_ok) {
-  __shared__ int32_t r_sh[RLC_LANE_THREADS][40];
+  __shared__ int32_t r_sh[LPB][40];
   const int tid = threadIdx.x;
-  const int lo = blockIdx.x * RLC_LANE_THREADS;
-  const int n = B - lo < RLC_LANE_THREADS ? B - lo : RLC_LANE_THREADS;
+  const int lo = blockIdx.x * LPB;
+  const int n = B - lo < LPB ? B - lo : LPB;
   if (tid < n) {
     const int b = lo + tid;
     const uint8_t *zb = z + (size_t)b * 16;
@@ -83,10 +112,10 @@ __global__ void BOUNDS(RLC_LANE_THREADS) rlc_lane_kernel(
     lane_ok[b] = ((ok_a[idx[b]] && ok_r && sc_lt_l(s)) || !active) ? 1 : 0;
   }
   __syncthreads();
-  // the block's quads write the lanes' tables, four lanes each in turn
+  // the block's quads write the lanes' tables, LPB / 16 each in turn
   // (the same count on every quad; past the last lane, a repeat unstored)
   const int k = quad_k();
-  for (int j = tid >> 2; j < RLC_LANE_THREADS; j += RLC_LANE_THREADS / 4) {
+  for (int j = tid >> 2; j < LPB; j += RLC_LANE_THREADS / 4) {
     const int l = j < n ? j : n - 1;
     ge_ext r;
     fe_load(r.x, r_sh[l]);
@@ -119,15 +148,23 @@ DEV void tree_sum(ge_ext acc, ge_cached *sh, int n) {
   }
 }
 
+// the partial block blockIdx.x of window blockIdx.y: its shard's lanes
+// split into equal blocks of at most RLC_BLOCK_LANES
 __global__ void BOUNDS(RLC_THREADS) rlc_window_partials_kernel(
     const int32_t *__restrict__ tab, const int32_t *__restrict__ idx,
     const uint8_t *__restrict__ zh, const int32_t *__restrict__ rtab,
-    const uint8_t *__restrict__ z, int B, int32_t *__restrict__ partials) {
+    const uint8_t *__restrict__ z, RlcShards shards,
+    int32_t *__restrict__ partials) {
   __shared__ ge_cached sh[RLC_THREADS];
   const int tid = threadIdx.x;
-  const int w = blockIdx.y;
-  const int lo = blockIdx.x * RLC_BLOCK_LANES;
-  const int n = B - lo < RLC_BLOCK_LANES ? B - lo : RLC_BLOCK_LANES;
+  const int w = blockIdx.y, blk = blockIdx.x;
+  int s = 0;
+  while (blk >= shards.blk[s + 1]) s++;
+  const int hi = shards.lo[s + 1];
+  const int nb = shards.blk[s + 1] - shards.blk[s];
+  const int chunk = (hi - shards.lo[s] + nb - 1) / nb;
+  const int lo = shards.lo[s] + (blk - shards.blk[s]) * chunk;
+  const int n = hi - lo < chunk ? hi - lo : chunk;
   ge_ext acc;
   ge_identity(acc);
   for (int lane = lo + tid; lane < lo + n; lane += RLC_THREADS) {
@@ -142,40 +179,47 @@ __global__ void BOUNDS(RLC_THREADS) rlc_window_partials_kernel(
   }
   tree_sum(acc, sh, n < RLC_THREADS ? n : RLC_THREADS);
   if (tid == 0)
-    ge_store_cached(partials + ((size_t)w * gridDim.x + blockIdx.x) * 40,
-                    sh[0]);
+    ge_store_cached(partials + ((size_t)w * gridDim.x + blk) * 40, sh[0]);
 }
 
-// the cross-block fold: block w adds up window w's n block partials
+// the cross-block fold: block (w, s) adds up window w's partials of shard
+// s (nblk blocks in all) into its slot of sums
 __global__ void BOUNDS(RLC_THREADS) rlc_fold_kernel(
-    const int32_t *__restrict__ partials, int n, int32_t *__restrict__ sums) {
+    const int32_t *__restrict__ partials, RlcShards shards, int nblk,
+    int32_t *__restrict__ sums) {
   __shared__ ge_cached sh[RLC_THREADS];
   const int tid = threadIdx.x;
-  const int w = blockIdx.x;
+  const int w = blockIdx.x, s = blockIdx.y;
+  const int b0 = shards.blk[s], n = shards.blk[s + 1] - b0;
   ge_ext acc;
   ge_identity(acc);
   for (int j = tid; j < n; j += RLC_THREADS) {
     ge_cached e;
-    ge_load_cached(e, partials + ((size_t)w * n + j) * 40);
+    ge_load_cached(e, partials + ((size_t)w * nblk + b0 + j) * 40);
     ge_add(acc, acc, e);
   }
   tree_sum(acc, sh, n < RLC_THREADS ? n : RLC_THREADS);
-  if (tid == 0) ge_store_cached(sums + (size_t)w * 40, sh[0]);
+  if (tid == 0)
+    ge_store_cached(
+        sums + ((size_t)shards.slot[s] * RLC_WINDOWS + w) * 40, sh[0]);
 }
 
 #define ZS_THREADS 256
 
+// block s: the sum of z*s mod L and the AND of the lane-ok bits of shard
+// s, into its slot
 __global__ void BOUNDS(ZS_THREADS) rlc_zs_sum_kernel(
     const int32_t *__restrict__ zs, const uint8_t *__restrict__ lane_ok,
-    int B, uint8_t *__restrict__ zs_sum, uint8_t *__restrict__ all_ok) {
+    RlcShards shards, uint8_t *__restrict__ zs_sum,
+    uint8_t *__restrict__ all_ok) {
   __shared__ int64_t sh[ZS_THREADS][12];
   __shared__ int sh_ok[ZS_THREADS];
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, s = blockIdx.x;
   int64_t acc[12];
 #pragma unroll
   for (int i = 0; i < 12; i++) acc[i] = 0;
   int ok = 1;
-  for (int b = tid; b < B; b += ZS_THREADS) {
+  for (int b = shards.lo[s] + tid; b < shards.lo[s + 1]; b += ZS_THREADS) {
 #pragma unroll
     for (int i = 0; i < 12; i++) acc[i] += zs[(size_t)b * 12 + i];
     ok &= lane_ok[b];
@@ -184,11 +228,11 @@ __global__ void BOUNDS(ZS_THREADS) rlc_zs_sum_kernel(
   for (int i = 0; i < 12; i++) sh[tid][i] = acc[i];
   sh_ok[tid] = ok;
   __syncthreads();
-  for (int s = ZS_THREADS / 2; s > 0; s >>= 1) {
-    if (tid < s) {
+  for (int m = ZS_THREADS / 2; m > 0; m >>= 1) {
+    if (tid < m) {
 #pragma unroll
-      for (int i = 0; i < 12; i++) sh[tid][i] += sh[tid + s][i];
-      sh_ok[tid] &= sh_ok[tid + s];
+      for (int i = 0; i < 12; i++) sh[tid][i] += sh[tid + m][i];
+      sh_ok[tid] &= sh_ok[tid + m];
     }
     __syncthreads();
   }
@@ -196,8 +240,8 @@ __global__ void BOUNDS(ZS_THREADS) rlc_zs_sum_kernel(
     int64_t s24[24];
     sc_normalize<12>(s24, sh[0]);
     sc_reduce(s24);
-    sc_to_bytes(zs_sum, s24);
-    all_ok[0] = (uint8_t)sh_ok[0];
+    sc_to_bytes(zs_sum + (size_t)shards.slot[s] * 32, s24);
+    all_ok[shards.slot[s]] = (uint8_t)sh_ok[0];
   }
 }
 
@@ -321,37 +365,104 @@ __global__ void BOUNDS(128) rlc_combine_ladder_kernel(
   }
 }
 
-// Stages 1-4 for one batch or shard.  scratch: rtab B*640 int32, zh B*32
-// u8, zs B*12 int32, lane_ok B u8, partials 96*ceil(B/1024)*40 int32;
-// outputs: sums 96*40 int32, zs_sum 32 u8, all_ok 1 u8 (a shard's slot of
-// the stacked outputs)
-extern "C" int ed25519_rlc_sums_launch(
-    const void *tab, const void *ok_a, const void *idx, const void *rb,
-    const void *sb, const void *h, const void *z, int B, void *rtab,
-    void *zh, void *zs, void *lane_ok, void *partials, void *sums,
-    void *zs_sum, void *all_ok, void *stream) {
-  if (B < 0) return 0;
-  const int nblk = (B + RLC_BLOCK_LANES - 1) / RLC_BLOCK_LANES;
+// an argument the entries refuse (cudaErrorInvalidValue)
+#define RLC_BAD_ARGUMENT 1
+
+// the shards of a card's B lanes from host arrays: lo, S + 1 offsets
+// with 0 = lo[0] <= ... <= lo[S] = B, and slot, S slots; false where they
+// do not describe shards of the B lanes
+static bool rlc_shards(RlcShards &sh, const int *lo, const int *slot, int S,
+                       int B) {
+  if (S < 1 || S > RLC_MAX_SHARDS || lo[0] != 0 || lo[S] != B) return false;
+  sh.n = S;
+  sh.blk[0] = 0;
+  for (int i = 0; i < S; i++) {
+    if (lo[i + 1] < lo[i] || slot[i] < 0) return false;
+    sh.lo[i] = lo[i];
+    sh.slot[i] = slot[i];
+    const int n = lo[i + 1] - lo[i];
+    sh.blk[i + 1] = sh.blk[i] + (n + RLC_BLOCK_LANES - 1) / RLC_BLOCK_LANES;
+  }
+  sh.lo[S] = lo[S];
+  return true;
+}
+
+// Stages 1-4 over B lanes cut into `shards`, stage 1 at lpb lanes a block
+// (16 or 32).  scratch: rtab B*640 int32, zh B*32 u8, zs B*12 int32,
+// lane_ok B u8, partials 96*nblk*40 int32 (nblk = shards.blk[shards.n]);
+// outputs: the stacked sums (D, 96, 40) int32, zs_sum (D, 32) u8 and
+// all_ok (D,) u8, of which each shard writes its slot
+static int rlc_stages(const void *tab, const void *ok_a, const void *idx,
+                      const void *rb, const void *sb, const void *h,
+                      const void *z, int B, const RlcShards &shards, int lpb,
+                      void *rtab, void *zh, void *zs, void *lane_ok,
+                      void *partials, void *sums, void *zs_sum, void *all_ok,
+                      void *stream) {
   int err;
   if (B > 0) {
-    LAUNCH(rlc_lane_kernel, (B + RLC_LANE_THREADS - 1) / RLC_LANE_THREADS,
-           RLC_LANE_THREADS, stream, (const uint8_t *)ok_a,
-           (const int32_t *)idx, (const uint8_t *)rb, (const uint8_t *)sb,
-           (const uint8_t *)h, (const uint8_t *)z, B, (int32_t *)rtab,
-           (uint8_t *)zh, (int32_t *)zs, (uint8_t *)lane_ok);
+    const int grid = (B + lpb - 1) / lpb;
+#define RLC_LANE_LAUNCH(LPB)                                                 \
+  LAUNCH(rlc_lane_kernel<LPB>, grid, RLC_LANE_THREADS, stream,               \
+         (const uint8_t *)ok_a, (const int32_t *)idx, (const uint8_t *)rb,   \
+         (const uint8_t *)sb, (const uint8_t *)h, (const uint8_t *)z, B,     \
+         (int32_t *)rtab, (uint8_t *)zh, (int32_t *)zs, (uint8_t *)lane_ok)
+    if (lpb == 16)
+      RLC_LANE_LAUNCH(16);
+    else if (lpb == 32)
+      RLC_LANE_LAUNCH(32);
+    else
+      return RLC_BAD_ARGUMENT;
+#undef RLC_LANE_LAUNCH
     if ((err = (int)cudaGetLastError()) != 0) return err;
+  }
+  const int nblk = shards.blk[shards.n];
+  if (nblk > 0) {
     LAUNCH(rlc_window_partials_kernel, dim3(nblk, RLC_WINDOWS), RLC_THREADS,
            stream, (const int32_t *)tab, (const int32_t *)idx,
            (const uint8_t *)zh, (const int32_t *)rtab, (const uint8_t *)z,
-           B, (int32_t *)partials);
+           shards, (int32_t *)partials);
     if ((err = (int)cudaGetLastError()) != 0) return err;
   }
-  LAUNCH(rlc_fold_kernel, RLC_WINDOWS, RLC_THREADS, stream,
-         (const int32_t *)partials, nblk, (int32_t *)sums);
+  LAUNCH(rlc_fold_kernel, dim3(RLC_WINDOWS, shards.n), RLC_THREADS, stream,
+         (const int32_t *)partials, shards, nblk, (int32_t *)sums);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  LAUNCH(rlc_zs_sum_kernel, 1, ZS_THREADS, stream, (const int32_t *)zs,
-         (const uint8_t *)lane_ok, B, (uint8_t *)zs_sum, (uint8_t *)all_ok);
+  LAUNCH(rlc_zs_sum_kernel, shards.n, ZS_THREADS, stream,
+         (const int32_t *)zs, (const uint8_t *)lane_ok, shards,
+         (uint8_t *)zs_sum, (uint8_t *)all_ok);
   RETURN_LAUNCH_ERROR();
+}
+
+// K7's sums on one card: stages 1-4 over the card's B lanes, which hold S
+// shards, shard i the lanes [lo[i], lo[i + 1]) writing slot slot[i] (lo
+// and slot are host arrays); scratch and outputs as rlc_stages.  The
+// shards go RLC_MAX_SHARDS a pass, each pass over its shards' lanes (the
+// passes reuse `partials`, in stream order).
+extern "C" int ed25519_rlc_sums_launch(
+    const void *tab, const void *ok_a, const void *idx, const void *rb,
+    const void *sb, const void *h, const void *z, int B, const void *lo,
+    const void *slot, int S, int lpb, void *rtab, void *zh, void *zs,
+    void *lane_ok, void *partials, void *sums, void *zs_sum, void *all_ok,
+    void *stream) {
+  const int *lo_ = (const int *)lo, *slot_ = (const int *)slot;
+  if (S < 1 || lo_[0] != 0 || lo_[S] != B) return RLC_BAD_ARGUMENT;
+  for (int g = 0; g < S; g += RLC_MAX_SHARDS) {
+    const int n = S - g < RLC_MAX_SHARDS ? S - g : RLC_MAX_SHARDS;
+    const size_t b0 = lo_[g];
+    int glo[RLC_MAX_SHARDS + 1];
+    for (int i = 0; i <= n; i++) glo[i] = lo_[g + i] - (int)b0;
+    RlcShards shards;
+    if (!rlc_shards(shards, glo, slot_ + g, n, glo[n]))
+      return RLC_BAD_ARGUMENT;
+    const int err = rlc_stages(
+        tab, ok_a, (const int32_t *)idx + b0, (const uint8_t *)rb + 32 * b0,
+        (const uint8_t *)sb + 32 * b0, (const uint8_t *)h + 32 * b0,
+        (const uint8_t *)z + 16 * b0, glo[n], shards, lpb,
+        (int32_t *)rtab + 640 * b0, (uint8_t *)zh + 32 * b0,
+        (int32_t *)zs + 12 * b0, (uint8_t *)lane_ok + b0, partials, sums,
+        zs_sum, all_ok, stream);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 // sums (D, 96, 40) int32, zs (D, 32) u8, ok (D,) u8 -> out 1 u8
@@ -364,19 +475,22 @@ extern "C" int ed25519_rlc_combine_launch(const void *sums, const void *zs,
   RETURN_LAUNCH_ERROR();
 }
 
-// the single-device verdict: stages 1-4, then the comb and the ladder;
-// scratch and outputs as ed25519_rlc_sums_launch, then out 1 u8.  The
-// comb's point (40 int32) goes to the start of `partials`, which the fold
-// has read by then.
+// the single-device verdict: stages 1-4 as one shard in slot 0, then the
+// comb and the ladder; scratch and outputs as rlc_stages with D = 1, then
+// out 1 u8.  The comb's point (40 int32) goes to the start of `partials`,
+// which the fold has read by then.
 extern "C" int ed25519_rlc_gather_launch(
     const void *tab, const void *ok_a, const void *idx, const void *rb,
-    const void *sb, const void *h, const void *z, int B, void *rtab,
+    const void *sb, const void *h, const void *z, int B, int lpb, void *rtab,
     void *zh, void *zs, void *lane_ok, void *partials, void *sums,
     void *zs_sum, void *all_ok, void *out, void *stream) {
   if (B <= 0) return 0;
-  int err = ed25519_rlc_sums_launch(tab, ok_a, idx, rb, sb, h, z, B, rtab,
-                                    zh, zs, lane_ok, partials, sums, zs_sum,
-                                    all_ok, stream);
+  const int lo[2] = {0, B}, slot[1] = {0};
+  RlcShards shards;
+  rlc_shards(shards, lo, slot, 1, B);
+  int err = rlc_stages(tab, ok_a, idx, rb, sb, h, z, B, shards, lpb, rtab,
+                       zh, zs, lane_ok, partials, sums, zs_sum, all_ok,
+                       stream);
   if (err != 0) return err;
   LAUNCH(rlc_comb_kernel, 1, RLC_COMB_THREADS, stream,
          (const uint8_t *)zs_sum, (int32_t *)partials);

@@ -1,4 +1,5 @@
-// sha256_leaves and merkle_level: the SHA-256 kernels of the merkle tree.
+// sha256_leaves, merkle_tree and merkle_level: the SHA-256 kernels of the
+// merkle tree.
 //
 // Replace the two TPU programs of cometbft_tpu/ops/sha256.py that the
 // merkle tree (crypto/merkle.py) runs at 2,048 leaves or more:
@@ -8,8 +9,11 @@
 //                     active-block count; writes 8 digest words per lane
 //                     (the wrapper splits them into the JAX package's 32
 //                     digest bytes where a caller asks for bytes);
-//   merkle_level   <- :135 merkle_inner_level, one RFC-6962 level,
-//                     SHA-256(0x01 || left || right) per parent.
+//   merkle_tree    <- :135 merkle_inner_level applied level after level
+//                     (cometbft_tpu/crypto/merkle.py:265): every level
+//                     above the leaves, SHA-256(0x01 || left || right) per
+//                     parent, in one C call;
+//   merkle_level   <- :135 merkle_inner_level, one level, the same kernel.
 //
 // Bound on the H100: 32-bit integer instructions.  sm_90 has 3-input
 // logic (LOP3) and 3-input adds (IADD3), and a rotate is one funnel
@@ -18,21 +22,26 @@
 // sigma1 4 each, 2 adds): some 1,384 per compression for 64 bytes read,
 // which take about 4x as long on the card's 16.7 T integer lanes per
 // second as the bytes take at its 3.35 TB/s.  At the merkle tree's sizes
-// (10,000 leaves, levels of 5,000 down to 1 parent) both kernels are far
-// below a full card and wait on launch latency and one thread's serial
-// chain of 64 rounds; that is expected at these sizes.
+// (10,000 leaves, levels of 5,000 down to 1 parent) the kernels are far
+// below a full card: a tree's floor is its chain of levels, two
+// compressions each, one after another.
 //
-// Design: one thread per lane (sha256_leaves) or per parent
-// (merkle_level), native uint32_t words, rotates by __funnelshift_r,
-// round constants in __constant__ memory (sha256_consts.h, generated by
-// ops/_build.py from ops/sha256.py, the plain versions' source), the
-// round loop fully unrolled so the 16-word schedule window stays in
-// registers.  A parent's two blocks are assembled by shifts from its
+// Design: one thread per lane (sha256_leaves) or per parent, native
+// uint32_t words, rotates by __funnelshift_r, round constants in
+// __constant__ memory (sha256_consts.h, generated by ops/_build.py from
+// ops/sha256.py, the plain versions' source), the round loop fully
+// unrolled so the 16-word schedule window stays in registers.  The tree
+// was one launch per level (14 for 10,000 leaves, each a Python call);
+// now a block of merkle_subtree_kernel keeps an aligned run of 256
+// children in shared memory and builds its subtree's 8 levels there with
+// a barrier between levels, so a tree of up to 65,536 leaves takes two
+// launches of one C call: the blocks' subtrees, then one block over their
+// roots.  A parent's two blocks are assembled by shifts from its
 // children's 16 words; the second block is the constant padding of a
-// 65-byte message (0x80 at byte 1, bit length 520).  An odd tail child
-// is promoted unchanged by the thread after the last pair.  active[b]
-// acts as the JAX package's mask (block j counts where j < active), so
-// the kernel reads only blocks [0, min(max(active, 0), NB)).
+// 65-byte message (0x80 at byte 1, bit length 520).  An odd tail child is
+// promoted unchanged.  active[b] acts as the JAX package's mask (block j
+// counts where j < active), so the leaf kernel reads only blocks
+// [0, min(max(active, 0), NB)).
 #include "launch.cuh"
 #include "sha256_consts.h"
 
@@ -98,19 +107,10 @@ __global__ void sha256_leaves_kernel(const uint32_t *__restrict__ blocks,
   for (int i = 0; i < 8; i++) o[i] = s[i];
 }
 
-// children (n, 8) words -> parents ((n + 1) / 2, 8) words
-__global__ void merkle_level_kernel(const uint32_t *__restrict__ children,
-                                    int n, uint32_t *__restrict__ parents) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int m = n / 2;
-  if (i > m || (i == m && !(n & 1))) return;
-  uint32_t *o = parents + (size_t)i * 8;
-  if (i == m) {  // the odd tail child, promoted
-#pragma unroll
-    for (int k = 0; k < 8; k++) o[k] = children[(size_t)(n - 1) * 8 + k];
-    return;
-  }
-  const uint32_t *l = children + (size_t)i * 16, *r = l + 8;
+// one RFC-6962 inner node: SHA-256(0x01 || l || r) of two children's
+// digest words; the first block is assembled by shifts from the children's
+// 16 words, the second is the constant padding of a 65-byte message
+DEV void merkle_inner(uint32_t s[8], const uint32_t *l, const uint32_t *r) {
   uint32_t blk[16];
   blk[0] = 0x01000000u | (l[0] >> 8);
 #pragma unroll
@@ -118,7 +118,6 @@ __global__ void merkle_level_kernel(const uint32_t *__restrict__ children,
   blk[8] = (l[7] << 24) | (r[0] >> 8);
 #pragma unroll
   for (int k = 1; k < 8; k++) blk[8 + k] = (r[k - 1] << 24) | (r[k] >> 8);
-  uint32_t s[8];
 #pragma unroll
   for (int k = 0; k < 8; k++) s[k] = c_sha256_iv[k];
   sha256_compress(s, blk);
@@ -127,8 +126,54 @@ __global__ void merkle_level_kernel(const uint32_t *__restrict__ children,
   for (int k = 1; k < 15; k++) blk[k] = 0;
   blk[15] = 65 * 8;
   sha256_compress(s, blk);
+}
+
+#define MERKLE_THREADS 128
+#define MERKLE_LEVELS 8   // levels a block builds: 256 children -> 1
+
+// `levels` tree levels above the level `in` of n nodes (n, 8 words): the
+// first into `out`, each next one right after the one before, as the
+// tree's level buffer lays them out.  Block b copies the aligned run of
+// children [256 b, 256 b + 256) into shared memory and builds its subtree
+// there level after level, writing each level's slice to `out` too; a
+// level's odd last node (only at the level's global right edge, since
+// runs are aligned) is promoted unchanged.
+__global__ void BOUNDS(MERKLE_THREADS) merkle_subtree_kernel(
+    const uint32_t *__restrict__ in, int n, int levels,
+    uint32_t *__restrict__ out) {
+  __shared__ uint32_t nodes[2 * MERKLE_THREADS][8];
+  const int t = threadIdx.x;
+  int w = n;                                  // the child level's width
+  int lo = blockIdx.x * 2 * MERKLE_THREADS;   // the block's first child
+  int cnt = w - lo < 2 * MERKLE_THREADS ? w - lo : 2 * MERKLE_THREADS;
+  for (int i = t; i < cnt * 8; i += MERKLE_THREADS)
+    (&nodes[0][0])[i] = in[(size_t)lo * 8 + i];
+  __syncthreads();
+  for (int l = 0; l < levels; l++) {
+    const int pw = (w + 1) / 2, plo = lo / 2, pcnt = (cnt + 1) / 2;
+    uint32_t s[8];
+    if (t < pcnt) {
+      if (2 * t + 1 < cnt) {
+        merkle_inner(s, nodes[2 * t], nodes[2 * t + 1]);
+      } else {
 #pragma unroll
-  for (int k = 0; k < 8; k++) o[k] = s[k];
+        for (int k = 0; k < 8; k++) s[k] = nodes[2 * t][k];
+      }
+    }
+    __syncthreads();   // every child read before a parent overwrites it
+    if (t < pcnt) {
+#pragma unroll
+      for (int k = 0; k < 8; k++) {
+        nodes[t][k] = s[k];
+        out[(size_t)(plo + t) * 8 + k] = s[k];
+      }
+    }
+    __syncthreads();
+    out += (size_t)pw * 8;
+    w = pw;
+    lo = plo;
+    cnt = pcnt;
+  }
 }
 
 extern "C" int sha256_leaves_launch(const void *blocks, const void *active,
@@ -141,12 +186,39 @@ extern "C" int sha256_leaves_launch(const void *blocks, const void *active,
   RETURN_LAUNCH_ERROR();
 }
 
+// children (n, 8) words -> parents ((n + 1) / 2, 8) words
 extern "C" int merkle_level_launch(const void *children, int n, void *parents,
                                    void *stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
-  const int m = (n + 1) / 2;
-  LAUNCH(merkle_level_kernel, (m + threads - 1) / threads, threads, stream,
-         (const uint32_t *)children, n, (uint32_t *)parents);
+  LAUNCH(merkle_subtree_kernel,
+         (n + 2 * MERKLE_THREADS - 1) / (2 * MERKLE_THREADS), MERKLE_THREADS,
+         stream, (const uint32_t *)children, n, 1, (uint32_t *)parents);
   RETURN_LAUNCH_ERROR();
+}
+
+// every level of a tree of n leaves in one buffer of (sum of the level
+// widths, 8) words, leaves first (already written) and the root last:
+// one launch per MERKLE_LEVELS levels, each block a subtree (two launches
+// up to 65,536 leaves)
+extern "C" int merkle_tree_launch(void *levels, int n, void *stream) {
+  uint32_t *in = (uint32_t *)levels;
+  int w = n;
+  while (w > 1) {
+    int k = 0, top = w;
+    while (top > 1 && k < MERKLE_LEVELS) {
+      top = (top + 1) / 2;
+      k++;
+    }
+    LAUNCH(merkle_subtree_kernel,
+           (w + 2 * MERKLE_THREADS - 1) / (2 * MERKLE_THREADS),
+           MERKLE_THREADS, stream, (const uint32_t *)in, w, k,
+           in + (size_t)w * 8);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    for (int l = 0; l < k; l++) {
+      in += (size_t)w * 8;
+      w = (w + 1) / 2;
+    }
+  }
+  return 0;
 }

@@ -21,25 +21,32 @@ the caller localizes with the per-lane kernel (``ops/ed25519.py``).
 On CUDA tensors :func:`verify_batch_rlc_gather` launches the
 ``sha512_scalar`` kernel for h, then ``csrc/ed25519_rlc.cu`` (six
 launches on one stream, counted as one launch of ``ed25519_rlc_gather``);
-on CPU tensors it runs the plain version below.
+on CPU tensors it runs the plain version below.  The lane stage takes
+``lane_block(B)`` lanes a block of 64 threads: 16 (a quad writes one
+lane's table, the decode on half a warp) below ``QUAD_LANES_BELOW``
+lanes, where the stage cannot fill the card, else 32 (a quad writes
+two); ``scripts/rlc_lane_layouts.py`` measures the crossover.
 
 The lane-sharded verdict (:func:`make_verify_batch_rlc_sharded`, K7)
-splits the lanes over a device set: each shard runs the lane stage and
-the window fold (:func:`rlc_sums_gather`, kernel ``ed25519_rlc_sums``)
-into its slot of stacked outputs, and :func:`rlc_combine` (kernel
+splits the lanes over a device set: each distinct device runs the lane
+stage and the window fold once over all of its shards' lanes (kernel
+``ed25519_rlc_sums``, one C call a device), each shard writing its slot
+of stacked outputs, and :func:`rlc_combine` (kernel
 ``ed25519_rlc_combine``) adds the shards' window sums in shard order,
 sums their z*s mod L, ANDs their lane checks and runs the one ladder.
 Only 96 points, 32 bytes and one flag per shard cross between devices.
+:func:`rlc_sums_gather` is the same kernel over one shard.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..parallel.mesh import replicate, split
+from ..parallel.mesh import replicate, split_by_device
 from . import _build, group, scalar, sha512
 from .ed25519 import (_base_entry, _build_neg_table, _check_lanes,
                       prepare_pubkey_tables)
@@ -47,11 +54,21 @@ from .group import Cached
 
 __all__ = ["host_rlc_coeffs", "verify_batch_rlc", "verify_batch_rlc_gather",
            "RlcSums", "rlc_sums_buffers", "rlc_sums_gather", "rlc_combine",
-           "make_verify_batch_rlc_sharded"]
+           "make_verify_batch_rlc_sharded", "lane_block", "QUAD_LANES_BELOW"]
 
 WINDOWS_A, WINDOWS_R = 64, 32
 WINDOWS = WINDOWS_A + WINDOWS_R
 _RLC_BLOCK_LANES = 1024     # lanes per block of the window-sum kernel
+# lane counts below which the lane stage runs 16 lanes a block (a quad a
+# table), measured on the H100 (scripts/rlc_lane_layouts.py: 16 lanes a
+# block ahead up to 8,000 lanes, 32 at 10,000)
+QUAD_LANES_BELOW = 8000
+
+
+def lane_block(b: int) -> int:
+    """Lanes a block of the lane stage takes for a call over ``b``
+    lanes: 16 below ``QUAD_LANES_BELOW``, else 32."""
+    return 16 if b < QUAD_LANES_BELOW else 32
 
 
 def host_rlc_coeffs(n: int, active_mask=None, rng_bytes=None) -> np.ndarray:
@@ -170,11 +187,13 @@ class RlcSums(NamedTuple):
 
 
 def rlc_sums_buffers(d: int, device) -> RlcSums:
-    """Uninitialised stacked outputs for ``d`` shards on ``device``."""
-    return RlcSums(
-        torch.empty((d, WINDOWS, 40), dtype=torch.int32, device=device),
-        torch.empty((d, 32), dtype=torch.uint8, device=device),
-        torch.empty((d,), dtype=torch.uint8, device=device))
+    """Uninitialised stacked outputs for ``d`` shards on ``device``, views
+    of one allocation."""
+    raw = torch.empty((d * (WINDOWS * 160 + 33),), dtype=torch.uint8,
+                      device=device)
+    sums = raw[:d * WINDOWS * 160].view(torch.int32).view(d, WINDOWS, 40)
+    zs = raw[d * WINDOWS * 160:d * (WINDOWS * 160 + 32)].view(d, 32)
+    return RlcSums(sums, zs, raw[d * (WINDOWS * 160 + 32):])
 
 
 def _pack_sums(sum_a: Cached, sum_r: Cached) -> torch.Tensor:
@@ -232,26 +251,50 @@ def _store_sums_plain(tab, ok_a, idx, rb, sb, blocks, active, z, out,
 
 def _rlc_sums(tab, ok_a, idx, rb, sb, blocks, active, z, out, slot):
     """:func:`rlc_sums_gather` on arguments already checked."""
+    return _rlc_sums_card(tab, ok_a, idx, rb, sb, blocks, active, z,
+                          [0, idx.shape[0]], [slot], out)
+
+
+def _rlc_sums_card(tab, ok_a, idx, rb, sb, blocks, active, z, offs, slots,
+                   out):
+    """The lane stage and window fold of the shards one device holds, on
+    arguments already checked: the lanes of shard ``slots[i]`` are
+    ``[offs[i], offs[i + 1])`` of the per-lane arguments, and it writes
+    slot ``slots[i]`` of ``out``.  One ``ed25519_rlc_sums`` call (and one
+    ``sha512_scalar``) over all of those lanes."""
     if idx.device.type == "cpu":
         _build.PLAIN_CALLS["ed25519_rlc_sums"] += 1
-        return _store_sums_plain(tab, ok_a, idx, rb, sb, blocks, active, z,
-                                 out, slot)
+        lanes = (idx, rb, sb, blocks, active, z)
+        for d, a, b in zip(slots, offs, offs[1:]):
+            _store_sums_plain(tab, ok_a, *[t[a:b] for t in lanes], out, d)
+    else:
+        _launch_sums(tab, ok_a, idx, rb, sb, blocks, active, z, offs, slots,
+                     out)
+    return out
+
+
+def _launch_sums(tab, ok_a, idx, rb, sb, blocks, active, z, offs, slots,
+                 out):
     b, dev = idx.shape[0], idx.device
     h = sha512._sha512_scalar(blocks, active)
-    nblk = -(-b // _RLC_BLOCK_LANES)
+    nblk = sum(-(-(hi - lo) // _RLC_BLOCK_LANES)
+               for lo, hi in zip(offs, offs[1:]))
 
-    def empty(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    scratch = (empty((b, 16, 4, 10), torch.int32), empty((b, 32), torch.uint8),
-               empty((b, 12), torch.int32), empty((b,), torch.uint8),
-               empty((WINDOWS, nblk, 40), torch.int32))
+    # one allocation for the scratch, in 4-byte words: rtab b * 640, zs
+    # b * 12 and partials 96 * nblk * 40, then the bytes of zh (b * 32)
+    # and lane_ok (b)
+    words = b * 652 + WINDOWS * nblk * 40
+    base = torch.empty((words + -(-33 * b // 4),), dtype=torch.int32,
+                       device=dev)
+    p = base.data_ptr()
+    n = len(slots)
     _build.launch("ed25519_rlc_sums", idx, tab.data_ptr(), ok_a.data_ptr(),
                   idx.data_ptr(), rb.data_ptr(), sb.data_ptr(), h.data_ptr(),
-                  z.data_ptr(), b, *[t.data_ptr() for t in scratch],
-                  out.sums[slot].data_ptr(), out.zs[slot].data_ptr(),
-                  out.ok[slot].data_ptr())
-    return out
+                  z.data_ptr(), b, (ctypes.c_int * (n + 1))(*offs),
+                  (ctypes.c_int * n)(*slots), n, lane_block(b), p,
+                  p + 4 * words, p + 4 * b * 640, p + 4 * words + 32 * b,
+                  p + 4 * b * 652, out.sums.data_ptr(), out.zs.data_ptr(),
+                  out.ok.data_ptr())
 
 
 def _rlc_combine_plain(sums, zs, ok):
@@ -317,8 +360,8 @@ def verify_batch_rlc_gather(tab, ok_a, idx, rb, sb, blocks, active, z):
         _build.launch("ed25519_rlc_gather", idx, tab.data_ptr(),
                       ok_a.data_ptr(), idx.data_ptr(), rb.data_ptr(),
                       sb.data_ptr(), h.data_ptr(), z.data_ptr(), b,
-                      rtab.data_ptr(), zh.data_ptr(), zs.data_ptr(),
-                      lane_ok.data_ptr(), partials.data_ptr(),
+                      lane_block(b), rtab.data_ptr(), zh.data_ptr(),
+                      zs.data_ptr(), lane_ok.data_ptr(), partials.data_ptr(),
                       sums.data_ptr(), zs_sum.data_ptr(), all_ok.data_ptr(),
                       out.data_ptr())
     return out
@@ -336,21 +379,21 @@ def make_verify_batch_rlc_sharded(mesh, gather: bool = False):
     """The RLC verdict sharded over the lanes of ``mesh``
     (``parallel/mesh.py:Mesh``; ``cometbft_tpu/ops/rlc.py:232``).
 
-    Each device runs the lane stage and the window fold on its own
-    contiguous slab of lanes (:func:`rlc_sums_gather`, into its slot of
-    stacked outputs on that device); the slots of other devices are
-    copied to the first device, where :func:`rlc_combine` folds them and
-    runs the one ladder.  The arguments are checked whole, once, before
-    the split, every shard's slab is copied before any shard's kernel
-    is enqueued (``parallel/mesh.py:split``), and every shard is enqueued
-    before the caller reads the verdict, so distinct cards overlap; a
-    device named twice runs its shards one after another.
-    ``gather=True`` gives the cached-table
-    variant, ``fn(tab, ok_a, idx, rb, sb, blocks, active, z)``, whose
-    table and ok mask are replicated (a tensor, or a mapping from device
-    to its replica); otherwise ``fn(pub, rb, sb, blocks, active, z)``
-    builds each shard's tables from its own keys.  Returns a 0-d bool
-    tensor on the first device."""
+    Each distinct device runs the lane stage and the window fold once
+    over the lanes of all the shards it holds (``_rlc_sums_card``: one
+    grid over those lanes, each shard into its slot of stacked outputs on
+    that device); the slots of other devices are copied to the first
+    device, where :func:`rlc_combine` folds them and runs the one ladder.
+    The arguments are checked whole, once, before the split, every
+    device's slab is copied before any kernel is enqueued
+    (``parallel/mesh.py:split_by_device``), and every device is enqueued
+    before the caller reads the verdict, so distinct cards overlap.
+    ``gather=True`` gives the cached-table variant,
+    ``fn(tab, ok_a, idx, rb, sb, blocks, active, z)``, whose table and ok
+    mask are replicated (a tensor, or a mapping from device to its
+    replica); otherwise ``fn(pub, rb, sb, blocks, active, z)`` builds each
+    device's tables from its own lanes' keys.  Returns a 0-d bool tensor
+    on the first device."""
     devices = tuple(mesh.devices)
     d0 = devices[0]
 
@@ -371,9 +414,10 @@ def make_verify_batch_rlc_sharded(mesh, gather: bool = False):
             tabs, oks = replicate(tab, devices), replicate(ok_a, devices)
             _check_rlc(tabs[d0], oks[d0], idx, rb, sb, blocks, active, z)
             bufs = buffers()
-            slabs = split(devices, idx, rb, sb, blocks, active, z)
-            for d, (dev, lane) in enumerate(zip(devices, slabs)):
-                _rlc_sums(tabs[dev], oks[dev], *lane, bufs[dev], d)
+            for dev, slots, offs, lanes in split_by_device(
+                    devices, idx, rb, sb, blocks, active, z):
+                _rlc_sums_card(tabs[dev], oks[dev], *lanes, offs, slots,
+                               bufs[dev])
             return combine(bufs)
         return fn
 
@@ -384,10 +428,10 @@ def make_verify_batch_rlc_sharded(mesh, gather: bool = False):
         _build.check_arg(z, "z", torch.uint8, (b, 16))
         _check_lanes(idx, b, rb, sb, blocks, active)
         bufs = buffers()
-        slabs = split(devices, pub, rb, sb, blocks, active, z)
-        for d, (dev, (p, *lane)) in enumerate(zip(devices, slabs)):
+        for dev, slots, offs, (p, *lanes) in split_by_device(
+                devices, pub, rb, sb, blocks, active, z):
             tab, ok = prepare_pubkey_tables(p)
-            sidx = torch.arange(p.shape[0], dtype=torch.int32, device=dev)
-            _rlc_sums(tab, ok, sidx, *lane, bufs[dev], d)
+            didx = torch.arange(p.shape[0], dtype=torch.int32, device=dev)
+            _rlc_sums_card(tab, ok, didx, *lanes, offs, slots, bufs[dev])
         return combine(bufs)
     return fn

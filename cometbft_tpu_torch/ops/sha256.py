@@ -16,9 +16,12 @@ kernel on CUDA, no fallback between the two):
 - :func:`merkle_inner_level`: one RFC-6962 tree level,
   ``SHA-256(0x01 || left || right)`` per parent, in digest words (kernel
   ``merkle_level``).  :func:`merkle_level` is the same kernel over a
-  whole level of children, the odd tail node promoted unchanged; the
-  merkle tree (``crypto/merkle.py``) chains it level after level on the
-  device.
+  whole level of children, the odd tail node promoted unchanged;
+- :func:`merkle_tree`: every level of a tree above its leaves, in one
+  C call (kernel ``merkle_tree``: blocks that each build a subtree in
+  shared memory), into the one level buffer of the merkle tree
+  (``crypto/merkle.py``); its plain version is the loop of
+  :func:`merkle_level`'s.
 
 The plain versions hold each 32-bit word in int64 masked with
 ``0xFFFFFFFF`` (PyTorch's uint32 lacks shifts and rotates on the CPU in
@@ -38,7 +41,7 @@ from . import _build
 
 __all__ = ["K", "IV", "host_pad", "max_blocks_for_len", "words_to_bytes",
            "bytes_to_words", "sha256_blocks", "sha256_leaf_words",
-           "merkle_inner_level", "merkle_level"]
+           "merkle_inner_level", "merkle_level", "tree_rows", "merkle_tree"]
 
 
 def _primes(n: int):
@@ -201,6 +204,18 @@ def _merkle_level_plain(children):
     return parents
 
 
+def _merkle_tree_plain(levels, n):
+    """Every level above the ``n`` leaves at the head of ``levels``,
+    written into its slices: the level loop."""
+    start, w = 0, n
+    while w > 1:
+        p = (w + 1) // 2
+        levels[start + w:start + w + p] = _merkle_level_plain(
+            levels[start:start + w])
+        start, w = start + w, p
+    return levels
+
+
 # ------------------------------------------------------------------ wrappers
 
 def _check_blocks(blocks, active) -> None:
@@ -269,6 +284,33 @@ def merkle_level(children: torch.Tensor, out: torch.Tensor | None = None
         _build.launch("merkle_level", children, children.data_ptr(), n,
                       out.data_ptr())
     return out
+
+
+def tree_rows(n: int) -> int:
+    """Rows of the level buffer of a tree of ``n`` leaves: the sum of its
+    level widths (the leaves, then ceil-halvings down to the root)."""
+    rows, w = n, n
+    while w > 1:
+        w = (w + 1) // 2
+        rows += w
+    return rows
+
+
+def merkle_tree(levels: torch.Tensor, n: int) -> torch.Tensor:
+    """Every level of a merkle tree of ``n`` leaves: ``levels`` is a
+    contiguous (``tree_rows(n)``, 8) int32 tensor whose first ``n`` rows
+    hold the leaves' digest words; each level above them is written into
+    the rows after the one below (parents
+    ``SHA-256(0x01 || children[2i] || children[2i+1])``, an odd tail child
+    promoted unchanged), the root last.  Returns ``levels``.  CUDA kernel
+    ``merkle_tree``, one C call of two launches up to 65,536 leaves."""
+    _build.check_arg(levels, "levels", torch.int32, (tree_rows(n), 8))
+    if levels.device.type == "cpu":
+        _build.PLAIN_CALLS["merkle_tree"] += 1
+        return _merkle_tree_plain(levels, n)
+    if n > 1:
+        _build.launch("merkle_tree", levels, levels.data_ptr(), n)
+    return levels
 
 
 def merkle_inner_level(left: torch.Tensor,

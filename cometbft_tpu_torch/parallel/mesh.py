@@ -8,9 +8,11 @@ devices.  Every per-lane argument is cut into contiguous slabs of
 ``ceil(B / D)`` lanes (:func:`shard_bounds`: the last one short,
 possibly empty); replicated arguments (a validator set's table and ok
 mask) are copied once per distinct device (:func:`replicate`).  The
-sharded kernels are ``ops/rlc.py:make_verify_batch_rlc_sharded`` (K7)
-and the per-lane loop of ``crypto/batch.py``; both take their slabs
-from :func:`split`.
+per-lane loop of ``crypto/batch.py`` takes a slab per shard from
+:func:`split`; the sharded RLC verdict
+(``ops/rlc.py:make_verify_batch_rlc_sharded``, K7) takes one slab per
+distinct device, holding all of that device's shards, from
+:func:`split_by_device`.
 
 Not ported: ``init_multihost`` (``jax.distributed``); a
 ``torch.distributed`` counterpart stands in ``ROADMAP.md``.
@@ -24,7 +26,8 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["Mesh", "batch_mesh", "shard_bounds", "split", "replicate"]
+__all__ = ["Mesh", "batch_mesh", "shard_bounds", "split", "split_by_device",
+           "replicate"]
 
 
 @dataclass(frozen=True)
@@ -65,6 +68,36 @@ def split(devices, *ts) -> list:
     bounds = shard_bounds(ts[0].shape[0], len(devices))
     return [[t[lo:hi].to(dev) for t in ts]
             for dev, (lo, hi) in zip(devices, bounds)]
+
+
+def split_by_device(devices, *ts) -> list:
+    """Per distinct device of ``devices``, in order of first appearance:
+    ``(device, slots, offsets, slab)``, where ``slots`` are the indices of
+    the shards that device holds, ``offsets`` the ``len(slots) + 1`` lane
+    offsets of those shards within the slab, and ``slab`` each per-lane
+    tensor of ``ts`` cut to those shards' lanes, in shard order, on that
+    device (one copy of a contiguous run of shards; the tensors
+    themselves where one device holds every shard and they lie there).
+    Every slab is copied before the caller enqueues any kernel, as in
+    :func:`split`."""
+    b = ts[0].shape[0]
+    bounds = shard_bounds(b, len(devices))
+    out = []
+    for dev in dict.fromkeys(devices):
+        slots = [d for d, x in enumerate(devices) if x == dev]
+        offs = [0]
+        for d in slots:
+            offs.append(offs[-1] + bounds[d][1] - bounds[d][0])
+        if len(slots) == len(devices) and all(t.device == dev for t in ts):
+            slab = list(ts)
+        elif slots == list(range(slots[0], slots[-1] + 1)):
+            lo, hi = bounds[slots[0]][0], bounds[slots[-1]][1]
+            slab = [t[lo:hi].to(dev) for t in ts]
+        else:
+            slab = [torch.cat([t[slice(*bounds[d])] for d in slots]).to(dev)
+                    for t in ts]
+        out.append((dev, slots, offs, slab))
+    return out
 
 
 def replicate(x, devices) -> dict:

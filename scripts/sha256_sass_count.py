@@ -103,7 +103,8 @@ def main(argv=None) -> int:
     result = {"library": str(lib.relative_to(ROOT)), "kernels": {}}
     for name, insns in parse(sass).items():
         short = next((k for k in ("sha256_leaves_kernel",
-                                  "merkle_level_kernel") if k in name), name)
+                                  "merkle_subtree_kernel") if k in name),
+                     name)
         result["kernels"][short] = {**tally(insns), "loops": loops(insns)}
     text = json.dumps(result)
     print(text)

@@ -17,6 +17,7 @@ from fractions import Fraction
 
 import numpy as np
 import pytest
+import torch
 
 from cometbft_tpu.crypto.keys import Ed25519PrivKey as JEdPriv
 from cometbft_tpu.light import verifier as JLV
@@ -36,6 +37,10 @@ from cometbft_tpu_torch.light import verifier as TLV
 from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.types import commit as TC
 from cometbft_tpu_torch.types import validation as TV
+
+# the plain versions run on tensors of a few lanes: one intra-op thread is
+# as fast, and leaves the cores to the other test workers
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.timeout(900)
 
@@ -258,7 +263,7 @@ def test_aggregate_commit_matches_jax(case):
 
 def test_commit_hash_on_the_kernel_route_matches_jax():
     """2,100 lanes plus the aggregate leaf (longer than 118 bytes, so the
-    leaves are hashed with hashlib and the levels by ``merkle_level``)."""
+    leaves are hashed with hashlib and the levels by ``merkle_tree``)."""
     rng = np.random.default_rng(23)
     n = 2100
     lanes = [JC.CommitSig(X if rng.random() < 0.9 else A,
@@ -274,7 +279,7 @@ def test_commit_hash_on_the_kernel_route_matches_jax():
     assert n + 1 >= TM.MERKLE_KERNEL_MIN_LEAVES
     _build.PLAIN_CALLS.clear()
     assert port_commit(jc).hash("cpu") == jc.hash()
-    assert _build.PLAIN_CALLS["merkle_level"] > 0
+    assert _build.PLAIN_CALLS["merkle_tree"] > 0
     assert port_commit(jc).encode() == jc.encode()
 
 

@@ -10,6 +10,7 @@ encodings."""
 
 import numpy as np
 import pytest
+import torch
 
 from cometbft_tpu.crypto import _bls12381_py as JPY
 from cometbft_tpu.crypto import bls12381 as JB
@@ -17,6 +18,10 @@ from cometbft_tpu_torch import native
 from cometbft_tpu_torch.crypto import batch as tbatch
 from cometbft_tpu_torch.crypto import bls12381 as TB
 from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+
+# the plain versions run on tensors of a few lanes: one intra-op thread is
+# as fast, and leaves the cores to the other test workers
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.timeout(900)
 

@@ -21,6 +21,10 @@ from cometbft_tpu.ops import blsg1 as JG
 from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import blsg1 as TG
 
+# the plain versions run on tensors of a few lanes: one intra-op thread is
+# as fast, and leaves the cores to the other test workers
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.timeout(900)
 
 

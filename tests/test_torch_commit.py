@@ -13,6 +13,7 @@ from fractions import Fraction
 
 import numpy as np
 import pytest
+import torch
 
 from cometbft_tpu.testing import make_light_chain
 from cometbft_tpu.types import validation as JV
@@ -23,6 +24,10 @@ from cometbft_tpu_torch import convert
 from cometbft_tpu_torch.crypto import batch as tbatch
 from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
 from cometbft_tpu_torch.types import validation as TV
+
+# the plain versions run on tensors of a few lanes: one intra-op thread is
+# as fast, and leaves the cores to the other test workers
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.timeout(900)
 

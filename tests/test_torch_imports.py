@@ -51,6 +51,7 @@ def test_fresh_interpreter_imports_no_jax():
         "import chip_smoke\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"    # torch on one thread, as in the other
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=str(ROOT), env=env)
     assert out.returncode == 0, out.stderr

@@ -28,6 +28,10 @@ from cometbft_tpu_torch.ops import _build, blsg1, fe, sha256, sha512
 from cometbft_tpu_torch.ops import ed25519 as ted
 from cometbft_tpu_torch.ops import rlc as trlc
 
+# the plain versions run on tensors of a few lanes: one intra-op thread is
+# as fast, and leaves the cores to the other test workers
+torch.set_num_threads(1)
+
 pytestmark = [
     pytest.mark.timeout(900),
     pytest.mark.skipif(shutil.which("g++") is None,
@@ -275,6 +279,34 @@ def test_sha256_leaves_match_plain_and_hashlib(harness, words):
     assert got[-1].tobytes() != empty
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 255, 256, 257, 600])
+def test_merkle_tree_matches_plain_and_hashlib(harness, n):
+    """Every level of trees around the kernel's runs of 256 children (one
+    block, one block plus one child, three blocks and a second launch),
+    against the plain level loop and against hashlib's level order."""
+    from cometbft_tpu_torch.crypto import merkle
+
+    rng = np.random.default_rng(50 + n)
+    leaves = np.frombuffer(rng.bytes(32 * n), np.uint8).reshape(n, 32)
+    words = sha256.bytes_to_words(leaves)
+    rows = sha256.tree_rows(n)
+    got = harness("merkle_tree", [n], {"leaves": words},
+                  {"levels": (np.uint32, (rows, 8))})["levels"]
+    buf = torch.zeros((rows, 8), dtype=torch.int32)
+    buf[:n] = torch.from_numpy(words.view(np.int32))
+    plain = sha256.merkle_tree(buf, n)
+    assert np.array_equal(got.view(np.int32), plain.numpy())
+    lv = [leaves[i].tobytes() for i in range(n)]
+    want = []
+    while True:
+        want += lv
+        if len(lv) == 1:
+            break
+        lv = [merkle.inner_hash(lv[2 * i], lv[2 * i + 1])
+              for i in range(len(lv) // 2)] + lv[len(lv) - len(lv) % 2:]
+    assert [r.tobytes() for r in sha256.words_to_bytes(got)] == want
+
+
 @pytest.mark.parametrize("n", [2, 7, 257])
 def test_merkle_level_matches_plain_and_hashlib(harness, n):
     rng = np.random.default_rng(40 + n)
@@ -338,7 +370,8 @@ def test_rlc_gather_matches_plain(harness, name):
     z = trlc.host_rlc_coeffs(n_lanes, active_mask,
                              rng_bytes=np.random.default_rng(38).bytes(
                                  16 * n_lanes))
-    got = harness("rlc", [n_lanes, nb, n], {**b.host_inputs(), "z": z},
+    got = harness("rlc", [n_lanes, nb, n, trlc.lane_block(n_lanes)],
+                  {**b.host_inputs(), "z": z},
                   {"out": (np.uint8, (1,)), "sums": (np.int32, (96, 40))})
     args = (*b.args(), torch.from_numpy(z))
     assert bool(got["out"][0]) == bool(trlc._rlc_plain(*args)) == expect
@@ -353,12 +386,13 @@ def test_rlc_gather_matches_plain(harness, name):
 def test_ragged_lanes_match_plain(harness, n):
     """Lane counts at the edges of the kernels' thread mappings (the
     per-lane kernel's 32 lanes of four threads a block, the lane stage's
-    64 lanes a block, the window stage's 128 threads): the first lane a
+    16 and 32 lanes a block, the window stage's 128 threads): the first lane a
     ZIP-215 torsion edge (a mixed-order key), the last one tampered (with
     one lane, the edge lane tampered).  The per-lane verdicts against the
     plain version and the oracle; the RLC verdict and the 96 window sums
-    against the plain version, with the tampered lane active and then as
-    padding (z = 0)."""
+    against the plain version, with the tampered lane active (the lane
+    stage at 16 lanes a block) and then as padding, z = 0 (at 32 lanes a
+    block)."""
     rng = np.random.default_rng(80 + n)
     lanes = _signed_lanes(n, min(n, 12), 80 + n)
     lanes[0] = _edge_lanes(rng)[0]
@@ -372,10 +406,10 @@ def test_ragged_lanes_match_plain(harness, n):
     want = b.oracle()
     assert got.tolist() == plain.tolist() == want
     assert want == [i != n - 1 for i in range(n)]
-    for pad in (None, np.arange(n) != n - 1):
+    for pad, lpb in ((None, 16), (np.arange(n) != n - 1, 32)):
         z = trlc.host_rlc_coeffs(n, pad, rng_bytes=rng.bytes(16 * n))
-        got = harness("rlc", [n_lanes, nb, n_keys], {**b.host_inputs(),
-                                                     "z": z},
+        got = harness("rlc", [n_lanes, nb, n_keys, lpb],
+                      {**b.host_inputs(), "z": z},
                       {"out": (np.uint8, (1,)), "sums": (np.int32, (96, 40))})
         args = (*b.args(), torch.from_numpy(z))
         assert bool(got["out"][0]) == bool(trlc._rlc_plain(*args)) == \
@@ -467,16 +501,24 @@ def test_blsg1_fold_matches_plain(harness, r):
             assert blsg1.xy_from_projective(got) is None
 
 
-@pytest.mark.parametrize("d,n_lanes,tamper", [
-    (1, 9, None), (3, 10, 9), (4, 9, 4)],
-    ids=["D1", "D3-ragged-tampered", "D4-empty-shard-tampered"])
-def test_rlc_sharded_matches_plain(harness, d, n_lanes, tamper):
-    """The sharded verdict: per shard ``ed25519_rlc_sums`` into its slot
-    (after ``sha512_scalar``), then ``ed25519_rlc_combine``, against
+@pytest.mark.parametrize("d,n_lanes,tamper,cards,lpb", [
+    (1, 9, None, 1, 16), (3, 10, 9, 1, 32), (4, 9, 4, 1, 16),
+    (4, 300, 150, 2, 32), (2, 300, None, 1, 16)],
+    ids=["D1", "D3-ragged-tampered", "D4-empty-shard-tampered",
+         "D4-two-cards-tampered", "D2-300"])
+def test_rlc_sharded_matches_plain(harness, d, n_lanes, tamper, cards, lpb):
+    """The sharded verdict: per card one ``sha512_scalar`` and one
+    ``ed25519_rlc_sums`` call over its shards' lanes, each shard into its
+    slot, then ``ed25519_rlc_combine``, against
     ``make_verify_batch_rlc_sharded`` over ``d`` CPU shards: the verdict,
     each shard's window sums as points, its sum z*s mod L and its ok
     byte.  Shards are ``ceil(B / d)`` lanes, so 10 lanes over 3 end in a
-    short shard and 9 lanes over 4 in an empty one."""
+    short shard and 9 lanes over 4 in an empty one; over two cards,
+    shard d lies on card d % 2, so a card's shards are not side by side
+    in the batch.  The harness lets a pass of the sums call take two
+    shards, so three or four shards of one card take two passes (the
+    second holds the tampered lane of D3 and the empty shard of D4).
+    The lane stage runs at ``lpb`` lanes a block."""
     from cometbft_tpu_torch.parallel.mesh import batch_mesh, shard_bounds
 
     rng = np.random.default_rng(70 + d + n_lanes)
@@ -487,7 +529,7 @@ def test_rlc_sharded_matches_plain(harness, d, n_lanes, tamper):
     b = Lanes(lanes)
     _, nb, n = b.sizes()
     z = trlc.host_rlc_coeffs(n_lanes, rng_bytes=rng.bytes(16 * n_lanes))
-    got = harness("rlc_sharded", [n_lanes, nb, n, d],
+    got = harness("rlc_sharded", [n_lanes, nb, n, d, cards, lpb],
                   {**b.host_inputs(), "z": z},
                   {"out": (np.uint8, (1,)),
                    "sums": (np.int32, (d, 96, 40)),
@@ -505,4 +547,6 @@ def test_rlc_sharded_matches_plain(harness, d, n_lanes, tamper):
             [_point(c) for c in part.sums[0].numpy()]
         assert got["zs"][s].tolist() == part.zs[0].tolist()
         assert got["ok"][s] == part.ok[0]
-    assert any(lo == hi for lo, hi in shard_bounds(n_lanes, d)) == (d == 4)
+    # an empty shard exactly where the first d - 1 shards take every lane
+    assert any(lo == hi for lo, hi in shard_bounds(n_lanes, d)) == \
+        (-(-n_lanes // d) * (d - 1) >= n_lanes)

@@ -22,6 +22,10 @@ from cometbft_tpu_torch.crypto import merkle as TM
 from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import sha256 as TS
 
+# the plain versions run on tensors of a few lanes: one intra-op thread is
+# as fast, and leaves the cores to the other test workers
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.timeout(900)
 
 
@@ -68,6 +72,36 @@ def test_merkle_inner_level_matches_jax(b):
     lb, rb = TS.words_to_bytes(left), TS.words_to_bytes(right)
     assert TS.words_to_bytes(got.numpy())[0].tobytes() == hashlib.sha256(
         b"\x01" + lb[0].tobytes() + rb[0].tobytes()).digest()
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 64, 255, 257, 300])
+def test_merkle_tree_matches_jax(n):
+    """The whole-tree wrapper's plain version (every level above the
+    leaves, into one buffer) against ``jax.jit`` of
+    ``merkle_inner_level`` level by level (pairs padded to one shape, the
+    odd tail promoted) and against hashlib."""
+    rng = np.random.default_rng(170 + n)
+    leaves = np.frombuffer(rng.bytes(32 * n), np.uint32).reshape(n, 8).copy()
+    rows = TS.tree_rows(n)
+    buf = torch.zeros((rows, 8), dtype=torch.int32)
+    buf[:n] = torch.from_numpy(leaves.view(np.int32))
+    got = TS.merkle_tree(buf, n).numpy().view(np.uint32)
+    inner = jax.jit(JS.merkle_inner_level)
+    lv, want = leaves, [leaves]
+    while len(lv) > 1:
+        m = len(lv) // 2
+        pad = np.zeros((256, 8), np.uint32)
+        left, right = pad.copy(), pad.copy()
+        left[:m], right[:m] = lv[0:2 * m:2], lv[1:2 * m:2]
+        lv = np.concatenate([np.asarray(inner(left, right))[:m],
+                             lv[2 * m:]])
+        want.append(lv)
+    assert np.array_equal(got, np.concatenate(want))
+    hl = [TS.words_to_bytes(r).tobytes() for r in leaves]
+    while len(hl) > 1:
+        hl = [hashlib.sha256(b"\x01" + hl[2 * i] + hl[2 * i + 1]).digest()
+              for i in range(len(hl) // 2)] + hl[len(hl) - len(hl) % 2:]
+    assert TS.words_to_bytes(got[-1]).tobytes() == hl[0]
 
 
 def test_merkle_level_promotes_the_odd_tail():
@@ -139,10 +173,9 @@ def test_tree_roots_and_proofs_match_jax(spec, route):
     assert troot == jroot == root
     assert [tuple(p) for p in tproofs] == [tuple(p) for p in jproofs]
     assert not _build.LAUNCHES
-    levels = len(TM._level_widths(n)) - 1
     want = {"recursive": {}, "levels": {},
-            "kernel": {"sha256_leaves": 2, "merkle_level": 2 * levels},
-            "kernel-hashlib": {"merkle_level": 2 * levels}}[route]
+            "kernel": {"sha256_leaves": 2, "merkle_tree": 2},
+            "kernel-hashlib": {"merkle_tree": 2}}[route]
     assert dict(_build.PLAIN_CALLS) == want
     for i in {0, n // 2, n - 1}:
         assert tproofs[i].verify(root, items[i])

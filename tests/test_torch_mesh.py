@@ -49,19 +49,13 @@ from cometbft_tpu_torch.types import validation as TV
 from test_torch_light import _random_set, port_block
 from test_torch_verify import LANES, Batch, _base_lanes, _edge_lanes
 
+# the plain versions run on tensors of a few lanes: one intra-op thread is
+# as fast, and leaves the cores to the other test workers
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.timeout(900)
 
 L, P = ref.L, ref.P
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The plain versions here run on tensors of a few lanes: one
-    intra-op thread is as fast, and leaves the cores to other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -207,6 +201,31 @@ def test_shard_sums_match_jax(jax_fns, bounds):
         assert bool(part.ok[0]) == bool(ok) is True
 
 
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+def test_grouped_sums_match_jax(jax_fns, d):
+    """All ``d`` shards of one device in one sums call (``_rlc_sums_card``
+    on the device's slab from ``split_by_device``, the plain path): each
+    slot against JAX's ``_rlc_sums`` of that shard, and the combined
+    verdict against the JAX package's ``_combine`` of the same shards."""
+    both = Both(jax_fns, 2 if d == 3 else 1, 95 + d)
+    args = both.torch_args()
+    bounds = M.shard_bounds(LANES, d)
+    out = trlc.rlc_sums_buffers(d, "cpu")
+    _build.reset_launches()
+    for dev, slots, offs, lanes in M.split_by_device(["cpu"] * d, *args[2:]):
+        assert slots == list(range(d)) and offs[-1] == LANES
+        trlc._rlc_sums_card(*args[:2], *lanes, offs, slots, out)
+    assert dict(_build.PLAIN_CALLS) == {"ed25519_rlc_sums": 1}
+    for s, (lo, hi) in enumerate(bounds):
+        sa, sr, zs, ok = both.jax_shard(lo, hi)
+        assert _windows_match(_port_points(out.sums[s]), _jax_points(sa, sr))
+        assert int.from_bytes(out.zs[s].numpy().tobytes(), "little") == \
+            _jax_scalar(zs) % L
+        assert bool(out.ok[s]) == bool(ok)
+    assert bool(trlc._rlc_combine_plain(*out)) == both.jax_combine(bounds) \
+        == both.expect
+
+
 def test_combine_matches_jax(jax_fns):
     """``_rlc_combine_plain`` against JAX's ``add_cc`` chain,
     ``sum_mod_l`` and ``_rlc_ladder`` on the same shards; the combined
@@ -248,19 +267,23 @@ def test_sharded_verdict_matches_jax(jax_fns, case, d):
         both.jax_combine([(0, LANES)]) == both.expect, both.name
 
 
-@pytest.mark.parametrize("d", [3, 5, 32])
+@pytest.mark.parametrize("d", [3, 5, 32, 70])
 def test_ragged_and_empty_shards_match_jax_single_device(jax_fns, d):
-    """16 lanes over 3 (6, 6, 4), 5 (one empty shard) and 32 devices
-    (B < D: 16 one-lane shards and 16 empty): the sharded verdict equals
-    JAX's single-device verdict on a valid and a tampered batch, and so
-    does the uncached variant over 5 devices."""
+    """16 lanes over 3 (6, 6, 4), 5 (one empty shard), 32 devices
+    (B < D: 16 one-lane shards and 16 empty) and 70 (more shards than one
+    pass of the sums kernel takes; still one call on the one device): the
+    sharded verdict
+    equals JAX's single-device verdict on a valid and a tampered batch,
+    and so does the uncached variant over 5 devices."""
     mesh = M.batch_mesh(["cpu"] * d)
     for case in (0, 2):
         both = Both(jax_fns, case, 110 + case)
         want = both.jax_combine([(0, LANES)])
         args = both.torch_args()
+        _build.reset_launches()
         got = bool(trlc.make_verify_batch_rlc_sharded(mesh, True)(*args))
         assert got == want == both.expect, both.name
+        assert _build.PLAIN_CALLS["ed25519_rlc_sums"] == 1
         if d == 5:
             pubs = torch.from_numpy(both.b.pubs[both.b.idx].copy())
             assert bool(trlc.make_verify_batch_rlc_sharded(mesh)(
@@ -343,6 +366,15 @@ def test_shard_bounds():
                     2 * lanes)
     assert [[t.tolist() for t in s] for s in slabs] == [
         [[0, 1], [0, 2]], [[2, 3], [4, 6]], [[4, 5], [8, 10]], [[6], [12]]]
+    # by device: a device's shards side by side in shard order, and the
+    # tensors themselves where one device holds every shard
+    two = [torch.device("cpu", i % 2) for i in range(4)]
+    got = M.split_by_device(two, lanes, 2 * lanes)
+    assert [(d, s, o, [t.tolist() for t in ts]) for d, s, o, ts in got] == [
+        (two[0], [0, 2], [0, 2, 4], [[0, 1, 4, 5], [0, 2, 8, 10]]),
+        (two[1], [1, 3], [0, 2, 3], [[2, 3, 6], [4, 6, 12]])]
+    ((dev, slots, offs, ts),) = M.split_by_device([lanes.device] * 3, lanes)
+    assert (slots, offs) == ([0, 1, 2], [0, 3, 6, 7]) and ts[0] is lanes
 
 
 @pytest.fixture(scope="module")
@@ -361,9 +393,10 @@ def _counts(fn):
 
 def test_one_sharded_dispatch_per_verify_commit(chain130):
     """Under a device set of four, ``VerifyCommit`` at 130 lanes takes one
-    ``rlc_gather_sharded`` dispatch: four shard sums and one combine, no
-    single-device verdict.  A tampered lane adds one ``gather_sharded``
-    dispatch that names it, as the JAX package does."""
+    ``rlc_gather_sharded`` dispatch: one sums call for the four shards of
+    the one device, one combine, no single-device verdict.  A tampered
+    lane adds one ``gather_sharded`` dispatch that names it, as the JAX
+    package does."""
     jchain, tchain = chain130
     plan.set_devices(["cpu"] * 4)
     lb = tchain[1]
@@ -371,7 +404,7 @@ def test_one_sharded_dispatch_per_verify_commit(chain130):
         "light-chain", lb.validators, lb.commit.block_id, lb.height,
         lb.commit))
     assert disp == {"rlc_gather_sharded": 1}
-    assert plain.get("ed25519_rlc_sums") == 4
+    assert plain.get("ed25519_rlc_sums") == 1
     assert plain.get("ed25519_rlc_combine") == 1
     assert "ed25519_rlc_gather" not in plain
     assert "ed25519_verify_gather" not in plain

@@ -24,6 +24,10 @@ from cometbft_tpu_torch.device import resolve_device
 from cometbft_tpu_torch.ops import _build, fe, group, scalar, sha512
 from cometbft_tpu_torch.ops import ed25519 as ted
 
+# the plain versions run on tensors of a few lanes: one intra-op thread is
+# as fast, and leaves the cores to the other test workers
+torch.set_num_threads(1)
+
 P, L = jfe.P_INT, jscalar.L_INT
 LANES = 16
 

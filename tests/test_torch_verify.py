@@ -26,6 +26,10 @@ from cometbft_tpu_torch.crypto import batch as tbatch
 from cometbft_tpu_torch.ops import ed25519 as ted
 from cometbft_tpu_torch.ops import rlc as trlc
 
+# the plain versions run on tensors of a few lanes: one intra-op thread is
+# as fast, and leaves the cores to the other test workers
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.timeout(900)
 
 LANES, NB = 16, 2

@@ -17,19 +17,26 @@
 //   tables N            pub -> tab, ok
 //   sha B NB            blocks, active -> h
 //   verify B NB N       tab, ok_a, idx, rb, sb, blocks, active -> out
-//   rlc B NB N          tab, ok_a, idx, rb, sb, blocks, active, z -> out,
-//                       sums (the 96 window sums)
+//   rlc B NB N LPB      tab, ok_a, idx, rb, sb, blocks, active, z -> out,
+//                       sums (the 96 window sums); the lane stage at LPB
+//                       lanes a block
 //   ladder              sums (96 x 40), zs (32), ok (1) -> out (2): the
 //                       single-device verdict's last launches (comb,
 //                       ladder) and the combine entry over one shard
-//   rlc_sharded B NB N D
+//   rlc_sharded B NB N D C LPB
 //                       the same inputs cut into D contiguous shards of
-//                       ceil(B/D) lanes (the last short, possibly empty):
-//                       per shard sha512_scalar and ed25519_rlc_sums into
-//                       its slot, then ed25519_rlc_combine -> out, sums
-//                       (D x 96 window sums), zs (D x 32), ok (D)
+//                       ceil(B/D) lanes (the last short, possibly empty),
+//                       shard d on card d % C: per card, its shards' lanes
+//                       side by side, one sha512_scalar and one
+//                       ed25519_rlc_sums call (lane stage at LPB lanes a
+//                       block; RLC_MAX_SHARDS shards a pass) writing each
+//                       shard's slot; then
+//                       ed25519_rlc_combine -> out, sums (D x 96 window
+//                       sums), zs (D x 32), ok (D)
 //   sha256 B NB         blocks, active -> out (B x 8 digest words)
 //   merkle N            children (N x 8 words) -> parents
+//   merkle_tree N       leaves (N x 8 words) -> levels (every level of the
+//                       tree, leaves first, the root last)
 //   blsg1 R N2          rows (R x 2 x 12 words), mask (R) -> out (3 x 32
 //                       12-bit limbs); N2 the padded row count
 #include <algorithm>
@@ -102,6 +109,9 @@ static void host_launch(dim3 grid, dim3 block, void (*kernel)(P...),
     }
 }
 
+// two shards a pass of ed25519_rlc_sums_launch (64 on the card), so that
+// three or four shards of one card take two passes
+#define RLC_MAX_SHARDS 2
 #include "blsg1.cu"
 #include "ed25519_rlc.cu"
 #include "ed25519_tables.cu"
@@ -190,6 +200,17 @@ int main(int argc, char **argv) {
     save("parents", parents);
     return 0;
   }
+  if (mode == "merkle_tree") {
+    const int N = a0;
+    size_t rows = N;
+    for (int w = N; w > 1; rows += w) w = (w + 1) / 2;
+    auto leaves = load<uint32_t>("leaves", (size_t)N * 8);
+    std::vector<uint32_t> levels(rows * 8);
+    std::copy(leaves.begin(), leaves.end(), levels.begin());
+    check(merkle_tree_launch(levels.data(), N, nullptr));
+    save("levels", levels);
+    return 0;
+  }
   if (mode == "blsg1") {
     const int R = a0, N2 = a1;
     auto rows = load<uint32_t>("rows", (size_t)R * 2 * 12);
@@ -240,30 +261,53 @@ int main(int argc, char **argv) {
   auto z = load<uint8_t>("z", (size_t)B * 16);
   if (mode == "rlc_sharded") {
     const int D = argc > 6 ? atoi(argv[6]) : 1;
-    if (D < 1) {
-      fprintf(stderr, "rlc_sharded needs D >= 1\n");
+    const int C = argc > 7 ? atoi(argv[7]) : 1;
+    const int lpb = argc > 8 ? atoi(argv[8]) : 32;
+    if (D < 1 || C < 1 || C > D) {
+      fprintf(stderr, "rlc_sharded needs 1 <= C <= D\n");
       return 2;
     }
     const int step = (B + D - 1) / D;
     std::vector<int32_t> sums((size_t)D * RLC_WINDOWS * 40);
     std::vector<uint8_t> zs_sum((size_t)D * 32), all_ok(D), out(1);
-    for (int d = 0; d < D; d++) {
-      const int lo = std::min(B, d * step), n = std::min(B, lo + step) - lo;
-      const int nblk = (n + RLC_BLOCK_LANES - 1) / RLC_BLOCK_LANES;
+    for (int c = 0; c < C; c++) {
+      // the card's shards' lanes side by side
+      std::vector<int> lo(1, 0), slot;
+      std::vector<int32_t> cidx, cactive;
+      std::vector<uint8_t> crb, csb, cz;
+      std::vector<uint32_t> cblocks;
+      for (int d = c; d < D; d += C) {
+        const int s0 = std::min(B, d * step), s1 = std::min(B, s0 + step);
+        cidx.insert(cidx.end(), idx.begin() + s0, idx.begin() + s1);
+        cactive.insert(cactive.end(), active.begin() + s0,
+                       active.begin() + s1);
+        crb.insert(crb.end(), rb.begin() + (size_t)s0 * 32,
+                   rb.begin() + (size_t)s1 * 32);
+        csb.insert(csb.end(), sb.begin() + (size_t)s0 * 32,
+                   sb.begin() + (size_t)s1 * 32);
+        cz.insert(cz.end(), z.begin() + (size_t)s0 * 16,
+                  z.begin() + (size_t)s1 * 16);
+        cblocks.insert(cblocks.end(), blocks.begin() + (size_t)s0 * NB * 32,
+                       blocks.begin() + (size_t)s1 * NB * 32);
+        lo.push_back(lo.back() + s1 - s0);
+        slot.push_back(d);
+      }
+      const int n = lo.back();
+      int nblk = 0;
+      for (size_t i = 0; i + 1 < lo.size(); i++)
+        nblk += (lo[i + 1] - lo[i] + RLC_BLOCK_LANES - 1) / RLC_BLOCK_LANES;
       std::vector<uint8_t> h((size_t)n * 32), zh((size_t)n * 32), lane_ok(n);
       std::vector<int32_t> rtab((size_t)n * 640), zs((size_t)n * 12),
           partials((size_t)RLC_WINDOWS * nblk * 40);
       if (n > 0)
-        check(sha512_scalar_launch(blocks.data() + (size_t)lo * NB * 32,
-                                   active.data() + lo, n, NB, h.data(),
-                                   nullptr));
+        check(sha512_scalar_launch(cblocks.data(), cactive.data(), n, NB,
+                                   h.data(), nullptr));
       check(ed25519_rlc_sums_launch(
-          tab.data(), ok_a.data(), idx.data() + lo,
-          rb.data() + (size_t)lo * 32, sb.data() + (size_t)lo * 32, h.data(),
-          z.data() + (size_t)lo * 16, n, rtab.data(),
-          zh.data(), zs.data(), lane_ok.data(), partials.data(),
-          sums.data() + (size_t)d * RLC_WINDOWS * 40,
-          zs_sum.data() + d * 32, all_ok.data() + d, nullptr));
+          tab.data(), ok_a.data(), cidx.data(), crb.data(), csb.data(),
+          h.data(), cz.data(), n, lo.data(), slot.data(), (int)slot.size(),
+          lpb, rtab.data(), zh.data(), zs.data(), lane_ok.data(),
+          partials.data(), sums.data(), zs_sum.data(), all_ok.data(),
+          nullptr));
     }
     check(ed25519_rlc_combine_launch(sums.data(), zs_sum.data(),
                                      all_ok.data(), D, out.data(), nullptr));
@@ -273,6 +317,7 @@ int main(int argc, char **argv) {
     save("ok", all_ok);
     return 0;
   }
+  const int lpb = argc > 6 ? atoi(argv[6]) : 32;
   const int nblk = (B + RLC_BLOCK_LANES - 1) / RLC_BLOCK_LANES;
   std::vector<uint8_t> h((size_t)B * 32), zh((size_t)B * 32), lane_ok(B),
       zs_sum(32), all_ok(1), out(1);
@@ -282,7 +327,7 @@ int main(int argc, char **argv) {
                              nullptr));
   check(ed25519_rlc_gather_launch(
       tab.data(), ok_a.data(), idx.data(), rb.data(), sb.data(), h.data(),
-      z.data(), B, rtab.data(), zh.data(), zs.data(), lane_ok.data(),
+      z.data(), B, lpb, rtab.data(), zh.data(), zs.data(), lane_ok.data(),
       partials.data(), sums.data(), zs_sum.data(), all_ok.data(),
       out.data(), nullptr));
   save("out", out);
