@@ -54,8 +54,10 @@ Phases, each of which must pass or the script exits non-zero:
    (``ErrInvalidCommit``); the host pairings timed alone; then the G1
    fold ``aggregate_g1_masked`` against its plain version on the card
    (``BLS_ROWS`` rows with empty, single, random, cancelling and doubled
-   masks, and the main path's table, also against the host library's
-   sum).  The host BLS library builds with ``g++`` first;
+   masks, ``BLS_RAGGED`` rows with random, full and last-row masks, and
+   the main path's table, also against the host library's sum; timed at
+   ``BLS_ROWS_TIMED`` rows too).  The host BLS library builds with
+   ``g++`` first;
 9. mesh, ``MESH_SHARDS`` shards of one card (the device set
    ``[cuda:0] * 4``; then again over distinct cards, one shard each,
    where more than one is visible), reusing phase 7's 10,000-validator commit and phase 6's
@@ -82,8 +84,11 @@ have launched and no plain version may have run (phase 8 also no
 Ed25519 kernel).  Keys and signatures of the light and BLS phases are made in a
 process pool over ``os.cpu_count()`` workers with the port's own
 signers; the script prints the seconds of each fixture and phase.  The
-fold's bound counts its integer instructions from its SASS
-(``scripts/blsg1_sass_count.py``).
+fold's bound counts the integer instructions of the fold's first CUDA
+version (``G1_INT_PER_ADD``, ``G1_INT_PER_MUL``), so that it measures
+the same work whatever the kernel.  Phase 5 also holds the table kernel
+``ed25519_tables`` against its plain version at ``TABLE_SIZES``
+validators and times it at 10,000 and 150 at both ``LANE_LAYOUTS``.
 
 ``python3 chip_smoke.py --mesh-cards`` on a host with two or more cards
 runs only phases 1, 2 and 9, over the first ``MESH_SHARDS`` cards, one
@@ -124,6 +129,15 @@ FE_MUL_PRODUCTS = 100            # 32 x 32 -> 64-bit products per field mul
 # (sigma0 4, sigma1 4, 2 adds), plus 8 feed-forward adds; checked
 # against the built kernel's SASS by scripts/sha256_sass_count.py
 SHA256_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8
+# 32-bit integer ALU instructions of one RCB15 addition and of one
+# Montgomery product of the G1 fold's first CUDA version (a thread an
+# addition, a launch a level; its SASS, counted by the script
+# scripts/blsg1_sass_count.py that went with it: one addition 15,470,
+# its 14 calls of a 966-instruction fp_mul included): the work the
+# fold's bound counts, frozen so that the bound does not move with the
+# kernel's code
+G1_INT_PER_ADD = 15_470
+G1_INT_PER_MUL = 966
 
 CHAIN_ID = "smoke-chain"
 SIZES = (150, 1000)              # validators of the commit phase
@@ -149,7 +163,8 @@ LANE_LAYOUTS = (16, 32)
 _LANE_KERNELS = tuple(f"rlc_lane_kernel<{n}>" for n in LANE_LAYOUTS)
 ENTRY_KERNELS = {
     "sha512_scalar": ("sha512_scalar_kernel",),
-    "ed25519_tables": ("ed25519_tables_kernel",),
+    "ed25519_tables": tuple(f"ed25519_tables_kernel<{n}>"
+                            for n in LANE_LAYOUTS),
     "ed25519_verify_gather": ("ed25519_verify_gather_kernel",),
     "ed25519_rlc_gather": _LANE_KERNELS + tuple(k for _, k in RLC_STAGES[1:]),
     "ed25519_rlc_sums": _LANE_KERNELS + tuple(k for _, k in RLC_STAGES[1:4]),
@@ -157,6 +172,7 @@ ENTRY_KERNELS = {
     "sha256_leaves": ("sha256_leaves_kernel",),
     "merkle_level": ("merkle_subtree_kernel",),
     "merkle_tree": ("merkle_subtree_kernel",),
+    "aggregate_g1_masked": ("g1_fold_kernel", "fp_mul"),
 }
 MESH_SHARDS = 4                  # shards of the mesh phase, one card each
 # (lanes, shards) of K7's shard-count checks on one card
@@ -172,6 +188,11 @@ LIGHT_T0 = 1_700_000_000_000_000_000
 BLS_VALS = 10_000                # validators of the BLS phase, all BLS
 BLS_ABSENT_EVERY = 50            # every 50th lane absent: 9,800 signers
 BLS_ROWS = (1, 3, 64, 1000)      # table rows of the G1 fold's checks
+BLS_RAGGED = (200, 16_385)       # and an absentee fold's size, 2^14 + 1
+BLS_ROWS_TIMED = 200             # the fold also timed at this size
+# validators of the table kernel's checks: ragged, and both sides of the
+# lane stage's 16/32 crossover (ops/rlc.py:QUAD_LANES_BELOW)
+TABLE_SIZES = (1, 17, 33, 7999, 8000, 10_000)
 
 
 def _run(cmd):
@@ -856,8 +877,8 @@ def phase_throughput(sets, dev, n_lanes, reps):
     ms_10k, device_10k = {}, {}
     for k, (fn, prefix) in at_10k.items():
         ms_10k[k] = time_cuda(fn, reps, warm=1)
-        device_10k[k] = _kernel_ms(profile_call(fn, reps)["kernels_ms"],
-                                   prefix)
+        device_10k[k] = device_ms_of(fn, prefix, reps)[0]
+    tables = table_checks(big_pubs, dev, REPS)
     wall = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -870,7 +891,8 @@ def phase_throughput(sets, dev, n_lanes, reps):
     stages_10k = rlc_stage_ms(at_10k["ed25519_rlc_gather"][0], reps)
     checked_10k = time_cuda(lambda: sha512.sha512_scalar(blocks, active),
                             reps, warm=1)
-    return {"lanes": n_lanes, "tables_ms": tables_ms, "rlc_ms": rlc_ms,
+    return {"lanes": n_lanes, "tables_ms": tables_ms, "tables": tables,
+            "rlc_ms": rlc_ms,
             "sha512_checked_ms_10k": checked_10k,
             "rlc_stages_ms_10k": stages_10k,
             "per_lane_ms": lane_ms, "dense_wall_p50_ms": statistics.median(wall),
@@ -881,10 +903,52 @@ def phase_throughput(sets, dev, n_lanes, reps):
             "device_ms_10k": device_10k}
 
 
+def table_checks(pubs, dev, reps) -> dict:
+    """The table kernel against its plain version on the card at
+    TABLE_SIZES validators (the first rows of ``pubs``), rows mod p and
+    ok bits (mismatched rows or bits by size; raises on any), and its
+    time at 10,000 and 150 validators at each of LANE_LAYOUTS, its
+    chain floor at each (one full block alone: the decode's chain and
+    the quads' tables), and at one, two and three full blocks of 32 an
+    SM (CUDA events over ``reps`` calls)."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.ops import ed25519 as ed
+
+    mism = {}
+    for n in TABLE_SIZES:
+        pub_t = torch.from_numpy(pubs[:n].copy()).to(dev)
+        tab_k, ok_k = ed.prepare_pubkey_tables(pub_t)
+        tab_p, ok_p = ed._prepare_plain(pub_t)
+        mism[n] = int((ed.tables_canonical(tab_k)
+                       != ed.tables_canonical(tab_p)).flatten(1).any(1)
+                      .sum()) + int((ok_k != ok_p).sum())
+    if any(mism.values()):
+        raise AssertionError(f"ed25519_tables mismatches by size: {mism}")
+
+    def ms_at(n, lpb):
+        pub_t = torch.from_numpy(np.resize(pubs, (n, 32))).to(dev)
+        with lane_layout(lpb):
+            return time_cuda(lambda: ed.prepare_pubkey_tables(pub_t), reps)
+
+    layouts = {f"N={n} LPB={lpb}": ms_at(n, lpb) for n in (10_000, 150)
+               for lpb in LANE_LAYOUTS}
+    floor = {f"LPB={lpb}": ms_at(lpb, lpb) for lpb in LANE_LAYOUTS}
+    # one, two and three full blocks of 32 an SM: where the SMs' sharing
+    # of blocks starts to cost
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = {f"N={32 * sms * m} ({m} a SM)": ms_at(32 * sms * m, 32)
+              for m in (1, 2, 3)}
+    return {"mismatches": mism, "ms_by_layout": layouts,
+            "chain_floor_ms": floor, "ms_by_blocks_per_sm": per_sm}
+
+
 @contextlib.contextmanager
 def lane_layout(lpb: int):
-    """The RLC lane stage at ``lpb`` lanes a block whatever the lane
-    count (``ops/rlc.py:lane_block``), inside the block."""
+    """The RLC lane stage and the table kernel at ``lpb`` lanes a block
+    whatever the lane count (``ops/rlc.py:lane_block``), inside the
+    block."""
     from cometbft_tpu_torch.ops import rlc
 
     chosen = rlc.lane_block
@@ -902,6 +966,19 @@ def _kernel_ms(kernels_ms: dict, prefix: str):
     hits = [v for k, v in kernels_ms.items()
             if k.removeprefix("void ").startswith(prefix)]
     return sum(hits) if hits else None
+
+
+def device_ms_of(fn, prefix: str, reps: int):
+    """Device ms per call of the kernels named ``prefix...`` over two
+    traces of ``reps`` calls of ``fn``, the larger kept (a trace may lose
+    events), and the kernels of that trace."""
+    best, kernels = None, {}
+    for _ in range(2):
+        k = profile_call(fn, reps)["kernels_ms"]
+        v = _kernel_ms(k, prefix)
+        if v is not None and (best is None or v > best):
+            best, kernels = v, k
+    return best, kernels
 
 
 def rlc_stage_ms(fn, reps: int) -> dict:
@@ -1788,9 +1865,11 @@ def phase_bls_kernel(vals, signers, dev, reps, rec):
     """The G1 fold against its plain version on the card, exactly on the
     (3, 32) limbs: BLS_ROWS rows with empty, single, random, cancelling
     (a point and its negation) and doubled (one point in two rows)
-    masks, then the main path's table (BLS_VALS rows, BLS_ABSENT_EVERY-th
-    absent), also against the host library's sum of the selected
-    points.  Fills ``rec["aggregate_g1_masked"]``."""
+    masks, BLS_RAGGED rows (the set's points, repeated past BLS_VALS)
+    with random, full and last-row masks, then the main path's table
+    (BLS_VALS rows, BLS_ABSENT_EVERY-th absent), also against the host
+    library's sum of the selected points.  Times the main path's table
+    and BLS_ROWS_TIMED rows.  Fills ``rec["aggregate_g1_masked"]``."""
     import numpy as np
     import torch
 
@@ -1839,6 +1918,16 @@ def phase_bls_kernel(vals, signers, dev, reps, rec):
             double = np.zeros(r, bool)
             double[[1, r - 1]] = True
             check(f"{r} doubled", words, double, False)
+    timed = {}
+    for r in BLS_RAGGED:
+        words = words_of([pts[i % BLS_VALS] for i in range(r)])
+        last = np.zeros(r, bool)
+        last[-1] = True
+        _, m = check(f"{r} random", words, rng.random(r) < 0.5)
+        check(f"{r} all", words, np.ones(r, bool), False)
+        check(f"{r} last", words, last, False)
+        if r == BLS_ROWS_TIMED:
+            timed[r] = time_cuda(lambda: G.g1_masked_sum(words, m), reps)
     sel = np.zeros(BLS_VALS, bool)
     sel[signers] = True
     words = words_of(pts)
@@ -1846,12 +1935,12 @@ def phase_bls_kernel(vals, signers, dev, reps, rec):
     if xy != B.aggregate_affine([pts[i] for i in signers]):
         mism += 1
         cases[f"{BLS_VALS} main vs host"] = 1
-    prof = profile_call(lambda: G.g1_masked_sum(words, m), reps)
+    device, kernels_ms = device_ms_of(lambda: G.g1_masked_sum(words, m),
+                                      "g1_", reps)
     rec["aggregate_g1_masked"].update(
         max_abs_err=err, mismatches=mism, sweep_mismatches=0, cases=cases,
         ms=time_cuda(lambda: G.g1_masked_sum(words, m), reps),
-        device_ms=_kernel_ms(prof["kernels_ms"], "g1_"),
-        device_kernels_ms=prof["kernels_ms"],
+        device_ms=device, device_kernels_ms=kernels_ms, ms_by_rows=timed,
         plain_ms=time_host(lambda: G._masked_sum_plain(words, m)),
         shape=f"R={BLS_VALS} (padded to "
               f"{1 << (BLS_VALS - 1).bit_length()}), {len(signers)} "
@@ -2072,28 +2161,16 @@ def merkle_bounds(rec, rate_ops):
     return out
 
 
-def blsg1_ops():
-    """Integer ALU instructions of one point addition and of one
-    Montgomery product of the built fold, from its SASS
-    (``scripts/blsg1_sass_count.py``)."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    out = subprocess.run(
-        [sys.executable, os.path.join(here, "scripts", "blsg1_sass_count.py")],
-        capture_output=True, text=True, timeout=300, cwd=here)
-    if out.returncode != 0:
-        raise RuntimeError(f"blsg1_sass_count failed: {out.stderr[-2000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
-
-
-def bls_bound(rec, sass, rate_ops):
+def bls_bound(rec, rate_ops):
     """Least time of the fold at the main path's shape: every level's
     additions (n2 - 1 in all) and the conversions (two per selected row
-    in, three out) at their SASS integer counts over the integer rate,
+    in, three out) at the first version's integer counts
+    (``G1_INT_PER_ADD``, ``G1_INT_PER_MUL``) over the integer rate,
     against the table, mask and output bytes over the HBM rate."""
     r, selected = rec["aggregate_g1_masked"]["bound_inputs"]
     n2 = 1 << max(0, (r - 1).bit_length())
-    ops = ((n2 - 1) * sass["int_alu_per_add"]
-           + (2 * selected + 3) * sass["int_alu_per_mul"])
+    ops = ((n2 - 1) * G1_INT_PER_ADD
+           + (2 * selected + 3) * G1_INT_PER_MUL)
     nbytes = r * 2 * 12 * 4 + r * 4 + 3 * 32 * 4
     t_ops = ops / rate_ops * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2242,6 +2319,11 @@ def main(argv=None) -> int:
               f"device {tp['device_ms_10k'][k]} ms  [{card}]")
     print(f"K6a stages at B={tp['lanes']}, device ms: "
           f"{tp['rlc_stages_ms_10k']}  [{card}]")
+    print(f"K5a ed25519_tables mismatches by N: "
+          f"{tp['tables']['mismatches']}; ms by layout (CUDA events): "
+          f"{tp['tables']['ms_by_layout']}; chain floor, one block: "
+          f"{tp['tables']['chain_floor_ms']}; blocks of 32 a SM: "
+          f"{tp['tables']['ms_by_blocks_per_sm']}  [{card}]")
     print(f"sha512_scalar at {tp['lanes']} lanes through its checked public "
           f"wrapper: {tp['sha512_checked_ms_10k']:.4f} ms  [{card}]")
     floors = {"B=150": chain_floor(rec["ed25519_rlc_gather"]["stages_ms"]),
@@ -2296,8 +2378,8 @@ def main(argv=None) -> int:
     print(f"kernel aggregate_g1_masked [{k9['shape']}]: mismatches "
           f"{k9['mismatches']} {k9['cases']}, max_abs_err "
           f"{k9['max_abs_err']}, {k9['ms']:.4f} ms, device {k9['device_ms']} "
-          f"ms {k9['device_kernels_ms']}, plain {k9['plain_ms']:.1f} ms  "
-          f"[{card}]")
+          f"ms {k9['device_kernels_ms']}, plain {k9['plain_ms']:.1f} ms; "
+          f"ms by rows {k9['ms_by_rows']}  [{card}]")
     if k9["mismatches"]:
         raise AssertionError(f"G1 fold mismatches: {k9['cases']}")
     t0 = time.perf_counter()
@@ -2346,11 +2428,7 @@ def main(argv=None) -> int:
     bd_10k = bounds(c, b_verify=LANES, b_rlc=LANES, n_tab=LANES, nb=tp["nb"],
                     distinct_rows={"verify": LANES, "rlc": LANES},
                     rate_ops=rate_ops)
-    sass = blsg1_ops()
-    print(f"G1 fold SASS: {sass['int_alu_per_add']} integer instructions "
-          f"per addition, {sass['int_alu_per_mul']} per product, loops "
-          f"{sass['loops']}")
-    bd.update(bls_bound(rec, sass, rate_ops))
+    bd.update(bls_bound(rec, rate_ops))
     bd_mesh = mesh_bounds(c, mv["lanes"], mv["shards"], tp["nb"], rate_ops)
     bd.update({k: bd_mesh[k] for k in MESH_KERNELS})
     mv["bound_ms"], mv["bound_by"] = bd_mesh["rlc_sharded"][:2]
@@ -2398,8 +2476,7 @@ def main(argv=None) -> int:
                        "throughput": tp, "op_counts": c, "merkle": mk,
                        "light150": l150, "light10k": l10k, "bls": bls,
                        "mesh": mesh, "build_log": _build.build_log(),
-                       "ptxas": usage,
-                       "g1_sass": sass}, f, indent=1,
+                       "ptxas": usage}, f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -499,27 +499,6 @@ DEV void ge_store_cached(int32_t *dst, const ge_cached &c) {
   fe_store(dst + 30, c.t2d);
 }
 
-// the 16-entry table [j](-P), j = 0..15, written as 16 x 40 int32
-// (ops/ed25519.py:_build_neg_table)
-DEV void ge_write_neg_table(int32_t *dst, const ge_ext &p) {
-  ge_ext np, acc, id;
-  ge_neg(np, p);
-  ge_cached c1, c;
-  ge_identity(id);
-  ge_cache(c, id);
-  ge_store_cached(dst, c);
-  ge_cache(c1, np);
-  ge_store_cached(dst + 40, c1);
-  ge_dbl(acc, np);
-  ge_cache(c, acc);
-  ge_store_cached(dst + 80, c);
-  for (int j = 3; j < 16; j++) {
-    ge_add(acc, acc, c1);
-    ge_cache(c, acc);
-    ge_store_cached(dst + 40 * j, c);
-  }
-}
-
 // ------------------------------------------------------------------- quad
 //
 // A quad is four consecutive threads (threadIdx.x & ~3); thread k =
@@ -618,9 +597,10 @@ DEV void geq_cache_part(fe &o, const ge_ext &p, int k, bool add_order) {
   fe_mul(o, l, r);
 }
 
-// the 16-entry table [j](-P), j = 0..15 (ge_write_neg_table's chain),
-// computed by a quad: thread k stores component k of every entry, where
-// `store` (a spare quad computes and stores nothing)
+// the 16-entry table [j](-P), j = 0..15, written as 16 x 40 int32
+// (ops/ed25519.py:_build_neg_table: the identity, -P, [2](-P), then 13
+// cached additions), computed by a quad: thread k stores component k of
+// every entry, where `store` (a spare quad computes and stores nothing)
 DEV void geq_write_neg_table(int32_t *dst, const ge_ext &p, int k,
                              bool store) {
   ge_ext acc, id;
@@ -637,6 +617,67 @@ DEV void geq_write_neg_table(int32_t *dst, const ge_ext &p, int k,
     if (j > 2) geq_add(acc, k, c1);
     geq_cache_part(part, acc, k, false);
     if (store) fe_store(dst + 40 * j + 10 * k, part);
+  }
+}
+
+// threads a block of the lane layout (lane_decode_tables): one warp of
+// decoders, then the block's 16 quads
+#define LANE_THREADS 64
+
+// The lane layout over LPB points a block of LANE_THREADS threads (16:
+// a quad a table, the decode on half a warp; 32: a quad writes two
+// tables in turn): lane t < n of one warp decodes encoding t of `enc`
+// (ZIP-215) into shared memory and calls per_point(t, ok) with its
+// decode bit; after a barrier the block's quads write the n points'
+// tables [j](-P) to `tab`, 640 int32 a point, LPB / 16 each in turn (the
+// same count on every quad; past the last point, a repeat unstored).
+// Every thread of the block calls it with the same n, 1 <= n <= LPB.
+// The decoding warp is warp 0 or 1 by bit 2 of warp 0's slot on the SM
+// (%warpid), so that the decoders of the blocks an SM holds spread over
+// its four schedulers: a decode is one thread's chain of about 265
+// products, and two on one scheduler take half as long again (at 10,000
+// points, 313 blocks of 32 on 132 SMs: 0.173 ms against 0.198 with warp
+// 0 always; chip_smoke.py:table_checks).  The host build takes the
+// block's parity, so that both choices run there.
+template <int LPB, class PerPoint>
+DEV void lane_decode_tables(const uint8_t *enc, int n, int32_t *tab,
+                            PerPoint per_point) {
+  __shared__ int32_t sh[LPB][40];
+  __shared__ int dec_warp;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+#ifdef __CUDACC__
+    unsigned slot;
+    asm volatile("mov.u32 %0, %%warpid;" : "=r"(slot));
+    dec_warp = (slot >> 2) & 1;
+#else
+    dec_warp = blockIdx.x & 1;
+#endif
+  }
+  __syncthreads();
+  const int t = tid - 32 * dec_warp;
+  if (t >= 0 && t < n) {
+    ge_ext p;
+    const bool ok = ge_decompress_zip215(p, enc + (size_t)t * 32);
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+      sh[t][i] = p.x.v[i];
+      sh[t][10 + i] = p.y.v[i];
+      sh[t][20 + i] = p.z.v[i];
+      sh[t][30 + i] = p.t.v[i];
+    }
+    per_point(t, ok);
+  }
+  __syncthreads();
+  const int k = quad_k();
+  for (int j = tid >> 2; j < LPB; j += LANE_THREADS / 4) {
+    const int l = j < n ? j : n - 1;
+    ge_ext p;
+    fe_load(p.x, sh[l]);
+    fe_load(p.y, sh[l] + 10);
+    fe_load(p.z, sh[l] + 20);
+    fe_load(p.t, sh[l] + 30);
+    geq_write_neg_table(tab + (size_t)l * 640, p, k, j < n);
   }
 }
 

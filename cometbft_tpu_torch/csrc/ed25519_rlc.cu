@@ -55,7 +55,6 @@
 // 64 additions of two product latencies each on the quad.
 #include "ed25519.cuh"
 
-#define RLC_LANE_THREADS 64
 #define RLC_THREADS 128
 #define RLC_LANES_PER_THREAD 8
 #define RLC_BLOCK_LANES (RLC_THREADS * RLC_LANES_PER_THREAD)
@@ -75,55 +74,35 @@ struct RlcShards {
   int slot[RLC_MAX_SHARDS];
 };
 
-// LPB lanes a block: threads [0, LPB) decode, then the 16 quads write the
-// LPB tables, LPB / 16 each
+// LPB lanes a block (lane_decode_tables): a warp's lanes [0, LPB) decode
+// R and take their lane's scalars and checks, then the 16 quads write
+// the LPB tables, LPB / 16 each
 template <int LPB>
-__global__ void BOUNDS(RLC_LANE_THREADS) rlc_lane_kernel(
+__global__ void BOUNDS(LANE_THREADS) rlc_lane_kernel(
     const uint8_t *__restrict__ ok_a, const int32_t *__restrict__ idx,
     const uint8_t *__restrict__ rb, const uint8_t *__restrict__ sb,
     const uint8_t *__restrict__ h, const uint8_t *__restrict__ z, int B,
     int32_t *__restrict__ rtab, uint8_t *__restrict__ zh,
     int32_t *__restrict__ zs, uint8_t *__restrict__ lane_ok) {
-  __shared__ int32_t r_sh[LPB][40];
-  const int tid = threadIdx.x;
   const int lo = blockIdx.x * LPB;
   const int n = B - lo < LPB ? B - lo : LPB;
-  if (tid < n) {
-    const int b = lo + tid;
-    const uint8_t *zb = z + (size_t)b * 16;
-    const uint8_t *s = sb + (size_t)b * 32;
-    ge_ext r;
-    const bool ok_r = ge_decompress_zip215(r, rb + (size_t)b * 32);
+  lane_decode_tables<LPB>(
+      rb + (size_t)lo * 32, n, rtab + (size_t)lo * 640,
+      [&](int t, bool ok_r) {
+        const int b = lo + t;
+        const uint8_t *zb = z + (size_t)b * 16;
+        const uint8_t *s = sb + (size_t)b * 32;
+        int64_t acc[12];
+        sc_mul_mod_l(acc, h + (size_t)b * 32, zb);
+        sc_to_bytes(zh + (size_t)b * 32, acc);
+        sc_mul_mod_l(acc, s, zb);
 #pragma unroll
-    for (int i = 0; i < 10; i++) {
-      r_sh[tid][i] = r.x.v[i];
-      r_sh[tid][10 + i] = r.y.v[i];
-      r_sh[tid][20 + i] = r.z.v[i];
-      r_sh[tid][30 + i] = r.t.v[i];
-    }
-    int64_t t[12];
-    sc_mul_mod_l(t, h + (size_t)b * 32, zb);
-    sc_to_bytes(zh + (size_t)b * 32, t);
-    sc_mul_mod_l(t, s, zb);
-#pragma unroll
-    for (int i = 0; i < 12; i++) zs[(size_t)b * 12 + i] = (int32_t)t[i];
-    bool active = false;
-    for (int i = 0; i < 16; i++) active |= zb[i] != 0;
-    lane_ok[b] = ((ok_a[idx[b]] && ok_r && sc_lt_l(s)) || !active) ? 1 : 0;
-  }
-  __syncthreads();
-  // the block's quads write the lanes' tables, LPB / 16 each in turn
-  // (the same count on every quad; past the last lane, a repeat unstored)
-  const int k = quad_k();
-  for (int j = tid >> 2; j < LPB; j += RLC_LANE_THREADS / 4) {
-    const int l = j < n ? j : n - 1;
-    ge_ext r;
-    fe_load(r.x, r_sh[l]);
-    fe_load(r.y, r_sh[l] + 10);
-    fe_load(r.z, r_sh[l] + 20);
-    fe_load(r.t, r_sh[l] + 30);
-    geq_write_neg_table(rtab + (size_t)(lo + l) * 640, r, k, j < n);
-  }
+        for (int i = 0; i < 12; i++) zs[(size_t)b * 12 + i] = (int32_t)acc[i];
+        bool active = false;
+        for (int i = 0; i < 16; i++) active |= zb[i] != 0;
+        lane_ok[b] =
+            ((ok_a[idx[b]] && ok_r && sc_lt_l(s)) || !active) ? 1 : 0;
+      });
 }
 
 // the points of threads [0, n) of the block (n block-uniform, at most
@@ -402,7 +381,7 @@ static int rlc_stages(const void *tab, const void *ok_a, const void *idx,
   if (B > 0) {
     const int grid = (B + lpb - 1) / lpb;
 #define RLC_LANE_LAUNCH(LPB)                                                 \
-  LAUNCH(rlc_lane_kernel<LPB>, grid, RLC_LANE_THREADS, stream,               \
+  LAUNCH(rlc_lane_kernel<LPB>, grid, LANE_THREADS, stream,                   \
          (const uint8_t *)ok_a, (const int32_t *)idx, (const uint8_t *)rb,   \
          (const uint8_t *)sb, (const uint8_t *)h, (const uint8_t *)z, B,     \
          (int32_t *)rtab, (uint8_t *)zh, (int32_t *)zs, (uint8_t *)lane_ok)

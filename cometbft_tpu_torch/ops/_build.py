@@ -51,7 +51,7 @@ KERNELS = {
     "sha512_scalar": ("sha512_scalar.cu", "sha512_scalar_launch",
                       [_P, _P, _I, _I, _P, _P]),
     "ed25519_tables": ("ed25519_tables.cu", "ed25519_tables_launch",
-                       [_P, _I, _P, _P, _P]),
+                       [_P, _I, _I, _P, _P, _P]),
     "ed25519_verify_gather": ("ed25519_verify.cu",
                               "ed25519_verify_gather_launch",
                               [_P] * 7 + [_I, _I, _P, _P]),
@@ -66,7 +66,7 @@ KERNELS = {
     "merkle_level": ("sha256.cu", "merkle_level_launch", [_P, _I, _P, _P]),
     "merkle_tree": ("sha256.cu", "merkle_tree_launch", [_P, _I, _P]),
     "aggregate_g1_masked": ("blsg1.cu", "aggregate_g1_masked_launch",
-                            [_P, _P, _I, _I, _P, _P, _P]),
+                            [_P, _P, _I, _I, _P, _I, _P, _P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -134,7 +134,8 @@ def sha256_consts_header() -> str:
 def blsg1_consts_header() -> str:
     """The generated ``blsg1_consts.h``: p, -p^-1 mod 2^32 and the
     Montgomery constants of the plain versions (``ops/blsg1.py``), as
-    little-endian 32-bit words."""
+    little-endian 32-bit words, and the fold's rows a block
+    (``FOLD_ROWS``, which a build may set first)."""
     from . import blsg1
 
     def words(v: int) -> str:
@@ -149,6 +150,9 @@ def blsg1_consts_header() -> str:
         f"__constant__ uint32_t c_bls_one_m[12] = {words(blsg1.ONE_M_INT)};",
         f"__constant__ uint32_t c_bls_b3_m[12] = {words(blsg1.B3_M_INT)};",
         f"__constant__ uint32_t c_bls_n0 = {blsg1.N0_WORD}u;",
+        "#ifndef G1_ROWS",
+        f"#define G1_ROWS {blsg1.FOLD_ROWS}",
+        "#endif",
     ]) + "\n"
 
 

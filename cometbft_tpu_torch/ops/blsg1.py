@@ -23,10 +23,10 @@ package's exactly.
   12)`` int32 words (little-endian 32-bit words of the canonical
   coordinates, :func:`words_from_limbs`), which the per-valset device
   table of ``crypto/blsagg.py`` keeps on the card so that a call uploads
-  only the mask.  On CUDA tensors it runs the kernel series of
-  ``csrc/blsg1.cu`` (one C call: conversion into Montgomery form, one
-  launch per tree level, conversion out); on CPU tensors the plain
-  version below.
+  only the mask.  On CUDA tensors it runs ``csrc/blsg1.cu`` (one C
+  call: blocks of at most ``FOLD_ROWS`` rows fold residue classes of the
+  table in shared memory, two launches up to 2^16 rows); on CPU tensors
+  the plain version below.
 
 The plain version holds field elements as 24 limbs of 16 bits in int64
 (products of two limbs and their column sums stay far below 2^63); the
@@ -50,6 +50,7 @@ NLIMB = 32                       # 12-bit limbs at the boundary
 LB = 12
 MASK = (1 << LB) - 1
 NWORD = 12                       # 32-bit words in the kernel
+FOLD_ROWS = 256                  # rows a block of the kernel folds (G1_ROWS)
 
 # y^2 = x^3 + 4 over F_p
 P_INT = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB  # noqa: E501
@@ -262,9 +263,9 @@ def g1_masked_sum(words: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked G1 sum over a table in the kernel's layout: ``words`` (R, 2,
     12) int32 (canonical affine x, y as little-endian uint32 words,
     :func:`words_from_limbs`), ``mask`` (R,) int32.  Returns (3, 32) int32
-    canonical projective 12-bit limbs.  CUDA kernel series
-    ``aggregate_g1_masked`` (``csrc/blsg1.cu``), one C call of 2 +
-    log2(padded R) launches, counted once."""
+    canonical projective 12-bit limbs.  CUDA kernel
+    ``aggregate_g1_masked`` (``csrc/blsg1.cu``), one C call of one launch
+    up to ``FOLD_ROWS`` padded rows, two up to 2^16, counted once."""
     r = words.shape[0]
     _build.check_arg(words, "words", torch.int32, (r, 2, NWORD))
     _build.check_arg(mask, "mask", torch.int32, (r,))
@@ -274,10 +275,22 @@ def g1_masked_sum(words: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         _build.PLAIN_CALLS["aggregate_g1_masked"] += 1
         return _masked_sum_plain(words, mask)
     pow2 = 1 << max(0, (r - 1).bit_length())
-    scratch = torch.empty((pow2, 3, NWORD), dtype=torch.int32,
+    rows = _scratch_rows(pow2)
+    scratch = torch.empty((rows, 3, NWORD), dtype=torch.int32,
                           device=words.device)
     out = torch.empty((3, NLIMB), dtype=torch.int32, device=words.device)
     _build.launch("aggregate_g1_masked", words, words.data_ptr(),
-                  mask.data_ptr(), r, pow2, scratch.data_ptr(),
+                  mask.data_ptr(), r, pow2, scratch.data_ptr(), rows,
                   out.data_ptr())
     return out
+
+
+def _scratch_rows(n2: int) -> int:
+    """Projective points the kernel's first launch writes for ``n2``
+    padded rows: its ``L = log2 n2`` levels split evenly over
+    ``ceil(L / log2 FOLD_ROWS)`` launches, the first taking the fewest;
+    none for one launch (``csrc/blsg1.cu:aggregate_g1_masked_launch``)."""
+    levels, lmax = n2.bit_length() - 1, FOLD_ROWS.bit_length() - 1
+    if levels <= lmax:
+        return 0
+    return n2 >> (levels // -(-levels // lmax))

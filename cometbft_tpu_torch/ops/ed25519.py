@@ -156,7 +156,10 @@ def prepare_pubkey_tables(pub: torch.Tensor):
     """Per-validator decode of A and its [j](-A) table, cacheable across
     commits.  pub (N, 32) uint8 -> (tab (N, 16, 4, 10) int32, ok (N,)
     bool).  Replaces ``cometbft_tpu/ops/ed25519.py:112``; CUDA kernel
-    ``ed25519_tables``."""
+    ``ed25519_tables``, at the RLC lane stage's validators a block
+    (``ops/rlc.py:lane_block``)."""
+    from . import rlc
+
     _build.check_arg(pub, "pub", torch.uint8, (None, 32))
     if pub.device.type == "cpu":
         _build.PLAIN_CALLS["ed25519_tables"] += 1
@@ -166,7 +169,7 @@ def prepare_pubkey_tables(pub: torch.Tensor):
     ok = torch.empty((n,), dtype=torch.bool, device=pub.device)
     if n:
         _build.launch("ed25519_tables", pub, pub.data_ptr(), n,
-                      tab.data_ptr(), ok.data_ptr())
+                      rlc.lane_block(n), tab.data_ptr(), ok.data_ptr())
     return tab, ok
 
 

@@ -33,7 +33,8 @@ def _sources():
     return sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "cuda_stack_slot_probe.py",
         ROOT / "scripts" / "sha256_sass_count.py",
-        ROOT / "scripts" / "blsg1_sass_count.py",
+        ROOT / "scripts" / "fold_table_times.py",
+        ROOT / "scripts" / "blsg1_core_bench.py",
         ROOT / "scripts" / "ed25519_core_bench.py"]
 
 

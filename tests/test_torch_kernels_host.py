@@ -204,19 +204,30 @@ def _point(c):
     return ((ypx - ymx) * zi % P, (ypx + ymx) * zi % P)
 
 
-def test_tables_match_plain(harness):
+@pytest.mark.parametrize("lpb", [16, 32])
+@pytest.mark.parametrize("n", [1, 15, 17, 33, 300])
+def test_tables_match_plain(harness, n, lpb):
+    """The table kernel's lane layout (``lpb`` validators a block of 64
+    threads, a ragged last block) over ``n`` keys: multiples of B and
+    the ZIP-215 edge keys (y = p + 1, x = 0 with the sign bit, a torsion
+    point, zero, all ones, and a non-square, which fails) spread over the
+    blocks (one key: the non-square).  Rows equal the plain version's mod
+    p, ok bits exactly."""
     rng = np.random.default_rng(31)
     encs = [ref.pt_compress(ref.pt_mul(int(rng.integers(1, 1 << 62)),
-                                       ref.BASE)) for _ in range(8)]
-    encs += [_non_square(rng), (1 + P).to_bytes(32, "little"),
+                                       ref.BASE)) for _ in range(n)]
+    edges = [(1 + P).to_bytes(32, "little"),
              (1 | (1 << 255)).to_bytes(32, "little"),
-             ref.pt_compress(_torsion8(rng)), bytes(32), b"\xff" * 32]
+             ref.pt_compress(_torsion8(rng)), bytes(32), b"\xff" * 32,
+             _non_square(rng)]
+    for j, e in enumerate(edges):
+        encs[(37 * j) % n] = e
     pub = np.stack([np.frombuffer(e, np.uint8) for e in encs])
-    n = pub.shape[0]
-    got = harness("tables", [n], {"pub": pub},
+    got = harness("tables", [n, lpb], {"pub": pub},
                   {"tab": (np.int32, (n, 16, 4, 10)), "ok": (np.uint8, (n,))})
     tab, ok = ted._prepare_plain(torch.from_numpy(pub))
     assert got["ok"].astype(bool).tolist() == ok.tolist()
+    assert not ok.all()
     assert torch.equal(ted.tables_canonical(torch.from_numpy(got["tab"])),
                        ted.tables_canonical(tab))
 
@@ -470,12 +481,15 @@ def test_ladder_windows_match_plain(harness, name):
     assert [bool(v) for v in got] == [plain, plain] == [expect, expect]
 
 
-@pytest.mark.parametrize("r", [1, 5, 64])
+@pytest.mark.parametrize("r", [1, 5, 64, 300])
 def test_blsg1_fold_matches_plain(harness, r):
-    """The G1 fold's load, level and store launches on the word table,
-    against the plain version's (3, 32) projective limbs, exactly: all
-    rows, a random mask, an empty mask, and from 5 rows a cancelling pair
-    (row 0 and its negation) and a doubled point (row 1 twice)."""
+    """The G1 fold's launches on the word table (the harness's blocks of
+    8 rows: 5 rows in one launch, two additions at a time at the first
+    level; 64 rows in two; 300 rows, padded to 512, in three, the later
+    ones in place), against the plain version's (3, 32) projective limbs,
+    exactly: all rows, a random mask, an empty mask, and from 5 rows a
+    cancelling pair (row 0 and its negation) and a doubled point (row 1
+    twice)."""
     rng = np.random.default_rng(60 + r)
     pts = [tbls.pk_to_affine(tbls.sk_to_pk(int(s)))
            for s in rng.integers(1, 1 << 62, size=r)]

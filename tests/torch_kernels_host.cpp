@@ -14,7 +14,7 @@
 //
 // reads DIR/<name>.bin and writes DIR/<name>.bin (raw little-endian
 // arrays, the layouts of the kernels' C entry points):
-//   tables N            pub -> tab, ok
+//   tables N LPB        pub -> tab, ok; LPB validators a block
 //   sha B NB            blocks, active -> h
 //   verify B NB N       tab, ok_a, idx, rb, sb, blocks, active -> out
 //   rlc B NB N LPB      tab, ok_a, idx, rb, sb, blocks, active, z -> out,
@@ -38,7 +38,9 @@
 //   merkle_tree N       leaves (N x 8 words) -> levels (every level of the
 //                       tree, leaves first, the root last)
 //   blsg1 R N2          rows (R x 2 x 12 words), mask (R) -> out (3 x 32
-//                       12-bit limbs); N2 the padded row count
+//                       12-bit limbs); N2 the padded row count (blocks of
+//                       G1_ROWS = 8 rows and G1_GROUPS = 2 additions at a
+//                       time, so 64 rows take two launches and 512 three)
 #include <algorithm>
 #include <barrier>
 #include <cstdio>
@@ -112,6 +114,9 @@ static void host_launch(dim3 grid, dim3 block, void (*kernel)(P...),
 // two shards a pass of ed25519_rlc_sums_launch (64 on the card), so that
 // three or four shards of one card take two passes
 #define RLC_MAX_SHARDS 2
+// the G1 fold at 8 rows a block, two additions (12 threads) at a time
+#define G1_ROWS 8
+#define G1_GROUPS 2
 #include "blsg1.cu"
 #include "ed25519_rlc.cu"
 #include "ed25519_tables.cu"
@@ -162,11 +167,11 @@ int main(int argc, char **argv) {
   const int a1 = argc > 4 ? atoi(argv[4]) : 0;
   const int a2 = argc > 5 ? atoi(argv[5]) : 0;
   if (mode == "tables") {
-    const int N = a0;
+    const int N = a0, lpb = a1;
     auto pub = load<uint8_t>("pub", (size_t)N * 32);
     std::vector<int32_t> tab((size_t)N * 640);
     std::vector<uint8_t> ok(N);
-    check(ed25519_tables_launch(pub.data(), N, tab.data(), ok.data(),
+    check(ed25519_tables_launch(pub.data(), N, lpb, tab.data(), ok.data(),
                                 nullptr));
     save("tab", tab);
     save("ok", ok);
@@ -218,7 +223,8 @@ int main(int argc, char **argv) {
     std::vector<uint32_t> scratch((size_t)N2 * 3 * 12);
     std::vector<int32_t> out(3 * 32);
     check(aggregate_g1_masked_launch(rows.data(), mask.data(), R, N2,
-                                     scratch.data(), out.data(), nullptr));
+                                     scratch.data(), N2, out.data(),
+                                     nullptr));
     save("out", out);
     return 0;
   }
