@@ -18,12 +18,17 @@ Phases, each of which must pass or the script exits non-zero:
    the same inputs at the main path's shapes (valid, tampered and ZIP-215
    edge lanes; RLC accept, reject, garbage padding and torsion batches),
    and against the pure-Python oracle; then one seeded random batch per
-   entry of ``SWEEP_LANES`` through every kernel and its plain version;
-   then the merkle kernels ``sha256_leaves`` (10,000 one-block and
-   10,000 two-block leaves), ``merkle_level`` (5,000 pairs) and
-   ``merkle_tree`` (every level of trees of ``MERKLE_TREES`` leaves,
-   against the plain level loop and hashlib) against their plain
-   versions, and the roots and proofs of a seeded sweep of trees
+   entry of ``SWEEP_LANES`` through every kernel and its plain version,
+   and a ragged RLC batch (lanes of one, two and three SHA-512 blocks,
+   NB = 3; also with a padding lane's active count 0, and with a lane's
+   count cut short, a reject) at both ``LANE_LAYOUTS``; then the merkle
+   kernels ``sha256_leaves`` (10,000 one-block and 10,000 two-block
+   leaves), ``merkle_level`` (5,000 pairs), ``merkle_tree`` (every level
+   of trees of ``MERKLE_TREES`` leaves, against the plain level loop and
+   hashlib) and ``merkle_tree_leaves`` (the leaves and every level in
+   one call, at 10,000 and 2,048 one-block, two-block and mixed leaves
+   and at ``MERKLE_LEAF_TREES`` leaves) against their plain versions and
+   hashlib, and the roots and proofs of a seeded sweep of trees
    (``MERKLE_SWEEP`` leaves, and leaves over 118 bytes) on the kernel
    route against hashlib; mismatches must be 0;
 4. commit: the main path, ``VerifyCommit``, ``VerifyCommitLight`` and
@@ -80,9 +85,11 @@ Phases, each of which must pass or the script exits non-zero:
 
 Phases 4, 6, 7, 8 and 9 are the main path: the launch counters are
 zeroed just before each and read just after; each phase's kernels must
-have launched and no plain version may have run (phase 8 also no
-Ed25519 kernel).  Keys and signatures of the light and BLS phases are made in a
-process pool over ``os.cpu_count()`` workers with the port's own
+have launched, no plain version may have run, and neither standalone
+hash kernel (``OFF_PATH``: the RLC lane stage hashes its lanes, the tree
+call its leaves) may have launched (phase 8 also no Ed25519 kernel).
+Keys and signatures of the light and BLS phases are made in a process
+pool over ``os.cpu_count()`` workers with the port's own
 signers; the script prints the seconds of each fixture and phase.  The
 fold's bound counts the integer instructions of the fold's first CUDA
 version (``G1_INT_PER_ADD``, ``G1_INT_PER_MUL``), so that it measures
@@ -144,11 +151,15 @@ SIZES = (150, 1000)              # validators of the commit phase
 LANES = 10_000                   # lanes of the throughput phase
 REPS = 20                        # timed calls per measurement
 SWEEP_LANES = (1, 77, 128, 129, 300, 640)   # lanes of the sweep's batches
-COMMIT_KERNELS = ("sha512_scalar", "ed25519_tables", "ed25519_verify_gather",
+COMMIT_KERNELS = ("ed25519_tables", "ed25519_verify_gather",
                   "ed25519_rlc_gather")
+# the hash kernels that stand alone behind their public wrappers, checked
+# and timed in phase 3, which the main path never launches (the RLC lane
+# stage hashes its lanes, the merkle tree call its leaves)
+OFF_PATH = ("sha512_scalar", "sha256_leaves")
 BLS_KERNELS = ("aggregate_g1_masked",)
 MESH_KERNELS = ("ed25519_rlc_sums", "ed25519_rlc_combine")
-# K6a's launches after sha512_scalar, in order: (stage, kernel)
+# K6a's launches, in order: (stage, kernel); the lane stage hashes too
 RLC_STAGES = (("lane", "rlc_lane_kernel"),
               ("partials", "rlc_window_partials_kernel"),
               ("fold", "rlc_fold_kernel"), ("zs", "rlc_zs_sum_kernel"),
@@ -172,6 +183,7 @@ ENTRY_KERNELS = {
     "sha256_leaves": ("sha256_leaves_kernel",),
     "merkle_level": ("merkle_subtree_kernel",),
     "merkle_tree": ("merkle_subtree_kernel",),
+    "merkle_tree_leaves": ("merkle_leaves_kernel", "merkle_subtree_kernel"),
     "aggregate_g1_masked": ("g1_fold_kernel", "fp_mul"),
 }
 MESH_SHARDS = 4                  # shards of the mesh phase, one card each
@@ -180,6 +192,12 @@ K7_SPLITS = ((10_000, 1), (10_000, 2), (10_000, 3), (150, 4))
 MERKLE_LEAVES = 10_000           # leaves of the merkle kernel phase
 MERKLE_SWEEP = (1, 63, 64, 2047, 2048, 2049, 4097, 10_000)  # tree sizes
 MERKLE_TREES = (2048, 2049, 4097, 10_000, 16_384)  # whole-tree checks
+# trees of the fused call's checks, beside 10,000 and 2,048 leaves: one
+# leaf, a subtree run of 256 and one either side, one past two launches
+MERKLE_LEAF_TREES = (1, 255, 256, 257, 65_537)
+# message lengths of the ragged RLC batch: one, two and three SHA-512
+# blocks after R || A
+RAGGED_SPANS = ((0, 48), (48, 176), (176, 304))
 LIGHT_VALS = 150                 # validators of the 150-validator light phase
 LIGHT_HEADERS = 128              # its chain (BASELINE configs[2]: 1,000)
 BIG_VALS = 10_000                # validators of the 10k light phase
@@ -647,8 +665,9 @@ def phase_sweep(fx, dev, rec):
     random keys, messages and tampered lanes (the tampered verdicts from
     the oracle), random encodings in the table, and RLC batches with
     every lane active and with the bad lanes and a few more as garbage
-    padding, the lane stage at each of ``LANE_LAYOUTS`` lanes a block.
-    Adds to ``rec[name]["mismatches"]``."""
+    padding, the lane stage at each of ``LANE_LAYOUTS`` lanes a block;
+    then the ragged RLC batch (:func:`ragged_rlc`).  Adds to
+    ``rec[name]["mismatches"]``."""
     import numpy as np
     import torch
 
@@ -656,7 +675,7 @@ def phase_sweep(fx, dev, rec):
     from cometbft_tpu_torch.ops import ed25519 as ed
     from cometbft_tpu_torch.ops import rlc, sha512
 
-    mism = dict.fromkeys(COMMIT_KERNELS, 0)
+    mism = dict.fromkeys(COMMIT_KERNELS + ("sha512_scalar",), 0)
     for seed, n in enumerate(SWEEP_LANES):
         rng = np.random.default_rng(1000 + seed)
         keys = rng.choice(len(fx.privs), size=min(n, 64), replace=False)
@@ -720,9 +739,61 @@ def phase_sweep(fx, dev, rec):
                 with lane_layout(lpb):
                     k = bool(rlc.verify_batch_rlc_gather(*args))
                 mism["ed25519_rlc_gather"] += (k != p) + (k != expect)
+    ragged = ragged_rlc(fx, dev)
+    rec["ed25519_rlc_gather"]["ragged_mismatches"] = ragged
+    mism["ed25519_rlc_gather"] += sum(ragged.values())
     for k, m in mism.items():
         rec[k]["mismatches"] += m
         rec[k]["sweep_mismatches"] = m
+    return mism
+
+
+def ragged_rlc(fx, dev) -> dict:
+    """The RLC verdict over a batch whose lanes hash one, two and three
+    SHA-512 blocks (``RAGGED_SPANS``, NB = 3) in one call, at each of
+    ``LANE_LAYOUTS`` lanes a block, against the plain version: all lanes
+    active (accept), a padding lane (z = 0) with active count 0 (accept),
+    and a three-block lane's count cut to two (reject: h is then the
+    digest of its first two blocks).  Mismatches by case."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.ops import ed25519 as ed
+    from cometbft_tpu_torch.ops import rlc
+
+    rng = np.random.default_rng(1100)
+    n = 96
+    keys = [fx.privs[i % 32] for i in range(n)]
+    msgs = [rng.bytes(int(rng.integers(*RAGGED_SPANS[i % 3])))
+            for i in range(n)]
+    pubs = [k.pub_key().bytes() for k in keys]
+    sigs = [k.sign(m) for k, m in zip(keys, msgs)]
+    rb, sb, blocks, active = _lanes_to_tensors(pubs, sigs, msgs, dev)
+    if blocks.shape[1] != 3 or sorted(set(active.tolist())) != [1, 2, 3]:
+        raise AssertionError("ragged batch: not one, two and three blocks")
+    pub_t = torch.from_numpy(np.frombuffer(b"".join(pubs[:32]), np.uint8)
+                             .reshape(32, 32).copy()).to(dev)
+    tab, ok = ed.prepare_pubkey_tables(pub_t)
+    idx = torch.arange(n, dtype=torch.int32, device=dev) % 32
+    z = torch.from_numpy(rlc.host_rlc_coeffs(n, rng_bytes=rng.bytes(
+        16 * n))).to(dev)
+    pad = np.arange(n) != 40
+    z_pad = torch.from_numpy(rlc.host_rlc_coeffs(n, pad, rng_bytes=rng.bytes(
+        16 * n))).to(dev)
+    act_pad, act_cut = active.clone(), active.clone()
+    act_pad[40] = 0
+    act_cut[int(torch.nonzero(active == 3)[0])] = 2
+    cases = {"all active": (active, z, True),
+             "padding lane active 0": (act_pad, z_pad, True),
+             "count cut short": (act_cut, z, False)}
+    mism = {}
+    for name, (act, zz, expect) in cases.items():
+        args = (tab, ok, idx, rb, sb, blocks, act, zz)
+        p = bool(rlc._rlc_plain(*args))
+        for lpb in LANE_LAYOUTS:
+            with lane_layout(lpb):
+                k = bool(rlc.verify_batch_rlc_gather(*args))
+            mism[f"{name}, {lpb} a block"] = (k != p) + (k != expect)
     return mism
 
 
@@ -800,9 +871,11 @@ def phase_commit(fx, dev, reps):
     launches = dict(_build.LAUNCHES)           # ... and ends here
     plain = dict(_build.PLAIN_CALLS)
     missing = [k for k in COMMIT_KERNELS if not launches.get(k)]
-    if missing or plain:
+    off = {k: launches[k] for k in OFF_PATH if launches.get(k)}
+    if missing or plain or off:
         raise AssertionError(f"main path: kernels not launched {missing}, "
-                             f"plain versions run {plain}")
+                             f"plain versions run {plain}, standalone hash "
+                             f"kernels launched {off}")
     for n in SIZES:
         # Light stops once more than 2/3 of the (equal) power is counted
         light_lanes = (2 * n) // 3 + 1
@@ -862,8 +935,9 @@ def phase_throughput(sets, dev, n_lanes, reps):
         tab, ok, idx, rb, sb, blocks, active), reps, warm=1)
     from cometbft_tpu_torch.ops import sha512
 
-    # sha512_scalar as the RLC wrappers run it, without the index check
-    # of its public wrapper
+    # the standalone sha512_scalar at the RLC verdict's shape, without the
+    # index check of its public wrapper (the verdict hashes in its lane
+    # stage)
     at_10k = {
         "sha512_scalar": (lambda: sha512._sha512_scalar(blocks, active),
                           "sha512_scalar_kernel"),
@@ -1046,8 +1120,8 @@ def phase_merkle(dev, reps, rec):
     """The merkle kernels against their plain versions on the card, at
     the main path's shapes, then a seeded sweep of tree sizes through
     the kernel route against hashlib (roots and every proof).  Fills
-    ``rec`` for ``sha256_leaves``, ``merkle_level`` and ``merkle_tree``;
-    returns the extra timings."""
+    ``rec`` for ``sha256_leaves``, ``merkle_level``, ``merkle_tree`` and
+    ``merkle_tree_leaves``; returns the extra timings."""
     import numpy as np
     import torch
 
@@ -1058,7 +1132,7 @@ def phase_merkle(dev, reps, rec):
     rng = np.random.default_rng(2027)
     info = {"leaves_ms": {}}
 
-    def leaves(items):
+    def leaf_args(items):
         blocks, active = merkle._leaf_blocks(items)
         return (torch.from_numpy(blocks.view(np.int32)).to(dev),
                 torch.from_numpy(active).to(dev))
@@ -1072,7 +1146,7 @@ def phase_merkle(dev, reps, rec):
                             ("10000x2", MERKLE_LEAVES, 55, 119),
                             ("2048x1", 2048, 36, 47)):
         items = _rand_leaves(rng, n, lo, hi)
-        bt, at = leaves(items)
+        bt, at = leaf_args(items)
         buf = torch.full((n + 8, 8), 0x5A5A5A5A, dtype=torch.int32,
                          device=dev)
         out = buf[3:3 + n]
@@ -1167,6 +1241,56 @@ def phase_merkle(dev, reps, rec):
         shape=f"n={n} ({len(merkle._level_widths(n)) - 1} levels)",
         bound_inputs=(n,))
 
+    # merkle_tree_leaves, the tree's route: the leaves and every level in
+    # one call, against the leaves' plain version followed by the tree's
+    # and against hashlib's level order, at 10,000 and 2,048 one-block,
+    # two-block and mixed leaves and at MERKLE_LEAF_TREES leaves; one C
+    # call a tree
+    mism, err, info["leaf_trees"] = 0, 0, {}
+    shapes = [(f"{n}x{kind}", n, lo, hi) for n in (MERKLE_LEAVES, 2048)
+              for kind, lo, hi in (("1", 0, 55), ("2", 55, 119),
+                                   ("mixed", 0, 119))]
+    shapes += [(str(n), n, 0, 119) for n in MERKLE_LEAF_TREES]
+    for name, n, lo, hi in shapes:
+        items = _rand_leaves(rng, n, lo, hi)
+        bt, at = leaf_args(items)
+        before = _build.LAUNCHES["merkle_tree_leaves"]
+        got = S.merkle_tree_leaves(bt, at)
+        calls = _build.LAUNCHES["merkle_tree_leaves"] - before
+        plain = torch.empty_like(got)
+        plain[:n] = S._as_int32(S._leaf_state_plain(bt, at))
+        S._merkle_tree_plain(plain, n)
+        host = S.words_to_bytes(got.cpu().numpy().view(np.uint32))
+        want = [r for lv in merkle._levels_hashlib(items) for r in lv]
+        bad = (int((got != plain).any(1).sum()) + int(calls != 1)
+               + sum(h.tobytes() != w for h, w in zip(host, want))
+               + abs(len(host) - len(want)))
+        mism += bad
+        err = max(err, int((got.long() - plain.long()).abs().max()))
+        info["leaf_trees"][name] = {"nb": int(bt.shape[1]),
+                                    "mismatches": bad}
+        if name == f"{MERKLE_LEAVES}x1":
+            fused = (bt, at, got)
+
+    bt, at, got = fused
+    n = bt.shape[0]
+
+    def fused_plain():
+        lv = torch.empty_like(got)
+        lv[:n] = S._as_int32(S._leaf_state_plain(bt, at))
+        return S._merkle_tree_plain(lv, n)
+
+    rec["merkle_tree_leaves"].update(
+        max_abs_err=err, mismatches=mism,
+        ms=time_cuda(lambda: S.merkle_tree_leaves(bt, at, got), reps),
+        device_ms=_kernel_ms(profile_call(
+            lambda: S.merkle_tree_leaves(bt, at, got), reps)["kernels_ms"],
+            "merkle_"),
+        plain_ms=time_host(fused_plain),
+        shape=f"n={n} one-block leaves "
+              f"({len(merkle._level_widths(n)) - 1} levels above them)",
+        bound_inputs=(int(at.sum()), n, int(bt.shape[1])))
+
     # whole trees, wall clock: the kernel route against hashlib's level
     # loop on the same items (the 2,048-leaf threshold was sized on a TPU)
     info["tree_ms"] = {}
@@ -1199,16 +1323,17 @@ def phase_merkle(dev, reps, rec):
         long_leaves = max(map(len, items), default=0) > 118
         key = f"{n}{' long' if long_leaves else ''}"
         want_launch = n >= merkle.MERKLE_KERNEL_MIN_LEAVES
-        if launched.get("merkle_tree", 0) != 2 * want_launch or \
-                "merkle_level" in launched or \
-                bool(launched.get("sha256_leaves")) != (want_launch
-                                                        and not long_leaves):
+        # one tree call a tree (root, then proofs): with its leaves, or
+        # over leaves hashed on the host
+        call = "merkle_tree" if long_leaves else "merkle_tree_leaves"
+        if launched.get(call, 0) != 2 * want_launch or \
+                set(launched) - {call}:
             raise AssertionError(f"tree of {key} leaves took the wrong "
                                  f"route: launches {launched}")
         sweep[key] = bad
     if _build.PLAIN_CALLS:
         raise AssertionError(f"plain versions ran: {dict(_build.PLAIN_CALLS)}")
-    for k in ("sha256_leaves", "merkle_tree"):
+    for k in ("merkle_tree_leaves", "merkle_tree"):
         rec[k]["sweep_mismatches"] = sum(sweep.values())
         rec[k]["mismatches"] += sum(sweep.values())
     info["sweep"] = sweep
@@ -1267,8 +1392,8 @@ def profile_call(fn, calls: int = 1, top=8) -> dict:
 
 def _path_launches(fn, required):
     """Run ``fn`` as a main-path run: counters zeroed just before, read
-    just after; every kernel in ``required`` must have launched and no
-    plain version may have run."""
+    just after; every kernel in ``required`` must have launched, no
+    plain version may have run and no ``OFF_PATH`` kernel launched."""
     from cometbft_tpu_torch.ops import _build
 
     _build.reset_launches()
@@ -1276,9 +1401,11 @@ def _path_launches(fn, required):
     _sync()
     launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
     missing = [k for k in required if not launches.get(k)]
-    if missing or plain:
+    off = {k: launches[k] for k in OFF_PATH if launches.get(k)}
+    if missing or plain or off:
         raise AssertionError(f"main path: kernels not launched {missing}, "
-                             f"plain versions run {plain}")
+                             f"plain versions run {plain}, standalone hash "
+                             f"kernels launched {off}")
     return launches, out
 
 
@@ -1298,7 +1425,7 @@ def phase_light150(pool, keys, dev, reps):
                                   TRUSTING_PERIOD_NS, now, device=dev)
 
     t0 = time.perf_counter()
-    launches, _ = _path_launches(run, ("ed25519_tables", "sha512_scalar",
+    launches, _ = _path_launches(run, ("ed25519_tables",
                                        "ed25519_rlc_gather"))
     first_s = time.perf_counter() - t0
     lanes = (LIGHT_HEADERS - 1) * ((2 * LIGHT_VALS) // 3 + 1)
@@ -1373,7 +1500,7 @@ def phase_light10k(pool, keys, dev, reps):
 
     t0 = time.perf_counter()
     launches, per_call = _path_launches(main_path, (
-        "sha256_leaves", "merkle_tree", *COMMIT_KERNELS))
+        "merkle_tree_leaves", *COMMIT_KERNELS))
     first_s = time.perf_counter() - t0
     wall = {name: time_host_spread(fn, reps) for name, fn in calls.items()}
     items = [v.simple_encode() for v in vals.validators]
@@ -1570,16 +1697,15 @@ def phase_mesh_kernels(cases, shards, reps, rec):
         "combine": time_host(lambda: rlc._rlc_combine_plain(*k))}
     fn = rlc.make_verify_batch_rlc_sharded(batch_mesh(shards), gather=True)
     # device ms of the combine from one trace of the whole verdict (a
-    # trace of the combine alone lost events on the card); the sums count
-    # their SHA-512 (sha512_scalar), as their wrapper runs it and their
-    # bound counts it
+    # trace of the combine alone lost events on the card); the sums'
+    # lane stage hashes the lanes, as their bound counts
     prof = profile_call(lambda: fn(*valid), reps)
     combine_ms = _kernel_ms(prof["kernels_ms"], "rlc_combine")
     sums_dev = {}
     for key, f in (("one", sums_one), ("card", sums_card)):
         kms = profile_call(f, reps, top=None)["kernels_ms"]
         st = {stage: _kernel_ms(kms, name) for stage, name in
-              (("sha512", "sha512_scalar_kernel"), *RLC_STAGES[:4])}
+              RLC_STAGES[:4]}
         st["sum"] = (None if None in st.values() else sum(st.values()))
         sums_dev[key] = st
     n_mism = sum(mism.values())
@@ -1661,7 +1787,7 @@ def phase_mesh(fx10k, chain150, shards, reps, rec):
     plan.set_devices(shards)
     try:
         launches, runs = _path_launches(main_path, (
-            "sha512_scalar", "ed25519_rlc_sums", "ed25519_rlc_combine",
+            "ed25519_rlc_sums", "ed25519_rlc_combine",
             "ed25519_verify_gather"))
         for name in ("VerifyCommit@10k",
                      f"verify_commits_light_batched@{LIGHT_VALS}"):
@@ -2005,7 +2131,7 @@ def phase_bls(pool, dev, reps, rec):
 
     t0 = time.perf_counter()
     launches, per_call = _path_launches(main_path, (
-        "aggregate_g1_masked", "sha256_leaves", "merkle_tree"))
+        "aggregate_g1_masked", "merkle_tree_leaves"))
     first_s = time.perf_counter() - t0
     ed = {k: launches[k] for k in COMMIT_KERNELS if launches.get(k)}
     if ed:
@@ -2137,21 +2263,28 @@ def mesh_bounds(c, b, d, nb, rate_ops):
 
 
 def merkle_bounds(rec, rate_ops):
-    """Least time of the two merkle kernels at the phase's main shapes:
+    """Least time of the merkle kernels at the phase's main shapes:
     counted SHA-256 operations over the integer rate against bytes (each
-    input read once, each output written once) over the HBM rate."""
+    input read once, each output written once) over the HBM rate.  The
+    fused tree call counts the leaves' work and the tree's: its leaf
+    blocks and active counts read once, every level (``tree_rows``) of
+    digest words written once."""
     from cometbft_tpu_torch.ops import sha256 as S
 
     blocks, b, nb = rec["sha256_leaves"]["bound_inputs"]
     (n,) = rec["merkle_level"]["bound_inputs"]
     (t,) = rec["merkle_tree"]["bound_inputs"]
+    f_blocks, f, f_nb = rec["merkle_tree_leaves"]["bound_inputs"]
     work = {"sha256_leaves": (blocks * SHA256_OPS_PER_BLOCK,
                               b * (nb * 64 + 4) + b * 32),
             "merkle_level": ((n // 2) * 2 * SHA256_OPS_PER_BLOCK,
                              n * 32 + (n + 1) // 2 * 32),
             # a tree of t leaves has t - 1 inner nodes, two blocks each
             "merkle_tree": ((t - 1) * 2 * SHA256_OPS_PER_BLOCK,
-                            S.tree_rows(t) * 32)}
+                            S.tree_rows(t) * 32),
+            "merkle_tree_leaves": (
+                (f_blocks + (f - 1) * 2) * SHA256_OPS_PER_BLOCK,
+                f * (f_nb * 64 + 4) + S.tree_rows(f) * 32)}
     out = {}
     for k, (ops, nbytes) in work.items():
         t_ops = ops / rate_ops * 1e3
@@ -2225,6 +2358,12 @@ def main(argv=None) -> int:
               f"{u.get('stack')} bytes stack, spill stores "
               f"{u.get('spill_stores')} / loads {u.get('spill_loads')}, "
               f"{u.get('smem')} bytes smem")
+    fused = {n: usage.get(n) for n in (*_LANE_KERNELS,
+                                       *ENTRY_KERNELS["merkle_tree_leaves"])}
+    spills = any(u is None or u.get("stack") or u.get("spill_stores")
+                 or u.get("spill_loads") for u in fused.values())
+    print(f"ptxas of the stages that hash (spills or stack: {spills}): "
+          f"{fused}")
 
     if args.mesh_cards:
         mesh_cards(card, args.record)
@@ -2244,6 +2383,8 @@ def main(argv=None) -> int:
                                 "cometbft_tpu/ops/sha256.py:135"),
                "merkle_tree": ("csrc/sha256.cu",
                                "cometbft_tpu/ops/sha256.py:135"),
+               "merkle_tree_leaves": ("csrc/sha256.cu",
+                                      "cometbft_tpu/ops/sha256.py:115"),
                "sha512_scalar": ("csrc/sha512_scalar.cu",
                                  "cometbft_tpu/ops/sha512.py:165"),
                "ed25519_tables": ("csrc/ed25519_tables.cu",
@@ -2281,6 +2422,11 @@ def main(argv=None) -> int:
     print(f"  merkle_tree, one call per tree: {mk['trees']}; at "
           f"{mt['shape']}: {mt['ms']:.4f} ms (CUDA events), device "
           f"{mt['device_ms']} ms, plain {mt['plain_ms']:.1f} ms  [{card}]")
+    mf = rec["merkle_tree_leaves"]
+    print(f"  merkle_tree_leaves, one call per tree with its leaves: "
+          f"{mk['leaf_trees']}; at {mf['shape']}: {mf['ms']:.4f} ms (CUDA "
+          f"events), device {mf['device_ms']} ms, plain "
+          f"{mf['plain_ms']:.1f} ms  [{card}]")
     print(f"  trees, wall p50 ms: {mk['tree_ms']}  [{card}]")
     early = {k: r for k, r in rec.items()
              if k not in BLS_KERNELS + MESH_KERNELS}
@@ -2314,7 +2460,7 @@ def main(argv=None) -> int:
           f"{tp['dense_sig_per_s']:.0f} sig/s "
           f"(p50 {tp['dense_wall_p50_ms']:.1f} ms), table build "
           f"{tp['tables_ms']:.2f} ms")
-    for k in COMMIT_KERNELS:
+    for k in tp["ms_10k"]:
         print(f"  {k} at {tp['lanes']} lanes: {tp['ms_10k'][k]:.4f} ms, "
               f"device {tp['device_ms_10k'][k]} ms  [{card}]")
     print(f"K6a stages at B={tp['lanes']}, device ms: "
@@ -2453,7 +2599,7 @@ def main(argv=None) -> int:
             **({"ms_10k": tp["ms_10k"][k],
                 "device_ms_10k": tp["device_ms_10k"][k],
                 "bound_ms_10k": bd_10k[k][0]}
-               if k in COMMIT_KERNELS else {}),
+               if k in tp["ms_10k"] else {}),
             **({"stages_ms": r["stages_ms"],
                 "stages_ms_10k": tp["rlc_stages_ms_10k"],
                 "chain_floor": floors}

@@ -15,10 +15,11 @@ the recursive split.  Routing by leaf count, as in the JAX package:
   (the JAX package runs its native C++ tree here; the port has none
   yet);
 - at ``MERKLE_KERNEL_MIN_LEAVES`` leaves or more, the SHA-256 kernels of
-  ``ops/sha256.py`` on ``device``: one ``sha256_leaves`` launch over the
-  padded leaves (items longer than ``_LEAF_KERNEL_MAX_LEN`` bytes have
-  their leaves hashed with hashlib instead), then one ``merkle_tree``
-  call for every level above them.  The levels stay on the device in one
+  ``ops/sha256.py`` on ``device``: one ``merkle_tree_leaves`` call over
+  the padded leaves hashes them and builds every level above them (items
+  longer than ``_LEAF_KERNEL_MAX_LEN`` bytes have their leaves hashed
+  with hashlib instead, then one ``merkle_tree`` call builds the
+  levels).  The levels stay on the device in one
   buffer and cross to the host once: the root, or every level when
   proofs are built.  ``device=None`` is the first of the plan's devices
   (``crypto/plan.py:resolve_devices``) and raises without a card:
@@ -143,19 +144,19 @@ def _leaf_blocks(items: list[bytes]):
 
 def _kernel_levels(items: list[bytes], dev: torch.device) -> torch.Tensor:
     """Every level of the tree as digest words in one (nodes, 8) int32
-    tensor on ``dev``, leaves first, the root last: one leaf launch, then
-    one tree call for the levels above, each level in its slice."""
+    tensor on ``dev``, leaves first, the root last, each level in its
+    slice: one call for the leaves and the levels above them, or, for
+    leaves hashed on the host, one tree call for the levels."""
     n = len(items)
-    buf = torch.empty((_s.tree_rows(n), 8), dtype=torch.int32, device=dev)
-    if max(map(len, items)) > _LEAF_KERNEL_MAX_LEN:
-        leaves = b"".join(_sha(LEAF_PREFIX + it) for it in items)
-        words = _s.bytes_to_words(
-            np.frombuffer(leaves, np.uint8).reshape(n, 32))
-        buf[:n].copy_(torch.from_numpy(words.view(np.int32)))
-    else:
+    if max(map(len, items)) <= _LEAF_KERNEL_MAX_LEN:
         blocks, active = _leaf_blocks(items)
-        _s.sha256_leaf_words(torch.from_numpy(blocks.view(np.int32)).to(dev),
-                             torch.from_numpy(active).to(dev), out=buf[:n])
+        return _s.merkle_tree_leaves(
+            torch.from_numpy(blocks.view(np.int32)).to(dev),
+            torch.from_numpy(active).to(dev))
+    buf = torch.empty((_s.tree_rows(n), 8), dtype=torch.int32, device=dev)
+    leaves = b"".join(_sha(LEAF_PREFIX + it) for it in items)
+    words = _s.bytes_to_words(np.frombuffer(leaves, np.uint8).reshape(n, 32))
+    buf[:n].copy_(torch.from_numpy(words.view(np.int32)))
     return _s.merkle_tree(buf, n)
 
 

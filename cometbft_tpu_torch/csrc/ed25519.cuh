@@ -628,9 +628,12 @@ DEV void geq_write_neg_table(int32_t *dst, const ge_ext &p, int k,
 // a quad a table, the decode on half a warp; 32: a quad writes two
 // tables in turn): lane t < n of one warp decodes encoding t of `enc`
 // (ZIP-215) into shared memory and calls per_point(t, ok) with its
-// decode bit; after a barrier the block's quads write the n points'
-// tables [j](-P) to `tab`, 640 int32 a point, LPB / 16 each in turn (the
-// same count on every quad; past the last point, a repeat unstored).
+// decode bit, while lane t < n of the other warp calls other(t) (the
+// RLC lane stage hashes its lane there, in the decode's shadow); after a
+// barrier the block's quads write the n points' tables [j](-P) to `tab`,
+// 640 int32 a point, LPB / 16 each in turn (the same count on every
+// quad; past the last point, a repeat unstored).  What per_point and
+// other leave in shared memory is read after the call.
 // Every thread of the block calls it with the same n, 1 <= n <= LPB.
 // The decoding warp is warp 0 or 1 by bit 2 of warp 0's slot on the SM
 // (%warpid), so that the decoders of the blocks an SM holds spread over
@@ -639,9 +642,9 @@ DEV void geq_write_neg_table(int32_t *dst, const ge_ext &p, int k,
 // points, 313 blocks of 32 on 132 SMs: 0.173 ms against 0.198 with warp
 // 0 always; chip_smoke.py:table_checks).  The host build takes the
 // block's parity, so that both choices run there.
-template <int LPB, class PerPoint>
+template <int LPB, class PerPoint, class Other>
 DEV void lane_decode_tables(const uint8_t *enc, int n, int32_t *tab,
-                            PerPoint per_point) {
+                            PerPoint per_point, Other other) {
   __shared__ int32_t sh[LPB][40];
   __shared__ int dec_warp;
   const int tid = threadIdx.x;
@@ -668,6 +671,8 @@ DEV void lane_decode_tables(const uint8_t *enc, int n, int32_t *tab,
     }
     per_point(t, ok);
   }
+  const int u = tid - 32 * (1 - dec_warp);
+  if (u >= 0 && u < n) other(u);
   __syncthreads();
   const int k = quad_k();
   for (int j = tid >> 2; j < LPB; j += LANE_THREADS / 4) {

@@ -8,15 +8,18 @@
 //     [8]( [sum z_i s_i] B - sum [z_i h_i] A_i - sum [z_i] R_i ) == O
 // and every active lane decodes with S < L.  The TPU program runs all of
 // it as one sequential grid; here blocks run in any order and share
-// nothing, so the work is a series of launches on one stream (h = SHA-512
-// mod L comes from the sha512_scalar kernel before these):
-//   1. rlc_lane: per lane, one thread decodes R, computes z*h and z*s mod
-//      L and the lane-ok bit (padding lanes, z = 0, never veto); then the
-//      block's 16 quads (ed25519.cuh) write the lanes' [j](-R) tables.  A
-//      block of 64 threads takes LPB lanes: 32 (a quad writes two tables
-//      in turn) where there are enough lanes to fill the card, 16 (a quad
-//      a table, the decode on half a warp) where there are not, chosen by
-//      the caller from the lane count;
+// nothing, so the work is a series of launches on one stream:
+//   1. rlc_lane: per lane, one thread of one warp decodes R, while one
+//      thread of the block's other warp hashes the lane (h = SHA-512(R ||
+//      A || M) mod L over its active host-padded blocks, the
+//      sha512_scalar kernel's device code) and computes z*h and z*s mod
+//      L and the lane's scalar checks; after the barrier a thread per lane
+//      writes the lane-ok bit (padding lanes, z = 0, never veto), and the
+//      block's 16 quads (ed25519.cuh) write the lanes' [j](-R) tables.
+//      h never leaves the thread.  A block of 64 threads takes LPB lanes:
+//      32 (a quad writes two tables in turn) where there are enough lanes
+//      to fill the card, 16 (a quad a table, the decode on half a warp)
+//      where there are not, chosen by the caller from the lane count;
 //   2. rlc_window_partials: per (window, block of at most 1,024 lanes of
 //      one shard), each thread adds up to 8 lanes' table entries for their
 //      digits into an extended point (8 products an addition), then a tree
@@ -75,34 +78,48 @@ struct RlcShards {
 };
 
 // LPB lanes a block (lane_decode_tables): a warp's lanes [0, LPB) decode
-// R and take their lane's scalars and checks, then the 16 quads write
-// the LPB tables, LPB / 16 each
+// R, the other warp's lanes hash theirs and take their scalars and
+// checks (the hash reads only blocks [0, min(max(active, 0), NB))), then
+// a thread per lane writes its lane-ok bit and the 16 quads write the
+// LPB tables, LPB / 16 each
 template <int LPB>
 __global__ void BOUNDS(LANE_THREADS) rlc_lane_kernel(
     const uint8_t *__restrict__ ok_a, const int32_t *__restrict__ idx,
     const uint8_t *__restrict__ rb, const uint8_t *__restrict__ sb,
-    const uint8_t *__restrict__ h, const uint8_t *__restrict__ z, int B,
+    const uint32_t *__restrict__ blocks, const int32_t *__restrict__ active,
+    int NB, const uint8_t *__restrict__ z, int B,
     int32_t *__restrict__ rtab, uint8_t *__restrict__ zh,
     int32_t *__restrict__ zs, uint8_t *__restrict__ lane_ok) {
+  // per lane: R decodes; A's row decodes and S < L; z = 0 (padding)
+  __shared__ uint8_t ok_r[LPB], ok_as[LPB], pad[LPB];
   const int lo = blockIdx.x * LPB;
   const int n = B - lo < LPB ? B - lo : LPB;
   lane_decode_tables<LPB>(
       rb + (size_t)lo * 32, n, rtab + (size_t)lo * 640,
-      [&](int t, bool ok_r) {
+      [&](int t, bool ok) { ok_r[t] = ok; },
+      [&](int t) {
         const int b = lo + t;
         const uint8_t *zb = z + (size_t)b * 16;
         const uint8_t *s = sb + (size_t)b * 32;
+        const int a = active[b];
+        uint64_t st[8];
+        sha512_lane(st, blocks + (size_t)b * NB * 32,
+                    a < 0 ? 0 : (a > NB ? NB : a));
+        uint8_t h[32];
+        sc_reduce_digest(h, st);
         int64_t acc[12];
-        sc_mul_mod_l(acc, h + (size_t)b * 32, zb);
+        sc_mul_mod_l(acc, h, zb);
         sc_to_bytes(zh + (size_t)b * 32, acc);
         sc_mul_mod_l(acc, s, zb);
 #pragma unroll
         for (int i = 0; i < 12; i++) zs[(size_t)b * 12 + i] = (int32_t)acc[i];
-        bool active = false;
-        for (int i = 0; i < 16; i++) active |= zb[i] != 0;
-        lane_ok[b] =
-            ((ok_a[idx[b]] && ok_r && sc_lt_l(s)) || !active) ? 1 : 0;
+        bool live = false;
+        for (int i = 0; i < 16; i++) live |= zb[i] != 0;
+        ok_as[t] = ok_a[idx[b]] && sc_lt_l(s);
+        pad[t] = !live;
       });
+  const int t = threadIdx.x;
+  if (t < n) lane_ok[lo + t] = ((ok_r[t] && ok_as[t]) || pad[t]) ? 1 : 0;
 }
 
 // the points of threads [0, n) of the block (n block-uniform, at most
@@ -367,23 +384,26 @@ static bool rlc_shards(RlcShards &sh, const int *lo, const int *slot, int S,
 }
 
 // Stages 1-4 over B lanes cut into `shards`, stage 1 at lpb lanes a block
-// (16 or 32).  scratch: rtab B*640 int32, zh B*32 u8, zs B*12 int32,
-// lane_ok B u8, partials 96*nblk*40 int32 (nblk = shards.blk[shards.n]);
+// (16 or 32), each lane hashing its NB host-padded SHA-512 blocks (B, NB,
+// 32 words) of which active[b] count.  scratch: rtab B*640 int32, zh
+// B*32 u8, zs B*12 int32, lane_ok B u8, partials 96*nblk*40 int32
+// (nblk = shards.blk[shards.n]);
 // outputs: the stacked sums (D, 96, 40) int32, zs_sum (D, 32) u8 and
 // all_ok (D,) u8, of which each shard writes its slot
 static int rlc_stages(const void *tab, const void *ok_a, const void *idx,
-                      const void *rb, const void *sb, const void *h,
-                      const void *z, int B, const RlcShards &shards, int lpb,
-                      void *rtab, void *zh, void *zs, void *lane_ok,
-                      void *partials, void *sums, void *zs_sum, void *all_ok,
-                      void *stream) {
+                      const void *rb, const void *sb, const void *blocks,
+                      const void *active, int NB, const void *z, int B,
+                      const RlcShards &shards, int lpb, void *rtab, void *zh,
+                      void *zs, void *lane_ok, void *partials, void *sums,
+                      void *zs_sum, void *all_ok, void *stream) {
   int err;
   if (B > 0) {
     const int grid = (B + lpb - 1) / lpb;
 #define RLC_LANE_LAUNCH(LPB)                                                 \
   LAUNCH(rlc_lane_kernel<LPB>, grid, LANE_THREADS, stream,                   \
          (const uint8_t *)ok_a, (const int32_t *)idx, (const uint8_t *)rb,   \
-         (const uint8_t *)sb, (const uint8_t *)h, (const uint8_t *)z, B,     \
+         (const uint8_t *)sb, (const uint32_t *)blocks,                      \
+         (const int32_t *)active, NB, (const uint8_t *)z, B,                 \
          (int32_t *)rtab, (uint8_t *)zh, (int32_t *)zs, (uint8_t *)lane_ok)
     if (lpb == 16)
       RLC_LANE_LAUNCH(16);
@@ -418,10 +438,10 @@ static int rlc_stages(const void *tab, const void *ok_a, const void *idx,
 // passes reuse `partials`, in stream order).
 extern "C" int ed25519_rlc_sums_launch(
     const void *tab, const void *ok_a, const void *idx, const void *rb,
-    const void *sb, const void *h, const void *z, int B, const void *lo,
-    const void *slot, int S, int lpb, void *rtab, void *zh, void *zs,
-    void *lane_ok, void *partials, void *sums, void *zs_sum, void *all_ok,
-    void *stream) {
+    const void *sb, const void *blocks, const void *active, const void *z,
+    int B, int NB, const void *lo, const void *slot, int S, int lpb,
+    void *rtab, void *zh, void *zs, void *lane_ok, void *partials,
+    void *sums, void *zs_sum, void *all_ok, void *stream) {
   const int *lo_ = (const int *)lo, *slot_ = (const int *)slot;
   if (S < 1 || lo_[0] != 0 || lo_[S] != B) return RLC_BAD_ARGUMENT;
   for (int g = 0; g < S; g += RLC_MAX_SHARDS) {
@@ -434,9 +454,11 @@ extern "C" int ed25519_rlc_sums_launch(
       return RLC_BAD_ARGUMENT;
     const int err = rlc_stages(
         tab, ok_a, (const int32_t *)idx + b0, (const uint8_t *)rb + 32 * b0,
-        (const uint8_t *)sb + 32 * b0, (const uint8_t *)h + 32 * b0,
-        (const uint8_t *)z + 16 * b0, glo[n], shards, lpb,
-        (int32_t *)rtab + 640 * b0, (uint8_t *)zh + 32 * b0,
+        (const uint8_t *)sb + 32 * b0,
+        (const uint32_t *)blocks + (size_t)NB * 32 * b0,
+        (const int32_t *)active + b0, NB, (const uint8_t *)z + 16 * b0,
+        glo[n], shards, lpb, (int32_t *)rtab + 640 * b0,
+        (uint8_t *)zh + 32 * b0,
         (int32_t *)zs + 12 * b0, (uint8_t *)lane_ok + b0, partials, sums,
         zs_sum, all_ok, stream);
     if (err != 0) return err;
@@ -460,16 +482,17 @@ extern "C" int ed25519_rlc_combine_launch(const void *sums, const void *zs,
 // which the fold has read by then.
 extern "C" int ed25519_rlc_gather_launch(
     const void *tab, const void *ok_a, const void *idx, const void *rb,
-    const void *sb, const void *h, const void *z, int B, int lpb, void *rtab,
-    void *zh, void *zs, void *lane_ok, void *partials, void *sums,
-    void *zs_sum, void *all_ok, void *out, void *stream) {
+    const void *sb, const void *blocks, const void *active, const void *z,
+    int B, int NB, int lpb, void *rtab, void *zh, void *zs, void *lane_ok,
+    void *partials, void *sums, void *zs_sum, void *all_ok, void *out,
+    void *stream) {
   if (B <= 0) return 0;
   const int lo[2] = {0, B}, slot[1] = {0};
   RlcShards shards;
   rlc_shards(shards, lo, slot, 1, B);
-  int err = rlc_stages(tab, ok_a, idx, rb, sb, h, z, B, shards, lpb, rtab,
-                       zh, zs, lane_ok, partials, sums, zs_sum, all_ok,
-                       stream);
+  int err = rlc_stages(tab, ok_a, idx, rb, sb, blocks, active, NB, z, B,
+                       shards, lpb, rtab, zh, zs, lane_ok, partials, sums,
+                       zs_sum, all_ok, stream);
   if (err != 0) return err;
   LAUNCH(rlc_comb_kernel, 1, RLC_COMB_THREADS, stream,
          (const uint8_t *)zs_sum, (int32_t *)partials);

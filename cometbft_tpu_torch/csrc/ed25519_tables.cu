@@ -24,7 +24,8 @@ __global__ void BOUNDS(LANE_THREADS) ed25519_tables_kernel(
   const int lo = blockIdx.x * LPB;
   const int n = N - lo < LPB ? N - lo : LPB;
   lane_decode_tables<LPB>(pub + (size_t)lo * 32, n, tab + (size_t)lo * 640,
-                          [&](int t, bool good) { ok[lo + t] = good; });
+                          [&](int t, bool good) { ok[lo + t] = good; },
+                          [](int) {});  // nothing for the other warp
 }
 
 // pub (N, 32) u8 -> tab (N, 16, 4, 10) int32, ok (N,) u8, at lpb (16 or

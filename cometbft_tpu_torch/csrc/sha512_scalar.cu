@@ -6,8 +6,9 @@
 // active host-padded blocks with native 64-bit words, then reduces the
 // digest fully below L.  Bound: integer operations (80 rounds of 64-bit
 // adds and rotates per block); the bytes moved are 256 per block in and 32
-// out per lane.  The same device code is inlined in ed25519_verify.cu;
-// ed25519_rlc.cu takes this kernel's output.
+// out per lane.  The same device code is inlined in ed25519_verify.cu and
+// in ed25519_rlc.cu's lane stage, so the verify paths never launch this
+// kernel: it stands alone behind the public sha512_scalar.
 #include "ed25519.cuh"
 
 __global__ void sha512_scalar_kernel(const uint32_t *__restrict__ blocks,

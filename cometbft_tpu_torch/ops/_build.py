@@ -56,15 +56,17 @@ KERNELS = {
                               "ed25519_verify_gather_launch",
                               [_P] * 7 + [_I, _I, _P, _P]),
     "ed25519_rlc_gather": ("ed25519_rlc.cu", "ed25519_rlc_gather_launch",
-                           [_P] * 7 + [_I, _I] + [_P] * 10),
+                           [_P] * 8 + [_I] * 3 + [_P] * 10),
     "ed25519_rlc_sums": ("ed25519_rlc.cu", "ed25519_rlc_sums_launch",
-                         [_P] * 7 + [_I, _P, _P, _I, _I] + [_P] * 9),
+                         [_P] * 8 + [_I, _I, _P, _P, _I, _I] + [_P] * 9),
     "ed25519_rlc_combine": ("ed25519_rlc.cu", "ed25519_rlc_combine_launch",
                             [_P, _P, _P, _I, _P, _P]),
     "sha256_leaves": ("sha256.cu", "sha256_leaves_launch",
                       [_P, _P, _I, _I, _P, _P]),
     "merkle_level": ("sha256.cu", "merkle_level_launch", [_P, _I, _P, _P]),
     "merkle_tree": ("sha256.cu", "merkle_tree_launch", [_P, _I, _P]),
+    "merkle_tree_leaves": ("sha256.cu", "merkle_tree_leaves_launch",
+                           [_P, _P, _I, _I, _P, _P]),
     "aggregate_g1_masked": ("blsg1.cu", "aggregate_g1_masked_launch",
                             [_P, _P, _I, _I, _P, _I, _P, _P]),
 }

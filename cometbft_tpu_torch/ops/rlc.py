@@ -18,10 +18,12 @@ Active all-zero coefficient rows are bumped to 1 on the host, so z != 0
 is exactly the active mask.  The verdict is all-or-nothing: on a reject
 the caller localizes with the per-lane kernel (``ops/ed25519.py``).
 
-On CUDA tensors :func:`verify_batch_rlc_gather` launches the
-``sha512_scalar`` kernel for h, then ``csrc/ed25519_rlc.cu`` (six
-launches on one stream, counted as one launch of ``ed25519_rlc_gather``);
-on CPU tensors it runs the plain version below.  The lane stage takes
+On CUDA tensors :func:`verify_batch_rlc_gather` launches
+``csrc/ed25519_rlc.cu`` (six launches on one stream, counted as one
+launch of ``ed25519_rlc_gather``), whose lane stage hashes each lane (h =
+SHA-512 mod L) beside the decode of its R, so h never leaves the card's
+registers; on CPU tensors it runs the plain version below.  The lane
+stage takes
 ``lane_block(B)`` lanes a block of 64 threads: 16 (a quad writes one
 lane's table, the decode on half a warp) below ``QUAD_LANES_BELOW``
 lanes, where the stage cannot fill the card, else 32 (a quad writes
@@ -222,7 +224,8 @@ def rlc_sums_gather(tab, ok_a, idx, rb, sb, blocks, active, z, out=None,
     ``slot`` of ``out`` (:func:`rlc_sums_buffers` on the lanes' device;
     one slot when not given).  Arguments as
     :func:`verify_batch_rlc_gather`; an empty shard writes the identity,
-    0 and 1.  CUDA kernel ``ed25519_rlc_sums``, after ``sha512_scalar``."""
+    0 and 1.  CUDA kernel ``ed25519_rlc_sums``, the hash in its lane
+    stage."""
     _check_rlc(tab, ok_a, idx, rb, sb, blocks, active, z)
     if out is None:
         out = rlc_sums_buffers(1, idx.device)
@@ -260,8 +263,8 @@ def _rlc_sums_card(tab, ok_a, idx, rb, sb, blocks, active, z, offs, slots,
     """The lane stage and window fold of the shards one device holds, on
     arguments already checked: the lanes of shard ``slots[i]`` are
     ``[offs[i], offs[i + 1])`` of the per-lane arguments, and it writes
-    slot ``slots[i]`` of ``out``.  One ``ed25519_rlc_sums`` call (and one
-    ``sha512_scalar``) over all of those lanes."""
+    slot ``slots[i]`` of ``out``.  One ``ed25519_rlc_sums`` call over all
+    of those lanes."""
     if idx.device.type == "cpu":
         _build.PLAIN_CALLS["ed25519_rlc_sums"] += 1
         lanes = (idx, rb, sb, blocks, active, z)
@@ -276,7 +279,6 @@ def _rlc_sums_card(tab, ok_a, idx, rb, sb, blocks, active, z, offs, slots,
 def _launch_sums(tab, ok_a, idx, rb, sb, blocks, active, z, offs, slots,
                  out):
     b, dev = idx.shape[0], idx.device
-    h = sha512._sha512_scalar(blocks, active)
     nblk = sum(-(-(hi - lo) // _RLC_BLOCK_LANES)
                for lo, hi in zip(offs, offs[1:]))
 
@@ -289,8 +291,9 @@ def _launch_sums(tab, ok_a, idx, rb, sb, blocks, active, z, offs, slots,
     p = base.data_ptr()
     n = len(slots)
     _build.launch("ed25519_rlc_sums", idx, tab.data_ptr(), ok_a.data_ptr(),
-                  idx.data_ptr(), rb.data_ptr(), sb.data_ptr(), h.data_ptr(),
-                  z.data_ptr(), b, (ctypes.c_int * (n + 1))(*offs),
+                  idx.data_ptr(), rb.data_ptr(), sb.data_ptr(),
+                  blocks.data_ptr(), active.data_ptr(), z.data_ptr(), b,
+                  blocks.shape[1], (ctypes.c_int * (n + 1))(*offs),
                   (ctypes.c_int * n)(*slots), n, lane_block(b), p,
                   p + 4 * words, p + 4 * b * 640, p + 4 * words + 32 * b,
                   p + 4 * b * 652, out.sums.data_ptr(), out.zs.data_ptr(),
@@ -341,7 +344,6 @@ def verify_batch_rlc_gather(tab, ok_a, idx, rb, sb, blocks, active, z):
         _build.PLAIN_CALLS["ed25519_rlc_gather"] += 1
         return _rlc_plain(tab, ok_a, idx, rb, sb, blocks, active, z)
     dev = idx.device
-    h = sha512._sha512_scalar(blocks, active)
     nblk = max(1, -(-b // _RLC_BLOCK_LANES))
 
     def empty(shape, dtype):
@@ -359,8 +361,9 @@ def verify_batch_rlc_gather(tab, ok_a, idx, rb, sb, blocks, active, z):
     if b:
         _build.launch("ed25519_rlc_gather", idx, tab.data_ptr(),
                       ok_a.data_ptr(), idx.data_ptr(), rb.data_ptr(),
-                      sb.data_ptr(), h.data_ptr(), z.data_ptr(), b,
-                      lane_block(b), rtab.data_ptr(), zh.data_ptr(),
+                      sb.data_ptr(), blocks.data_ptr(), active.data_ptr(),
+                      z.data_ptr(), b, blocks.shape[1], lane_block(b),
+                      rtab.data_ptr(), zh.data_ptr(),
                       zs.data_ptr(), lane_ok.data_ptr(), partials.data_ptr(),
                       sums.data_ptr(), zs_sum.data_ptr(), all_ok.data_ptr(),
                       out.data_ptr())

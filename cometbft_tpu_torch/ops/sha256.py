@@ -21,7 +21,12 @@ kernel on CUDA, no fallback between the two):
   C call (kernel ``merkle_tree``: blocks that each build a subtree in
   shared memory), into the one level buffer of the merkle tree
   (``crypto/merkle.py``); its plain version is the loop of
-  :func:`merkle_level`'s.
+  :func:`merkle_level`'s;
+- :func:`merkle_tree_leaves`: the leaves' digests and every level above
+  them in one C call (kernel ``merkle_tree_leaves``: the first launch
+  hashes a block's run of leaves straight into the shared memory its
+  subtree is built in); its plain version is the leaves' plain version,
+  then the tree's.  The merkle tree's route from 2,048 leaves.
 
 The plain versions hold each 32-bit word in int64 masked with
 ``0xFFFFFFFF`` (PyTorch's uint32 lacks shifts and rotates on the CPU in
@@ -41,7 +46,8 @@ from . import _build
 
 __all__ = ["K", "IV", "host_pad", "max_blocks_for_len", "words_to_bytes",
            "bytes_to_words", "sha256_blocks", "sha256_leaf_words",
-           "merkle_inner_level", "merkle_level", "tree_rows", "merkle_tree"]
+           "merkle_inner_level", "merkle_level", "tree_rows", "merkle_tree",
+           "merkle_tree_leaves"]
 
 
 def _primes(n: int):
@@ -310,6 +316,35 @@ def merkle_tree(levels: torch.Tensor, n: int) -> torch.Tensor:
         return _merkle_tree_plain(levels, n)
     if n > 1:
         _build.launch("merkle_tree", levels, levels.data_ptr(), n)
+    return levels
+
+
+def merkle_tree_leaves(blocks: torch.Tensor, active: torch.Tensor,
+                       levels: torch.Tensor | None = None) -> torch.Tensor:
+    """Every level of the merkle tree over host-padded leaves, the leaves'
+    digest words too: :func:`sha256_leaf_words` into the first ``B`` rows
+    of ``levels``, then :func:`merkle_tree` (arguments as theirs;
+    ``levels``, when given, a contiguous (``tree_rows(B)``, 8) int32
+    tensor on the leaves' device, else a new one).  Returns ``levels``.
+    CUDA kernel ``merkle_tree_leaves``: one C call, whose first launch
+    hashes the leaves into the shared memory its subtrees are built in
+    (two launches up to 65,536 leaves)."""
+    _check_blocks(blocks, active)
+    b, nb = blocks.shape[0], blocks.shape[1]
+    rows = tree_rows(b)
+    if levels is None:
+        levels = torch.empty((rows, 8), dtype=torch.int32,
+                             device=blocks.device)
+    _build.check_arg(levels, "levels", torch.int32, (rows, 8))
+    if levels.device != blocks.device:
+        raise ValueError("levels lies on another device than the leaves")
+    if blocks.device.type == "cpu":
+        _build.PLAIN_CALLS["merkle_tree_leaves"] += 1
+        levels[:b] = _as_int32(_leaf_state_plain(blocks, active))
+        return _merkle_tree_plain(levels, b)
+    if b:
+        _build.launch("merkle_tree_leaves", blocks, blocks.data_ptr(),
+                      active.data_ptr(), nb, b, levels.data_ptr())
     return levels
 
 

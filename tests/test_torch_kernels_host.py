@@ -84,13 +84,16 @@ def harness(tmp_path_factory):
     return run
 
 
-def _signed_lanes(n, n_keys, seed):
+def _signed_lanes(n, n_keys, seed, lens=None):
+    """n signed lanes over n_keys keys, messages of random lengths below
+    150 bytes or of the lengths ``lens``."""
     rng = np.random.default_rng(seed)
     seeds = [rng.bytes(32) for _ in range(n_keys)]
     pks = [ref.public_key_from_seed(s) for s in seeds]
     lanes = []
     for i in range(n):
-        m = rng.bytes(int(rng.integers(0, 150)))
+        m = rng.bytes(int(rng.integers(0, 150)) if lens is None
+                      else int(lens[i]))
         lanes.append((pks[i % n_keys], m, ref.sign(seeds[i % n_keys], m)))
     return lanes
 
@@ -433,6 +436,97 @@ def test_ragged_lanes_match_plain(harness, n):
         assert [_point(c) for c in got["sums"]] == [_point(c) for c in rows]
 
 
+@pytest.mark.parametrize("case", ["padding active 0", "active cut short"])
+@pytest.mark.parametrize("lpb", [16, 32])
+def test_ragged_blocks_match_plain(harness, lpb, case):
+    """The lane stage's hash over lanes of one, two and three SHA-512
+    blocks in one batch (NB = 3: messages of 0-47, 48-175 and 176-303
+    bytes after R || A), hashed in the warp of each block that does not
+    decode, ``lpb`` lanes a block: with a padding lane (z = 0) whose
+    active count is 0, an accept; with a three-block lane's count cut to
+    two, a reject (h is then the digest of its first two blocks).  The
+    verdict and the 96 window sums against the plain version, which masks
+    the blocks the same way."""
+    rng = np.random.default_rng(120 + lpb)
+    n = 40
+    spans = ((0, 48), (48, 176), (176, 304))
+    lens = [int(rng.integers(*spans[i % 3])) for i in range(n)]
+    b = Lanes(_signed_lanes(n, 7, 120 + lpb, lens))
+    n_lanes, nb, n_keys = b.sizes()
+    active = b.active.numpy().copy()
+    assert nb == 3 and sorted(set(active.tolist())) == [1, 2, 3]
+    mask = None
+    if case == "padding active 0":
+        mask = np.arange(n) != 5
+        active[5] = 0
+    else:
+        active[int(np.flatnonzero(active == 3)[0])] = 2
+    z = trlc.host_rlc_coeffs(n, mask, rng_bytes=rng.bytes(16 * n))
+    got = harness("rlc", [n_lanes, nb, n_keys, lpb],
+                  {**b.host_inputs(), "active": active, "z": z},
+                  {"out": (np.uint8, (1,)), "sums": (np.int32, (96, 40))})
+    args = (*b.args()[:6], torch.from_numpy(active), torch.from_numpy(z))
+    assert bool(got["out"][0]) == bool(trlc._rlc_plain(*args)) == \
+        (case == "padding active 0")
+    sum_a, sum_r, _, _ = trlc._rlc_sums_plain(*args)
+    rows = [torch.cat([c[:, w] for c in sum_a]).tolist() for w in range(64)]
+    rows += [torch.cat([c[:, w] for c in sum_r]).tolist() for w in range(32)]
+    assert [_point(c) for c in got["sums"]] == [_point(c) for c in rows]
+
+
+@pytest.mark.parametrize("nb", ["1", "2", "mixed"])
+@pytest.mark.parametrize("n", [1, 2, 255, 256, 257, 600])
+def test_merkle_tree_leaves_matches_plain_and_hashlib(harness, n, nb):
+    """The tree with its leaves in one call: the first launch hashes a run
+    of 256 leaves a block (a thread a leaf) into the shared memory its
+    subtree is built in, and writes them to the head of the level
+    buffer.  One-block leaves (0x00 || up to 54
+    bytes), two-block leaves (55 to 118 bytes), and a mix of both with
+    active counts cut to 1, 0 and -1 and pushed past NB; every level
+    against the plain version (the leaves' plain version, then the
+    tree's) and hashlib's level order (the leaves' digests under the
+    mask for the cut counts)."""
+    from cometbft_tpu_torch.crypto import merkle
+
+    rng = np.random.default_rng(130 + n)
+    lo, hi = {"1": (0, 55), "2": (55, 119), "mixed": (0, 119)}[nb]
+    items = [rng.bytes(int(k)) for k in rng.integers(lo, hi, size=n)]
+    blocks, active = merkle._leaf_blocks(items)
+    if nb == "mixed":
+        active = active.copy()
+        for i, a in zip(range(0, n, 7), (1, 0, -1, 3)):
+            active[i] = a
+    n_blocks = blocks.shape[1]
+    rows = sha256.tree_rows(n)
+    got = harness("merkle_tree_leaves", [n, n_blocks],
+                  {"blocks": blocks, "active": active},
+                  {"levels": (np.uint32, (rows, 8))})["levels"]
+    plain = sha256.merkle_tree_leaves(
+        torch.from_numpy(blocks.view(np.int32).copy()),
+        torch.from_numpy(active))
+    assert np.array_equal(got.view(np.int32), plain.numpy())
+    # a leaf whose count covers its blocks is hashlib's digest, a count of
+    # 0 or less the initial state; a count cut or pushed past its need
+    # hashes other blocks and is held against the plain version alone
+    iv = sha256.words_to_bytes(sha256.IV).tobytes()
+    lv = []
+    for i, it in enumerate(items):
+        used = min(max(int(active[i]), 0), n_blocks)
+        need = sha256.max_blocks_for_len(len(it) + 1)
+        lv.append(iv if used == 0 else
+                  merkle.leaf_hash(it) if used == need else
+                  sha256.words_to_bytes(got[i]).tobytes())
+    assert [sha256.words_to_bytes(r).tobytes() for r in got[:n]] == lv
+    want = []
+    while True:
+        want += lv
+        if len(lv) == 1:
+            break
+        lv = [merkle.inner_hash(lv[2 * i], lv[2 * i + 1])
+              for i in range(len(lv) // 2)] + lv[len(lv) - len(lv) % 2:]
+    assert [r.tobytes() for r in sha256.words_to_bytes(got)] == want
+
+
 def _cached_row(pt):
     """The oracle's extended point -> a cached row of 40 limbs."""
     zi = pow(pt[2], P - 2, P)
@@ -521,8 +615,8 @@ def test_blsg1_fold_matches_plain(harness, r):
     ids=["D1", "D3-ragged-tampered", "D4-empty-shard-tampered",
          "D4-two-cards-tampered", "D2-300"])
 def test_rlc_sharded_matches_plain(harness, d, n_lanes, tamper, cards, lpb):
-    """The sharded verdict: per card one ``sha512_scalar`` and one
-    ``ed25519_rlc_sums`` call over its shards' lanes, each shard into its
+    """The sharded verdict: per card one ``ed25519_rlc_sums`` call over
+    its shards' lanes (the lane stage hashing them), each shard into its
     slot, then ``ed25519_rlc_combine``, against
     ``make_verify_batch_rlc_sharded`` over ``d`` CPU shards: the verdict,
     each shard's window sums as points, its sum z*s mod L and its ok

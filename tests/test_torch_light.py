@@ -187,13 +187,12 @@ def _random_set(n, seed):
 
 def test_large_validator_set_takes_the_kernel_route():
     """2,100 validators: the leaves (one block each) and the 12 levels
-    above them (one tree call) go through the plain versions of the
-    kernels on the CPU."""
+    above them (one fused tree call) go through the plain version of the
+    kernel on the CPU."""
     jvals, tvals = _random_set(2100, 61)
     _build.reset_launches()
     assert tvals.hash("cpu") == jvals.hash()
-    assert dict(_build.PLAIN_CALLS) == {"sha256_leaves": 1,
-                                        "merkle_tree": 1}
+    assert dict(_build.PLAIN_CALLS) == {"merkle_tree_leaves": 1}
     with pytest.raises(RuntimeError):         # device=None is CUDA
         tvals.hash()
 
@@ -217,7 +216,7 @@ def test_large_commit_takes_the_kernel_route():
     tc = convert.commit_from_arrays(**commit_args(jc))
     _build.reset_launches()
     assert tc.hash("cpu") == jc.hash()
-    assert _build.PLAIN_CALLS["sha256_leaves"] == 1
+    assert _build.PLAIN_CALLS["merkle_tree_leaves"] == 1
     assert tc.validate_basic() == jc.validate_basic() is None
 
 

@@ -104,6 +104,39 @@ def test_merkle_tree_matches_jax(n):
     assert TS.words_to_bytes(got[-1]).tobytes() == hl[0]
 
 
+@pytest.mark.parametrize("n,nb", [(1, 1), (2, 2), (7, 1), (64, 2),
+                                  (257, 2)])
+def test_merkle_tree_leaves_matches_jax(n, nb):
+    """The fused tree call's plain version (the leaves' digest words, then
+    every level above them, in one buffer) against ``jax.jit`` of
+    ``sha256_blocks`` on the padded leaves, then of
+    ``merkle_inner_level`` level by level (pairs padded to one shape, the
+    odd tail promoted); ragged leaves, and active counts cut to 0 and
+    pushed past the block count."""
+    rng = np.random.default_rng(190 + n)
+    lens = [int(x) for x in rng.integers(1, 64 * nb - 9 + 1, size=n)]
+    _, (blocks, active) = _padded(rng, lens, nb)
+    active = active.copy()
+    active[n // 2] = 0
+    active[n - 1] = nb + 2
+    got = TS.merkle_tree_leaves(torch.from_numpy(blocks.view(np.int32)),
+                                torch.from_numpy(active))
+    assert got.shape == (TS.tree_rows(n), 8)
+    leaves = TS.bytes_to_words(np.asarray(jax.jit(JS.sha256_blocks)(
+        blocks, active)).astype(np.uint8))
+    inner = jax.jit(JS.merkle_inner_level)
+    lv, want = leaves, [leaves]
+    while len(lv) > 1:
+        m = len(lv) // 2
+        pad = np.zeros((256, 8), np.uint32)
+        left, right = pad.copy(), pad.copy()
+        left[:m], right[:m] = lv[0:2 * m:2], lv[1:2 * m:2]
+        lv = np.concatenate([np.asarray(inner(left, right))[:m],
+                             lv[2 * m:]])
+        want.append(lv)
+    assert np.array_equal(got.numpy().view(np.uint32), np.concatenate(want))
+
+
 def test_merkle_level_promotes_the_odd_tail():
     rng = np.random.default_rng(95)
     kids = torch.from_numpy(np.frombuffer(rng.bytes(32 * 7), np.int32)
@@ -174,7 +207,7 @@ def test_tree_roots_and_proofs_match_jax(spec, route):
     assert [tuple(p) for p in tproofs] == [tuple(p) for p in jproofs]
     assert not _build.LAUNCHES
     want = {"recursive": {}, "levels": {},
-            "kernel": {"sha256_leaves": 2, "merkle_tree": 2},
+            "kernel": {"merkle_tree_leaves": 2},
             "kernel-hashlib": {"merkle_tree": 2}}[route]
     assert dict(_build.PLAIN_CALLS) == want
     for i in {0, n // 2, n - 1}:

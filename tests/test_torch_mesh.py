@@ -542,5 +542,5 @@ def test_device_set_reaches_every_entry_point(chain130):
     _, tvals = _random_set(2100, 64)
     _build.reset_launches()
     assert tvals.hash() == tvals.hash("cpu")
-    assert _build.PLAIN_CALLS["sha256_leaves"] == 2
+    assert _build.PLAIN_CALLS["merkle_tree_leaves"] == 2
     assert not _build.LAUNCHES

@@ -19,7 +19,7 @@
 //   verify B NB N       tab, ok_a, idx, rb, sb, blocks, active -> out
 //   rlc B NB N LPB      tab, ok_a, idx, rb, sb, blocks, active, z -> out,
 //                       sums (the 96 window sums); the lane stage at LPB
-//                       lanes a block
+//                       lanes a block, hashing the lanes' blocks itself
 //   ladder              sums (96 x 40), zs (32), ok (1) -> out (2): the
 //                       single-device verdict's last launches (comb,
 //                       ladder) and the combine entry over one shard
@@ -27,9 +27,9 @@
 //                       the same inputs cut into D contiguous shards of
 //                       ceil(B/D) lanes (the last short, possibly empty),
 //                       shard d on card d % C: per card, its shards' lanes
-//                       side by side, one sha512_scalar and one
-//                       ed25519_rlc_sums call (lane stage at LPB lanes a
-//                       block; RLC_MAX_SHARDS shards a pass) writing each
+//                       side by side, one ed25519_rlc_sums call (lane
+//                       stage at LPB lanes a block, hashing the lanes'
+//                       blocks; RLC_MAX_SHARDS shards a pass) writing each
 //                       shard's slot; then
 //                       ed25519_rlc_combine -> out, sums (D x 96 window
 //                       sums), zs (D x 32), ok (D)
@@ -37,6 +37,10 @@
 //   merkle N            children (N x 8 words) -> parents
 //   merkle_tree N       leaves (N x 8 words) -> levels (every level of the
 //                       tree, leaves first, the root last)
+//   merkle_tree_leaves N NB
+//                       blocks (N x NB x 16 words), active (N) -> levels
+//                       (the leaves' digests, then every level above
+//                       them)
 //   blsg1 R N2          rows (R x 2 x 12 words), mask (R) -> out (3 x 32
 //                       12-bit limbs); N2 the padded row count (blocks of
 //                       G1_ROWS = 8 rows and G1_GROUPS = 2 additions at a
@@ -216,6 +220,18 @@ int main(int argc, char **argv) {
     save("levels", levels);
     return 0;
   }
+  if (mode == "merkle_tree_leaves") {
+    const int N = a0, NB = a1;
+    size_t rows = N;
+    for (int w = N; w > 1; rows += w) w = (w + 1) / 2;
+    auto blocks = load<uint32_t>("blocks", (size_t)N * NB * 16);
+    auto active = load<int32_t>("active", N);
+    std::vector<uint32_t> levels(rows * 8);
+    check(merkle_tree_leaves_launch(blocks.data(), active.data(), NB, N,
+                                    levels.data(), nullptr));
+    save("levels", levels);
+    return 0;
+  }
   if (mode == "blsg1") {
     const int R = a0, N2 = a1;
     auto rows = load<uint32_t>("rows", (size_t)R * 2 * 12);
@@ -302,16 +318,14 @@ int main(int argc, char **argv) {
       int nblk = 0;
       for (size_t i = 0; i + 1 < lo.size(); i++)
         nblk += (lo[i + 1] - lo[i] + RLC_BLOCK_LANES - 1) / RLC_BLOCK_LANES;
-      std::vector<uint8_t> h((size_t)n * 32), zh((size_t)n * 32), lane_ok(n);
+      std::vector<uint8_t> zh((size_t)n * 32), lane_ok(n);
       std::vector<int32_t> rtab((size_t)n * 640), zs((size_t)n * 12),
           partials((size_t)RLC_WINDOWS * nblk * 40);
-      if (n > 0)
-        check(sha512_scalar_launch(cblocks.data(), cactive.data(), n, NB,
-                                   h.data(), nullptr));
       check(ed25519_rlc_sums_launch(
           tab.data(), ok_a.data(), cidx.data(), crb.data(), csb.data(),
-          h.data(), cz.data(), n, lo.data(), slot.data(), (int)slot.size(),
-          lpb, rtab.data(), zh.data(), zs.data(), lane_ok.data(),
+          cblocks.data(), cactive.data(), cz.data(), n, NB, lo.data(),
+          slot.data(), (int)slot.size(), lpb, rtab.data(), zh.data(),
+          zs.data(), lane_ok.data(),
           partials.data(), sums.data(), zs_sum.data(), all_ok.data(),
           nullptr));
     }
@@ -325,17 +339,15 @@ int main(int argc, char **argv) {
   }
   const int lpb = argc > 6 ? atoi(argv[6]) : 32;
   const int nblk = (B + RLC_BLOCK_LANES - 1) / RLC_BLOCK_LANES;
-  std::vector<uint8_t> h((size_t)B * 32), zh((size_t)B * 32), lane_ok(B),
-      zs_sum(32), all_ok(1), out(1);
+  std::vector<uint8_t> zh((size_t)B * 32), lane_ok(B), zs_sum(32), all_ok(1),
+      out(1);
   std::vector<int32_t> rtab((size_t)B * 640), zs((size_t)B * 12),
       partials((size_t)RLC_WINDOWS * nblk * 40), sums(RLC_WINDOWS * 40);
-  check(sha512_scalar_launch(blocks.data(), active.data(), B, NB, h.data(),
-                             nullptr));
   check(ed25519_rlc_gather_launch(
-      tab.data(), ok_a.data(), idx.data(), rb.data(), sb.data(), h.data(),
-      z.data(), B, lpb, rtab.data(), zh.data(), zs.data(), lane_ok.data(),
-      partials.data(), sums.data(), zs_sum.data(), all_ok.data(),
-      out.data(), nullptr));
+      tab.data(), ok_a.data(), idx.data(), rb.data(), sb.data(),
+      blocks.data(), active.data(), z.data(), B, NB, lpb, rtab.data(),
+      zh.data(), zs.data(), lane_ok.data(), partials.data(), sums.data(),
+      zs_sum.data(), all_ok.data(), out.data(), nullptr));
   save("out", out);
   save("sums", sums);
   return 0;
