@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port's commit-, light-header and BLS
-aggregate-commit verification paths, and of lane-sharded commit
-verification over a device set, on one card.
+aggregate-commit verification paths, of lane-sharded commit
+verification over a device set, and of the light client, on one card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -49,7 +49,12 @@ Phases, each of which must pass or the script exits non-zero:
    on the kernel route; ``verify_adjacent``, ``verify_non_adjacent``,
    ``verify_sequential_batched``, ``VerifyCommit`` and the set's hash,
    a forged validator set (``ErrInvalidHeader``) and a tampered
-   signature (``ErrBatchItemInvalid`` with its item and height);
+   signature (``ErrBatchItemInvalid`` with its item and height); then
+   the host parts of one ``VerifyCommit`` timed apart
+   (``verify_commit_parts``: the columns, the sign-bytes rows by the
+   native encoder and by the per-lane loop it replaced, ``host_pad``,
+   the dispatch, the rest), the encoder's rows held byte for byte
+   against ``Commit.vote_sign_bytes`` over every lane;
 8. BLS, 10,000 validators, all BLS, every 50th absent: two linked
    headers whose commits carry one aggregate signature each (one
    signature under the signers' summed secret); ``VerifyCommitLight``
@@ -81,9 +86,20 @@ Phases, each of which must pass or the script exits non-zero:
    150 lanes over 4); the one-shard ``rlc_sums_gather`` against the
    plain version's first shard; the sums timed as the verdict runs them
    (no index check): one 2,500-lane shard alone, and four shards of one
-   card in one call.
+   card in one call;
+10. light client (``phase_light_client``; it runs after phase 8, while
+   the key pool is open): ``light.Client`` over providers of prebuilt
+   blocks, (a) sequential over phase 6's chain, (b) skipping over
+   ``SKIP_HEIGHTS`` heights of 150 validators, one replaced every
+   ``SKIP_ROTATE_EVERY`` (the client bisects; commits signed when first
+   served), (c) skipping over phase 7's 10,000-validator headers, (d)
+   the divergence detector against a witness forked above ``FORK_AT``
+   (``DivergenceError`` naming it, evidence to both sides) and a
+   lagging witness dropped after ``MAX_WITNESS_LAG_STRIKES`` calls; each
+   case's p50, min and max with a new client and store a call, fetches,
+   and one traced call of (a) and (c).
 
-Phases 4, 6, 7, 8 and 9 are the main path: the launch counters are
+Phases 4, 6, 7, 8, 9 and 10 are the main path: the launch counters are
 zeroed just before each and read just after; each phase's kernels must
 have launched, no plain version may have run, and neither standalone
 hash kernel (``OFF_PATH``: the RLC lane stage hashes its lanes, the tree
@@ -201,6 +217,10 @@ RAGGED_SPANS = ((0, 48), (48, 176), (176, 304))
 LIGHT_VALS = 150                 # validators of the 150-validator light phase
 LIGHT_HEADERS = 128              # its chain (BASELINE configs[2]: 1,000)
 BIG_VALS = 10_000                # validators of the 10k light phase
+SKIP_HEIGHTS = 1_000             # heights of phase 10 (b) (BASELINE configs[2])
+SKIP_ROTATE_EVERY = 5            # (b): a validator replaced every 5 heights
+FORK_AT = 100                    # (d): the witness's fork above this height
+FORK_SKEW_NS = 777               # (d): the fork's timestamps, skewed by this
 TRUSTING_PERIOD_NS = 14 * 24 * 3600 * 10**9
 LIGHT_T0 = 1_700_000_000_000_000_000
 BLS_VALS = 10_000                # validators of the BLS phase, all BLS
@@ -355,13 +375,7 @@ def lane_arrays(vals, commit):
 
     pubs, _ = vals.dense()
     n = commit.size()
-    msgs_b = [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(n)]
-    maxlen = max(len(m) for m in msgs_b)
-    msgs = np.zeros((n, maxlen), np.uint8)
-    lens = np.zeros((n,), np.int64)
-    for i, m in enumerate(msgs_b):
-        msgs[i, :len(m)] = np.frombuffer(m, np.uint8)
-        lens[i] = len(m)
+    msgs, lens = _loop_rows(commit, range(n))
     sigs = np.frombuffer(b"".join(cs.signature for cs in commit.signatures),
                          np.uint8).reshape(n, 64)
     return np.array(pubs), sigs.copy(), msgs, lens
@@ -1520,11 +1534,397 @@ def phase_light10k(pool, keys, dev, reps):
     return launches, {
         "fixture_s": fixture_s, "first_path_s": first_s,
         "per_call_launches": per_call, "wall": wall, "host_ms": host,
+        "verify_commit_parts_ms": verify_commit_parts(vals, h2.commit, dev,
+                                                      reps),
         "profile_verify_adjacent": profile_call(calls["verify_adjacent"]),
         "profile_verify_commit": profile_call(calls["VerifyCommit"],
                                               reps // 4),
         "profile_valset_hash": profile_call(calls["ValidatorSet.hash"])}, \
-        (vals, h2)
+        (vals, h2), (h1, h2, h3)
+
+
+def _loop_rows(commit, scope):
+    """Sign-bytes rows of lanes ``scope`` built lane by lane with
+    ``Commit.vote_sign_bytes`` (the route the native encoder replaced),
+    timed beside it and held against it."""
+    import numpy as np
+
+    msgs_b = [commit.vote_sign_bytes(CHAIN_ID, int(i)) for i in scope]
+    width = max((len(m) for m in msgs_b), default=0)
+    msgs = np.zeros((len(msgs_b), width), np.uint8)
+    lens = np.zeros((len(msgs_b),), np.int64)
+    for j, m in enumerate(msgs_b):
+        msgs[j, :len(m)] = np.frombuffer(m, np.uint8)
+        lens[j] = len(m)
+    return msgs, lens
+
+
+def verify_commit_parts(vals, commit, dev, reps) -> dict:
+    """The host parts of one ``VerifyCommit`` at the set's size, each
+    timed alone (median ms of ``reps`` calls): the commit's columns
+    (``dense_columns``), its sign-bytes rows by the native encoder and by
+    the per-lane loop, the SHA-512 padding of R || A || M (``host_pad``),
+    the dispatch (``verify_dense`` with its packing, copies, kernels and
+    verdict read), and the call itself; "rest" is the call less columns,
+    encoder rows and dispatch.  The encoder's rows must equal the loop's
+    byte for byte over every lane."""
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import batch as cryptobatch
+    from cometbft_tpu_torch.ops import sha512 as sha
+    from cometbft_tpu_torch.types import validation as V
+
+    pubs, _ = vals.dense()
+    flags, ts, sigmat, _ = commit.dense_columns()
+    scope = np.nonzero(flags != 1)[0]
+    msgs, lens = V._dense_build_rows(CHAIN_ID, commit, ts, flags, scope)
+    lmsgs, llens = _loop_rows(commit, scope)
+    rows_equal = bool(np.array_equal(lens, llens) and all(
+        bytes(msgs[i, :lens[i]]) == bytes(lmsgs[i, :llens[i]])
+        for i in range(scope.size)) and not any(
+        msgs[i, lens[i]:].any() for i in range(scope.size)))
+    if not rows_equal:
+        raise AssertionError("encoder rows differ from Commit.vote_sign_bytes")
+    rs, ss = sigmat[scope, :32], sigmat[scope, 32:]
+
+    def pad():
+        hin = np.zeros((scope.size, 64 + msgs.shape[1]), np.uint8)
+        hin[:, :32] = rs
+        hin[:, 32:64] = pubs[scope]
+        hin[:, 64:] = msgs
+        nb = sha.max_blocks_for_len(64 + int(lens.max()))
+        return sha.host_pad(hin, 64 + lens, nb)
+
+    parts = {
+        "dense_columns": lambda: commit.dense_columns(),
+        "rows_native": lambda: V._dense_build_rows(CHAIN_ID, commit, ts,
+                                                    flags, scope),
+        "rows_per_lane_loop": lambda: _loop_rows(commit, scope),
+        "host_pad": pad,
+        "dispatch_verify_dense": lambda: cryptobatch.verify_dense(
+            np.ascontiguousarray(pubs[scope]),
+            np.ascontiguousarray(sigmat[scope]), msgs, lens, device=dev,
+            valset_pubs=pubs, scope=scope),
+        "VerifyCommit": lambda: V.VerifyCommit(
+            CHAIN_ID, vals, commit.block_id, commit.height, commit,
+            device=dev),
+    }
+    out = {k: statistics.median(time_host(fn) for _ in range(reps))
+           for k, fn in parts.items()}
+    out["rest"] = out["VerifyCommit"] - out["dense_columns"] - \
+        out["rows_native"] - out["dispatch_verify_dense"]
+    out["lanes"] = int(scope.size)
+    out["stride"] = int(msgs.shape[1])
+    out["rows_equal"] = rows_equal
+    return out
+
+
+# ------------------------------------------------- phase 10: light client
+
+def smoke_provider(blocks, name, signer=None):
+    """A ``light.Provider`` over prebuilt light blocks: counts fetches
+    (the heights, in order), records reported evidence, and hands each
+    served block to ``signer`` (which signs its commit the first time)."""
+    from cometbft_tpu_torch.light import ErrLightBlockNotFound, Provider
+
+    class SmokeProvider(Provider):
+        def __init__(self):
+            self.by_height = {lb.height: lb for lb in blocks}
+            self.tip = max(self.by_height)
+            self.fetched: list = []
+            self.reported: list = []
+
+        def id(self):
+            return name
+
+        async def light_block(self, height):
+            self.fetched.append(height)
+            lb = self.by_height.get(self.tip if height == 0 else height)
+            if lb is None:
+                raise ErrLightBlockNotFound(f"{name}: no light block at "
+                                            f"height {height}")
+            if signer is not None:
+                signer(lb)
+            return lb
+
+        async def report_evidence(self, evidence):
+            self.reported.append(evidence)
+
+    return SmokeProvider()
+
+
+class LazySigner:
+    """Signs a light block's commit (every lane, in the pool) the first
+    time a provider serves it; the signatures stay in the block."""
+
+    def __init__(self, pool, key_of):
+        self.pool, self.key_of = pool, key_of
+        self.blocks = 0
+        self.seconds = 0.0
+
+    def __call__(self, lb):
+        sigs = lb.commit.signatures
+        if sigs[0].signature:
+            return
+        t0 = time.perf_counter()
+        tasks = [(self.key_of[cs.validator_address],
+                  [lb.commit.vote_sign_bytes(CHAIN_ID, lane)])
+                 for lane, cs in enumerate(sigs)]
+        for cs, row in zip(sigs, self.pool.map(
+                _sign_all, tasks,
+                chunksize=max(1, len(tasks) // (4 * os.cpu_count())))):
+            cs.signature = row[0]
+        self.blocks += 1
+        self.seconds += time.perf_counter() - t0
+
+
+def _unsigned_block(vals, vh, nvh, height, time_ns, prev):
+    from cometbft_tpu_torch.light import LightBlock
+    from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.commit import (BLOCK_ID_FLAG_COMMIT,
+                                                 Commit, CommitSig)
+    from cometbft_tpu_torch.types.header import Header
+
+    header = Header(chain_id=CHAIN_ID, height=height, time_ns=time_ns,
+                    last_block_id=prev, validators_hash=vh,
+                    next_validators_hash=nvh,
+                    proposer_address=vals.validators[0].address)
+    bid = BlockID(header.hash(), PartSetHeader(1, b"\x5a" * 32))
+    return LightBlock(header, Commit(height, 0, bid, [
+        CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, time_ns + 1 + lane % 997,
+                  b"") for lane, v in enumerate(vals.validators)]), vals)
+
+
+def rotating_chain(keys, n_vals: int, n_headers: int, every: int):
+    """Headers 1..n_headers under n_vals validators (power 10), the
+    longest-serving one replaced by a fresh key every ``every`` heights
+    (the set updated with ``update_with_change_set``); commits unsigned.
+    Returns (blocks, address -> private key)."""
+    import collections
+
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    from cometbft_tpu_torch.types.block_id import BlockID
+    from cometbft_tpu_torch.types.validator_set import (Validator,
+                                                        ValidatorSet)
+
+    pubs = [Ed25519PrivKey(k).pub_key() for k in keys]
+    key_of = {pk.address(): k for pk, k in zip(pubs, keys)}
+    vals = ValidatorSet([Validator(pk, 10) for pk in pubs[:n_vals]])
+    serving = collections.deque(pubs[:n_vals])
+    fresh = iter(pubs[n_vals:])
+    vh = vals.hash("cpu")                  # 150 leaves: hashlib anyway
+    blocks, prev = [], BlockID()
+    for h in range(1, n_headers + 1):
+        nxt, nvh = vals, vh
+        if h % every == 0:
+            new = next(fresh)
+            nxt = vals.copy()
+            nxt.update_with_change_set([Validator(serving.popleft(), 0),
+                                        Validator(new, 10)])
+            serving.append(new)
+            nvh = nxt.hash("cpu")
+        blocks.append(_unsigned_block(vals, vh, nvh, h,
+                                      LIGHT_T0 + h * 10**9, prev))
+        prev = blocks[-1].commit.block_id
+        vals, vh = nxt, nvh
+    return blocks, key_of
+
+
+def forked_chain(chain, fork_at: int, skew_ns: int):
+    """``chain``'s blocks through ``fork_at``, then blocks of the same
+    validators with timestamps skewed by ``skew_ns``, linked to the
+    fork's own block ids; the fork's commits unsigned."""
+    blocks = list(chain[:fork_at])
+    prev = chain[fork_at - 1].commit.block_id
+    for lb in chain[fork_at:]:
+        h = lb.header
+        blocks.append(_unsigned_block(lb.validators, h.validators_hash,
+                                      h.next_validators_hash, h.height,
+                                      h.time_ns + skew_ns, prev))
+        prev = blocks[-1].commit.block_id
+    return blocks
+
+
+def light_client_host_ms(lb150, lb10k, reps) -> dict:
+    """Median host ms of what the client does around the kernels, at 150
+    and 10,000 validators: the store's codec (``pack`` of a light block
+    as ``TrustedStore.save`` writes it, ``unpack`` as ``latest`` reads
+    it), and a validator set's construction with the one proposer
+    increment it runs, and that increment alone."""
+    from cometbft_tpu_torch.types import codec
+    from cometbft_tpu_torch.types.validator_set import (Validator,
+                                                        ValidatorSet)
+
+    out = {}
+    for tag, lb in (("150", lb150), ("10k", lb10k)):
+        d = {"h": lb.header, "c": lb.commit, "v": lb.validators}
+        raw = codec.pack(d)
+        vals = [Validator(v.pub_key, v.voting_power)
+                for v in lb.validators.validators]
+        fresh = ValidatorSet(vals)
+        for name, fn in (
+                ("pack", lambda: codec.pack(d)),
+                ("unpack", lambda: codec.unpack(raw)),
+                ("valset_new", lambda: ValidatorSet(vals)),
+                ("increment_1", lambda: fresh.increment_proposer_priority(1))):
+            out[f"{name}_{tag}"] = statistics.median(
+                time_host(fn) for _ in range(reps))
+        out[f"stored_bytes_{tag}"] = len(raw)
+    return out
+
+
+def phase_light_client(pool, keys, chain150, blocks10k, dev, reps):
+    """Phase 10: ``light.Client`` over smoke providers, four cases, each
+    run once as the main path (counters zeroed just before, read just
+    after), then timed with a new client and a new ``MemDB`` a call:
+
+    (a) sequential, 150 validators: trust height 1 of phase 6's chain,
+        verify to LIGHT_HEADERS; the store holds every height;
+    (b) skipping, 150 validators, SKIP_HEIGHTS heights, a validator
+        replaced every SKIP_ROTATE_EVERY heights: the jump from 1 loses
+        the 1/3 overlap and the client bisects; commits signed when first
+        served (the main-path run is the warm-up);
+    (c) skipping, BIG_VALS validators, phase 7's headers: trust 1, jump
+        to the last (one ``verify_non_adjacent`` at full width);
+    (d) detector, 150 validators: a witness serving phase 6's chain
+        forked above FORK_AT (skewed timestamps, signed lazily) must
+        raise ``DivergenceError`` naming it, with evidence to both sides;
+        a witness that never has the height is dropped after
+        ``MAX_WITNESS_LAG_STRIKES`` calls."""
+    import asyncio
+
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    from cometbft_tpu_torch.light import (SEQUENTIAL, Client,
+                                          DivergenceError, TrustedStore,
+                                          TrustOptions)
+    from cometbft_tpu_torch.light.detector import MAX_WITNESS_LAG_STRIKES
+    from cometbft_tpu_torch.storage.db import MemDB, height_key
+
+    loop = asyncio.new_event_loop()
+    fixture_s = {}
+    t0 = time.perf_counter()
+    skip_chain, skip_keys = rotating_chain(
+        keys[:LIGHT_VALS + SKIP_HEIGHTS // SKIP_ROTATE_EVERY], LIGHT_VALS,
+        SKIP_HEIGHTS, SKIP_ROTATE_EVERY)
+    skip_signer = LazySigner(pool, skip_keys)
+    fixture_s["b_chain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fork = forked_chain(chain150, FORK_AT, FORK_SKEW_NS)
+    fork_signer = LazySigner(pool, {
+        Ed25519PrivKey(k).pub_key().address(): k
+        for k in keys[:LIGHT_VALS]})
+    fixture_s["d_fork"] = time.perf_counter() - t0
+
+    def client(blocks, mode="skipping", witnesses=(), signer=None):
+        primary = smoke_provider(blocks, "primary", signer)
+        return Client(CHAIN_ID, TrustOptions(TRUSTING_PERIOD_NS, 1,
+                                             blocks[0].header.hash()),
+                      primary, witnesses=list(witnesses),
+                      store=TrustedStore(MemDB()), mode=mode, device=dev,
+                      now_ns=lambda: blocks[-1].header.time_ns + 10**9)
+
+    def case_a():
+        c = client(chain150, SEQUENTIAL)
+        lb = loop.run_until_complete(
+            c.verify_light_block_at_height(LIGHT_HEADERS))
+        keys_ = [k for k, _ in c.store.db.iterate()]
+        if lb is not chain150[-1] or keys_ != [
+                height_key(b"lb/", h) for h in range(1, LIGHT_HEADERS + 1)]:
+            raise AssertionError("(a): store does not hold every height")
+        return c.primary.fetched
+
+    def case_b():
+        c = client(skip_chain, signer=skip_signer)
+        lb = loop.run_until_complete(
+            c.verify_light_block_at_height(SKIP_HEIGHTS))
+        fetched = c.primary.fetched
+        if lb is not skip_chain[-1] or len(fetched) > SKIP_HEIGHTS // 20 \
+                or len(set(fetched)) < 4:
+            raise AssertionError(f"(b): fetched {fetched}")
+        return fetched
+
+    def case_c():
+        c = client(blocks10k)
+        lb = loop.run_until_complete(
+            c.verify_light_block_at_height(blocks10k[-1].height))
+        if lb is not blocks10k[-1] or c.primary.fetched != [1, 3]:
+            raise AssertionError(f"(c): fetched {c.primary.fetched}")
+        return c.primary.fetched
+
+    def case_d():
+        forked = smoke_provider(fork, "forked", fork_signer)
+        laggard = smoke_provider(chain150[:2], "laggard")
+        c = client(chain150, SEQUENTIAL, (forked, laggard))
+        try:
+            loop.run_until_complete(
+                c.verify_light_block_at_height(LIGHT_HEADERS))
+            raise AssertionError("(d): no DivergenceError")
+        except DivergenceError as e:
+            err = e
+        ok = (err.witness_id == "forked" and err.common_height == FORK_AT
+              and [ev.conflicting_height for ev in forked.reported]
+              == [FORK_AT + 1]
+              and [ev.conflicting_height for ev in c.primary.reported]
+              == [FORK_AT + 1]
+              and forked.reported[0].conflicting_header_hash
+              == chain150[FORK_AT].header.hash()
+              and c.primary.reported[0].conflicting_header_hash
+              == fork[FORK_AT].header.hash()
+              and c.store.get(LIGHT_HEADERS) is None)
+        if not ok:
+            raise AssertionError(f"(d): {err}")
+        # the lag strikes: a witness stuck at height 2 beside an honest one
+        laggard = smoke_provider(chain150[:2], "laggard")
+        honest = smoke_provider(chain150, "honest")
+        c = client(chain150, witnesses=(laggard, honest))
+        present = []
+        for h in range(LIGHT_HEADERS - MAX_WITNESS_LAG_STRIKES + 1,
+                       LIGHT_HEADERS + 1):
+            present.append([w.id() for w in c.witnesses])
+            loop.run_until_complete(c.verify_light_block_at_height(h))
+        if present[-1] != ["laggard", "honest"] or \
+                [w.id() for w in c.witnesses] != ["honest"]:
+            raise AssertionError(f"(d): witnesses {present}, then "
+                                 f"{[w.id() for w in c.witnesses]}")
+        return {"error": str(err), "forked_fetched": len(forked.fetched),
+                "witnesses_by_call": present}
+
+    cases = {"a_sequential150": case_a, "b_skipping150": case_b,
+             "c_skipping10k": case_c, "d_detector150": case_d}
+    first = {}
+
+    def main_path():
+        out = {}
+        for name, fn in cases.items():
+            t1 = time.perf_counter()
+            out[name] = fn()
+            first[name] = time.perf_counter() - t1
+        return out
+
+    t0 = time.perf_counter()
+    launches, results = _path_launches(main_path, (
+        "ed25519_tables", "ed25519_verify_gather", "ed25519_rlc_gather",
+        "merkle_tree_leaves"))
+    first_s = time.perf_counter() - t0
+    wall = {"a_sequential150": time_host_spread(case_a, reps),
+            "b_skipping150": time_host_spread(case_b, reps),
+            "c_skipping10k": time_host_spread(case_c, reps),
+            "d_detector150": time_host_spread(case_d, max(3, reps // 4))}
+    prof = {"a_sequential150": profile_call(case_a),
+            "c_skipping10k": profile_call(case_c)}
+    loop.close()
+    return launches, {
+        "host_ms": light_client_host_ms(chain150[-1], blocks10k[-1],
+                                        max(3, reps // 4)),
+        "fixture_s": fixture_s, "first_path_s": first_s,
+        "first_call_s": first, "signed_blocks": {
+            "b": skip_signer.blocks, "d": fork_signer.blocks},
+        "signing_s": {"b": skip_signer.seconds, "d": fork_signer.seconds},
+        "fetched_b": results["b_skipping150"],
+        "fetches": {k: len(v) for k, v in results.items()
+                    if isinstance(v, list)},
+        "detector": results["d_detector150"], "wall": wall,
+        "profile": prof}
 
 
 def _window_points(rows):
@@ -2498,7 +2898,8 @@ def main(argv=None) -> int:
               f"({l150['headers']} headers, {l150['lanes']} lanes): "
               f"{_spread(l150['wall'])}  [{card}]")
         t0 = time.perf_counter()
-        l10k_launches, l10k, fx10k = phase_light10k(pool, keys, dev, REPS)
+        l10k_launches, l10k, fx10k, blocks10k = phase_light10k(
+            pool, keys, dev, REPS)
         print(f"light {BIG_VALS}: fixture {l10k['fixture_s']:.1f} s, phase "
               f"{time.perf_counter() - t0:.1f} s; launches {l10k_launches}")
         t0 = time.perf_counter()
@@ -2509,9 +2910,27 @@ def main(argv=None) -> int:
         print(f"host library: bls12381 built in "
               f"{native.BUILD_SECONDS['bls12381']:.1f} s with g++")
         bls_launches, bls = phase_bls(pool, dev, REPS, rec)
-    print(f"bls {BLS_VALS}: fixture {bls['fixture_s']:.1f} s, phase "
-          f"{time.perf_counter() - t0:.1f} s; {bls['signers']} signers; "
-          f"launches {bls_launches}")
+        print(f"bls {BLS_VALS}: fixture {bls['fixture_s']:.1f} s, phase "
+              f"{time.perf_counter() - t0:.1f} s; {bls['signers']} signers; "
+              f"launches {bls_launches}")
+        t0 = time.perf_counter()
+        lc_launches, lc = phase_light_client(pool, keys, chain150, blocks10k,
+                                             dev, REPS)
+    lc["phase_s"] = time.perf_counter() - t0
+    print(f"light client (phase 10): fixtures {lc['fixture_s']}, first "
+          f"calls {lc['first_call_s']} s, phase {lc['phase_s']:.1f} s; "
+          f"launches {lc_launches}")
+    print(f"light client host ms (median): {lc['host_ms']}  [{card}]")
+    print(f"light client: fetches by case {lc['fetches']}; (b) fetched "
+          f"{lc['fetched_b']}; blocks signed when first served "
+          f"{lc['signed_blocks']} in {lc['signing_s']} s; (d) "
+          f"{lc['detector']}")
+    for k, v in lc["wall"].items():
+        print(f"light client {k}: {_spread(v)}  [{card}]")
+    for k, v in lc["profile"].items():
+        print(f"profile light client {k}: wall {v['wall_ms']:.2f} ms, device "
+              f"{v['device_ms']} ms (busy {v['device_busy_share']}), kernels "
+              f"{v['kernels_ms']}  [{card}]")
     for k, v in bls["per_call_launches"].items():
         print(f"launches {k}@bls{BLS_VALS}: {v}")
     print(f"cold (first call, table built) ms: {bls['cold_ms']}  [{card}]")
@@ -2551,6 +2970,10 @@ def main(argv=None) -> int:
     for k, v in l10k["wall"].items():
         print(f"{k}@{BIG_VALS}: {_spread(v)}  [{card}]")
     print(f"host@{BIG_VALS} (p50 ms): {l10k['host_ms']}  [{card}]")
+    print(f"VerifyCommit@{BIG_VALS} host parts (median ms; encoder rows "
+          f"equal the per-lane rows: "
+          f"{l10k['verify_commit_parts_ms']['rows_equal']}): "
+          f"{l10k['verify_commit_parts_ms']}  [{card}]")
     for name, prof in (("VerifyCommitLight@bls10k",
                         bls["profile_verify_commit_light"]),
                        ("verify_sequential_batched@150", l150["profile"]),
@@ -2563,7 +2986,8 @@ def main(argv=None) -> int:
               f"{prof['device_ms']} ms, kernels {prof['kernels_ms']}")
     paths = {"commit": launches, f"light{LIGHT_VALS}": l150_launches,
              f"light{BIG_VALS}": l10k_launches, f"bls{BLS_VALS}": bls_launches,
-             f"mesh{MESH_SHARDS}": mesh_launches}
+             f"mesh{MESH_SHARDS}": mesh_launches,
+             "light_client": lc_launches}
 
     c = op_counts()
     print(f"field multiplications per group op: {c}")
@@ -2621,6 +3045,7 @@ def main(argv=None) -> int:
                        "per_call": per_call, "p50_ms": lat,
                        "throughput": tp, "op_counts": c, "merkle": mk,
                        "light150": l150, "light10k": l10k, "bls": bls,
+                       "light_client": lc,
                        "mesh": mesh, "build_log": _build.build_log(),
                        "ptxas": usage}, f, indent=1,
                       default=str)

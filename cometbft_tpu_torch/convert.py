@@ -9,7 +9,8 @@ validator set, and a node's cached per-valset tables move across:
   port's ``(N, 16, 4, 10)`` table in canonical limbs;
 - :func:`validator_set_from_arrays` mirrors ``ValidatorSet.dense()``,
   or takes public keys of mixed types (``key_types``: 32-byte Ed25519
-  and 48-byte BLS12-381 keys);
+  and 48-byte BLS12-381 keys), and optionally the proposer priorities
+  and the proposer, so that the stored bytes match;
 - :func:`commit_from_arrays` mirrors ``Commit.dense_columns()`` plus the
   header fields, the validator addresses and, for an aggregate commit,
   its aggregate signature and signer bitmap;
@@ -62,19 +63,33 @@ def tables_from_jax(ypx, ymx, z2, t2d, ok, device="cpu"):
 _KEY_CLASSES = {"ed25519": Ed25519PubKey, "bls12_381": Bls12381PubKey}
 
 
-def validator_set_from_arrays(pubs, powers, key_types=None) -> ValidatorSet:
+def validator_set_from_arrays(pubs, powers, key_types=None,
+                              priorities=None,
+                              proposer_address=None) -> ValidatorSet:
     """pubs (N, 32) uint8 (or N byte strings) and powers (N,) int64 -> a
     ValidatorSet (sorted by address, so rows given in the JAX set's order
     keep their index).  ``key_types``, N strings ("ed25519" or
     "bls12_381"), gives each key's type; without it every key is
-    Ed25519."""
+    Ed25519.  A new set's proposer priorities are those of one increment;
+    ``priorities`` (N,) instead sets each row's priority and
+    ``proposer_address`` the proposer (b"": none), as a set that has
+    rotated or been updated holds them."""
     raw = [bytes(p) if isinstance(p, (bytes, bytearray))
            else np.asarray(p, np.uint8).tobytes() for p in pubs]
     kinds = key_types if key_types is not None else ["ed25519"] * len(raw)
     if len(kinds) != len(raw) or len(powers) != len(raw):
         raise ValueError("pubs, powers and key_types differ in length")
-    return ValidatorSet([Validator(_KEY_CLASSES[kt](r), int(pw))
-                         for r, kt, pw in zip(raw, kinds, powers)])
+    vs = ValidatorSet([Validator(_KEY_CLASSES[kt](r), int(pw))
+                       for r, kt, pw in zip(raw, kinds, powers)])
+    if priorities is not None:
+        if len(priorities) != len(raw):
+            raise ValueError("pubs and priorities differ in length")
+        by_key = {r: int(pr) for r, pr in zip(raw, priorities)}
+        for v in vs.validators:
+            v.proposer_priority = by_key[v.pub_key.bytes()]
+    if proposer_address is not None:
+        _, vs.proposer = vs.get_by_address(bytes(proposer_address))
+    return vs
 
 
 def commit_from_arrays(height: int, round_: int, block_hash: bytes,
@@ -115,12 +130,15 @@ def header_from_fields(last_block_id, **fields) -> Header:
 
 
 def light_block_from_arrays(header: dict, pubs, powers, commit: dict,
-                            key_types=None) -> LightBlock:
+                            key_types=None, priorities=None,
+                            proposer_address=None) -> LightBlock:
     """A ``LightBlock`` from ``header`` (keyword arguments of
-    :func:`header_from_fields`), the validator set's ``pubs``, ``powers``
-    and ``key_types`` (:func:`validator_set_from_arrays`) and ``commit``
-    (keyword arguments of :func:`commit_from_arrays`)."""
+    :func:`header_from_fields`), the validator set's ``pubs``, ``powers``,
+    ``key_types``, ``priorities`` and ``proposer_address``
+    (:func:`validator_set_from_arrays`) and ``commit`` (keyword arguments
+    of :func:`commit_from_arrays`)."""
     return LightBlock(header=header_from_fields(**header),
                       commit=commit_from_arrays(**commit),
-                      validators=validator_set_from_arrays(pubs, powers,
-                                                           key_types))
+                      validators=validator_set_from_arrays(
+                          pubs, powers, key_types, priorities,
+                          proposer_address))

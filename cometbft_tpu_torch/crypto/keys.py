@@ -19,7 +19,8 @@ import os
 from . import _ed25519_py as _ref
 
 __all__ = ["ED25519_KEY_TYPE", "BLS12381_KEY_TYPE", "ADDRESS_SIZE",
-           "address_hash", "Ed25519PubKey", "Ed25519PrivKey"]
+           "address_hash", "Ed25519PubKey", "Ed25519PrivKey",
+           "pub_key_from_type_bytes"]
 
 ED25519_KEY_TYPE = "ed25519"
 BLS12381_KEY_TYPE = "bls12_381"
@@ -94,3 +95,16 @@ class Ed25519PrivKey:
 
     def pub_key(self) -> Ed25519PubKey:
         return Ed25519PubKey(self._raw[32:])
+
+
+def pub_key_from_type_bytes(key_type: str, raw: bytes):
+    """A public key from its type name and bytes (the JAX package's
+    ``crypto/keys.py:63``) for the port's two key types; any other type,
+    secp256k1 included, raises ValueError."""
+    if key_type == ED25519_KEY_TYPE:
+        return Ed25519PubKey(raw)
+    if key_type == BLS12381_KEY_TYPE:
+        from .bls12381 import Bls12381PubKey
+
+        return Bls12381PubKey(raw)
+    raise ValueError(f"unsupported pubkey type {key_type!r}")

@@ -1,9 +1,15 @@
 """Host C++ libraries of the port, built with the host ``g++`` at first use.
 
-The one library is ``csrc/host/bls12381.cpp`` (with ``sha256_inline.h``):
-BLS12-381 key derivation, signing, decompression and subgroup checks,
-hash-to-G2 and the pairings, a copy of the JAX package's native library.
-It builds with ``g++ -O3 -march=native`` (retried without
+Two libraries, each a copy of part of the JAX package's native code:
+
+- ``csrc/host/bls12381.cpp`` (with ``sha256_inline.h``): BLS12-381 key
+  derivation, signing, decompression and subgroup checks, hash-to-G2
+  and the pairings;
+- ``csrc/host/vote_sign_bytes.cpp``: the canonical vote sign bytes of a
+  commit's lanes in one call (:func:`build_vote_sign_bytes`), the rows
+  the dense commit rules hand to the Ed25519 kernels.
+
+Each builds with ``g++ -O3 -march=native`` (retried without
 ``-march=native`` for toolchains that refuse it) into
 ``build/cometbft_tpu_torch/<hash>/`` under the checkout, keyed by a hash
 of the sources, the flags and the host CPU's identity, under a file
@@ -24,7 +30,10 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["NativeBuildError", "BUILD_SECONDS", "lib_path", "load"]
+import numpy as np
+
+__all__ = ["NativeBuildError", "BUILD_SECONDS", "lib_path", "load",
+           "build_vote_sign_bytes"]
 
 HOST_SRC = Path(__file__).resolve().parent / "csrc" / "host"
 ROOT = Path(__file__).resolve().parents[1]
@@ -97,3 +106,49 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+_VSB: list = []
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_U64P = ctypes.POINTER(ctypes.c_uint64)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+
+
+def _vsb():
+    if not _VSB:
+        fn = load("vote_sign_bytes").build_vote_sign_bytes
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_uint64, ctypes.c_char_p,
+                       ctypes.c_uint64, ctypes.c_char_p, ctypes.c_uint64,
+                       _I64P, _U8P, ctypes.c_uint64, _U8P, ctypes.c_uint64,
+                       _U64P]
+        fn.restype = ctypes.c_uint64
+        _VSB.append(fn)
+    return _VSB[0]
+
+
+def build_vote_sign_bytes(pre_commit: bytes, pre_nil: bytes, post: bytes,
+                          ts_ns, flags):
+    """One commit's canonical vote sign bytes, a row per lane, in one C
+    call (``cometbft_tpu/crypto/_native_ed25519.py:138``).  ``ts_ns``
+    (n,) int64 timestamps, ``flags`` (n,) uint8 (2: the commit variant
+    ``pre_commit``, else ``pre_nil``); ``post`` follows the timestamp.
+    Returns ``(msgs uint8 (n, stride), lens int64 (n,))``, rows
+    zero-padded to ``stride = 5 + max(len(pre)) + 19 + len(post)``.  A
+    library that does not build raises :class:`NativeBuildError`."""
+    fn = _vsb()
+    ts64 = np.ascontiguousarray(ts_ns, np.int64)
+    fl8 = np.ascontiguousarray(flags, np.uint8)
+    n = ts64.shape[0]
+    if fl8.shape != (n,):
+        raise ValueError("ts_ns and flags differ in length")
+    stride = 5 + max(len(pre_commit), len(pre_nil)) + 19 + len(post)
+    out = np.zeros((n, stride), np.uint8)
+    lens = np.zeros((n,), np.uint64)
+    rc = fn(pre_commit, len(pre_commit), pre_nil, len(pre_nil), post,
+            len(post), ts64.ctypes.data_as(_I64P),
+            fl8.ctypes.data_as(_U8P), n, out.ctypes.data_as(_U8P), stride,
+            lens.ctypes.data_as(_U64P))
+    if rc != 0:
+        raise RuntimeError(f"sign-bytes stride {stride} below the {rc} "
+                           "bytes the encoder needs")
+    return out, lens.astype(np.int64)

@@ -53,7 +53,8 @@ def max_blocks_for_len(msg_len: int) -> int:
 def host_pad(msgs: np.ndarray, lens: np.ndarray, nb: int):
     """Host-side SHA-512 padding into fixed (B, nb, 32) uint32 blocks.
 
-    msgs: (B, L) uint8 (rows zero-filled past their length);
+    msgs: (B, L) uint8 (rows zero-filled past their length; L may exceed
+    nb * 128 where the rows' stride is wider than their lengths);
     lens: (B,) actual byte lengths;  nb: block count >= per-row need.
     Returns (blocks (B, nb, 32) uint32, active (B,) int32).
     """
@@ -63,7 +64,8 @@ def host_pad(msgs: np.ndarray, lens: np.ndarray, nb: int):
     if int((lens + 17).max(initial=0)) > pad_len:
         raise ValueError("block count too small for the longest message")
     buf = np.zeros((bsz, pad_len), np.uint8)
-    buf[:, :msgs.shape[1]] = msgs
+    width = min(msgs.shape[1], pad_len)
+    buf[:, :width] = msgs[:, :width]
     col = np.arange(pad_len)
     buf[col[None, :] >= lens[:, None]] = 0
     buf[np.arange(bsz), lens] = 0x80

@@ -234,6 +234,15 @@ class Commit:
         precommit for the commit's BlockID with the timestamp zero."""
         return self._sb_encoder(chain_id, True).sign_bytes(0)
 
+    def sign_bytes_templates(self, chain_id: str):
+        """``(pre_commit, pre_nil, post)``: the sign bytes' body without
+        its timestamp field, before it in the commit and the nil variant
+        and after it, for the native encoder
+        (``native.build_vote_sign_bytes``)."""
+        enc_c = self._sb_encoder(chain_id, True)
+        enc_n = self._sb_encoder(chain_id, False)
+        return enc_c._prefix, enc_n._prefix, enc_c._suffix
+
     def _sb_encoder(self, chain_id: str, is_commit: bool):
         cache = self.__dict__.setdefault("_sb_encoders", {})
         enc = cache.get((chain_id, is_commit))

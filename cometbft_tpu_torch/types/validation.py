@@ -19,8 +19,11 @@ same lane selection, tally, early-exit rules and error classes:
 Signatures are verified first, then the tally is checked, so a bad
 signature raises ``ErrInvalidSignature`` with the first bad lane (in
 commit order) before any power error.  Lanes whose signature is not 64
-bytes count as bad lanes.  On an all-Ed25519 set, sign bytes are built in
-Python per lane and every selected lane goes to one dense device call
+bytes count as bad lanes.  On an all-Ed25519 set, the selected lanes'
+sign bytes are built in one C call (``native.build_vote_sign_bytes``,
+over ``Commit.sign_bytes_templates`` and the commit's columns; a library
+that does not build raises, with no per-lane fallback) and every
+selected lane goes to one dense device call
 (``crypto/batch.verify_dense``) through the per-valset table cache.
 
 A commit carrying a BLS aggregate (``types/commit.py``) has its whole
@@ -45,6 +48,7 @@ from fractions import Fraction
 
 import numpy as np
 
+from .. import native as _native
 from ..crypto import batch as cryptobatch
 from ..crypto import blsagg as _blsagg
 from ..crypto import plan as _plan
@@ -266,17 +270,14 @@ def _light_scope(powers, flags, needed):
     return scope, int(cum[-1]) if cum.size else 0
 
 
-def _sign_rows(chain_id, commit, scope):
-    """Sign bytes of commit lanes ``scope`` as zero-padded rows:
-    (msgs (k, L) uint8, lens (k,) int64)."""
-    msgs_b = [commit.vote_sign_bytes(chain_id, int(i)) for i in scope]
-    maxlen = max((len(m) for m in msgs_b), default=0)
-    msgs = np.zeros((len(msgs_b), maxlen), np.uint8)
-    lens = np.zeros((len(msgs_b),), np.int64)
-    for j, m in enumerate(msgs_b):
-        msgs[j, :len(m)] = np.frombuffer(m, np.uint8)
-        lens[j] = len(m)
-    return msgs, lens
+def _dense_build_rows(chain_id, commit, ts, flags, scope):
+    """Sign bytes of commit lanes ``scope`` as zero-padded rows, built in
+    one C call (``native.build_vote_sign_bytes``) from the commit's
+    templates and its ``ts`` and ``flags`` columns: (msgs (k, stride)
+    uint8, lens (k,) int64)."""
+    pre_c, pre_n, post = commit.sign_bytes_templates(chain_id)
+    return _native.build_vote_sign_bytes(pre_c, pre_n, post, ts[scope],
+                                         flags[scope])
 
 
 def _lane_verdicts(valset_pubs, rows, sigs, sig_ok, msgs, lens, device):
@@ -295,13 +296,15 @@ def _lane_verdicts(valset_pubs, rows, sigs, sig_ok, msgs, lens, device):
     return oks
 
 
-def _verify_lanes(chain_id, commit, valset_pubs, scope, rows, sigmat,
-                  sig_ok, device) -> None:
-    """Verify commit lanes ``scope`` (signed by valset rows ``rows``) and
-    raise ErrInvalidSignature naming the first bad lane in commit order."""
+def _verify_lanes(chain_id, commit, valset_pubs, scope, rows, cols,
+                  device) -> None:
+    """Verify commit lanes ``scope`` (signed by valset rows ``rows``;
+    ``cols`` the commit's ``_columns``) and raise ErrInvalidSignature
+    naming the first bad lane in commit order."""
     if not scope.size:
         return
-    msgs, lens = _sign_rows(chain_id, commit, scope)
+    flags, ts, sigmat, sig_ok = cols
+    msgs, lens = _dense_build_rows(chain_id, commit, ts, flags, scope)
     oks = _lane_verdicts(valset_pubs, rows, sigmat[scope], sig_ok[scope],
                          msgs, lens, device)
     if not oks.all():
@@ -311,7 +314,8 @@ def _verify_lanes(chain_id, commit, valset_pubs, scope, rows, sigmat,
 def _verify_by_index(chain_id, vals, commit, needed, *, count_all,
                      verify_nil_sigs, device) -> None:
     pubs, powers = vals.dense()
-    flags, _, sigmat, sig_ok = _columns(commit)
+    cols = _columns(commit)
+    flags = cols[0]
     commit_mask = flags == BLOCK_ID_FLAG_COMMIT
     if count_all:
         scope = np.nonzero((flags != BLOCK_ID_FLAG_ABSENT) if verify_nil_sigs
@@ -319,8 +323,7 @@ def _verify_by_index(chain_id, vals, commit, needed, *, count_all,
         tally = int(powers[commit_mask].sum())
     else:
         scope, tally = _light_scope(powers, flags, needed)
-    _verify_lanes(chain_id, commit, pubs, scope, scope, sigmat, sig_ok,
-                  device)
+    _verify_lanes(chain_id, commit, pubs, scope, scope, cols, device)
     if tally <= needed:
         raise ErrNotEnoughVotingPower(
             f"tallied {tally} <= needed {needed}")
@@ -329,7 +332,8 @@ def _verify_by_index(chain_id, vals, commit, needed, *, count_all,
 def _verify_by_address(chain_id, vals, commit, needed, *, count_all,
                        device) -> None:
     pubs, powers = vals.dense()
-    flags, _, sigmat, sig_ok = _columns(commit)
+    cols = _columns(commit)
+    flags = cols[0]
     aidx = vals.address_index()
     seen: set[bytes] = set()
     scope, rows = [], []
@@ -353,7 +357,7 @@ def _verify_by_address(chain_id, vals, commit, needed, *, count_all,
         if not count_all and tally > needed:
             break
     _verify_lanes(chain_id, commit, pubs, np.asarray(scope, np.int64),
-                  np.asarray(rows, np.int64), sigmat, sig_ok, device)
+                  np.asarray(rows, np.int64), cols, device)
     if tally <= needed:
         raise ErrNotEnoughVotingPower(
             f"tallied {tally} <= needed {needed}")
@@ -455,7 +459,7 @@ def verify_commits_light_batched(chain_id: str, vals: ValidatorSet,
     for k, (block_id, height, commit) in enumerate(items):
         try:
             _check_commit_basics(vals, commit, height, block_id)
-            flags, _, sigmat, ok = _columns(commit)
+            flags, ts, sigmat, ok = _columns(commit)
         except CommitVerificationError as e:
             raise ErrBatchItemInvalid(k, height, e) from e
         scope, tally = _light_scope(powers, flags, needed)
@@ -463,7 +467,7 @@ def verify_commits_light_batched(chain_id: str, vals: ValidatorSet,
             raise ErrBatchItemInvalid(
                 k, height,
                 ErrNotEnoughVotingPower(f"tallied {tally} <= {needed}"))
-        m, ln = _sign_rows(chain_id, commit, scope)
+        m, ln = _dense_build_rows(chain_id, commit, ts, flags, scope)
         rows.append(scope)
         sigs.append(sigmat[scope])
         sig_ok.append(ok[scope])

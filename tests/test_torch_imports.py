@@ -1,8 +1,10 @@
 """The port stands alone: no module of ``cometbft_tpu_torch`` and nothing
-``chip_smoke.py`` imports pulls in ``jax`` or the JAX package, at import
-time (checked in a fresh interpreter) or lazily inside a function
-(checked on the source), and its CUDA and host C++ sources include only
-headers of the port's own ``csrc/`` (or headers the port generates)."""
+``chip_smoke.py`` imports pulls in ``jax``, the JAX package or
+``msgpack`` (absent on the card's machine; the port's codec carries its
+own), at import time (checked in a fresh interpreter) or lazily inside a
+function (checked on the source), and its CUDA and host C++ sources
+include only headers of the port's own ``csrc/`` (or headers the port
+generates)."""
 
 import ast
 import json
@@ -17,6 +19,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "cometbft_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "cometbft_tpu", "msgpack")
 
 
 def _port_modules():
@@ -58,8 +61,7 @@ def test_fresh_interpreter_imports_no_jax():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(mods) >= 16
-    bad = [m for m in loaded if m == "jax" or m.startswith("jax.")
-           or m == "cometbft_tpu" or m.startswith("cometbft_tpu.")]
+    bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
 
@@ -76,7 +78,7 @@ def test_no_jax_or_reference_import_anywhere_in_source(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "cometbft_tpu"), \
+            assert top not in FORBIDDEN, \
                 f"{path.name}:{node.lineno} imports {name}"
 
 
@@ -109,3 +111,11 @@ def test_c_sources_include_only_the_ports_headers(path):
         assert ((path.parent / name).exists()
                 or (PKG / "csrc" / name).exists()
                 or name in generated), f"{path.name} includes {name}"
+
+
+def test_sign_bytes_encoder_includes_only_standard_headers():
+    """The host sign-bytes encoder is a copy of two functions, with no
+    header of the JAX package's native code (nor of the port's)."""
+    src = (PKG / "csrc" / "host" / "vote_sign_bytes.cpp").read_text()
+    includes = re.findall(r'^\s*#\s*include\s+(\S+)', src, re.M)
+    assert includes == ["<cstdint>", "<cstring>"]
