@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port's commit-, light-header and BLS
 aggregate-commit verification paths, of lane-sharded commit
-verification over a device set, and of the light client, on one card.
+verification over a device set, of the light client and of blocksync
+catch-up, on one card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -18,7 +19,9 @@ Phases, each of which must pass or the script exits non-zero:
    the same inputs at the main path's shapes (valid, tampered and ZIP-215
    edge lanes; RLC accept, reject, garbage padding and torsion batches),
    and against the pure-Python oracle; then one seeded random batch per
-   entry of ``SWEEP_LANES`` through every kernel and its plain version,
+   entry of ``SWEEP_LANES`` (up to 32,000 lanes, phase 11's largest
+   window; ``SWEEP_SIGNED`` distinct signed lanes, tiled above that)
+   through every kernel and its plain version,
    and a ragged RLC batch (lanes of one, two and three SHA-512 blocks,
    NB = 3; also with a padding lane's active count 0, and with a lane's
    count cut short, a reject) at both ``LANE_LAYOUTS``; then the merkle
@@ -97,13 +100,28 @@ Phases, each of which must pass or the script exits non-zero:
    (``DivergenceError`` naming it, evidence to both sides) and a
    lagging witness dropped after ``MAX_WITNESS_LAG_STRIKES`` calls; each
    case's p50, min and max with a new client and store a call, fetches,
-   and one traced call of (a) and (c).
+   and one traced call of (a) and (c);
+11. blocksync (``phase_blocksync``, run after phase 10 while the key
+   pool is open): a source node of ``BS_VALS`` validators (BASELINE
+   configs[3]'s width) makes ``BS_HEIGHTS`` heights with the port's
+   ``BlockExecutor``, each commit signed in the pool; a new node catches
+   up from its serving ``BlocksyncReactor`` over a loopback switch
+   (``LoopSwitch``: peers, broadcast and report_peer; the messages, the
+   codec and the part sets are the port's), windows of up to 32 commits
+   in one device call each: (a) clean, its stores byte for byte and its
+   state the source's, ``BS_RUNS`` timed runs, the last with the host
+   stages timed (``stage_timers``), then one traced; (b) a lying peer whose block
+   ``BS_BAD_AT`` carries a forged vouch: reported ``bad_block``, the two
+   heights fetched again from the honest server, the store the source's,
+   K5b launched; (c) the same commits verified in windows against one
+   ``VerifyCommitLight`` a commit, p50 of 5 calls each.
 
-Phases 4, 6, 7, 8, 9 and 10 are the main path: the launch counters are
-zeroed just before each and read just after; each phase's kernels must
-have launched, no plain version may have run, and neither standalone
-hash kernel (``OFF_PATH``: the RLC lane stage hashes its lanes, the tree
-call its leaves) may have launched (phase 8 also no Ed25519 kernel).
+Phases 4, 6, 7, 8, 9, 10 and 11 are the main path: the launch counters
+are zeroed just before each and read just after; each phase's kernels
+must have launched, no plain version may have run, and neither
+standalone hash kernel (``OFF_PATH``: the RLC lane stage hashes its
+lanes, the tree call its leaves) may have launched (phase 8 also no
+Ed25519 kernel).
 Keys and signatures of the light and BLS phases are made in a process
 pool over ``os.cpu_count()`` workers with the port's own
 signers; the script prints the seconds of each fixture and phase.  The
@@ -116,7 +134,8 @@ validators and times it at 10,000 and 150 at both ``LANE_LAYOUTS``.
 ``python3 chip_smoke.py --mesh-cards`` on a host with two or more cards
 runs only phases 1, 2 and 9, over the first ``MESH_SHARDS`` cards, one
 shard each: the cross-card copy of the partial sums and the overlap of
-the cards, which one card cannot show.
+the cards, which one card cannot show.  ``python3 chip_smoke.py
+--blocksync`` runs only phases 1 and 2, phase 3's sweep and phase 11.
 
 The line before the last is a JSON object with one entry per kernel
 (launches on the main path, max_abs_err, times, bound); the last line is
@@ -166,7 +185,10 @@ CHAIN_ID = "smoke-chain"
 SIZES = (150, 1000)              # validators of the commit phase
 LANES = 10_000                   # lanes of the throughput phase
 REPS = 20                        # timed calls per measurement
-SWEEP_LANES = (1, 77, 128, 129, 300, 640)   # lanes of the sweep's batches
+# lanes of the sweep's batches; 32,000 is phase 11's window (32 commits
+# of 1,000 validators), the largest batch the port runs
+SWEEP_LANES = (1, 77, 128, 129, 300, 640, 32_000)
+SWEEP_SIGNED = 640               # distinct signed lanes, tiled above this
 COMMIT_KERNELS = ("ed25519_tables", "ed25519_verify_gather",
                   "ed25519_rlc_gather")
 # the hash kernels that stand alone behind their public wrappers, checked
@@ -228,6 +250,14 @@ BLS_ABSENT_EVERY = 50            # every 50th lane absent: 9,800 signers
 BLS_ROWS = (1, 3, 64, 1000)      # table rows of the G1 fold's checks
 BLS_RAGGED = (200, 16_385)       # and an absentee fold's size, 2^14 + 1
 BLS_ROWS_TIMED = 200             # the fold also timed at this size
+BS_VALS = 1_000                  # validators of phase 11 (BASELINE configs[3])
+# its source chain (configs[3]: 50,000 blocks); 97 heights took 89.2 s of
+# signing on the 8 cores of the H100's host, past the 60 s the phase
+# allows it, so 65: two windows of 32 and the tail
+BS_HEIGHTS = 65
+BS_BAD_AT = 40                   # (b): this block's last commit is forged
+BS_RUNS = 3                      # (a): timed catch-ups
+BS_T0 = 1_700_000_000_000_000_000
 # validators of the table kernel's checks: ragged, and both sides of the
 # lane stage's 16/32 crossover (ops/rlc.py:QUAD_LANES_BELOW)
 TABLE_SIZES = (1, 17, 33, 7999, 8000, 10_000)
@@ -674,8 +704,9 @@ def phase_kernels(fx, dev, reps, rec):
 
 
 def phase_sweep(fx, dev, rec):
-    """One seeded random batch per entry of SWEEP_LANES (one lane to five
-    blocks of 128), each kernel against its plain version on the card:
+    """One seeded random batch per entry of SWEEP_LANES (one lane to 250
+    blocks of 128; at most SWEEP_SIGNED distinct signed lanes, tiled
+    above that), each kernel against its plain version on the card:
     random keys, messages and tampered lanes (the tampered verdicts from
     the oracle), random encodings in the table, and RLC batches with
     every lane active and with the bad lanes and a few more as garbage
@@ -693,14 +724,15 @@ def phase_sweep(fx, dev, rec):
     for seed, n in enumerate(SWEEP_LANES):
         rng = np.random.default_rng(1000 + seed)
         keys = rng.choice(len(fx.privs), size=min(n, 64), replace=False)
-        pick = keys[rng.integers(0, len(keys), size=n)]
+        m_lanes = min(n, SWEEP_SIGNED)   # signed lanes, tiled up to n
+        pick = keys[rng.integers(0, len(keys), size=m_lanes)]
         pubs, msgs, sigs = [], [], []
         for k in pick:
             m = rng.bytes(int(rng.integers(0, 200)))
             pubs.append(fx.privs[k].pub_key().bytes())
             msgs.append(m)
             sigs.append(fx.privs[k].sign(m))
-        bad = rng.random(n) < 0.1
+        bad = rng.random(m_lanes) < 0.1
         for i in np.flatnonzero(bad):
             if rng.random() < 0.5:
                 s = bytearray(sigs[i])
@@ -709,7 +741,11 @@ def phase_sweep(fx, dev, rec):
             else:
                 msgs[i] += b"\x00"
         want = [not bad[i] or ref.verify_zip215(pubs[i], msgs[i], sigs[i])
-                for i in range(n)]
+                for i in range(m_lanes)]
+        tile = np.arange(n) % m_lanes
+        pick, bad = pick[tile], bad[tile]
+        pubs, msgs, sigs, want = ([x[i] for i in tile]
+                                  for x in (pubs, msgs, sigs, want))
 
         rows = [fx.privs[k].pub_key().bytes() for k in keys]
         row_of = {r: j for j, r in enumerate(rows)}
@@ -1365,20 +1401,23 @@ def _expect_raise(fn, cls, check=None):
     raise AssertionError(f"expected {cls.__name__}, nothing raised")
 
 
-def profile_call(fn, calls: int = 1, top=8) -> dict:
+def profile_call(fn, calls: int = 1, top=8, verdicts: bool = False,
+                 warm=None) -> dict:
     """Wall time of ``calls`` synchronized calls of ``fn`` and the device
     time of what they ran, by name (the ``top`` longest, or all for
-    None), from ``torch.profiler`` (a first traced call, whose trace is
-    dropped, warms the tracer up: the first events of a process's first
-    trace were missing on the card; device time is None when the
-    profiler saw no device activity).  Times are per call."""
+    None), from ``torch.profiler`` (a first traced call of ``warm``, by
+    default ``fn``, whose trace is dropped, warms the tracer up: the
+    first events of a process's first trace were missing on the card;
+    device time is None when the profiler saw no device activity).
+    Times are per call.  With ``verdicts`` also the device ms of each
+    RLC verdict traced, in order (:func:`_window_verdicts_ms`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     _sync()
     with profile(activities=acts):
-        fn()
+        (warm or fn)()
         _sync()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -1398,10 +1437,13 @@ def profile_call(fn, calls: int = 1, top=8) -> dict:
         if dev_us > 0:
             kernels[e.key[:60]] = dev_us / 1e3 / calls
     busy = sum(kernels.values()) if kernels else None
-    return {"wall_ms": wall, "device_ms": busy,
-            "device_busy_share": None if busy is None else busy / wall,
-            "kernels_ms": dict(sorted(kernels.items(),
-                                      key=lambda kv: -kv[1])[:top])}
+    out = {"wall_ms": wall, "device_ms": busy,
+           "device_busy_share": None if busy is None else busy / wall,
+           "kernels_ms": dict(sorted(kernels.items(),
+                                     key=lambda kv: -kv[1])[:top])}
+    if verdicts:
+        out["verdicts_ms"] = _window_verdicts_ms(prof)
+    return out
 
 
 def _path_launches(fn, required):
@@ -2558,6 +2600,478 @@ def phase_bls(pool, dev, reps, rec):
 
 # ------------------------------------------------------------------- bounds
 
+# ------------------------------------------------- phase 11: blocksync
+
+class LoopPeer:
+    """One side of a loopback connection: ``send`` hands the bytes to the
+    other reactor's ``receive`` on the next turn of the loop."""
+
+    def __init__(self, peer_id, remote, back):
+        self.id = peer_id
+        self._remote = remote          # the reactor that receives
+        self._back = back              # the peer it sees us as
+
+    def send(self, channel_id, msg):
+        import asyncio
+
+        asyncio.get_running_loop().call_soon(self._remote.receive,
+                                             channel_id, self._back, msg)
+        return True
+
+
+class LoopSwitch:
+    """The syncing reactor's switch, joined to serving reactors in the
+    same event loop: ``peers``, ``broadcast`` and ``report_peer`` only
+    (harness code, not ``p2p/switch.py``; the messages, the codec and the
+    part sets are the port's).  ``on_drop`` runs after a peer is
+    dropped."""
+
+    def __init__(self, reactor, name="sync"):
+        self.reactor = reactor
+        self.name = name
+        self.peers = {}
+        self.reports = []
+        self.on_drop = None
+        reactor.set_switch(self)
+
+    def connect(self, server, server_id):
+        to_server = LoopPeer(server_id, server, None)
+        to_server._back = LoopPeer(self.name, self.reactor, to_server)
+        self.peers[server_id] = to_server
+        server.add_peer(to_server._back)
+        self.reactor.add_peer(to_server)
+
+    def broadcast(self, channel_id, msg):
+        for p in list(self.peers.values()):
+            p.send(channel_id, msg)
+
+    def report_peer(self, peer_id, event, detail=None, disconnect=False):
+        self.reports.append((peer_id, event))
+        if disconnect and peer_id in self.peers:
+            self.reactor.remove_peer(self.peers.pop(peer_id), detail)
+            if self.on_drop is not None:
+                self.on_drop(peer_id)
+
+
+class SourceChain:
+    """Phase 11's source node: BS_VALS validators at power 10 (the keys
+    of ``pool_keys``), heights 1..BS_HEIGHTS made by the port's
+    ``BlockExecutor`` (``create_proposal_block``, then ``apply_block``,
+    which validates each block and verifies its last commit on the
+    card), each height's commit signed in the pool by every validator
+    before the next height is proposed."""
+
+    def __init__(self, pool, keys, dev, loop):
+        from cometbft_tpu_torch.abci import Application, LocalClient
+        from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+        from cometbft_tpu_torch.mempool import NopMempool
+        from cometbft_tpu_torch.sm import BlockExecutor
+        from cometbft_tpu_torch.storage import (BlockStore, MemDB, State,
+                                                StateStore)
+        from cometbft_tpu_torch.types.block_id import BlockID
+        from cometbft_tpu_torch.types.commit import (BLOCK_ID_FLAG_COMMIT,
+                                                     Commit, CommitSig,
+                                                     ExtendedCommit,
+                                                     ExtendedCommitSig)
+        from cometbft_tpu_torch.types.genesis import (GenesisDoc,
+                                                      GenesisValidator)
+
+        self.dev, self.loop = dev, loop
+        pubs = [Ed25519PrivKey(k).pub_key() for k in keys]
+        key_of = {pk.address(): k for pk, k in zip(pubs, keys)}
+        self.doc = GenesisDoc(CHAIN_ID, genesis_time_ns=BS_T0, validators=[
+            GenesisValidator(pk, 10) for pk in pubs])
+        self.doc.validate_and_complete()
+        self.bdb, sdb = MemDB(), MemDB()
+        ex = BlockExecutor(StateStore(sdb), BlockStore(self.bdb),
+                           LocalClient(Application()), NopMempool(),
+                           device=dev)
+        state = State.from_genesis(self.doc)
+        ex.state_store.save(state)
+        last_ext = ExtendedCommit(0, 0, BlockID(), [])
+        self.sign_s = self.apply_s = self.propose_s = 0.0
+        self.state_records = {}        # height -> the stored state record
+        self.parts = {}
+        for h in range(1, BS_HEIGHTS + 1):
+            t0 = time.perf_counter()
+            block, parts = loop.run_until_complete(ex.create_proposal_block(
+                h, state, last_ext, state.validators.get_proposer().address,
+                BS_T0 + h * 10**9))
+            bid = BlockID(block.hash(), parts.header())
+            commit = Commit(h, 0, bid, [
+                CommitSig(BLOCK_ID_FLAG_COMMIT, v.address,
+                          block.header.time_ns + 1 + lane, b"")
+                for lane, v in enumerate(state.validators.validators)])
+            t1 = time.perf_counter()
+            tasks = [(key_of[v.address],
+                      [commit.vote_sign_bytes(CHAIN_ID, lane)])
+                     for lane, v in enumerate(state.validators.validators)]
+            sigs = pool.map(_sign_all, tasks, chunksize=max(
+                1, len(tasks) // (4 * os.cpu_count())))
+            for cs, (sig,) in zip(commit.signatures, sigs):
+                cs.signature = sig
+            t2 = time.perf_counter()
+            ex.block_store.save_block(block, parts, commit)
+            state = loop.run_until_complete(ex.apply_block(state, bid, block))
+            self.state_records[h] = sdb.get(b"S/state")
+            self.parts[h] = parts
+            last_ext = ExtendedCommit(h, 0, bid, [
+                ExtendedCommitSig(cs) for cs in commit.signatures])
+            self.propose_s += t1 - t0
+            self.sign_s += t2 - t1
+            self.apply_s += time.perf_counter() - t2
+        self.state = state
+        self.store = ex.block_store
+
+    def liar_db(self) -> dict:
+        """The source's records with block BS_BAD_AT's last commit (the
+        vouch for BS_BAD_AT - 1) carrying one flipped signature bit."""
+        from cometbft_tpu_torch.storage.db import height_key
+        from cometbft_tpu_torch.types import codec
+
+        blk = self.store.load_block(BS_BAD_AT)
+        sig = bytearray(blk.last_commit.signatures[7].signature)
+        sig[9] ^= 0x10
+        blk.last_commit.signatures[7].signature = bytes(sig)
+        db = dict(self.bdb._data)
+        db[height_key(b"B/", BS_BAD_AT)] = codec.pack(blk)
+        return db
+
+    def server(self, records: dict, name: str):
+        from cometbft_tpu_torch.blocksync import BlocksyncReactor
+        from cometbft_tpu_torch.storage import BlockStore, MemDB
+
+        db = MemDB()
+        db._data.update(records)
+        return BlocksyncReactor(None, BlockStore(db), self.state,
+                                device=self.dev, name=name)
+
+    def catch_up(self, liar: bool = False, stages: dict | None = None
+                 ) -> dict:
+        """A new node with empty stores blocksyncs from genesis until
+        ``synced``: from the honest server, or from the liar first, the
+        honest server connected when the liar is dropped.  With
+        ``stages`` the host stages are timed into it
+        (:func:`stage_timers`)."""
+        import asyncio
+
+        from cometbft_tpu_torch.abci import Application, LocalClient
+        from cometbft_tpu_torch.blocksync import BlocksyncReactor
+        from cometbft_tpu_torch.mempool import NopMempool
+        from cometbft_tpu_torch.sm import BlockExecutor
+        from cometbft_tpu_torch.storage import (BlockStore, MemDB, State,
+                                                StateStore)
+
+        async def main():
+            ex = BlockExecutor(StateStore(MemDB()), BlockStore(MemDB()),
+                               LocalClient(Application()), NopMempool(),
+                               device=self.dev)
+            state = State.from_genesis(self.doc)
+            ex.state_store.save(state)
+            applied = []
+            inner = ex.apply_block
+
+            async def apply_block(st, bid, block, **kw):
+                applied.append(block.header.height)
+                return await inner(st, bid, block, **kw)
+
+            ex.apply_block = apply_block
+            sync = BlocksyncReactor(ex, ex.block_store, state,
+                                    fast_sync=True, device=self.dev,
+                                    no_peers_grace=30.0)
+            sw = LoopSwitch(sync)
+            honest = self.server(self.bdb._data, "honest")
+            liar_srv = self.server(self.liar_db(), "liar") if liar else None
+            timers = (stage_timers(stages, ex) if stages is not None
+                      else contextlib.nullcontext())
+            with timers:
+                t0 = time.perf_counter()
+                await sync.start()
+                if liar:
+                    sw.on_drop = lambda pid: sw.connect(honest, "honest")
+                    sw.connect(liar_srv, "liar")
+                else:
+                    sw.connect(honest, "honest")
+                await asyncio.wait_for(sync.synced.wait(), 120)
+                wall = time.perf_counter() - t0
+                await sync.stop()
+            return {"wall_s": wall, "ex": ex, "state": sync.state,
+                    "reports": sw.reports, "applied": applied}
+
+        return self.loop.run_until_complete(main())
+
+    def check(self, out: dict) -> None:
+        """The synced node holds heights 1..BS_HEIGHTS - 1 (the tip is
+        left to consensus): every block, meta and commit byte for byte
+        the source's, and the source's state at that height."""
+        from cometbft_tpu_torch.storage.db import height_key
+
+        last = BS_HEIGHTS - 1
+        got = out["ex"].block_store.db._data
+        src = self.bdb._data
+        want_keys = {height_key(p, h) for p in (b"B/", b"M/")
+                     for h in range(1, last + 1)}
+        want_keys |= {height_key(b"C/", h) for h in range(1, last)}
+        bad = [k for k in want_keys if got.get(k) != src.get(k)]
+        extra = set(got) - want_keys - {b"SC", b"BSJ"}
+        if bad or extra or got[b"SC"] != src[height_key(b"C/", last)]:
+            raise AssertionError(f"phase 11: synced store differs at "
+                                 f"{sorted(bad)[:4]}, extra {extra}")
+        st = out["state"]
+        rec = out["ex"].state_store.db.get(b"S/state")
+        if st.last_block_height != last or rec != self.state_records[last]:
+            raise AssertionError(f"phase 11: synced state at "
+                                 f"{st.last_block_height} differs from the "
+                                 "source's")
+
+    def items(self) -> list:
+        """The commits of heights 1..BS_HEIGHTS - 1 as the window verifies
+        them: (block id, height, the next block's last commit)."""
+        from cometbft_tpu_torch.types.block_id import BlockID
+
+        out = []
+        for h in range(1, BS_HEIGHTS):
+            blk, nxt = self.store.load_block(h), self.store.load_block(h + 1)
+            out.append((BlockID(blk.hash(), self.parts[h].header()), h,
+                        nxt.last_commit))
+        return out
+
+
+@contextlib.contextmanager
+def stage_timers(stages: dict, ex):
+    """Time the host stages of a catch-up by wrapping the names the
+    reactor calls (module globals of ``blocksync/reactor.py``, the
+    executor's ``apply_block``, the store's ``save_block``); each call's
+    ms goes to ``stages[name]``.  The serve pack is the ``codec.pack``
+    of the event loop's thread, the part-set pack the worker's."""
+    import threading
+    import types as _types
+
+    from cometbft_tpu_torch.blocksync import reactor as R
+    from cometbft_tpu_torch.types.header import Block
+
+    main = threading.main_thread()
+
+    def timed(name, fn):
+        def wrap(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                stages.setdefault(name, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+        return wrap
+
+    saved = {n: getattr(R, n) for n in ("codec", "PartSet", "validate_block",
+                                        "verify_commits_light_batched")}
+    block_hash = Block.hash
+
+    def hash_(self):
+        if threading.current_thread() is main:
+            return block_hash(self)
+        return timed("Block.hash", block_hash)(self)
+
+    def verify(chain_id, vals, items, **kw):
+        stages.setdefault("window blocks", []).append(len(items))
+        return timed("window verify", saved["verify_commits_light_batched"])(
+            chain_id, vals, items, **kw)
+
+    codec = saved["codec"]
+
+    def pack(obj):
+        name = ("serve pack" if threading.current_thread() is main
+                else "part-set pack")
+        return timed(name, codec.pack)(obj)
+
+    R.codec = _types.SimpleNamespace(
+        pack=pack, unpack=timed("receive unpack", codec.unpack))
+    R.PartSet = _types.SimpleNamespace(
+        from_data=timed("PartSet.from_data", saved["PartSet"].from_data))
+    R.validate_block = timed("validate_block", saved["validate_block"])
+    R.verify_commits_light_batched = verify
+    Block.hash = hash_
+    inner_apply, inner_save = ex.apply_block, ex.block_store.save_block
+
+    async def apply_block(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return await inner_apply(*a, **k)
+        finally:
+            stages.setdefault("apply_block", []).append(
+                (time.perf_counter() - t0) * 1e3)
+
+    ex.apply_block = apply_block
+    ex.block_store.save_block = timed("save_block", inner_save)
+    try:
+        yield
+    finally:
+        for n, v in saved.items():
+            setattr(R, n, v)
+        Block.hash = block_hash
+        ex.apply_block = inner_apply
+        del ex.block_store.save_block
+
+
+def _window_verdicts_ms(prof) -> list:
+    """Device ms of each RLC verdict in a trace, in time order: the
+    launches from one lane stage to the next summed."""
+    from torch.autograd import DeviceType
+
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and e.name.removeprefix("void ").startswith("rlc_")),
+                 key=lambda e: e.time_range.start)
+    out = []
+    for e in evs:
+        if e.name.removeprefix("void ").startswith("rlc_lane_kernel") \
+                or not out:
+            out.append(0.0)
+        out[-1] += e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def phase_blocksync(pool, keys, dev, reps):
+    """Phase 11: blocksync catch-up at BS_VALS validators (BASELINE
+    configs[3]'s width) over a loopback switch, on the card:
+
+    (a) a new node syncs BS_HEIGHTS - 1 heights from the source's
+        serving reactor, windows of up to ``BATCH_WINDOW`` commits a
+        device call; stores and state checked against the source;
+        BS_RUNS timed runs, the last with the host stages timed
+        (:func:`stage_timers`), then one traced with ``torch.profiler``;
+    (b) the liar serves block BS_BAD_AT with one flipped signature in its
+        last commit: the node applies 1..BS_BAD_AT - 2, reports the liar
+        (``bad_block``), fetches BS_BAD_AT - 1 and BS_BAD_AT again from
+        the honest server (connected when the liar is dropped) and ends
+        with the source's store; the RLC verdict rejects the window and
+        the per-lane ladder (K5b) names the lane;
+    (c) the same BS_HEIGHTS - 1 commits verified in windows of
+        ``BATCH_WINDOW`` through ``verify_commits_light_batched`` and one
+        by one through ``VerifyCommitLight`` (the reference's way,
+        ``reactor.go:495``), p50 of ``reps`` calls each.
+
+    The counters are zeroed just before the first run of (a) and read
+    just after (b): the main path."""
+    import asyncio
+
+    from cometbft_tpu_torch.blocksync import BATCH_WINDOW
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.types.validation import (
+        VerifyCommitLight, verify_commits_light_batched)
+
+    loop = asyncio.new_event_loop()
+    t0 = time.perf_counter()
+    src = SourceChain(pool, keys[:BS_VALS], dev, loop)
+    fixture_s = time.perf_counter() - t0
+    print(f"blocksync fixture: {BS_HEIGHTS} heights of {BS_VALS} in "
+          f"{fixture_s:.1f} s (signing {src.sign_s:.1f} s over "
+          f"{os.cpu_count()} workers, proposals {src.propose_s:.1f} s, "
+          f"apply {src.apply_s:.1f} s)")
+    runs, per_run = [], {}
+
+    def main_path():
+        before = dict(cbatch.DISPATCHES)
+        a = src.catch_up()
+        src.check(a)
+        runs.append(a["wall_s"])
+        per_run["a"] = dict(_build.LAUNCHES)
+        per_run["a_dispatches"] = {
+            k: v - before.get(k, 0) for k, v in cbatch.DISPATCHES.items()
+            if v - before.get(k, 0)}
+        b = src.catch_up(liar=True)
+        src.check(b)
+        want = list(range(1, BS_HEIGHTS))
+        if b["reports"] != [("liar", "bad_block")] or b["applied"] != want:
+            raise AssertionError(f"phase 11 (b): reports {b['reports']}, "
+                                 f"applied {b['applied'][:45]}...")
+        per_run["b"] = {k: v - per_run["a"].get(k, 0)
+                        for k, v in _build.LAUNCHES.items()
+                        if v - per_run["a"].get(k, 0)}
+        if not per_run["b"].get("ed25519_verify_gather"):
+            raise AssertionError("phase 11 (b): the per-lane ladder (K5b) "
+                                 "did not launch")
+        return b
+
+    t0 = time.perf_counter()
+    launches, b = _path_launches(main_path, (
+        "ed25519_tables", "ed25519_rlc_gather", "ed25519_verify_gather"))
+    main_s = time.perf_counter() - t0
+    stages: dict = {}
+    for run in range(BS_RUNS - 1):
+        out = src.catch_up(stages=stages if run == BS_RUNS - 2 else None)
+        src.check(out)
+        runs.append(out["wall_s"])
+    items = src.items()
+    vals = src.state.validators
+    prof = profile_call(lambda: src.check(src.catch_up()), top=None,
+                        verdicts=True, warm=lambda: (
+                            verify_commits_light_batched(
+                                CHAIN_ID, vals, items[:2], device=dev)))
+    windows = [items[i:i + BATCH_WINDOW]
+               for i in range(0, len(items), BATCH_WINDOW)]
+
+    def batched():
+        for w in windows:
+            verify_commits_light_batched(CHAIN_ID, vals, w, device=dev)
+
+    def one_by_one():
+        for bid, h, c in items:
+            VerifyCommitLight(CHAIN_ID, vals, bid, h, c, device=dev)
+
+    batched()
+    one_by_one()
+    cmp = {"batched": time_host_spread(batched, reps),
+           "one_by_one": time_host_spread(one_by_one, reps)}
+    loop.close()
+    med = {k: statistics.median(v) for k, v in stages.items()
+           if k != "window blocks"}
+    return launches, {
+        "fixture_s": fixture_s, "sign_s": src.sign_s,
+        "propose_s": src.propose_s, "apply_s": src.apply_s,
+        "main_path_s": main_s, "wall_s": runs,
+        "per_run_launches": per_run, "liar": b["reports"],
+        "liar_wall_s": b["wall_s"],
+        "profile": prof,
+        "stages_ms": med, "stage_calls": {k: len(v)
+                                          for k, v in stages.items()},
+        "window_blocks": stages.get("window blocks"),
+        "verify_ms": cmp, "windows": len(windows)}
+
+
+def report_blocksync(bs, launches, card) -> None:
+    """Phase 11's lines."""
+    walls = sorted(bs["wall_s"])
+    p50 = statistics.median(walls)
+    blocks = BS_HEIGHTS - 1
+    lanes = blocks * (2 * BS_VALS // 3 + 1)
+    print(f"blocksync (phase 11): fixture {bs['fixture_s']:.1f} s (signing "
+          f"{bs['sign_s']:.1f} s), main path {bs['main_path_s']:.1f} s, "
+          f"phase {bs.get('phase_s', 0.0):.1f} s; launches {launches}")
+    print(f"blocksync (a) catch-up of {blocks} blocks of {BS_VALS}: wall p50 "
+          f"{p50:.3f} s (min {walls[0]:.3f}, max {walls[-1]:.3f}, "
+          f"{len(walls)} runs), {blocks / p50:.1f} blocks/s, "
+          f"{blocks * BS_VALS / p50:.0f} sig-verifies/s ({blocks * BS_VALS} "
+          f"vouching signatures; {lanes} lanes verified, "
+          f"{lanes / p50:.0f}/s)  [{card}]")
+    print(f"blocksync launches by run: {bs['per_run_launches']}")
+    prof = bs["profile"]
+    print(f"profile blocksync (a): wall {prof['wall_ms']:.1f} ms, device "
+          f"{prof['device_ms']} ms (busy {prof['device_busy_share']}), "
+          f"verdicts device ms {prof.get('verdicts_ms')}, kernels "
+          f"{prof['kernels_ms']}  [{card}]")
+    print(f"blocksync host stages, median ms a call ({bs['stage_calls']} "
+          f"calls; windows of {bs['window_blocks']} blocks): "
+          f"{bs['stages_ms']}  [{card}]")
+    print(f"blocksync (b) lying peer: wall {bs['liar_wall_s']:.3f} s, "
+          f"reports {bs['liar']}; launches "
+          f"{bs['per_run_launches'].get('b')}  [{card}]")
+    v = bs["verify_ms"]
+    print(f"blocksync (c) {blocks} commits of {BS_VALS}: batched in "
+          f"{bs['windows']} windows {_spread(v['batched'])}; one by one "
+          f"(VerifyCommitLight) {_spread(v['one_by_one'])}  [{card}]")
+
+
 def op_counts():
     """Field multiplications of each group operation, counted by running
     the plain versions on one lane on the CPU."""
@@ -2722,6 +3236,8 @@ def main(argv=None) -> int:
                     help="run only the build and phase 9 over the first "
                     f"{MESH_SHARDS} visible cards, one shard each (needs "
                     "two or more)")
+    ap.add_argument("--blocksync", action="store_true",
+                    help="run only the build, the kernel sweep and phase 11")
     args = ap.parse_args(argv)
 
     import torch
@@ -2775,6 +3291,28 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     fx = Fixtures(max(SIZES))
     print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
+    if args.blocksync:
+        rec = {k: {"mismatches": 0} for k in _build.KERNELS}
+        t0 = time.perf_counter()
+        sweep = phase_sweep(fx, dev, rec)
+        print(f"sweep: {len(SWEEP_LANES)} random batches of {SWEEP_LANES} "
+              f"lanes in {time.perf_counter() - t0:.1f} s, mismatches "
+              f"{sweep}")
+        if any(sweep.values()):
+            raise AssertionError(f"sweep mismatches: {sweep}")
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(os.cpu_count()) as pool:
+            keys = pool_keys(pool, BS_VALS)
+            bs_launches, bs = phase_blocksync(pool, keys, dev, 5)
+        report_blocksync(bs, bs_launches, card)
+        if args.record:
+            with open(args.record, "w") as f:
+                json.dump({"card": card, "blocksync": bs}, f, indent=1,
+                          default=str)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     rec = {k: {"name": k, "route": "cuda"} for k in _build.KERNELS}
     sources = {"sha256_leaves": ("csrc/sha256.cu",
@@ -2916,7 +3454,11 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         lc_launches, lc = phase_light_client(pool, keys, chain150, blocks10k,
                                              dev, REPS)
-    lc["phase_s"] = time.perf_counter() - t0
+        lc["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bs_launches, bs = phase_blocksync(pool, keys, dev, 5)
+        bs["phase_s"] = time.perf_counter() - t0
+    report_blocksync(bs, bs_launches, card)
     print(f"light client (phase 10): fixtures {lc['fixture_s']}, first "
           f"calls {lc['first_call_s']} s, phase {lc['phase_s']:.1f} s; "
           f"launches {lc_launches}")
@@ -2987,7 +3529,7 @@ def main(argv=None) -> int:
     paths = {"commit": launches, f"light{LIGHT_VALS}": l150_launches,
              f"light{BIG_VALS}": l10k_launches, f"bls{BLS_VALS}": bls_launches,
              f"mesh{MESH_SHARDS}": mesh_launches,
-             "light_client": lc_launches}
+             "light_client": lc_launches, "blocksync": bs_launches}
 
     c = op_counts()
     print(f"field multiplications per group op: {c}")
@@ -3045,7 +3587,7 @@ def main(argv=None) -> int:
                        "per_call": per_call, "p50_ms": lat,
                        "throughput": tp, "op_counts": c, "merkle": mk,
                        "light150": l150, "light10k": l10k, "bls": bls,
-                       "light_client": lc,
+                       "light_client": lc, "blocksync": bs,
                        "mesh": mesh, "build_log": _build.build_log(),
                        "ptxas": usage}, f, indent=1,
                       default=str)

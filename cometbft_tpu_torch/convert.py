@@ -17,9 +17,15 @@ validator set, and a node's cached per-valset tables move across:
 - :func:`header_from_fields` builds a ``Header`` from a header's field
   values, and :func:`light_block_from_arrays` a ``LightBlock`` from
   those, a validator set's arrays and a commit's arrays, so a chain made
-  by the JAX package is verified by both packages.
+  by the JAX package is verified by both packages;
+- :func:`block_from_bytes` reads a block, and :func:`state_from_bytes`
+  a state, from the bytes the JAX package stores (its ``codec.pack`` of
+  a ``Block``, its ``StateStore`` record), which the port's codec reads
+  byte for byte, so a chain the JAX package's executor made is synced
+  and applied by the port.
 
-Nothing here imports the JAX package: the inputs are plain arrays.
+Nothing here imports the JAX package: the inputs are plain arrays and
+bytes.
 """
 
 from __future__ import annotations
@@ -31,14 +37,17 @@ from .crypto.bls12381 import Bls12381PubKey
 from .crypto.keys import Ed25519PubKey
 from .light.types import LightBlock
 from .ops import fe
+from .storage.statestore import State, state_from_dict
+from .types import _msgpack, codec
 from .types.block_id import BlockID, PartSetHeader
 from .types.commit import Commit, CommitSig
-from .types.header import Header
+from .types.header import Block, Header
 from .types.validator_set import Validator, ValidatorSet
 
 __all__ = ["tables_from_jax", "validator_set_from_arrays",
            "commit_from_arrays", "header_from_fields",
-           "light_block_from_arrays"]
+           "light_block_from_arrays", "block_from_bytes",
+           "state_from_bytes"]
 
 _JAX_RADIX = 13
 
@@ -142,3 +151,18 @@ def light_block_from_arrays(header: dict, pubs, powers, commit: dict,
                       validators=validator_set_from_arrays(
                           pubs, powers, key_types, priorities,
                           proposer_address))
+
+
+def block_from_bytes(raw: bytes) -> Block:
+    """A ``Block`` from a stored block's bytes (``codec.pack`` of one, as
+    under a block store's ``B/`` key)."""
+    block = codec.unpack(raw)
+    if not isinstance(block, Block):
+        raise TypeError(f"not a block record: {type(block).__name__}")
+    return block
+
+
+def state_from_bytes(raw: bytes) -> State:
+    """A ``State`` from a state store's record (the bytes under
+    ``S/state``)."""
+    return state_from_dict(_msgpack.unpackb(raw))

@@ -28,11 +28,20 @@ any lane count, so there are no shape buckets, no lane cap and no
 chunking.  ``DISPATCHES`` counts the verdict calls by route
 (``rlc_gather``, ``gather``, ``rlc``, ``verify`` and their ``_sharded``
 twins).
+
+:func:`device_call` runs a dispatch on the one device-owner thread (the
+counterpart of ``cometbft_tpu/crypto/batch.py:837 _device_call`` in its
+patient mode): blocksync's windows, packed on worker threads, queue
+there one behind the other.  Unlike the JAX package's, the wait has no
+bound and nothing falls back to the host: a device error, or a call
+that never returns, stays the caller's.
 """
 
 from __future__ import annotations
 
 import collections
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -46,7 +55,8 @@ from . import plan as _plan
 
 __all__ = ["RLC_MIN_LANES", "DISPATCHES", "BatchVerifier",
            "create_batch_verifier", "verify_dense", "device_verify_ed25519",
-           "device_verify_ed25519_cached"]
+           "device_verify_ed25519_cached", "device_call",
+           "DEVICE_THREAD_NAME"]
 
 # Minimum Ed25519 lanes before the RLC verdict
 RLC_MIN_LANES = 128
@@ -152,23 +162,45 @@ def device_verify_ed25519(pubs, rs, ss, msgs, msg_lens, device=None,
 # matrix is ``ValidatorSet.dense()``'s, built once per set; entries hold
 # it, so an id is never reused while cached.
 _TABLES: dict = {}
+_TABLES_LOCK = threading.Lock()
 
 
 def _valset_tables(valset_pubs: np.ndarray, devices) -> dict:
     """The set's (tab, ok) on every distinct device of ``devices``, each
     built on first use there; the cache holds TABLE_CACHE_ENTRIES sets,
-    however many devices each spans."""
-    ent = _TABLES.get(id(valset_pubs))
-    if ent is None:
-        while len(_TABLES) >= TABLE_CACHE_ENTRIES:
-            _TABLES.pop(next(iter(_TABLES)))
-        ent = _TABLES[id(valset_pubs)] = (valset_pubs, {})
-    reps = ent[1]
-    for dev in dict.fromkeys(devices):
-        if dev not in reps:
-            reps[dev] = _ed.prepare_pubkey_tables(torch.from_numpy(
-                np.array(valset_pubs, np.uint8)).to(dev))
-    return reps
+    however many devices each spans.  One lock covers the lookup and the
+    build, so two threads never build one set's table twice."""
+    with _TABLES_LOCK:
+        ent = _TABLES.get(id(valset_pubs))
+        if ent is None:
+            while len(_TABLES) >= TABLE_CACHE_ENTRIES:
+                _TABLES.pop(next(iter(_TABLES)))
+            ent = _TABLES[id(valset_pubs)] = (valset_pubs, {})
+        reps = ent[1]
+        for dev in dict.fromkeys(devices):
+            if dev not in reps:
+                reps[dev] = _ed.prepare_pubkey_tables(torch.from_numpy(
+                    np.array(valset_pubs, np.uint8)).to(dev))
+        return dict(reps)
+
+
+DEVICE_THREAD_NAME = "device-owner"
+_DEVICE_POOL: ThreadPoolExecutor | None = None
+_DEVICE_POOL_LOCK = threading.Lock()
+
+
+def device_call(fn):
+    """``fn()`` (a device dispatch) run on the single device-owner
+    thread; the caller waits for it however long it takes, and an
+    exception ``fn`` raises is raised here.  The executor is made once,
+    under a lock, so concurrent callers share the one thread.  ``fn``
+    names its devices: a worker thread has its own current device."""
+    global _DEVICE_POOL
+    with _DEVICE_POOL_LOCK:
+        if _DEVICE_POOL is None:
+            _DEVICE_POOL = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix=DEVICE_THREAD_NAME)
+    return _DEVICE_POOL.submit(fn).result()
 
 
 def device_verify_ed25519_cached(valset_pubs, scope, pubs_rows, rs, ss,

@@ -6,13 +6,18 @@ is the one way to choose a device set; it may name one card more than
 once, so one card can run several shards, as the JAX package's tests run
 its mesh over emulated CPU devices.
 
+:func:`window_blocks` is blocksync's window depth.  The JAX package
+snaps a window up to fill its TPU compile buckets over a mesh; the
+port's kernels take any lane count and have no buckets, so the
+configured window stands on one device and over a device set alike
+(whether a snap pays on the card is ``ROADMAP.md`` queue 1 item 2).
+
 Not ported, because the port's kernels take any lane count: the lane,
 block, table, merkle and BLS buckets, ``chunk_bucket``,
-``mesh_occupancy``, ``window_blocks``, the warm set and ``plan_hash``
-(the AOT bundle and blocksync's window stand in ``ROADMAP.md``).  Nor
-are the plan's settable fields: the RLC threshold is the constant
-``crypto/batch.py:RLC_MIN_LANES``, and the mesh shape and axis name
-have no reader here.
+``mesh_occupancy``, the warm set and ``plan_hash`` (the AOT bundle
+stands in ``ROADMAP.md``).  Nor are the plan's settable fields: the RLC
+threshold is the constant ``crypto/batch.py:RLC_MIN_LANES``, and the
+mesh shape and axis name have no reader here.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["set_devices", "resolve_devices"]
+__all__ = ["set_devices", "resolve_devices", "window_blocks"]
 
 _DEVICES: tuple | None = None    # explicit device set
 
@@ -47,3 +52,10 @@ def resolve_devices(device=None) -> tuple:
     if count > 1:
         return tuple(torch.device("cuda", i) for i in range(count))
     return (resolve_device(None),)
+
+
+def window_blocks(base_blocks: int, lanes_per_block: int) -> int:
+    """Blocks blocksync stages per verify window
+    (``cometbft_tpu/crypto/plan.py:368``): the configured window, at
+    least one block, whatever the device set."""
+    return max(1, int(base_blocks))

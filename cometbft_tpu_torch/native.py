@@ -27,6 +27,7 @@ import fcntl
 import hashlib
 import platform
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -41,6 +42,7 @@ FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 BUILD_SECONDS: dict = {}
 _LIBS: dict = {}
+_LOAD_LOCK = threading.RLock()     # threads load a library once
 
 
 class NativeBuildError(RuntimeError):
@@ -101,11 +103,12 @@ def lib_path(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built on first use in a process."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(lib_path(name)))
-        _LIBS[name] = lib
-    return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(lib_path(name)))
+            _LIBS[name] = lib
+        return lib
 
 
 _VSB: list = []
@@ -115,15 +118,16 @@ _I64P = ctypes.POINTER(ctypes.c_int64)
 
 
 def _vsb():
-    if not _VSB:
-        fn = load("vote_sign_bytes").build_vote_sign_bytes
-        fn.argtypes = [ctypes.c_char_p, ctypes.c_uint64, ctypes.c_char_p,
-                       ctypes.c_uint64, ctypes.c_char_p, ctypes.c_uint64,
-                       _I64P, _U8P, ctypes.c_uint64, _U8P, ctypes.c_uint64,
-                       _U64P]
-        fn.restype = ctypes.c_uint64
-        _VSB.append(fn)
-    return _VSB[0]
+    with _LOAD_LOCK:
+        if not _VSB:
+            fn = load("vote_sign_bytes").build_vote_sign_bytes
+            fn.argtypes = [ctypes.c_char_p, ctypes.c_uint64,
+                           ctypes.c_char_p, ctypes.c_uint64,
+                           ctypes.c_char_p, ctypes.c_uint64, _I64P, _U8P,
+                           ctypes.c_uint64, _U8P, ctypes.c_uint64, _U64P]
+            fn.restype = ctypes.c_uint64
+            _VSB.append(fn)
+        return _VSB[0]
 
 
 def build_vote_sign_bytes(pre_commit: bytes, pre_nil: bytes, post: bytes,

@@ -13,19 +13,18 @@ Tagged types: ``PartSetHeader``, ``BlockID``, ``CommitSig``, ``Commit``
 (``agg``/``asg`` only when the commit carries an aggregate), ``Header``,
 ``Data``, ``Validator`` (Ed25519 or BLS12-381 keys), ``ValidatorSet``,
 ``Vote``, ``Proposal``, ``DuplicateVoteEvidence``,
-``LightClientAttackEvidence`` and ``LightBlock``.  ``Block``,
-``ExtendedCommit`` and ``ExtendedCommitSig`` come with the blocksync
-slice of the port: until then their tags raise TypeError, as an unknown
-tag does.
+``LightClientAttackEvidence``, ``LightBlock``, ``Block``,
+``ExtendedCommit`` and ``ExtendedCommitSig``.  An unknown tag raises
+TypeError.
 """
 
 from __future__ import annotations
 
 from . import _msgpack
 from .block_id import BlockID, PartSetHeader
-from .commit import Commit, CommitSig
+from .commit import Commit, CommitSig, ExtendedCommit, ExtendedCommitSig
 from .evidence import DuplicateVoteEvidence, LightClientAttackEvidence
-from .header import Data, Header
+from .header import Block, Data, Header
 from .validator_set import Validator, ValidatorSet
 from .vote import Proposal, Vote
 
@@ -42,10 +41,10 @@ def unpack(raw: bytes):
 
 # --------------------------------------------------------------- dict codecs
 
-def _commit_dict(t: str, obj: Commit) -> dict:
+def _commit_dict(t: str, obj, sigs: list) -> dict:
+    """A ``Commit`` or ``ExtendedCommit`` (``sigs`` its lanes)."""
     d = {"!": t, "h": obj.height, "r": obj.round,
-         "bid": to_dict(obj.block_id),
-         "sigs": [to_dict(s) for s in obj.signatures]}
+         "bid": to_dict(obj.block_id), "sigs": [to_dict(s) for s in sigs]}
     if obj.agg_signature or obj.agg_signers:
         # only when present: an Ed25519 commit's dict has no such keys
         d["agg"] = obj.agg_signature
@@ -71,7 +70,12 @@ def to_dict(obj):
                 "addr": obj.validator_address, "ts": obj.timestamp_ns,
                 "sig": obj.signature}
     if isinstance(obj, Commit):
-        return _commit_dict(t, obj)
+        return _commit_dict(t, obj, obj.signatures)
+    if isinstance(obj, ExtendedCommitSig):
+        return {"!": t, "cs": to_dict(obj.commit_sig), "ext": obj.extension,
+                "extsig": obj.extension_signature}
+    if isinstance(obj, ExtendedCommit):
+        return _commit_dict(t, obj, obj.extended_signatures)
     if isinstance(obj, Vote):
         return {"!": t, "t": obj.type, "h": obj.height, "r": obj.round,
                 "bid": to_dict(obj.block_id), "ts": obj.timestamp_ns,
@@ -93,6 +97,10 @@ def to_dict(obj):
                 "va": obj.version_app}
     if isinstance(obj, Data):
         return {"!": t, "txs": list(obj.txs)}
+    if isinstance(obj, Block):
+        return {"!": t, "hdr": to_dict(obj.header), "data": to_dict(obj.data),
+                "ev": [to_dict(e) for e in obj.evidence],
+                "lc": to_dict(obj.last_commit)}
     if isinstance(obj, Validator):
         return {"!": t, "pk_type": obj.pub_key.type(),
                 "pk": obj.pub_key.bytes(), "power": obj.voting_power,
@@ -149,6 +157,12 @@ def from_dict(d):
         return Commit(d["h"], d["r"], from_dict(d["bid"]),
                       [from_dict(s) for s in d["sigs"]],
                       d.get("agg", b""), d.get("asg", b""))
+    if t == "ExtendedCommitSig":
+        return ExtendedCommitSig(from_dict(d["cs"]), d["ext"], d["extsig"])
+    if t == "ExtendedCommit":
+        return ExtendedCommit(d["h"], d["r"], from_dict(d["bid"]),
+                              [from_dict(s) for s in d["sigs"]],
+                              d.get("agg", b""), d.get("asg", b""))
     if t == "Vote":
         return Vote(type=d["t"], height=d["h"], round=d["r"],
                     block_id=from_dict(d["bid"]), timestamp_ns=d["ts"],
@@ -170,6 +184,10 @@ def from_dict(d):
                       version_app=d["va"])
     if t == "Data":
         return Data(txs=list(d["txs"]))
+    if t == "Block":
+        return Block(header=from_dict(d["hdr"]), data=from_dict(d["data"]),
+                     evidence=[from_dict(e) for e in d["ev"]],
+                     last_commit=from_dict(d["lc"]))
     if t == "Validator":
         from ..crypto.keys import pub_key_from_type_bytes
 
@@ -191,6 +209,4 @@ def from_dict(d):
 
         return LightBlock(header=from_dict(d["h"]), commit=from_dict(d["c"]),
                           validators=from_dict(d["v"]))
-    if t in ("Block", "ExtendedCommit", "ExtendedCommitSig"):
-        raise TypeError(f"codec: tag {t!r} is not in the port yet")
     raise TypeError(f"codec: unknown tag {t!r}")

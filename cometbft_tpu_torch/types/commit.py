@@ -8,6 +8,8 @@ checks.  A BLS aggregate commit folds its BLS for-block lanes into one
 bytes plus a signer bitmap (``agg_signers``); those lanes keep address
 and timestamp and carry no signature of their own
 (:func:`aggregate_commit`, verified in ``types/validation.py``).
+``ExtendedCommit`` carries each lane's vote extension and its signature
+(types/block.go:1086) for the heights where vote extensions are on.
 """
 
 from __future__ import annotations
@@ -19,12 +21,13 @@ import numpy as np
 from ..crypto import merkle
 from . import canonical, wire
 from .block_id import BlockID
-from .vote import PRECOMMIT_TYPE
+from .vote import PRECOMMIT_TYPE, Vote
 
 __all__ = ["BLOCK_ID_FLAG_ABSENT", "BLOCK_ID_FLAG_COMMIT",
            "BLOCK_ID_FLAG_NIL", "BLOCK_ID_FLAG_AGGREGATE",
            "MAX_SIGNATURE_SIZE", "signer_bitmap", "bitmap_indices",
-           "CommitSig", "Commit", "aggregate_commit"]
+           "CommitSig", "Commit", "aggregate_commit", "ExtendedCommitSig",
+           "ExtendedCommit"]
 
 BLOCK_ID_FLAG_ABSENT = 1
 BLOCK_ID_FLAG_COMMIT = 2
@@ -69,6 +72,10 @@ class CommitSig:
     timestamp_ns: int = 0
     signature: bytes = b""
 
+    @classmethod
+    def absent(cls) -> "CommitSig":
+        return cls()
+
     def is_absent(self) -> bool:
         return self.block_id_flag == BLOCK_ID_FLAG_ABSENT
 
@@ -78,6 +85,16 @@ class CommitSig:
 
     def is_aggregate(self) -> bool:
         return self.block_id_flag == BLOCK_ID_FLAG_AGGREGATE
+
+    def for_block(self) -> bool:
+        return self.is_commit()
+
+    def block_id(self, commit_block_id: BlockID) -> BlockID:
+        """The BlockID this lane signed: the commit's for a commit or
+        aggregate lane, nil otherwise (types/block.go CommitSig.BlockID)."""
+        if self.is_commit():
+            return commit_block_id
+        return BlockID()
 
     def validate_basic(self) -> str | None:
         if self.block_id_flag not in (BLOCK_ID_FLAG_ABSENT,
@@ -253,6 +270,14 @@ class Commit:
             cache[(chain_id, is_commit)] = enc
         return enc
 
+    def to_vote(self, idx: int) -> Vote:
+        cs = self.signatures[idx]
+        return Vote(type=PRECOMMIT_TYPE, height=self.height, round=self.round,
+                    block_id=cs.block_id(self.block_id),
+                    timestamp_ns=cs.timestamp_ns,
+                    validator_address=cs.validator_address,
+                    validator_index=idx, signature=cs.signature)
+
     def dense_columns(self):
         """Columnar view for dense verification: ``(flags uint8 (N,),
         timestamps int64 (N,), sigs uint8 (N, 64), sig_ok bool (N,))``.
@@ -311,3 +336,69 @@ def aggregate_commit(commit: Commit, val_set) -> Commit:
                                 cs.timestamp_ns, b"")
     return Commit(commit.height, commit.round, commit.block_id, new_sigs,
                   agg, signer_bitmap(cohort, len(new_sigs)))
+
+
+@dataclass
+class ExtendedCommitSig:
+    commit_sig: CommitSig = field(default_factory=CommitSig)
+    extension: bytes = b""
+    extension_signature: bytes = b""
+
+    def validate_basic(self) -> str | None:
+        err = self.commit_sig.validate_basic()
+        if err:
+            return err
+        if self.commit_sig.is_commit():
+            if len(self.extension_signature) > MAX_SIGNATURE_SIZE:
+                return "extension signature too big"
+        elif self.extension or self.extension_signature:
+            return "extension on non-commit vote"
+        return None
+
+    def ensure_extension(self, ext_enabled: bool) -> bool:
+        """types/block.go EnsureExtensions, for one lane."""
+        if not ext_enabled:
+            return not self.extension and not self.extension_signature
+        if self.commit_sig.is_commit():
+            return len(self.extension_signature) > 0
+        return True
+
+
+@dataclass
+class ExtendedCommit:
+    """A commit with its lanes' vote extensions (types/block.go:1086).
+    An aggregate carried over from an aggregated commit stays with it:
+    its folded lanes have no signatures of their own."""
+
+    height: int
+    round: int
+    block_id: BlockID
+    extended_signatures: list[ExtendedCommitSig] = field(default_factory=list)
+    agg_signature: bytes = b""
+    agg_signers: bytes = b""
+
+    def size(self) -> int:
+        return len(self.extended_signatures)
+
+    def to_commit(self) -> Commit:
+        """The commit without its extensions (types/block.go:1165)."""
+        return Commit(height=self.height, round=self.round,
+                      block_id=self.block_id,
+                      signatures=[e.commit_sig
+                                  for e in self.extended_signatures],
+                      agg_signature=self.agg_signature,
+                      agg_signers=self.agg_signers)
+
+    def ensure_extensions(self, ext_enabled: bool) -> bool:
+        """types/block.go:1154 EnsureExtensions."""
+        return all(e.ensure_extension(ext_enabled)
+                   for e in self.extended_signatures)
+
+    def to_extended_vote(self, idx: int) -> Vote:
+        e = self.extended_signatures[idx]
+        v = Commit(self.height, self.round, self.block_id,
+                   [x.commit_sig for x in self.extended_signatures]
+                   ).to_vote(idx)
+        v.extension = e.extension
+        v.extension_signature = e.extension_signature
+        return v

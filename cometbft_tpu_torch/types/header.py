@@ -1,11 +1,12 @@
-"""Header and Data (reference: ``types/block.go:1-600``).
+"""Header, Data and Block (reference: ``types/block.go:1-600``).
 
-Counterpart of ``cometbft_tpu/types/header.py`` for what the light
-client reads.  ``Header.hash`` is the merkle root of the 14 proto-encoded
-header fields, so it stays on hashlib; ``Data.hash`` is the merkle root
-of the transactions' SHA-256 hashes and takes the kernel route at
-``merkle.MERKLE_KERNEL_MIN_LEAVES`` transactions or more.  ``Block``
-comes with the blocksync slice.
+Counterpart of ``cometbft_tpu/types/header.py``.  ``Header.hash`` is the
+merkle root of the 14 proto-encoded header fields, so it stays on
+hashlib; ``Data.hash`` (the merkle root of the transactions' SHA-256
+hashes), the last commit's hash and the evidence hash take the kernel
+route at ``merkle.MERKLE_KERNEL_MIN_LEAVES`` leaves or more, on the
+``device`` a ``Block`` method is given (None: CUDA).  ``Block.hash`` is
+its header's.
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ from dataclasses import dataclass, field
 from ..crypto import merkle, tmhash
 from . import canonical, wire
 from .block_id import BlockID
+from .commit import Commit
 
-__all__ = ["BLOCK_PROTOCOL_VERSION", "Header", "Data", "tx_hash"]
+__all__ = ["BLOCK_PROTOCOL_VERSION", "Header", "Data", "Block", "tx_hash"]
 
 BLOCK_PROTOCOL_VERSION = 11  # version/version.go BlockProtocol
 
@@ -121,3 +123,54 @@ class Data:
     def hash(self, device=None) -> bytes:
         return merkle.hash_from_byte_slices_fast(
             [tx_hash(t) for t in self.txs], device=device)
+
+
+@dataclass
+class Block:
+    header: Header
+    data: Data = field(default_factory=Data)
+    evidence: list = field(default_factory=list)
+    last_commit: Commit | None = None
+
+    def hash(self) -> bytes:
+        return self.header.hash()
+
+    def fill_hashes(self, device=None) -> None:
+        """Set the header's derived hashes from the contents (block
+        construction)."""
+        self.header.data_hash = self.data.hash(device)
+        if self.last_commit is not None:
+            self.header.last_commit_hash = self.last_commit.hash(device)
+        self.header.evidence_hash = merkle.hash_from_byte_slices_fast(
+            [e.hash() for e in self.evidence], device=device)
+
+    def validate_basic(self, device=None) -> str | None:
+        err = self.header.validate_basic()
+        if err:
+            return err
+        if self.header.height > 1:
+            if self.last_commit is None:
+                return "nil last_commit"
+            err = self.last_commit.validate_basic()
+            if err:
+                return f"invalid last_commit: {err}"
+            if self.header.last_commit_hash != self.last_commit.hash(device):
+                return "wrong last_commit_hash"
+        if self.header.data_hash != self.data.hash(device):
+            return "wrong data_hash"
+        return None
+
+    def encode(self) -> bytes:
+        """Wire proto of the block (header=1, data=2, evidence=3,
+        commit=4)."""
+        data_enc = b"".join(wire.field_bytes(1, t, force=True)
+                            for t in self.data.txs)
+        ev_enc = b"".join(wire.field_message(1, e.encode(), force=True)
+                          for e in self.evidence)
+        out = (wire.field_message(1, self.header.encode(), force=True)
+               + wire.field_message(2, data_enc, force=True)
+               + wire.field_message(3, ev_enc, force=True))
+        if self.last_commit is not None:
+            out += wire.field_message(4, self.last_commit.encode(),
+                                      force=True)
+        return out

@@ -35,8 +35,12 @@ lanes are tallied, not verified again; Ed25519 lanes go to one device
 batch (``crypto/batch.BatchVerifier``); individual BLS lanes (NIL votes,
 cohorts below 2) are verified one by one by the host library.
 
-Not in this slice: the verified-signature cache of ``crypto/scheduler``
-and blocksync's patient device wait.  ``device`` is a device, ``"cpu"``,
+``verify_commits_light_batched(..., patient=True)`` is blocksync's
+staging mode: its dispatch runs on the one device-owner thread
+(``crypto/batch.py:device_call``), so a window packed on a worker
+thread queues behind the window ahead; there is no bounded wait and no
+host verification behind it.  Not in this slice: the verified-signature
+cache of ``crypto/scheduler``.  ``device`` is a device, ``"cpu"``,
 or ``None`` for the plan's devices (``crypto/plan.py:resolve_devices``:
 the device set, over which the dense verify shards its lanes, else
 CUDA, raising without a card).
@@ -431,7 +435,8 @@ class ErrBatchItemInvalid(CommitVerificationError):
 
 
 def verify_commits_light_batched(chain_id: str, vals: ValidatorSet,
-                                 items: list, device=None) -> int:
+                                 items: list, device=None,
+                                 patient: bool = False) -> int:
     """``VerifyCommitLight`` over many commits sharing one validator set
     in one dense device call (``cometbft_tpu/types/validation.py:581``,
     its dense core at :673).  ``items`` is a list of ``(block_id, height,
@@ -449,11 +454,16 @@ def verify_commits_light_batched(chain_id: str, vals: ValidatorSet,
 
     On a set with a BLS member, or when an item carries an aggregate, the
     items go through the JAX package's loop (:func:`_batched_loop`)
-    instead, with the same raise order and demux."""
+    instead, with the same raise order and demux.
+
+    ``patient=True`` runs the dispatch on the device-owner thread
+    (``crypto/batch.py:device_call``) and waits for it; whatever it
+    raises is raised here."""
     dev = _devices(device)
+    call = cryptobatch.device_call if patient else _now
     needed = vals.total_voting_power() * 2 // 3
     if vals.dense() is None or any(c.has_aggregate() for _, _, c in items):
-        return _batched_loop(chain_id, vals, items, needed, dev)
+        return _batched_loop(chain_id, vals, items, needed, dev, call)
     pubs, powers = vals.dense()
     rows, sigs, sig_ok, msgs, lens, lanes = [], [], [], [], [], []
     for k, (block_id, height, commit) in enumerate(items):
@@ -478,21 +488,26 @@ def verify_commits_light_batched(chain_id: str, vals: ValidatorSet,
         return 0
     stride = max(m.shape[1] for m in msgs)
     msgs = [np.pad(m, ((0, 0), (0, stride - m.shape[1]))) for m in msgs]
-    oks = _lane_verdicts(pubs, np.concatenate(rows), np.concatenate(sigs),
-                         np.concatenate(sig_ok), np.concatenate(msgs),
-                         np.concatenate(lens), dev)
+    args = (pubs, np.concatenate(rows), np.concatenate(sigs),
+            np.concatenate(sig_ok), np.concatenate(msgs),
+            np.concatenate(lens), dev)
+    oks = call(lambda: _lane_verdicts(*args))
     if not oks.all():
         k, idx = lanes[int(np.nonzero(~oks)[0][0])]
         raise ErrBatchItemInvalid(k, items[k][1], ErrInvalidSignature(idx))
     return len(lanes)
 
 
-def _batched_loop(chain_id, vals, items, needed, device) -> int:
+def _now(fn):
+    return fn()
+
+
+def _batched_loop(chain_id, vals, items, needed, device, call) -> int:
     """``verify_commits_light_batched`` as the JAX package's loop
     (``cometbft_tpu/types/validation.py:630``): per item, the basics and
     the aggregate (whose power is pre-tallied), then the light scope of
     the other commit lanes; one ``BatchVerifier`` over every item's
-    lanes."""
+    lanes, verified through ``call``."""
     bv = cryptobatch.create_batch_verifier(device)
     lanes: list[tuple[int, int]] = []
     for k, (block_id, height, commit) in enumerate(items):
@@ -520,7 +535,7 @@ def _batched_loop(chain_id, vals, items, needed, device) -> int:
                 k, height,
                 ErrNotEnoughVotingPower(f"tallied {tally} <= {needed}"))
     if len(bv) > 0:
-        ok, oks = bv.verify()
+        ok, oks = call(bv.verify)
         if not ok:
             k, idx = lanes[oks.index(False)]
             raise ErrBatchItemInvalid(k, items[k][1], ErrInvalidSignature(idx))

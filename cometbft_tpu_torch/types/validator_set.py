@@ -21,6 +21,7 @@ match.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field, replace
 
 import numpy as np
@@ -33,6 +34,10 @@ __all__ = ["MAX_TOTAL_VOTING_POWER", "PRIORITY_WINDOW_SIZE_FACTOR",
 
 MAX_TOTAL_VOTING_POWER = (2**63 - 1) // 8
 PRIORITY_WINDOW_SIZE_FACTOR = 2
+
+# one dense view a set: two threads asking at once get the same matrix,
+# which the device table cache keys on
+_DENSE_LOCK = threading.Lock()
 
 # caches derived from membership and powers, dropped on an update
 _DERIVED = ("_dense", "_addr_idx", "_bls_cohort", "_bls_agg_tbl",
@@ -128,7 +133,12 @@ class ValidatorSet:
         key on; None when the set is empty or any key is not Ed25519 (such
         sets verify through the lane loop of ``types/validation.py``)."""
         d = self.__dict__.get("_dense", False)
-        if d is False:
+        if d is not False:
+            return d
+        with _DENSE_LOCK:
+            d = self.__dict__.get("_dense", False)
+            if d is not False:
+                return d
             n = len(self.validators)
             d = None
             if n and all(v.pub_key.type() == "ed25519"
