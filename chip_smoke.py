@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port's commit-, light-header and BLS
 aggregate-commit verification paths, of lane-sharded commit
-verification over a device set, of the light client and of blocksync
-catch-up, on one card.
+verification over a device set, of the light client, of blocksync
+catch-up and of consensus in one process, on one card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -114,9 +114,23 @@ Phases, each of which must pass or the script exits non-zero:
    ``BS_BAD_AT`` carries a forged vouch: reported ``bad_block``, the two
    heights fetched again from the honest server, the store the source's,
    K5b launched; (c) the same commits verified in windows against one
-   ``VerifyCommitLight`` a commit, p50 of 5 calls each.
+   ``VerifyCommitLight`` a commit, p50 of 5 calls each;
+12. consensus (``phase_consensus``): in-process networks of the port's
+   consensus (``testing.make_inproc_network(device=cuda:0)``), every
+   signature check through the verification scheduler on the card: (a)
+   ``CS_SMALL`` validators, a tx injected a node, to height
+   ``CS_SMALL_HEIGHT`` (one block hash a height everywhere, every tx
+   committed and in every kvstore); (b) ``CS_VALS`` validators at power
+   10 to height ``CS_HEIGHT`` (block 3's last commit has every lane),
+   with each height's first and last commit, rounds, the scheduler's
+   flushes, cache hits and misses and one-lane device checks, the
+   messages delivered, and the device busy share of heights 2 onwards
+   (``profile_call``); (c) WAL crash recovery at ``CS_SMALL``.  The
+   pure-Python oracle's calls are counted over the run (must be 0), and
+   every stored commit of (a) and (b) is re-checked by it afterwards;
+   one one-lane device check is timed alone.
 
-Phases 4, 6, 7, 8, 9, 10 and 11 are the main path: the launch counters
+Phases 4, 6, 7, 8, 9, 10, 11 and 12 are the main path: the launch counters
 are zeroed just before each and read just after; each phase's kernels
 must have launched, no plain version may have run, and neither
 standalone hash kernel (``OFF_PATH``: the RLC lane stage hashes its
@@ -135,7 +149,9 @@ validators and times it at 10,000 and 150 at both ``LANE_LAYOUTS``.
 runs only phases 1, 2 and 9, over the first ``MESH_SHARDS`` cards, one
 shard each: the cross-card copy of the partial sums and the overlap of
 the cards, which one card cannot show.  ``python3 chip_smoke.py
---blocksync`` runs only phases 1 and 2, phase 3's sweep and phase 11.
+--blocksync`` runs only phases 1 and 2, phase 3's sweep and phase 11;
+``python3 chip_smoke.py --consensus`` the same with phase 12 (both
+options together run both phases).
 
 The line before the last is a JSON object with one entry per kernel
 (launches on the main path, max_abs_err, times, bound); the last line is
@@ -251,10 +267,10 @@ BLS_ROWS = (1, 3, 64, 1000)      # table rows of the G1 fold's checks
 BLS_RAGGED = (200, 16_385)       # and an absentee fold's size, 2^14 + 1
 BLS_ROWS_TIMED = 200             # the fold also timed at this size
 BS_VALS = 1_000                  # validators of phase 11 (BASELINE configs[3])
-# its source chain (configs[3]: 50,000 blocks); 97 heights took 89.2 s of
-# signing on the 8 cores of the H100's host, past the 60 s the phase
-# allows it, so 65: two windows of 32 and the tail
-BS_HEIGHTS = 65
+# its source chain (configs[3]: 50,000 blocks, cut to what the phase's
+# time allows): three windows of 32 and the tail, signed by the native
+# signer (crypto/keys.py) in the pool
+BS_HEIGHTS = 97
 BS_BAD_AT = 40                   # (b): this block's last commit is forged
 BS_RUNS = 3                      # (a): timed catch-ups
 BS_T0 = 1_700_000_000_000_000_000
@@ -358,7 +374,7 @@ def _spread(t: dict) -> str:
 # ----------------------------------------------------------------- fixtures
 
 class Fixtures:
-    """Keys, validator sets and commits made with the port's own oracle
+    """Keys, validator sets and commits made with the port's own signer
     from a fixed seed; every signature is made once."""
 
     def __init__(self, n_keys: int):
@@ -3072,6 +3088,333 @@ def report_blocksync(bs, launches, card) -> None:
           f"(VerifyCommitLight) {_spread(v['one_by_one'])}  [{card}]")
 
 
+# ------------------------------------------------- phase 12: consensus
+
+CS_SMALL = 4                     # (a), (c): validators
+CS_SMALL_HEIGHT = 6              # (a): a full proposer rotation and more
+CS_VALS = 150                    # (b): BASELINE configs[1]'s commit width
+CS_HEIGHT = 3                    # (b): block 3 carries a 150-lane commit
+CS_TIMEOUT_S = 240               # a part's wait for its heights
+
+
+def _oracle_counter():
+    """Wrap the pure-Python ZIP-215 oracle so that its calls are counted
+    (every port path must verify on the card: the count must stay 0);
+    returns (counter, restore)."""
+    from cometbft_tpu_torch.crypto import _ed25519_py
+
+    orig = _ed25519_py.verify_zip215
+    calls = [0]
+
+    def counting(*a, **kw):
+        calls[0] += 1
+        return orig(*a, **kw)
+
+    _ed25519_py.verify_zip215 = counting
+
+    def restore():
+        _ed25519_py.verify_zip215 = orig
+
+    return calls, restore
+
+
+def _commit_round(node, h: int):
+    """The round height ``h`` committed in at ``node``."""
+    c = node.block_store.load_block_commit(h)
+    if c is None:
+        seen = node.block_store.load_seen_commit()
+        c = seen if seen is not None and seen.height == h else None
+    return None if c is None else c.round
+
+
+def _check_agreement(net, top: int) -> None:
+    """Every node stores the same block hash at heights 1..top."""
+    for h in range(1, top + 1):
+        hs = {n.block_store.load_block(h).hash() for n in net.nodes}
+        if len(hs) != 1:
+            raise AssertionError(f"phase 12: fork at height {h}: "
+                                 f"{len(hs)} hashes")
+
+
+def _oracle_recheck(node, top: int) -> int:
+    """Every signature of ``node``'s stored commits of heights 1..top,
+    re-verified by the pure-Python oracle; returns the count."""
+    from cometbft_tpu_torch.crypto import _ed25519_py
+
+    checked = 0
+    for h in range(1, top + 1):
+        # the harness never stores its genesis state: height 1's set is
+        # the genesis set
+        vals = node.state_store.load_validators(h) or node.state.validators
+        c = node.block_store.load_block_commit(h)
+        if c is None:
+            c = node.block_store.load_seen_commit()
+        if c is None or c.height != h:
+            raise AssertionError(f"phase 12: no stored commit at {h}")
+        for i, cs in enumerate(c.signatures):
+            if cs.is_absent():
+                continue
+            pub = vals.get_by_index(i).pub_key.bytes()
+            if not _ed25519_py.verify_zip215(
+                    pub, c.vote_sign_bytes(CHAIN_ID, i), cs.signature):
+                raise AssertionError(f"phase 12: stored commit {h} lane {i} "
+                                     "fails the oracle")
+            checked += 1
+    return checked
+
+
+async def _watch_heights(net, top: int, t0: float, seen: dict) -> None:
+    """Poll every node until all have committed ``top``: for each height
+    the seconds (since ``t0``) at which the first and the last node
+    committed it, and the highest round any node reached in it."""
+    import asyncio
+
+    first, last, rounds = (seen.setdefault(k, {})
+                           for k in ("first", "last", "max_round"))
+    while True:
+        hs = [n.block_store.height() for n in net.nodes]
+        now = time.perf_counter() - t0
+        for n, h in zip(net.nodes, hs):
+            first.setdefault(h, now)
+            r = n.consensus.rs
+            rounds[r.height] = max(rounds.get(r.height, 0), r.round)
+        for h in range(1, min(hs) + 1):
+            last.setdefault(h, now)
+        if min(hs) >= top:
+            return
+        await asyncio.sleep(0.005)
+
+
+def phase_consensus(dev):
+    """Phase 12: consensus in one process on the card, every signature
+    check through the verification scheduler on ``dev``:
+
+    (a) CS_SMALL validators, one tx injected a node, to height
+        CS_SMALL_HEIGHT: every node stores the same block hash at every
+        height, every tx is committed and held by every node's kvstore;
+    (b) CS_VALS validators at power 10 to height CS_HEIGHT: block
+        CS_HEIGHT's last commit carries every validator's lane; the wall
+        and the rounds of each height, the scheduler's tallies, and the
+        device busy share of heights 2..CS_HEIGHT (``profile_call``);
+    (c) WAL crash recovery at CS_SMALL validators: node 0 stopped and
+        isolated, the others pass its height, node 0 restarts from its
+        WAL and stores, and every node agrees two heights later.
+
+    The launch counters are zeroed just before and read just after the
+    three parts (the main path), the pure-Python oracle must not be
+    called in them, and afterwards every stored commit of (a) and (b) is
+    re-checked by it."""
+    import asyncio
+    import tempfile
+
+    from cometbft_tpu_torch.config import ConsensusConfig, MS
+    from cometbft_tpu_torch.config import test_consensus_config as tcc
+    from cometbft_tpu_torch.consensus import WAL, ConsensusState
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.crypto import scheduler as vsched
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    from cometbft_tpu_torch.testing import make_inproc_network
+
+    loop = asyncio.new_event_loop()
+    run = loop.run_until_complete
+    out: dict = {}
+    keep: dict = {}
+
+    async def part_a():
+        net = await make_inproc_network(CS_SMALL, chain_id=CHAIN_ID,
+                                        device=dev)
+        try:
+            t0 = time.perf_counter()
+            await net.start()
+            for i, node in enumerate(net.nodes):
+                await node.mempool.check_tx(b"k%d=v%d" % (i, i))
+            await net.wait_for_height(CS_SMALL_HEIGHT, timeout=CS_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            stats = vsched.get_scheduler().stats()
+        finally:
+            await net.stop()
+        _check_agreement(net, CS_SMALL_HEIGHT)
+        want = {b"k%d=v%d" % (i, i) for i in range(CS_SMALL)}
+        got = {bytes(tx) for h in range(1, CS_SMALL_HEIGHT + 1)
+               for tx in net.nodes[0].block_store.load_block(h).data.txs}
+        if not want <= got:
+            raise AssertionError(f"phase 12 (a): txs {want - got} never "
+                                 "committed")
+        for n in net.nodes:
+            for i in range(CS_SMALL):
+                if n.app.state.get(b"k%d" % i) != b"v%d" % i:
+                    raise AssertionError(f"phase 12 (a): {n.name}'s kvstore "
+                                         f"lacks k{i}")
+        keep["a"] = net
+        return {"wall_s": wall, "heights": CS_SMALL_HEIGHT,
+                "rounds": [_commit_round(net.nodes[0], h)
+                           for h in range(1, CS_SMALL_HEIGHT + 1)],
+                "scheduler": stats}
+
+    def part_b():
+        # the node's default propose, prevote and precommit timeouts (3,
+        # 1, 1 s): 150 nodes share one interpreter, so a height's
+        # messages take far longer to go round than the test timeouts
+        cfg = ConsensusConfig(timeout_commit=100 * MS)
+        t0 = time.perf_counter()
+        net = run(make_inproc_network(CS_VALS, chain_id=CHAIN_ID,
+                                      config=cfg, device=dev))
+        setup = time.perf_counter() - t0
+        sched = vsched.get_scheduler()
+        seen: dict = {}
+        try:
+            t0 = time.perf_counter()
+            run(net.start())
+            run(asyncio.wait_for(_watch_heights(net, 1, t0, seen),
+                                 CS_TIMEOUT_S))
+            s1, d1 = sched.stats(), dict(net.delivered)
+
+            def rest():
+                run(asyncio.wait_for(_watch_heights(net, CS_HEIGHT, t0,
+                                                    seen), CS_TIMEOUT_S))
+
+            prof = profile_call(rest, top=6, warm=lambda: None)
+            stats = sched.stats()
+        finally:
+            run(net.stop())
+        marks = seen["last"]
+        top = CS_HEIGHT
+        _check_agreement(net, top)
+        last = net.nodes[0].block_store.load_block(top).last_commit
+        n_commit = sum(cs.is_commit() for cs in last.signatures)
+        if len(last.signatures) != CS_VALS or n_commit * 3 <= 2 * CS_VALS:
+            raise AssertionError(f"phase 12 (b): block {top}'s last commit "
+                                 f"has {n_commit} of {len(last.signatures)}"
+                                 " lanes")
+        keep["b"] = net
+        return {"setup_s": setup, "heights_s": marks,
+                "per_height_s": [marks[h] - marks[h - 1]
+                                 for h in range(2, top + 1)],
+                "rounds": [_commit_round(net.nodes[0], h)
+                           for h in range(1, top + 1)],
+                "first_commit_s": seen["first"],
+                "max_round": seen["max_round"],
+                "last_commit_lanes": n_commit, "scheduler_h1": s1,
+                "delivered_h1": d1, "delivered": dict(net.delivered),
+                "scheduler": stats, "profile": prof}
+
+    async def part_c(wal_dir):
+        net = await make_inproc_network(CS_SMALL, chain_id=CHAIN_ID,
+                                        wal_dir=wal_dir, device=dev)
+        try:
+            t0 = time.perf_counter()
+            await net.start()
+            await net.wait_for_height(2, timeout=CS_TIMEOUT_S)
+            victim = net.nodes[0]
+            await victim.consensus.stop()
+            net.isolate(victim.name)
+            stopped_at = victim.block_store.height()
+            await net.wait_for_height(stopped_at + 1, timeout=CS_TIMEOUT_S,
+                                      nodes=net.nodes[1:])
+            cs2 = ConsensusState(
+                tcc(), victim.state_store.load(),
+                victim.consensus.block_exec, victim.block_store,
+                wal=WAL(victim.wal_path), priv_validator=victim.pv,
+                event_bus=victim.event_bus, name="node0r")
+            victim.consensus = cs2
+            net._wire(victim)
+            net.heal(victim.name)
+            await cs2.start()
+            target = max(n.block_store.height() for n in net.nodes) + 2
+            await net.wait_for_height(target, timeout=CS_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+        finally:
+            await net.stop()
+        _check_agreement(net, target)
+        return {"wall_s": wall, "stopped_at": stopped_at, "target": target}
+
+    calls, restore = _oracle_counter()
+    before = dict(cbatch.DISPATCHES)
+    t_ph = time.perf_counter()
+
+    def main_path():
+        out["a"] = run(part_a())
+        out["b"] = part_b()
+        with tempfile.TemporaryDirectory() as d:
+            out["c"] = run(part_c(d))
+        return out
+
+    try:
+        launches, _ = _path_launches(main_path, ("ed25519_tables",
+                                                 "ed25519_verify_gather"))
+    finally:
+        restore()
+    out["main_path_s"] = time.perf_counter() - t_ph
+    out["oracle_calls"] = calls[0]
+    if calls[0]:
+        raise AssertionError(f"phase 12: the host oracle was called "
+                             f"{calls[0]} times on the path")
+    out["dispatches"] = {k: v - before.get(k, 0)
+                         for k, v in cbatch.DISPATCHES.items()
+                         if v - before.get(k, 0)}
+    t0 = time.perf_counter()
+    out["oracle_rechecked"] = {
+        "a": _oracle_recheck(keep["a"].nodes[0], CS_SMALL_HEIGHT),
+        "b": _oracle_recheck(keep["b"].nodes[0], CS_HEIGHT)}
+    out["recheck_s"] = time.perf_counter() - t0
+    # one one-lane device check alone (the scheduler's sync and uncached
+    # route), as a reference for the per-height counts above
+    priv = Ed25519PrivKey.from_secret(b"chip-smoke-0")
+    msg = b"one lane" * 16
+    sig = priv.sign(msg)
+
+    def one_lane():
+        bv = cbatch.create_batch_verifier(dev)
+        bv.add(priv.pub_key(), msg, sig)
+        if not bv.verify()[0]:
+            raise AssertionError("phase 12: one-lane check rejected")
+
+    out["one_lane"] = time_host_spread(one_lane, 20)
+    loop.close()
+    return launches, out
+
+
+def report_consensus(cs, launches, card) -> None:
+    """Phase 12's lines."""
+    a, b, c = cs["a"], cs["b"], cs["c"]
+    print(f"consensus (phase 12): main path {cs['main_path_s']:.1f} s; "
+          f"launches {launches}; dispatches {cs['dispatches']}; oracle "
+          f"calls on the path {cs['oracle_calls']}, stored lanes "
+          f"re-checked by it afterwards {cs['oracle_rechecked']} in "
+          f"{cs['recheck_s']:.1f} s")
+    print(f"consensus (a) {CS_SMALL} validators to height {a['heights']}: "
+          f"{a['wall_s']:.2f} s, rounds {a['rounds']}; scheduler "
+          f"{a['scheduler']}  [{card}]")
+    per = b["per_height_s"]
+    print(f"consensus (b) {CS_VALS} validators to height {CS_HEIGHT}: setup "
+          f"{b['setup_s']:.1f} s, height 1 at {b['heights_s'][1]:.2f} s, "
+          f"then {[round(x, 3) for x in per]} s a height; rounds "
+          f"{b['rounds']}; block {CS_HEIGHT}'s last commit "
+          f"{b['last_commit_lanes']} lanes  [{card}]")
+    st = b["scheduler"]
+    spans = {h: (round(b["first_commit_s"][h], 3), round(t, 3))
+             for h, t in b["heights_s"].items() if h <= CS_HEIGHT}
+    print(f"consensus (b) per height, first and last node's commit (s from "
+          f"start): {spans}; highest round a node reached: "
+          f"{b['max_round']}; messages delivered {b['delivered']} (by "
+          f"height 1: {b['delivered_h1']})  [{card}]")
+    print(f"consensus (b) scheduler: flushes {st['batches']}, lanes a flush "
+          f"{st['mean_batch_lanes']:.2f} (max {st['max_batch_lanes']}), "
+          f"cache hits {st['cache_hits']}, misses {st['cache_misses']}, "
+          f"one-lane device checks {st['single_checks']} (at height 1: "
+          f"{b['scheduler_h1']['single_checks']})  [{card}]")
+    prof = b["profile"]
+    print(f"profile consensus (b) heights 2-{CS_HEIGHT}: wall "
+          f"{prof['wall_ms']:.1f} ms, device {prof['device_ms']} ms (busy "
+          f"{prof['device_busy_share']}), kernels {prof['kernels_ms']}  "
+          f"[{card}]")
+    print(f"consensus (c) WAL recovery at {CS_SMALL}: node 0 stopped at "
+          f"height {c['stopped_at']}, all agree at {c['target']} in "
+          f"{c['wall_s']:.2f} s  [{card}]")
+    print(f"one-lane device check (BatchVerifier, 1 lane): "
+          f"{_spread(cs['one_lane'])}  [{card}]")
+
+
 def op_counts():
     """Field multiplications of each group operation, counted by running
     the plain versions on one lane on the CPU."""
@@ -3238,6 +3581,8 @@ def main(argv=None) -> int:
                     "two or more)")
     ap.add_argument("--blocksync", action="store_true",
                     help="run only the build, the kernel sweep and phase 11")
+    ap.add_argument("--consensus", action="store_true",
+                    help="run only the build, the kernel sweep and phase 12")
     args = ap.parse_args(argv)
 
     import torch
@@ -3291,7 +3636,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     fx = Fixtures(max(SIZES))
     print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
-    if args.blocksync:
+    if args.blocksync or args.consensus:
         rec = {k: {"mismatches": 0} for k in _build.KERNELS}
         t0 = time.perf_counter()
         sweep = phase_sweep(fx, dev, rec)
@@ -3300,15 +3645,25 @@ def main(argv=None) -> int:
               f"{sweep}")
         if any(sweep.values()):
             raise AssertionError(f"sweep mismatches: {sweep}")
-        ctx = multiprocessing.get_context("spawn")
-        with ctx.Pool(os.cpu_count()) as pool:
-            keys = pool_keys(pool, BS_VALS)
-            bs_launches, bs = phase_blocksync(pool, keys, dev, 5)
-        report_blocksync(bs, bs_launches, card)
+        part = {}
+        if args.blocksync:
+            ctx = multiprocessing.get_context("spawn")
+            with ctx.Pool(os.cpu_count()) as pool:
+                keys = pool_keys(pool, BS_VALS)
+                bs_launches, bs = phase_blocksync(pool, keys, dev, 5)
+            report_blocksync(bs, bs_launches, card)
+            part["blocksync"] = bs
+        if args.consensus:
+            t0 = time.perf_counter()
+            cs_launches, cs = phase_consensus(dev)
+            cs["phase_s"] = time.perf_counter() - t0
+            report_consensus(cs, cs_launches, card)
+            part["consensus"] = cs
         if args.record:
+            os.makedirs(os.path.dirname(os.path.abspath(args.record)),
+                        exist_ok=True)
             with open(args.record, "w") as f:
-                json.dump({"card": card, "blocksync": bs}, f, indent=1,
-                          default=str)
+                json.dump({"card": card, **part}, f, indent=1, default=str)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3459,6 +3814,10 @@ def main(argv=None) -> int:
         bs_launches, bs = phase_blocksync(pool, keys, dev, 5)
         bs["phase_s"] = time.perf_counter() - t0
     report_blocksync(bs, bs_launches, card)
+    t0 = time.perf_counter()
+    cs_launches, cs = phase_consensus(dev)
+    cs["phase_s"] = time.perf_counter() - t0
+    report_consensus(cs, cs_launches, card)
     print(f"light client (phase 10): fixtures {lc['fixture_s']}, first "
           f"calls {lc['first_call_s']} s, phase {lc['phase_s']:.1f} s; "
           f"launches {lc_launches}")
@@ -3529,7 +3888,8 @@ def main(argv=None) -> int:
     paths = {"commit": launches, f"light{LIGHT_VALS}": l150_launches,
              f"light{BIG_VALS}": l10k_launches, f"bls{BLS_VALS}": bls_launches,
              f"mesh{MESH_SHARDS}": mesh_launches,
-             "light_client": lc_launches, "blocksync": bs_launches}
+             "light_client": lc_launches, "blocksync": bs_launches,
+             "consensus": cs_launches}
 
     c = op_counts()
     print(f"field multiplications per group op: {c}")
@@ -3588,6 +3948,7 @@ def main(argv=None) -> int:
                        "throughput": tp, "op_counts": c, "merkle": mk,
                        "light150": l150, "light10k": l10k, "bls": bls,
                        "light_client": lc, "blocksync": bs,
+                       "consensus": cs,
                        "mesh": mesh, "build_log": _build.build_log(),
                        "ptxas": usage}, f, indent=1,
                       default=str)

@@ -31,8 +31,9 @@ twins).
 
 :func:`device_call` runs a dispatch on the one device-owner thread (the
 counterpart of ``cometbft_tpu/crypto/batch.py:837 _device_call`` in its
-patient mode): blocksync's windows, packed on worker threads, queue
-there one behind the other.  Unlike the JAX package's, the wait has no
+patient mode): blocksync's windows, packed on worker threads, and the
+verification scheduler's micro-batches (``crypto/scheduler.py``, queued
+through :func:`device_submit`) run there one behind the other.  Unlike the JAX package's, the wait has no
 bound and nothing falls back to the host: a device error, or a call
 that never returns, stays the caller's.
 """
@@ -55,7 +56,7 @@ from . import plan as _plan
 
 __all__ = ["RLC_MIN_LANES", "DISPATCHES", "BatchVerifier",
            "create_batch_verifier", "verify_dense", "device_verify_ed25519",
-           "device_verify_ed25519_cached", "device_call",
+           "device_verify_ed25519_cached", "device_call", "device_submit",
            "DEVICE_THREAD_NAME"]
 
 # Minimum Ed25519 lanes before the RLC verdict
@@ -189,18 +190,30 @@ _DEVICE_POOL: ThreadPoolExecutor | None = None
 _DEVICE_POOL_LOCK = threading.Lock()
 
 
-def device_call(fn):
-    """``fn()`` (a device dispatch) run on the single device-owner
-    thread; the caller waits for it however long it takes, and an
-    exception ``fn`` raises is raised here.  The executor is made once,
-    under a lock, so concurrent callers share the one thread.  ``fn``
-    names its devices: a worker thread has its own current device."""
+def device_submit(fn):
+    """Queue ``fn()`` (a device dispatch) on the single device-owner
+    thread and return its ``concurrent.futures.Future`` (an event loop
+    awaits it through ``asyncio.wrap_future``).  The executor is made
+    once, under a lock, so concurrent callers share the one thread.
+    ``fn`` names its devices: a worker thread has its own current
+    device."""
     global _DEVICE_POOL
     with _DEVICE_POOL_LOCK:
         if _DEVICE_POOL is None:
             _DEVICE_POOL = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix=DEVICE_THREAD_NAME)
-    return _DEVICE_POOL.submit(fn).result()
+    return _DEVICE_POOL.submit(fn)
+
+
+def device_call(fn):
+    """``fn()`` run on the device-owner thread (:func:`device_submit`);
+    the caller waits for it however long it takes, and an exception
+    ``fn`` raises is raised here.  Called on the device-owner thread
+    itself, ``fn`` runs inline (waiting on its own queue would never
+    return)."""
+    if threading.current_thread().name.startswith(DEVICE_THREAD_NAME):
+        return fn()
+    return device_submit(fn).result()
 
 
 def device_verify_ed25519_cached(valset_pubs, scope, pubs_rows, rs, ss,

@@ -4,11 +4,15 @@ Counterpart of ``cometbft_tpu/crypto/keys.py`` for the two key types the
 port carries: ``ed25519`` here and ``bls12_381`` in
 ``crypto/bls12381.py``.  Ed25519: 32-byte public keys, 64-byte private
 keys (seed || pubkey), addresses = first 20 bytes of SHA-256 of the
-pubkey, ZIP-215 single-signature verification.  Signing, key derivation
-and single verification use the port's pure-Python oracle
-(``crypto/_ed25519_py.py``), which is exact but slow (milliseconds per
-signature) and not constant-time: keys made here are for tests and
-fixtures, not for a validator that signs in production.
+pubkey.  Key derivation and signing go through the native signer
+(``native.ed25519_pubkey``/``ed25519_sign``, ``csrc/host/
+ed25519_sign.cpp``, built with ``g++`` at first use; a failed build
+raises ``native.NativeBuildError``), which is not constant-time: keys
+made here are for tests, fixtures and in-process networks, not for a
+validator that signs in production.  ``verify_signature`` is the
+pure-Python ZIP-215 oracle (``crypto/_ed25519_py.py``): a test surface
+only, since every verification on the port's paths runs on the device
+(``crypto/batch.py``, ``crypto/scheduler.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 import hashlib
 import os
 
+from .. import native as _native
 from . import _ed25519_py as _ref
 
 __all__ = ["ED25519_KEY_TYPE", "BLS12381_KEY_TYPE", "ADDRESS_SIZE",
@@ -69,7 +74,7 @@ class Ed25519PrivKey:
 
     def __init__(self, raw: bytes):
         if len(raw) == 32:           # a bare seed
-            raw = raw + _ref.public_key_from_seed(raw)
+            raw = raw + _native.ed25519_pubkey(raw)
         if len(raw) != self.SIZE:
             raise ValueError(f"ed25519 privkey must be {self.SIZE} bytes")
         self._raw = bytes(raw)
@@ -91,7 +96,7 @@ class Ed25519PrivKey:
         return ED25519_KEY_TYPE
 
     def sign(self, msg: bytes) -> bytes:
-        return _ref.sign(self._raw[:32], msg)
+        return _native.ed25519_sign(self._raw[:32], msg)
 
     def pub_key(self) -> Ed25519PubKey:
         return Ed25519PubKey(self._raw[32:])

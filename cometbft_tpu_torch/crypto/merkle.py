@@ -25,6 +25,11 @@ the recursive split.  Routing by leaf count, as in the JAX package:
   (``crypto/plan.py:resolve_devices``) and raises without a card:
   under a device set the tree is not sharded, as the JAX package's
   live tree is not; ``"cpu"`` runs the plain versions.
+
+For provable key-value stores (the kvstore app's app hash): :func:`kv_leaf`
+binds the key into the leaf, and :class:`ValueOp` proves a (key, value)
+against a root (``crypto/merkle/proof_value.go``); its serialized
+:class:`ProofOp` is the JAX package's, byte for byte.
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ from . import plan as _plan
 __all__ = ["LEAF_PREFIX", "INNER_PREFIX", "MERKLE_KERNEL_MIN_LEAVES",
            "leaf_hash", "inner_hash", "hash_from_byte_slices",
            "hash_from_byte_slices_fast", "Proof",
-           "proofs_from_byte_slices", "proofs_from_byte_slices_reference"]
+           "proofs_from_byte_slices", "proofs_from_byte_slices_reference",
+           "ProofOp", "ProofOpError", "kv_leaf", "ValueOp"]
 
 LEAF_PREFIX = b"\x00"
 INNER_PREFIX = b"\x01"
@@ -294,3 +300,61 @@ def proofs_from_byte_slices(items: list[bytes], device=None
     else:
         levels = _levels_kernel(items, _plan.resolve_devices(device)[0])
     return _proofs_from_levels(levels, total)
+
+
+# ------------------------------------------------------------- proof ops
+# (crypto/merkle/proof_op.go and proof_value.go: each op turns its input
+# into the next layer's expected value)
+
+class ProofOp(NamedTuple):
+    """A serialized proof step: type tag, key and opaque payload."""
+
+    type: str
+    key: bytes
+    data: bytes
+
+
+class ProofOpError(Exception):
+    pass
+
+
+def kv_leaf(key: bytes, value: bytes) -> bytes:
+    """Leaf encoding of a provable key-value store: the key is bound into
+    the leaf with the value's hash, so a prover cannot relabel a proven
+    value under another key."""
+    return len(key).to_bytes(4, "big") + key + _sha(value)
+
+
+class ValueOp:
+    """Proves (key, value) against a store root: the leaf is
+    ``kv_leaf(key, value)``, then the merkle path in ``proof``."""
+
+    TYPE = "simple:v"
+
+    def __init__(self, key: bytes, proof: Proof):
+        self.key = key
+        self.proof = proof
+
+    def run(self, args: list[bytes]) -> list[bytes]:
+        if len(args) != 1:
+            raise ProofOpError(f"ValueOp wants 1 arg, got {len(args)}")
+        if leaf_hash(kv_leaf(self.key, args[0])) != self.proof.leaf_hash:
+            raise ProofOpError("key/value does not match proof leaf")
+        root = self.proof.compute_root()
+        if root is None:
+            raise ProofOpError("invalid merkle path")
+        return [root]
+
+    def proof_op(self) -> ProofOp:
+        from ..types import _msgpack
+
+        return ProofOp(self.TYPE, self.key, _msgpack.packb(
+            {"t": self.proof.total, "i": self.proof.index,
+             "l": self.proof.leaf_hash, "a": self.proof.aunts}))
+
+    @classmethod
+    def decode(cls, op: ProofOp) -> "ValueOp":
+        from ..types import _msgpack
+
+        d = _msgpack.unpackb(op.data)
+        return cls(op.key, Proof(d["t"], d["i"], d["l"], tuple(d["a"])))

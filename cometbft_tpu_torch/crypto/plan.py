@@ -10,7 +10,7 @@ its mesh over emulated CPU devices.
 snaps a window up to fill its TPU compile buckets over a mesh; the
 port's kernels take any lane count and have no buckets, so the
 configured window stands on one device and over a device set alike
-(whether a snap pays on the card is ``ROADMAP.md`` queue 1 item 2).
+(whether a snap pays on the card is ``ROADMAP.md`` queue 1 item 1).
 
 Not ported, because the port's kernels take any lane count: the lane,
 block, table, merkle and BLS buckets, ``chunk_bucket``,

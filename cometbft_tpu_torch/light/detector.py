@@ -66,7 +66,7 @@ def _verify_witness_block(client, wlb: LightBlock) -> str | None:
     try:
         VerifyCommitLight(client.chain_id, wlb.validators,
                           wlb.commit.block_id, wlb.height, wlb.commit,
-                          device=client.device)
+                          device=client.device, use_cache=False)
     except CommitVerificationError as e:
         return str(e)
     return None

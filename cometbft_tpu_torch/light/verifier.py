@@ -75,7 +75,7 @@ def verify_adjacent(chain_id: str, trusted: LightBlock,
             "header validators_hash != trusted next_validators_hash")
     VerifyCommitLight(chain_id, untrusted.validators,
                       untrusted.commit.block_id, untrusted.height,
-                      untrusted.commit, device=device)
+                      untrusted.commit, device=device, use_cache=False)
 
 
 def verify_non_adjacent(chain_id: str, trusted: LightBlock,
@@ -102,7 +102,7 @@ def verify_non_adjacent(chain_id: str, trusted: LightBlock,
     # and the new set must have signed its own header with > 2/3 (:71)
     VerifyCommitLight(chain_id, untrusted.validators,
                       untrusted.commit.block_id, untrusted.height,
-                      untrusted.commit, device=device)
+                      untrusted.commit, device=device, use_cache=False)
 
 
 def verify(chain_id: str, trusted: LightBlock, untrusted: LightBlock,

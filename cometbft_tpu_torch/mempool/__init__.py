@@ -1,7 +1,8 @@
-"""Mempool (counterpart of ``cometbft_tpu/mempool``): the interface and
-the disabled mempool.  The CList mempool and its reactor come with the
-node slice of the port."""
+"""Mempool (counterpart of ``cometbft_tpu/mempool``): the interface, the
+CList FIFO implementation and the disabled mempool.  The gossip reactor
+comes with the networked node."""
 
+from .clist_mempool import CListMempool
 from .mempool import Mempool, NopMempool, TxKey
 
-__all__ = ["Mempool", "NopMempool", "TxKey"]
+__all__ = ["Mempool", "NopMempool", "CListMempool", "TxKey"]

@@ -1,13 +1,17 @@
 """Host C++ libraries of the port, built with the host ``g++`` at first use.
 
-Two libraries, each a copy of part of the JAX package's native code:
+Three libraries, each a copy of part of the JAX package's native code:
 
 - ``csrc/host/bls12381.cpp`` (with ``sha256_inline.h``): BLS12-381 key
   derivation, signing, decompression and subgroup checks, hash-to-G2
   and the pairings;
 - ``csrc/host/vote_sign_bytes.cpp``: the canonical vote sign bytes of a
   commit's lanes in one call (:func:`build_vote_sign_bytes`), the rows
-  the dense commit rules hand to the Ed25519 kernels.
+  the dense commit rules hand to the Ed25519 kernels;
+- ``csrc/host/ed25519_sign.cpp``: Ed25519 key generation and signing
+  (:func:`ed25519_pubkey`, :func:`ed25519_sign`), the signing half of
+  ``cometbft_tpu/native/ed25519.cpp``; its verifiers stay out, since the
+  port verifies on the card.
 
 Each builds with ``g++ -O3 -march=native`` (retried without
 ``-march=native`` for toolchains that refuse it) into
@@ -34,7 +38,7 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["NativeBuildError", "BUILD_SECONDS", "lib_path", "load",
-           "build_vote_sign_bytes"]
+           "build_vote_sign_bytes", "ed25519_pubkey", "ed25519_sign"]
 
 HOST_SRC = Path(__file__).resolve().parent / "csrc" / "host"
 ROOT = Path(__file__).resolve().parents[1]
@@ -156,3 +160,45 @@ def build_vote_sign_bytes(pre_commit: bytes, pre_nil: bytes, post: bytes,
         raise RuntimeError(f"sign-bytes stride {stride} below the {rc} "
                            "bytes the encoder needs")
     return out, lens.astype(np.int64)
+
+
+_SIGN: list = []
+
+
+def _signer():
+    with _LOAD_LOCK:
+        if not _SIGN:
+            lib = load("ed25519_sign")
+            lib.ed25519_pubkey.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+            lib.ed25519_pubkey.restype = None
+            lib.ed25519_sign.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
+                                         ctypes.c_uint64, ctypes.c_char_p]
+            lib.ed25519_sign.restype = None
+            _SIGN.append(lib)
+        return _SIGN[0]
+
+
+def _seed(seed: bytes) -> bytes:
+    seed = bytes(seed)
+    if len(seed) != 32:
+        raise ValueError("ed25519 seed must be 32 bytes")
+    return seed
+
+
+def ed25519_pubkey(seed: bytes) -> bytes:
+    """The 32-byte public key of a 32-byte seed (RFC 8032 key
+    generation).  A library that does not build raises
+    :class:`NativeBuildError`."""
+    out = ctypes.create_string_buffer(32)
+    _signer().ed25519_pubkey(_seed(seed), out)
+    return out.raw
+
+
+def ed25519_sign(seed: bytes, msg: bytes) -> bytes:
+    """The 64-byte RFC 8032 signature of ``msg`` under a 32-byte seed
+    (deterministic: the same bytes as ``crypto/_ed25519_py.sign``).  A
+    library that does not build raises :class:`NativeBuildError`."""
+    msg = bytes(msg)
+    out = ctypes.create_string_buffer(64)
+    _signer().ed25519_sign(_seed(seed), msg, len(msg), out)
+    return out.raw

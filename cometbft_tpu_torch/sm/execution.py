@@ -5,8 +5,9 @@ and events.
 Counterpart of ``cometbft_tpu/sm/execution.py``.  ``device`` is where the
 executor's commit verification and large hashes run (None: CUDA;
 ``"cpu"``: the plain versions).  The evidence pool is
-:class:`NopEvidencePool` (the evidence slice comes later); with no
-``pruner`` the retain height prunes the stores inline.
+``evidence.EvidencePool`` where one is given (consensus), else
+:class:`NopEvidencePool`; with no ``pruner`` the retain height prunes
+the stores inline.
 """
 
 from __future__ import annotations

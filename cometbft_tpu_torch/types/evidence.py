@@ -18,12 +18,19 @@ from . import wire
 from .validator_set import ValidatorSet
 from .vote import Vote
 
-__all__ = ["EvidenceError", "Evidence", "DuplicateVoteEvidence",
-           "LightClientAttackEvidence", "evidence_list_hash"]
+__all__ = ["EvidenceError", "EvidenceNotApplicableError", "Evidence",
+           "DuplicateVoteEvidence", "LightClientAttackEvidence",
+           "evidence_list_hash"]
 
 
 class EvidenceError(Exception):
     pass
+
+
+class EvidenceNotApplicableError(EvidenceError):
+    """Evidence this node cannot currently judge (expired, from a height
+    below its block base or pruned validator sets, or no state yet): a
+    gossip reactor drops it without punishing the sender."""
 
 
 class Evidence(ABC):

@@ -39,8 +39,18 @@ cohorts below 2) are verified one by one by the host library.
 staging mode: its dispatch runs on the one device-owner thread
 (``crypto/batch.py:device_call``), so a window packed on a worker
 thread queues behind the window ahead; there is no bounded wait and no
-host verification behind it.  Not in this slice: the verified-signature
-cache of ``crypto/scheduler``.  ``device`` is a device, ``"cpu"``,
+host verification behind it.
+
+``use_cache`` (``cometbft_tpu/types/validation.py:260-310,369-389``)
+consults the verified-signature cache of ``crypto/scheduler`` lane by
+lane and seeds it after a verify in which every lane passed: a commit
+signature already verified as a gossiped vote costs a dict hit instead of
+a device lane.  The dense paths consult only a non-empty cache
+(``dense_cache_active``); the lane loop and the batched path any
+registered one.  The ``*AllSignatures`` evidence variants never consult
+it; ``VerifyCommit``, ``VerifyCommitLight`` and
+``VerifyCommitLightTrusting`` do by default, ``verify_commits_light_
+batched`` only when asked.  ``device`` is a device, ``"cpu"``,
 or ``None`` for the plan's devices (``crypto/plan.py:resolve_devices``:
 the device set, over which the dense verify shards its lanes, else
 CUDA, raising without a card).
@@ -56,6 +66,7 @@ from .. import native as _native
 from ..crypto import batch as cryptobatch
 from ..crypto import blsagg as _blsagg
 from ..crypto import plan as _plan
+from ..crypto import scheduler as _vsched
 from .commit import BLOCK_ID_FLAG_ABSENT, BLOCK_ID_FLAG_COMMIT, Commit
 from .validator_set import ValidatorSet
 
@@ -178,7 +189,7 @@ def _verify_aggregate(chain_id: str, vals: ValidatorSet, commit: Commit, *,
 
 def _verify_loop(chain_id, vals, commit, needed, agg_proven, agg_power, *,
                  count_all, verify_nil_sigs, lookup_by_address,
-                 device) -> None:
+                 device, use_cache=False) -> None:
     """The JAX package's lane loop (``types/validation.py:_verify``), for
     commits with an aggregate and sets with a BLS member: aggregate lanes
     proven up front are tallied only, every other selected lane goes to
@@ -186,6 +197,8 @@ def _verify_loop(chain_id, vals, commit, needed, agg_proven, agg_power, *,
     the host)."""
     bv = cryptobatch.create_batch_verifier(device)
     lanes: list[int] = []
+    seeds: list[tuple] = []           # lanes to seed on success
+    cache_on = use_cache and _vsched.cache_active()
     tally = agg_power
     seen: set[bytes] = set()
     for idx, cs in enumerate(commit.signatures):
@@ -219,9 +232,13 @@ def _verify_loop(chain_id, vals, commit, needed, agg_proven, agg_power, *,
             if not count_all and tally > needed:
                 break
             continue
-        bv.add(val.pub_key, commit.vote_sign_bytes_for(
-            chain_id, idx, val.pub_key.type()), cs.signature)
-        lanes.append(idx)
+        msg = commit.vote_sign_bytes_for(chain_id, idx, val.pub_key.type())
+        if not (cache_on and _vsched.cache_lookup(val.pub_key.bytes(), msg,
+                                                  cs.signature)):
+            bv.add(val.pub_key, msg, cs.signature)
+            lanes.append(idx)
+            if cache_on:
+                seeds.append((val.pub_key.bytes(), msg, cs.signature))
         if cs.is_commit():
             tally += val.voting_power
         if not count_all and tally > needed:
@@ -230,13 +247,15 @@ def _verify_loop(chain_id, vals, commit, needed, agg_proven, agg_power, *,
         ok, oks = bv.verify()
         if not ok:
             raise ErrInvalidSignature(lanes[oks.index(False)])
+        for sd in seeds:
+            _vsched.cache_seed(*sd)
     if tally <= needed:
         raise ErrNotEnoughVotingPower(
             f"tallied {tally} <= needed {needed}")
 
 
 def _verify(chain_id, vals, commit, needed, *, count_all, verify_nil_sigs,
-            lookup_by_address, device) -> None:
+            lookup_by_address, device, use_cache=False) -> None:
     """The aggregate up front, then the dense path on an all-Ed25519 set
     without aggregate lanes, else the lane loop."""
     agg_proven, agg_power = _verify_aggregate(
@@ -247,13 +266,16 @@ def _verify(chain_id, vals, commit, needed, *, count_all, verify_nil_sigs,
     if vals.dense() is None or commit.has_aggregate():
         _verify_loop(chain_id, vals, commit, needed, agg_proven, agg_power,
                      count_all=count_all, verify_nil_sigs=verify_nil_sigs,
-                     lookup_by_address=lookup_by_address, device=device)
+                     lookup_by_address=lookup_by_address, device=device,
+                     use_cache=use_cache)
     elif lookup_by_address:
         _verify_by_address(chain_id, vals, commit, needed,
-                           count_all=count_all, device=device)
+                           count_all=count_all, device=device,
+                           use_cache=use_cache)
     else:
         _verify_by_index(chain_id, vals, commit, needed, count_all=count_all,
-                         verify_nil_sigs=verify_nil_sigs, device=device)
+                         verify_nil_sigs=verify_nil_sigs, device=device,
+                         use_cache=use_cache)
 
 
 def _columns(commit: Commit):
@@ -284,12 +306,39 @@ def _dense_build_rows(chain_id, commit, ts, flags, scope):
                                          flags[scope])
 
 
-def _lane_verdicts(valset_pubs, rows, sigs, sig_ok, msgs, lens, device):
+def _cache_split(pubs_sel, sigs_sel, msgs, lens):
+    """Per-lane verified-signature cache consult for dense rows
+    (``cometbft_tpu/types/validation.py:292``): ``(hit mask, keys)``, the
+    keys feeding ``cache_seed`` after a successful verify.  The key
+    material is the loop path's (raw pubkey, exact sign bytes, 64-byte
+    signature), so gossip-time seeds hit commit-time lookups."""
+    k = pubs_sel.shape[0]
+    mask = np.zeros((k,), bool)
+    keys: list[tuple] = []
+    for i in range(k):
+        key = (pubs_sel[i].tobytes(), msgs[i, :int(lens[i])].tobytes(),
+               sigs_sel[i].tobytes())
+        keys.append(key)
+        mask[i] = _vsched.cache_lookup(*key)
+    return mask, keys
+
+
+def _lane_verdicts(valset_pubs, rows, sigs, sig_ok, msgs, lens, device,
+                   cache: bool = False):
     """(k,) verdicts of lanes signed by valset rows ``rows``: one dense
     device call over the lanes whose signature is 64 bytes; the others
-    are bad lanes."""
+    are bad lanes.  With ``cache``, lanes found in the verified-signature
+    cache pass without a device lane, and the verified lanes seed it when
+    all of them pass."""
     oks = np.zeros((rows.size,), bool)
     live = np.nonzero(sig_ok)[0]
+    keys = None
+    if cache and live.size:
+        mask, keys = _cache_split(valset_pubs[rows[live]], sigs[live],
+                                  msgs[live], lens[live])
+        oks[live[mask]] = True
+        keys = [keys[j] for j in np.nonzero(~mask)[0]]
+        live = live[~mask]
     if live.size:
         _, out = cryptobatch.verify_dense(
             np.ascontiguousarray(valset_pubs[rows[live]]),
@@ -297,11 +346,14 @@ def _lane_verdicts(valset_pubs, rows, sigs, sig_ok, msgs, lens, device):
             np.ascontiguousarray(msgs[live]), lens[live], device=device,
             valset_pubs=valset_pubs, scope=rows[live])
         oks[live] = out
+        if keys is not None and out.all():
+            for key in keys:
+                _vsched.cache_seed(*key)
     return oks
 
 
 def _verify_lanes(chain_id, commit, valset_pubs, scope, rows, cols,
-                  device) -> None:
+                  device, use_cache=False) -> None:
     """Verify commit lanes ``scope`` (signed by valset rows ``rows``;
     ``cols`` the commit's ``_columns``) and raise ErrInvalidSignature
     naming the first bad lane in commit order."""
@@ -310,13 +362,14 @@ def _verify_lanes(chain_id, commit, valset_pubs, scope, rows, cols,
     flags, ts, sigmat, sig_ok = cols
     msgs, lens = _dense_build_rows(chain_id, commit, ts, flags, scope)
     oks = _lane_verdicts(valset_pubs, rows, sigmat[scope], sig_ok[scope],
-                         msgs, lens, device)
+                         msgs, lens, device,
+                         cache=use_cache and _vsched.dense_cache_active())
     if not oks.all():
         raise ErrInvalidSignature(int(scope[np.nonzero(~oks)[0][0]]))
 
 
 def _verify_by_index(chain_id, vals, commit, needed, *, count_all,
-                     verify_nil_sigs, device) -> None:
+                     verify_nil_sigs, device, use_cache=False) -> None:
     pubs, powers = vals.dense()
     cols = _columns(commit)
     flags = cols[0]
@@ -327,14 +380,15 @@ def _verify_by_index(chain_id, vals, commit, needed, *, count_all,
         tally = int(powers[commit_mask].sum())
     else:
         scope, tally = _light_scope(powers, flags, needed)
-    _verify_lanes(chain_id, commit, pubs, scope, scope, cols, device)
+    _verify_lanes(chain_id, commit, pubs, scope, scope, cols, device,
+                  use_cache)
     if tally <= needed:
         raise ErrNotEnoughVotingPower(
             f"tallied {tally} <= needed {needed}")
 
 
 def _verify_by_address(chain_id, vals, commit, needed, *, count_all,
-                       device) -> None:
+                       device, use_cache=False) -> None:
     pubs, powers = vals.dense()
     cols = _columns(commit)
     flags = cols[0]
@@ -361,32 +415,35 @@ def _verify_by_address(chain_id, vals, commit, needed, *, count_all,
         if not count_all and tally > needed:
             break
     _verify_lanes(chain_id, commit, pubs, np.asarray(scope, np.int64),
-                  np.asarray(rows, np.int64), cols, device)
+                  np.asarray(rows, np.int64), cols, device, use_cache)
     if tally <= needed:
         raise ErrNotEnoughVotingPower(
             f"tallied {tally} <= needed {needed}")
 
 
 def VerifyCommit(chain_id: str, vals: ValidatorSet, block_id, height: int,
-                 commit: Commit, device=None) -> None:
+                 commit: Commit, device=None, use_cache: bool = True) -> None:
     """All signatures verified; more than 2/3 of the total power must be
     for ``block_id`` (types/validation.go:28)."""
     dev = _devices(device)
     _check_commit_basics(vals, commit, height, block_id)
     needed = vals.total_voting_power() * 2 // 3
     _verify(chain_id, vals, commit, needed, count_all=True,
-            verify_nil_sigs=True, lookup_by_address=False, device=dev)
+            verify_nil_sigs=True, lookup_by_address=False, device=dev,
+            use_cache=use_cache)
 
 
 def VerifyCommitLight(chain_id: str, vals: ValidatorSet, block_id,
-                      height: int, commit: Commit, device=None) -> None:
+                      height: int, commit: Commit, device=None,
+                      use_cache: bool = True) -> None:
     """Commit-flag signatures only, early exit past 2/3
     (types/validation.go:63)."""
     dev = _devices(device)
     _check_commit_basics(vals, commit, height, block_id)
     needed = vals.total_voting_power() * 2 // 3
     _verify(chain_id, vals, commit, needed, count_all=False,
-            verify_nil_sigs=False, lookup_by_address=False, device=dev)
+            verify_nil_sigs=False, lookup_by_address=False, device=dev,
+            use_cache=use_cache)
 
 
 def VerifyCommitLightAllSignatures(chain_id: str, vals: ValidatorSet,
@@ -403,7 +460,8 @@ def VerifyCommitLightAllSignatures(chain_id: str, vals: ValidatorSet,
 def VerifyCommitLightTrusting(chain_id: str, vals: ValidatorSet,
                               commit: Commit,
                               trust_level: Fraction = Fraction(1, 3),
-                              device=None, count_all: bool = False) -> None:
+                              device=None, count_all: bool = False,
+                              use_cache: bool = True) -> None:
     """Trust-level verification against a possibly different validator
     set, looked up by address (types/validation.go:127)."""
     if trust_level <= 0 or trust_level > 1:
@@ -412,7 +470,8 @@ def VerifyCommitLightTrusting(chain_id: str, vals: ValidatorSet,
     needed = (vals.total_voting_power() * trust_level.numerator
               // trust_level.denominator)
     _verify(chain_id, vals, commit, needed, count_all=count_all,
-            verify_nil_sigs=False, lookup_by_address=True, device=dev)
+            verify_nil_sigs=False, lookup_by_address=True, device=dev,
+            use_cache=use_cache)
 
 
 def VerifyCommitLightTrustingAllSignatures(
@@ -420,7 +479,7 @@ def VerifyCommitLightTrustingAllSignatures(
         trust_level: Fraction = Fraction(1, 3), device=None) -> None:
     """types/validation.go:182 (evidence path: no early exit)."""
     VerifyCommitLightTrusting(chain_id, vals, commit, trust_level,
-                              device=device, count_all=True)
+                              device=device, count_all=True, use_cache=False)
 
 
 class ErrBatchItemInvalid(CommitVerificationError):
@@ -436,7 +495,8 @@ class ErrBatchItemInvalid(CommitVerificationError):
 
 def verify_commits_light_batched(chain_id: str, vals: ValidatorSet,
                                  items: list, device=None,
-                                 patient: bool = False) -> int:
+                                 patient: bool = False,
+                                 use_cache: bool = False) -> int:
     """``VerifyCommitLight`` over many commits sharing one validator set
     in one dense device call (``cometbft_tpu/types/validation.py:581``,
     its dense core at :673).  ``items`` is a list of ``(block_id, height,
@@ -458,12 +518,17 @@ def verify_commits_light_batched(chain_id: str, vals: ValidatorSet,
 
     ``patient=True`` runs the dispatch on the device-owner thread
     (``crypto/batch.py:device_call``) and waits for it; whatever it
-    raises is raised here."""
+    raises is raised here.  ``use_cache`` consults any registered
+    verified-signature cache lane by lane (hits need no device lane and
+    still count as proven) and seeds it after a verify in which every
+    lane passed."""
     dev = _devices(device)
     call = cryptobatch.device_call if patient else _now
     needed = vals.total_voting_power() * 2 // 3
+    cache_on = use_cache and _vsched.cache_active()
     if vals.dense() is None or any(c.has_aggregate() for _, _, c in items):
-        return _batched_loop(chain_id, vals, items, needed, dev, call)
+        return _batched_loop(chain_id, vals, items, needed, dev, call,
+                             cache_on)
     pubs, powers = vals.dense()
     rows, sigs, sig_ok, msgs, lens, lanes = [], [], [], [], [], []
     for k, (block_id, height, commit) in enumerate(items):
@@ -490,7 +555,7 @@ def verify_commits_light_batched(chain_id: str, vals: ValidatorSet,
     msgs = [np.pad(m, ((0, 0), (0, stride - m.shape[1]))) for m in msgs]
     args = (pubs, np.concatenate(rows), np.concatenate(sigs),
             np.concatenate(sig_ok), np.concatenate(msgs),
-            np.concatenate(lens), dev)
+            np.concatenate(lens), dev, cache_on)
     oks = call(lambda: _lane_verdicts(*args))
     if not oks.all():
         k, idx = lanes[int(np.nonzero(~oks)[0][0])]
@@ -502,7 +567,8 @@ def _now(fn):
     return fn()
 
 
-def _batched_loop(chain_id, vals, items, needed, device, call) -> int:
+def _batched_loop(chain_id, vals, items, needed, device, call,
+                  cache_on=False) -> int:
     """``verify_commits_light_batched`` as the JAX package's loop
     (``cometbft_tpu/types/validation.py:630``): per item, the basics and
     the aggregate (whose power is pre-tallied), then the light scope of
@@ -510,6 +576,8 @@ def _batched_loop(chain_id, vals, items, needed, device, call) -> int:
     lanes, verified through ``call``."""
     bv = cryptobatch.create_batch_verifier(device)
     lanes: list[tuple[int, int]] = []
+    seeds: list[tuple] = []
+    n_hits = 0
     for k, (block_id, height, commit) in enumerate(items):
         try:
             _check_commit_basics(vals, commit, height, block_id)
@@ -524,9 +592,16 @@ def _batched_loop(chain_id, vals, items, needed, device, call) -> int:
             if not cs.is_commit() or cs.is_aggregate():
                 continue
             val = vals.get_by_index(idx)
-            bv.add(val.pub_key, commit.vote_sign_bytes_for(
-                chain_id, idx, val.pub_key.type()), cs.signature)
-            lanes.append((k, idx))
+            msg = commit.vote_sign_bytes_for(chain_id, idx,
+                                             val.pub_key.type())
+            if cache_on and _vsched.cache_lookup(val.pub_key.bytes(), msg,
+                                                 cs.signature):
+                n_hits += 1
+            else:
+                bv.add(val.pub_key, msg, cs.signature)
+                lanes.append((k, idx))
+                if cache_on:
+                    seeds.append((val.pub_key.bytes(), msg, cs.signature))
             tally += val.voting_power
             if tally > needed:
                 break
@@ -539,4 +614,6 @@ def _batched_loop(chain_id, vals, items, needed, device, call) -> int:
         if not ok:
             k, idx = lanes[oks.index(False)]
             raise ErrBatchItemInvalid(k, items[k][1], ErrInvalidSignature(idx))
-    return len(lanes)
+        for sd in seeds:
+            _vsched.cache_seed(*sd)
+    return len(lanes) + n_hits

@@ -38,7 +38,8 @@ def _sources():
         ROOT / "scripts" / "sha256_sass_count.py",
         ROOT / "scripts" / "fold_table_times.py",
         ROOT / "scripts" / "blsg1_core_bench.py",
-        ROOT / "scripts" / "ed25519_core_bench.py"]
+        ROOT / "scripts" / "ed25519_core_bench.py",
+        ROOT / "scripts" / "consensus_host_profile.py"]
 
 
 def _c_sources():
