@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port's commit-, light-header and BLS
 aggregate-commit verification paths, of lane-sharded commit
 verification over a device set, of the light client, of blocksync
-catch-up and of consensus in one process, on one card.
+catch-up, of consensus in one process and of the networked node over
+loopback TCP, on one card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -128,9 +129,23 @@ Phases, each of which must pass or the script exits non-zero:
    (``profile_call``); (c) WAL crash recovery at ``CS_SMALL``.  The
    pure-Python oracle's calls are counted over the run (must be 0), and
    every stored commit of (a) and (b) is re-checked by it afterwards;
-   one one-lane device check is timed alone.
+   one one-lane device check is timed alone;
+13. the networked node (``phase_node``): port ``Node``s in one process,
+   each with its own loopback listener, secret connections (the
+   challenge checked on the card) and MConnections, full mesh, from the
+   repo's e2e manifests: (a) ``networks/ci.toml``'s 4 validators to
+   height ``ND_CI_HEIGHT`` with ``ND_TXS`` txs injected on node 0 and a
+   full node (``fast_sync``) started at height ``ND_FULL_AT``; (b)
+   ci.toml's kill:5 / restart:7 of validator02 from its home (LogDB
+   stores, WAL file, ``FilePV`` files); (c) ``networks/large.toml``'s 12
+   validators at their skewed powers with ``ND_LARGE_LATENCY_MS`` of
+   emulated latency to height ``ND_LARGE_HEIGHT``; (d) vote extensions
+   at 4 validators.  Each part's wall and rounds a height, the mesh's
+   wall, the bytes sent and received a height, the scheduler's tallies
+   and (a), (c) the device busy share; the oracle's calls counted (must
+   be 0) and every stored commit re-checked by it afterwards.
 
-Phases 4, 6, 7, 8, 9, 10, 11 and 12 are the main path: the launch counters
+Phases 4, 6, 7, 8, 9, 10, 11, 12 and 13 are the main path: the launch counters
 are zeroed just before each and read just after; each phase's kernels
 must have launched, no plain version may have run, and neither
 standalone hash kernel (``OFF_PATH``: the RLC lane stage hashes its
@@ -150,8 +165,8 @@ runs only phases 1, 2 and 9, over the first ``MESH_SHARDS`` cards, one
 shard each: the cross-card copy of the partial sums and the overlap of
 the cards, which one card cannot show.  ``python3 chip_smoke.py
 --blocksync`` runs only phases 1 and 2, phase 3's sweep and phase 11;
-``python3 chip_smoke.py --consensus`` the same with phase 12 (both
-options together run both phases).
+``python3 chip_smoke.py --consensus`` the same with phase 12, ``--node``
+with phase 13 (options together run their phases).
 
 The line before the last is a JSON object with one entry per kernel
 (launches on the main path, max_abs_err, times, bound); the last line is
@@ -3415,6 +3430,479 @@ def report_consensus(cs, launches, card) -> None:
           f"{_spread(cs['one_lane'])}  [{card}]")
 
 
+# ------------------------------------------------ phase 13: the node
+
+ND_CI_POWERS = (10, 10, 10, 10)  # networks/ci.toml: validator01..04
+ND_CI_HEIGHT = 10                # (a), (b): heights every node reaches
+ND_TXS = 8                       # (a): txs injected on node 0 only
+ND_FULL_AT = 4                   # (a): full01's start_at
+ND_KILL_AT, ND_RESTART_AT = 5, 7  # (b): validator02's kill:5, restart:7
+ND_LARGE_POWERS = (40, 25, 15, 10, 10, 10, 5, 5, 5, 5, 5, 5)  # large.toml
+ND_LARGE_LATENCY_MS = 10.0       # (c): large.toml's emulated latency
+ND_LARGE_HEIGHT = 6              # (c)
+ND_EXT_HEIGHT = 4                # (d): vote extensions from height 1
+ND_TIMEOUT_S = 240               # a part's wait for its heights
+
+
+def _nd_genesis(powers, tag: bytes, ext_height: int = 0):
+    """A genesis of validators at ``powers`` (keys from ``tag``) and
+    their signers."""
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from cometbft_tpu_torch.types.priv_validator import MockPV
+
+    pvs = [MockPV.from_secret(tag + b"%d" % i) for i in range(len(powers))]
+    doc = GenesisDoc(chain_id=CHAIN_ID, validators=[
+        GenesisValidator(pv.get_pub_key(), p) for pv, p in zip(pvs, powers)])
+    doc.consensus_params.feature.vote_extensions_enable_height = ext_height
+    return doc, pvs
+
+
+async def _nd_node(doc, pv, name: str, dev, *, home=None, fast_sync=False,
+                   latency_ms: float = 0.0):
+    """A port ``Node`` of the kvstore app on ``dev``: the JAX package's
+    test timeouts, a loopback listener on port 0, ``LogDB`` stores
+    under ``home`` (else in memory)."""
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.config import Config, test_consensus_config
+    from cometbft_tpu_torch.node import Node
+    from cometbft_tpu_torch.p2p import NodeKey
+
+    cfg = Config(consensus=test_consensus_config())
+    cfg.base.device = str(dev)
+    cfg.p2p.laddr = "tcp://127.0.0.1:0"
+    cfg.p2p.emulated_latency_ms = latency_ms
+    cfg.storage.db_backend = "logdb" if home else "memdb"
+    return await Node.create(
+        doc, KVStoreApplication(device=dev), priv_validator=pv, config=cfg,
+        node_key=NodeKey.from_secret(b"smoke-" + name.encode()), home=home,
+        fast_sync=fast_sync, name=name)
+
+
+async def _nd_dial(a, targets, walls: list) -> None:
+    """``a`` dials ``targets`` (persistent) all at once, as a node dials
+    its persistent peers at start; each dial's wall (TCP connect, the
+    secret handshake with its device check, the node-info exchange) is
+    appended to ``walls``."""
+    import asyncio
+
+    async def one(b):
+        t0 = time.perf_counter()
+        await a.dial_peer(b.listen_addr, persistent=True)
+        walls.append(time.perf_counter() - t0)
+
+    await asyncio.gather(*(one(b) for b in targets))
+
+
+async def _nd_mesh(nodes, walls: list) -> float:
+    """Full mesh: i dials j for i < j, every dial at once; returns the
+    mesh's wall."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(_nd_dial(a, nodes[i + 1:], walls)
+                           for i, a in enumerate(nodes)))
+    return time.perf_counter() - t0
+
+
+def _nd_traffic(nodes) -> dict:
+    """Bytes the nodes' live MConnections sent and received (framed
+    packets, flowrate counters) and their per-channel payload bytes."""
+    sent = recv = 0
+    by_chan: dict = {}
+    for n in nodes:
+        for p in n.switch.peers.values():
+            t = p.mconn.telemetry()
+            sent += t["send_bytes_total"]
+            recv += t["recv_bytes_total"]
+            for name, c in t["channels"].items():
+                by_chan[name] = by_chan.get(name, 0) + c["sent_bytes"]
+    return {"sent": sent, "recv": recv, "sent_payload_by_channel": by_chan}
+
+
+def _nd_summary(nodes, top: int, walls, mesh_s, seen, wall_s,
+                sched_stats) -> dict:
+    traffic = _nd_traffic(nodes)
+    marks = seen.get("last", {})
+    return {
+        "heights": top, "wall_s": wall_s,
+        "per_height_s": [marks[h] - marks[h - 1] for h in range(2, top + 1)
+                         if h in marks and h - 1 in marks],
+        "mean_height_s": ((marks[top] - marks[1]) / (top - 1)
+                          if top in marks and 1 in marks else None),
+        "rounds": [_commit_round(nodes[0], h) for h in range(1, top + 1)],
+        "max_round": seen.get("max_round"),
+        "dials": len(walls), "mesh_s": mesh_s,
+        "dial_p50_ms": 1e3 * statistics.median(walls) if walls else None,
+        "bytes_sent_per_height": traffic["sent"] / top,
+        "bytes_recv_per_height": traffic["recv"] / top,
+        "payload_by_channel": traffic["sent_payload_by_channel"],
+        "scheduler": sched_stats}
+
+
+def _nd_agree(nodes, top: int, part: str) -> None:
+    for h in range(1, top + 1):
+        hs = {n.block_store.load_block(h).hash() for n in nodes}
+        if len(hs) != 1:
+            raise AssertionError(f"phase 13 ({part}): fork at height {h}")
+
+
+async def _nd_refuses_conflict(pv) -> bool:
+    """Whether the file signer refuses a message for its last height,
+    round and step that differs from what it signed."""
+    from cometbft_tpu_torch.privval import DoubleSignError
+    from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.vote import (PRECOMMIT_TYPE, PREVOTE_TYPE,
+                                               Proposal, Vote)
+
+    bid = BlockID(b"\x42" * 32, PartSetHeader(1, b"\x43" * 32))
+    try:
+        if pv.step == 1:
+            await pv.sign_proposal(CHAIN_ID, Proposal(
+                height=pv.height, round=pv.round, pol_round=-1,
+                block_id=bid, timestamp_ns=1))
+        else:
+            await pv.sign_vote(CHAIN_ID, Vote(
+                type=PREVOTE_TYPE if pv.step == 2 else PRECOMMIT_TYPE,
+                height=pv.height, round=pv.round, block_id=bid,
+                timestamp_ns=1, validator_address=pv.get_pub_key().address(),
+                validator_index=1), False)
+    except DoubleSignError:
+        return True
+    return False
+
+
+def _nd_recheck_target(node, doc):
+    """What ``_oracle_recheck`` reads of a node: its stores, and the
+    genesis set for heights the state store holds no set for."""
+    from types import SimpleNamespace
+
+    from cometbft_tpu_torch.storage.statestore import State
+
+    return SimpleNamespace(block_store=node.block_store,
+                           state_store=node.state_store,
+                           state=State.from_genesis(doc))
+
+
+def phase_node(dev):
+    """Phase 13: the networked node over loopback TCP on the card, from
+    the repo's e2e manifests (``networks/ci.toml``, ``large.toml``):
+    port ``Node``s in one process, each with its own listener, secret
+    connections (the challenge checked on the card) and MConnections,
+    full mesh, the JAX package's test timeouts:
+
+    (a) ci.toml's 4 validators, MemDB: ``ND_TXS`` txs injected on node
+        0 only, to height ``ND_CI_HEIGHT``; at height ``ND_FULL_AT`` a
+        fifth, non-validator node (full01, ``fast_sync``) blocksyncs,
+        switches to consensus and follows two heights past its switch;
+    (b) ci.toml's kill:5 and restart:7 on validator02, with home
+        directories (LogDB stores, WAL file, ``FilePV`` files): stopped
+        at height ``ND_KILL_AT``, restarted from its home once the others
+        pass ``ND_RESTART_AT`` (the app handshake replays the stored
+        blocks, the WAL catches it up, the file signer refuses a
+        conflicting sign), all agreeing at ``ND_CI_HEIGHT``;
+    (c) large.toml's 12 validators at their skewed powers with
+        ``ND_LARGE_LATENCY_MS`` of emulated latency, to height
+        ``ND_LARGE_HEIGHT``;
+    (d) vote extensions from height 1 at 4 validators to height
+        ``ND_EXT_HEIGHT``: a stored extended commit carries 3 or more
+        extension signatures.
+
+    Each part reports the wall and rounds of each height, the dials'
+    wall, the bytes sent and received a height, the scheduler's tallies
+    and the device busy share of its main stretch (``profile_call``).
+    The launch counters are zeroed just before and read just after the
+    four parts; the pure-Python oracle's calls are counted (must be 0),
+    then every stored commit is re-checked by it."""
+    import asyncio
+    import tempfile
+    from types import SimpleNamespace
+
+    from cometbft_tpu_torch.crypto import scheduler as vsched
+    from cometbft_tpu_torch.p2p import secret_connection as psc
+    from cometbft_tpu_torch.privval import FilePV
+
+    loop = asyncio.new_event_loop()
+    run = loop.run_until_complete
+    out: dict = {}
+    keep: dict = {}
+
+    def watch(nodes, top, t0, seen):
+        run(asyncio.wait_for(_watch_heights(SimpleNamespace(nodes=nodes),
+                                            top, t0, seen), ND_TIMEOUT_S))
+
+    def stop(nodes):
+        for n in nodes:
+            run(n.stop())
+
+    def part_a():
+        doc, pvs = _nd_genesis(ND_CI_POWERS, b"nd-ci")
+        nodes = [run(_nd_node(doc, pv, f"validator0{i + 1}", dev))
+                 for i, pv in enumerate(pvs)]
+        full = run(_nd_node(doc, None, "full01", dev, fast_sync=True))
+        walls, seen = [], {}
+        try:
+            t0 = time.perf_counter()
+            for n in nodes:
+                run(n.start())
+            mesh_s = run(_nd_mesh(nodes, walls))
+            for i in range(ND_TXS):
+                run(nodes[0].mempool.check_tx(b"ci%d=tx%d" % (i, i)))
+            watch(nodes, ND_FULL_AT, t0, seen)
+            t_full = time.perf_counter()
+            run(full.start())
+            run(_nd_dial(full, nodes, walls))
+
+            def switched():
+                async def wait():
+                    while full.consensus_reactor.wait_sync:
+                        await asyncio.sleep(0.005)
+                run(asyncio.wait_for(wait(), ND_TIMEOUT_S))
+
+            switched()
+            t_switch = time.perf_counter() - t_full
+            h_switch = full.height()
+            top = max(ND_CI_HEIGHT, max(n.height() for n in nodes) + 2)
+            everyone = nodes + [full]
+
+            def rest():
+                # the heights' marks from the validators; then full01
+                watch(nodes, top, t0, seen)
+                watch([full], top, t0, {})
+
+            prof = profile_call(rest, top=6, warm=lambda: None)
+            wall = time.perf_counter() - t0
+            stats = vsched.get_scheduler().stats()
+            summary = _nd_summary(everyone, top, walls, mesh_s, seen, wall,
+                                  stats)
+        finally:
+            stop(nodes + [full])
+        _nd_agree(nodes + [full], top, "a")
+        want = {b"ci%d=tx%d" % (i, i) for i in range(ND_TXS)}
+        got = {bytes(tx) for h in range(1, top + 1)
+               for tx in nodes[1].block_store.load_block(h).data.txs}
+        if not want <= got:
+            raise AssertionError(f"phase 13 (a): txs {want - got} never "
+                                 "committed")
+        keep["a"] = (nodes[1], doc, top)
+        return {**summary, "full_switch_s": t_switch,
+                "full_switch_height": h_switch, "profile": prof}
+
+    def part_b(tmp):
+        homes = [os.path.join(tmp, f"validator0{i + 1}") for i in range(4)]
+
+        def file_pv(i):
+            kp = os.path.join(homes[i], "config", "priv_validator_key.json")
+            sp = os.path.join(homes[i], "data",
+                              "priv_validator_state.json")
+            if os.path.exists(kp):
+                return FilePV.load(kp, sp)
+            from cometbft_tpu_torch.types.priv_validator import MockPV
+
+            pv = FilePV(MockPV.from_secret(b"nd-home%d" % i).priv_key, kp,
+                        sp)
+            pv.save_key()
+            pv._save_state()
+            return pv
+
+        pvs = [file_pv(i) for i in range(4)]
+        from cometbft_tpu_torch.types.genesis import (GenesisDoc,
+                                                      GenesisValidator)
+
+        doc = GenesisDoc(chain_id=CHAIN_ID, validators=[
+            GenesisValidator(pv.get_pub_key(), p)
+            for pv, p in zip(pvs, ND_CI_POWERS)])
+        nodes = [run(_nd_node(doc, pv, f"home0{i + 1}", dev,
+                              home=homes[i])) for i, pv in enumerate(pvs)]
+        live = list(nodes)
+        walls, seen = [], {}
+        try:
+            t0 = time.perf_counter()
+            for n in nodes:
+                run(n.start())
+            mesh_s = run(_nd_mesh(nodes, walls))
+            victim = nodes[1]
+            watch([victim], ND_KILL_AT, t0, seen)
+            run(victim.stop())
+            live.remove(victim)
+            stopped_at = victim.height()
+            watch(live, ND_RESTART_AT, t0, {})
+            t_r = time.perf_counter()
+            pv = file_pv(1)
+            back = run(_nd_node(doc, pv, "home02", dev, home=homes[1]))
+            replayed = run(back.app_conns.query.info()).last_block_height
+            if back.height() != stopped_at or replayed != stopped_at:
+                raise AssertionError(
+                    f"phase 13 (b): restarted at {back.height()}, app "
+                    f"replayed to {replayed}, stopped at {stopped_at}")
+            run(back.start())
+            live.insert(1, back)
+            run(_nd_dial(back, [n for n in live if n is not back], walls))
+
+            async def caught_up():
+                while back.height() < min(n.height() for n in live
+                                          if n is not back):
+                    await asyncio.sleep(0.005)
+
+            run(asyncio.wait_for(caught_up(), ND_TIMEOUT_S))
+            t_caught = time.perf_counter() - t_r
+            watch(live, ND_CI_HEIGHT, t0, seen)
+            wall = time.perf_counter() - t0
+            stats = vsched.get_scheduler().stats()
+            summary = _nd_summary(live, ND_CI_HEIGHT, walls, mesh_s, seen,
+                                  wall, stats)
+            refused = run(_nd_refuses_conflict(pv))
+            if not refused:
+                raise AssertionError("phase 13 (b): FilePV signed a "
+                                     "conflicting message")
+        finally:
+            stop(live)
+        _nd_agree(live, ND_CI_HEIGHT, "b")
+        keep["b"] = (back, doc, ND_CI_HEIGHT)
+        return {**summary, "stopped_at": stopped_at,
+                "restart_to_caught_up_s": t_caught,
+                "app_replayed_to": replayed,
+                "double_sign_refused": refused}
+
+    def part_c():
+        doc, pvs = _nd_genesis(ND_LARGE_POWERS, b"nd-large")
+        nodes = [run(_nd_node(doc, pv, f"validator{i + 1:02d}", dev,
+                              latency_ms=ND_LARGE_LATENCY_MS))
+                 for i, pv in enumerate(pvs)]
+        walls, seen = [], {}
+        try:
+            t0 = time.perf_counter()
+            for n in nodes:
+                run(n.start())
+            mesh_s = run(_nd_mesh(nodes, walls))
+            watch(nodes, 1, t0, seen)
+            prof = profile_call(
+                lambda: watch(nodes, ND_LARGE_HEIGHT, t0, seen), top=6,
+                warm=lambda: None)
+            wall = time.perf_counter() - t0
+            stats = vsched.get_scheduler().stats()
+            summary = _nd_summary(nodes, ND_LARGE_HEIGHT, walls, mesh_s,
+                                  seen, wall, stats)
+        finally:
+            stop(nodes)
+        _nd_agree(nodes, ND_LARGE_HEIGHT, "c")
+        keep["c"] = (nodes[0], doc, ND_LARGE_HEIGHT)
+        return {**summary, "first_commit_s": seen["first"],
+                "last_commit_s": seen["last"], "profile": prof}
+
+    def part_d():
+        doc, pvs = _nd_genesis(ND_CI_POWERS, b"nd-ext", ext_height=1)
+        nodes = [run(_nd_node(doc, pv, f"ext0{i + 1}", dev))
+                 for i, pv in enumerate(pvs)]
+        walls, seen = [], {}
+        try:
+            t0 = time.perf_counter()
+            for n in nodes:
+                run(n.start())
+            mesh_s = run(_nd_mesh(nodes, walls))
+            watch(nodes, ND_EXT_HEIGHT, t0, seen)
+            wall = time.perf_counter() - t0
+            stats = vsched.get_scheduler().stats()
+            summary = _nd_summary(nodes, ND_EXT_HEIGHT, walls, mesh_s,
+                                  seen, wall, stats)
+        finally:
+            stop(nodes)
+        _nd_agree(nodes, ND_EXT_HEIGHT, "d")
+        n_ext = 0
+        for n in nodes:
+            ext = n.block_store.load_block_extended_commit(ND_EXT_HEIGHT - 1)
+            if ext is not None and ext.ensure_extensions(True):
+                n_ext = max(n_ext, sum(
+                    1 for e in ext.extended_signatures
+                    if e.commit_sig.is_commit() and e.extension_signature))
+        if n_ext < 3:
+            raise AssertionError(f"phase 13 (d): {n_ext} extension "
+                                 "signatures in a stored extended commit")
+        keep["d"] = (nodes[0], doc, ND_EXT_HEIGHT)
+        return {**summary, "extension_signatures": n_ext}
+
+    # the process's first trace starts slowly (seconds): start it here,
+    # not while a network's timers run
+    profile_call(_sync, warm=_sync)
+    calls, restore = _oracle_counter()
+    checks0 = sum(psc.HANDSHAKE_CHECKS.values())
+    t_ph = time.perf_counter()
+
+    def main_path():
+        out["a"] = part_a()
+        with tempfile.TemporaryDirectory() as d:
+            out["b"] = part_b(d)
+        out["c"] = part_c()
+        out["d"] = part_d()
+        return out
+
+    try:
+        launches, _ = _path_launches(main_path, ("ed25519_tables",
+                                                 "ed25519_verify_gather"))
+    finally:
+        restore()
+    out["main_path_s"] = time.perf_counter() - t_ph
+    out["handshake_checks"] = sum(psc.HANDSHAKE_CHECKS.values()) - checks0
+    out["oracle_calls"] = calls[0]
+    if calls[0]:
+        raise AssertionError(f"phase 13: the host oracle was called "
+                             f"{calls[0]} times on the path")
+    t0 = time.perf_counter()
+    out["oracle_rechecked"] = {
+        k: _oracle_recheck(_nd_recheck_target(node, doc), top)
+        for k, (node, doc, top) in keep.items()}
+    out["recheck_s"] = time.perf_counter() - t0
+    loop.close()
+    return launches, out
+
+
+def report_node(nd, launches, card) -> None:
+    """Phase 13's lines."""
+    print(f"node (phase 13): main path {nd['main_path_s']:.1f} s; launches "
+          f"{launches}; handshake device checks {nd['handshake_checks']}; "
+          f"oracle calls on the path {nd['oracle_calls']}, stored lanes "
+          f"re-checked by it afterwards {nd['oracle_rechecked']} in "
+          f"{nd['recheck_s']:.1f} s")
+    names = {"a": f"ci.toml {len(ND_CI_POWERS)} validators + full01",
+             "b": "ci.toml kill:5 restart:7, homes",
+             "c": f"large.toml {len(ND_LARGE_POWERS)} validators, "
+                  f"{ND_LARGE_LATENCY_MS:g} ms latency",
+             "d": "vote extensions at 4"}
+    for k in ("a", "b", "c", "d"):
+        p = nd[k]
+        per = p["per_height_s"]
+        st = p["scheduler"]
+        print(f"node ({k}) {names[k]} to height {p['heights']}: "
+              f"{p['wall_s']:.2f} s, a height {[round(x, 3) for x in per]} "
+              f"s (mean over heights 2-{p['heights']}: "
+              f"{p['mean_height_s'] or 0:.3f}); "
+              f"rounds {p['rounds']}; mesh of {p['dials']} dials in "
+              f"{p['mesh_s']:.3f} s (a dial p50 {p['dial_p50_ms']:.1f} "
+              f"ms); "
+              f"bytes a height sent {p['bytes_sent_per_height']:.0f}, "
+              f"received {p['bytes_recv_per_height']:.0f}  [{card}]")
+        print(f"node ({k}) scheduler: flushes {st['batches']}, lanes a "
+              f"flush {st['mean_batch_lanes']:.2f}, cache hits "
+              f"{st['cache_hits']}, misses {st['cache_misses']}, one-lane "
+              f"device checks {st['single_checks']}; payload by channel "
+              f"{p['payload_by_channel']}  [{card}]")
+        if "profile" in p:
+            prof = p["profile"]
+            print(f"profile node ({k}): wall {prof['wall_ms']:.1f} ms, "
+                  f"device {prof['device_ms']} ms (busy "
+                  f"{prof['device_busy_share']}), kernels "
+                  f"{prof['kernels_ms']}  [{card}]")
+    a, b = nd["a"], nd["b"]
+    print(f"node (a) full01 started at height {ND_FULL_AT}, switched to "
+          f"consensus at height {a['full_switch_height']} after "
+          f"{a['full_switch_s']:.2f} s  [{card}]")
+    print(f"node (b) validator02 stopped at {b['stopped_at']}, its app "
+          f"replayed to {b['app_replayed_to']}, restart to caught up "
+          f"{b['restart_to_caught_up_s']:.2f} s, conflicting sign refused "
+          f"{b['double_sign_refused']}  [{card}]")
+    print(f"node (d) extension signatures in a stored extended commit: "
+          f"{nd['d']['extension_signatures']}")
+
+
 def op_counts():
     """Field multiplications of each group operation, counted by running
     the plain versions on one lane on the CPU."""
@@ -3583,6 +4071,8 @@ def main(argv=None) -> int:
                     help="run only the build, the kernel sweep and phase 11")
     ap.add_argument("--consensus", action="store_true",
                     help="run only the build, the kernel sweep and phase 12")
+    ap.add_argument("--node", action="store_true",
+                    help="run only the build, the kernel sweep and phase 13")
     args = ap.parse_args(argv)
 
     import torch
@@ -3636,7 +4126,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     fx = Fixtures(max(SIZES))
     print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
-    if args.blocksync or args.consensus:
+    if args.blocksync or args.consensus or args.node:
         rec = {k: {"mismatches": 0} for k in _build.KERNELS}
         t0 = time.perf_counter()
         sweep = phase_sweep(fx, dev, rec)
@@ -3659,6 +4149,12 @@ def main(argv=None) -> int:
             cs["phase_s"] = time.perf_counter() - t0
             report_consensus(cs, cs_launches, card)
             part["consensus"] = cs
+        if args.node:
+            t0 = time.perf_counter()
+            nd_launches, nd = phase_node(dev)
+            nd["phase_s"] = time.perf_counter() - t0
+            report_node(nd, nd_launches, card)
+            part["node"] = nd
         if args.record:
             os.makedirs(os.path.dirname(os.path.abspath(args.record)),
                         exist_ok=True)
@@ -3818,6 +4314,10 @@ def main(argv=None) -> int:
     cs_launches, cs = phase_consensus(dev)
     cs["phase_s"] = time.perf_counter() - t0
     report_consensus(cs, cs_launches, card)
+    t0 = time.perf_counter()
+    nd_launches, nd = phase_node(dev)
+    nd["phase_s"] = time.perf_counter() - t0
+    report_node(nd, nd_launches, card)
     print(f"light client (phase 10): fixtures {lc['fixture_s']}, first "
           f"calls {lc['first_call_s']} s, phase {lc['phase_s']:.1f} s; "
           f"launches {lc_launches}")
@@ -3889,7 +4389,7 @@ def main(argv=None) -> int:
              f"light{BIG_VALS}": l10k_launches, f"bls{BLS_VALS}": bls_launches,
              f"mesh{MESH_SHARDS}": mesh_launches,
              "light_client": lc_launches, "blocksync": bs_launches,
-             "consensus": cs_launches}
+             "consensus": cs_launches, "node": nd_launches}
 
     c = op_counts()
     print(f"field multiplications per group op: {c}")
@@ -3948,7 +4448,7 @@ def main(argv=None) -> int:
                        "throughput": tp, "op_counts": c, "merkle": mk,
                        "light150": l150, "light10k": l10k, "bls": bls,
                        "light_client": lc, "blocksync": bs,
-                       "consensus": cs,
+                       "consensus": cs, "node": nd,
                        "mesh": mesh, "build_log": _build.build_log(),
                        "ptxas": usage}, f, indent=1,
                       default=str)

@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of the commit-, light-header and BLS aggregate-commit
-verification paths of ``cometbft_tpu``.
+"""PyTorch/CUDA port of ``cometbft_tpu``: commit, light-header and BLS
+aggregate-commit verification, the light client, blocksync, consensus
+and the networked node.
 
 The package mirrors the module names of the JAX package, so each module's
 counterpart is found under the same relative path.  It imports ``torch``,

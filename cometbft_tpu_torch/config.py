@@ -1,16 +1,30 @@
-"""Consensus configuration (counterpart of the ``ConsensusConfig`` part of
-``cometbft_tpu/config.py:16-60``; reference: ``config/config.go:1189-1225``).
+"""Configuration tree (counterpart of ``cometbft_tpu/config.py``;
+reference: ``config/config.go:78-93``): one :class:`Config` of the
+sections the port's node reads, each field with the JAX package's
+default.
 
-Timeouts are in nanoseconds.  :func:`test_consensus_config` shrinks them
-to tens of milliseconds for in-process multi-validator networks.  The
-rest of the node's configuration tree comes with the networked node.
+- Consensus timeouts are in nanoseconds; :func:`test_consensus_config`
+  shrinks them to tens of milliseconds for in-process networks.
+- ``BaseConfig.device`` takes the place of ``signature_backend``: where
+  every signature of the node is checked (``"cuda"`` by default, raising
+  without a card; ``"cpu"`` for the kernels' plain versions, as the tests
+  run them).
+- The JAX package's fields that steer only its TPU host fallback or its
+  compile cache (``min_device_lanes``, ``device_wait_s``,
+  ``device_warmup``, ``compile_bundle_*``) have no counterpart; the
+  sections and fields of modules the port has not yet (RPC, statesync,
+  light serving, the indexer, the fault plane, pex, fuzzing, the storage
+  doctor, the watchdogs, Prometheus) come with those modules, and TOML
+  load and save with ``cmd/``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
-__all__ = ["NS", "MS", "ConsensusConfig", "test_consensus_config"]
+__all__ = ["NS", "MS", "ConsensusConfig", "test_consensus_config",
+           "BaseConfig", "MempoolConfig", "P2PConfig", "BlockSyncConfig",
+           "StorageConfig", "InstrumentationConfig", "Config"]
 
 NS = 1_000_000_000
 MS = 1_000_000
@@ -55,3 +69,89 @@ def test_consensus_config() -> ConsensusConfig:
         timeout_prevote=40 * MS, timeout_prevote_delta=10 * MS,
         timeout_precommit=40 * MS, timeout_precommit_delta=10 * MS,
         timeout_commit=20 * MS, peer_gossip_sleep_duration=5 * MS)
+
+
+@dataclass
+class MempoolConfig:
+    size: int = 5000
+    max_tx_bytes: int = 1024 * 1024
+    # byte-capacity bound across the whole pool
+    max_txs_bytes: int = 1 << 30
+    cache_size: int = 10000
+    keep_invalid_txs_in_cache: bool = False
+    recheck: bool = True
+    # admission shards (by tx-hash prefix)
+    shards: int = 4
+    # CheckTx coalescer: the first queued admission's wait (0 disables)
+    # and the size-flush cap
+    coalesce_ms: float = 1.0
+    coalesce_max: int = 64
+    # tx gossip dialect: "announce" (hashes, bodies fetched on a miss)
+    # or "full" (bodies)
+    gossip_mode: str = "announce"
+    # how long one body fetch may be outstanding before it is
+    # re-requested from another announcer
+    fetch_timeout_s: float = 2.0
+    # byte budget of one full-body or fetch-response gossip frame
+    gossip_batch_bytes: int = 64 * 1024
+
+
+@dataclass
+class P2PConfig:
+    laddr: str = "tcp://0.0.0.0:26656"
+    # one-way delay injected at the MConnection receive side, emulating
+    # geo-distribution on one machine (the reference's e2e runner,
+    # test/e2e/runner/latency_emulation.go)
+    emulated_latency_ms: float = 0.0
+    # peer quality (p2p/quality.py): decaying per-peer misbehavior
+    # scores; crossing the disconnect score drops the peer, crossing the
+    # ban score issues a timed ban (TTL doubling per repeat offense)
+    quality_enable: bool = True
+    quality_disconnect_score: float = 5.0
+    quality_ban_score: float = 10.0
+    quality_half_life_s: float = 120.0
+    quality_ban_ttl_s: float = 60.0
+    quality_ban_ttl_max_s: float = 3600.0
+
+
+@dataclass
+class BlockSyncConfig:
+    # blocks whose commits fill one device batch during catch-up
+    verify_window: int = 32
+
+
+@dataclass
+class StorageConfig:
+    db_backend: str = "logdb"         # logdb | memdb
+
+
+@dataclass
+class InstrumentationConfig:
+    # flight-recorder tracing (libs/tracing): off by default
+    tracing: bool = False
+    tracing_ring_size: int = 8192
+
+
+@dataclass
+class BaseConfig:
+    # where the node checks signatures: "cuda" (or a CUDA device),
+    # "cpu" for the kernels' plain versions
+    device: str = "cuda"
+    # the coalescing vote-verification scheduler (crypto/scheduler.py),
+    # which the port's node always runs: it holds the node's device
+    vote_sched_max_wait_ms: float = 2.0
+    vote_sched_max_lanes: int = 256
+    vote_sched_cache_size: int = 65536
+    vote_sched_verify_timeout_s: float = 0.0
+
+
+@dataclass
+class Config:
+    base: BaseConfig = field(default_factory=BaseConfig)
+    consensus: ConsensusConfig = field(default_factory=ConsensusConfig)
+    mempool: MempoolConfig = field(default_factory=MempoolConfig)
+    p2p: P2PConfig = field(default_factory=P2PConfig)
+    blocksync: BlockSyncConfig = field(default_factory=BlockSyncConfig)
+    storage: StorageConfig = field(default_factory=StorageConfig)
+    instrumentation: InstrumentationConfig = field(
+        default_factory=InstrumentationConfig)

@@ -1,9 +1,9 @@
 """The Tendermint consensus state machine (counterpart of
 ``cometbft_tpu/consensus``; reference: ``internal/consensus/``): round
 state, height vote sets, the timeout ticker, the WAL and the
-single-writer receive loop with WAL catch-up replay.  The reactor's
-gossip and the app handshake at node start come with the networked
-node."""
+single-writer receive loop with WAL catch-up replay, the gossip
+reactor (``consensus/reactor.py``) and the app handshake at node start
+(``consensus/replay.py``)."""
 
 from .height_vote_set import HeightVoteSet
 from .round_state import (STEP_COMMIT, STEP_NEW_HEIGHT, STEP_NEW_ROUND,

@@ -18,8 +18,8 @@ starting a node: peers' votes are prefetched in micro-batches
 (``submit_nowait``), the vote sets check through the cache
 (``verify_cached``), and the proposal's signature is a fresh device lane
 (``verify_uncached``).  Commit checks inside ``validate_block`` run on
-the block executor's device.  The file signer's sign-state errors come
-with the networked node; the halting IO errors here are the WAL's."""
+the block executor's device.  The halting IO errors are the WAL's and
+the file signer's sign-state errors (``privval/file.py``)."""
 
 from __future__ import annotations
 
@@ -390,7 +390,12 @@ class ConsensusState:
         rather than a transient handler error (count and continue).
         Provenance first — a dead WAL handle is definitive — then the
         storage errno class."""
-        if isinstance(e, WALError):
+        from ..privval.file import SignStateError
+
+        if isinstance(e, (WALError, SignStateError)):
+            # a sign-state persist failure is the same fsyncgate class:
+            # the double-sign guard on disk may not reflect memory, so
+            # signing anything further is unsafe until restart
             return True
         if isinstance(e, OSError):
             if self.wal is not None and \

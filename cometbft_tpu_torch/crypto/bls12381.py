@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import hmac
+import os
 
 from .. import native
 from .keys import BLS12381_KEY_TYPE, address_hash
@@ -220,6 +221,11 @@ class Bls12381PrivKey:
             raise ValueError(f"bls12_381 privkey must be {PRIV_KEY_SIZE} "
                              f"bytes, got {len(raw)}")
         self._raw = bytes(raw)
+
+    @classmethod
+    def generate(cls) -> "Bls12381PrivKey":
+        """A new key from 48 random bytes of key material."""
+        return cls(keygen(os.urandom(48)).to_bytes(PRIV_KEY_SIZE, "big"))
 
     @classmethod
     def from_secret(cls, secret: bytes) -> "Bls12381PrivKey":

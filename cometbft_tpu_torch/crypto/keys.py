@@ -25,7 +25,8 @@ from . import _ed25519_py as _ref
 
 __all__ = ["ED25519_KEY_TYPE", "BLS12381_KEY_TYPE", "ADDRESS_SIZE",
            "address_hash", "Ed25519PubKey", "Ed25519PrivKey",
-           "pub_key_from_type_bytes"]
+           "pub_key_from_type_bytes", "priv_key_from_type_bytes",
+           "gen_priv_key"]
 
 ED25519_KEY_TYPE = "ed25519"
 BLS12381_KEY_TYPE = "bls12_381"
@@ -113,3 +114,25 @@ def pub_key_from_type_bytes(key_type: str, raw: bytes):
 
         return Bls12381PubKey(raw)
     raise ValueError(f"unsupported pubkey type {key_type!r}")
+
+
+def _priv_key_class(key_type: str):
+    if key_type == ED25519_KEY_TYPE:
+        return Ed25519PrivKey
+    if key_type == BLS12381_KEY_TYPE:
+        from .bls12381 import Bls12381PrivKey
+
+        return Bls12381PrivKey
+    raise ValueError(f"unsupported privkey type {key_type!r}")
+
+
+def priv_key_from_type_bytes(key_type: str, raw: bytes):
+    """A private key from its type name and bytes (the JAX package's
+    ``crypto/keys.py:67``) for the port's two key types; any other type,
+    secp256k1 included, raises ValueError."""
+    return _priv_key_class(key_type)(raw)
+
+
+def gen_priv_key(key_type: str = ED25519_KEY_TYPE):
+    """A new random key of ``key_type`` (``crypto/keys.py:71``)."""
+    return _priv_key_class(key_type).generate()

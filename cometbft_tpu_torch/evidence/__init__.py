@@ -1,8 +1,9 @@
 """Evidence of Byzantine behaviour (counterpart of
-``cometbft_tpu/evidence``): verification and the pool.  The gossip
-reactor comes with the networked node."""
+``cometbft_tpu/evidence``): verification, the pool and the gossip
+reactor."""
 
 from .pool import EvidencePool
+from .reactor import EvidenceReactor
 from .verify import verify_evidence
 
-__all__ = ["EvidencePool", "verify_evidence"]
+__all__ = ["EvidencePool", "EvidenceReactor", "verify_evidence"]

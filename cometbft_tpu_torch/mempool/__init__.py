@@ -1,6 +1,6 @@
 """Mempool (counterpart of ``cometbft_tpu/mempool``): the interface, the
-CList FIFO implementation and the disabled mempool.  The gossip reactor
-comes with the networked node."""
+CList FIFO implementation, the disabled mempool and the gossip reactor
+(``mempool/reactor.py``)."""
 
 from .clist_mempool import CListMempool
 from .mempool import Mempool, NopMempool, TxKey

@@ -1,6 +1,6 @@
 """Host C++ libraries of the port, built with the host ``g++`` at first use.
 
-Three libraries, each a copy of part of the JAX package's native code:
+Four libraries, each a copy of part of the JAX package's native code:
 
 - ``csrc/host/bls12381.cpp`` (with ``sha256_inline.h``): BLS12-381 key
   derivation, signing, decompression and subgroup checks, hash-to-G2
@@ -38,7 +38,8 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["NativeBuildError", "BUILD_SECONDS", "lib_path", "load",
-           "build_vote_sign_bytes", "ed25519_pubkey", "ed25519_sign"]
+           "build_vote_sign_bytes", "ed25519_pubkey", "ed25519_sign",
+           "aead_seal", "aead_open"]
 
 HOST_SRC = Path(__file__).resolve().parent / "csrc" / "host"
 ROOT = Path(__file__).resolve().parents[1]
@@ -202,3 +203,56 @@ def ed25519_sign(seed: bytes, msg: bytes) -> bytes:
     out = ctypes.create_string_buffer(64)
     _signer().ed25519_sign(_seed(seed), msg, len(msg), out)
     return out.raw
+
+
+_AEAD: list = []
+
+
+def _aead():
+    with _LOAD_LOCK:
+        if not _AEAD:
+            lib = load("aead")
+            args = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+                    ctypes.c_uint64, ctypes.c_char_p, ctypes.c_uint64,
+                    ctypes.c_char_p]
+            lib.aead_seal.argtypes = args
+            lib.aead_seal.restype = None
+            lib.aead_open.argtypes = args
+            lib.aead_open.restype = ctypes.c_int
+            _AEAD.append(lib)
+        return _AEAD[0]
+
+
+def _key_nonce(key: bytes, nonce: bytes) -> tuple[bytes, bytes]:
+    key, nonce = bytes(key), bytes(nonce)
+    if len(key) != 32:
+        raise ValueError("ChaCha20-Poly1305 key must be 32 bytes")
+    if len(nonce) != 12:
+        raise ValueError("ChaCha20-Poly1305 nonce must be 12 bytes")
+    return key, nonce
+
+
+def aead_seal(key: bytes, nonce: bytes, data: bytes, aad: bytes) -> bytes:
+    """RFC 8439 seal: the ciphertext of ``data`` then its 16-byte tag over
+    ``aad`` and the ciphertext.  A library that does not build raises
+    :class:`NativeBuildError`."""
+    key, nonce = _key_nonce(key, nonce)
+    data, aad = bytes(data), bytes(aad)
+    out = ctypes.create_string_buffer(len(data) + 16)
+    _aead().aead_seal(key, nonce, aad, len(aad), data, len(data), out)
+    return out.raw
+
+
+def aead_open(key: bytes, nonce: bytes, data: bytes, aad: bytes):
+    """RFC 8439 open of ``data`` (ciphertext then tag): the plaintext, or
+    None when the tag does not match.  A library that does not build
+    raises :class:`NativeBuildError`."""
+    key, nonce = _key_nonce(key, nonce)
+    data, aad = bytes(data), bytes(aad)
+    if len(data) < 16:
+        return None
+    out = ctypes.create_string_buffer(max(1, len(data) - 16))
+    if not _aead().aead_open(key, nonce, aad, len(aad), data, len(data),
+                             out):
+        return None
+    return out.raw[:len(data) - 16]

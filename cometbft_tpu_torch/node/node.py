@@ -1,0 +1,299 @@
+"""Node assembly (counterpart of ``cometbft_tpu/node/node.py``; reference:
+``node/node.go:275,303-576`` NewNode and OnStart): stores, state and
+genesis, the ABCI connections and the app handshake, mempool, evidence,
+consensus with its WAL, the reactors, and the transport and switch.
+
+Two phases, as in the reference: :meth:`Node.create` builds everything,
+:meth:`Node.start` starts the services in dependency order.  Every
+signature the node checks is checked on ``config.base.device``: the
+handshake's challenge on the transport, votes, proposals and evidence
+through the process-wide verification scheduler (``crypto/
+scheduler.py``), which :meth:`start` acquires and :meth:`stop` releases
+(in-process nodes share one, reference-counted), and commits through
+the block executor and blocksync.  ``device`` is ``"cuda"`` by default
+and raises without a card; ``"cpu"`` runs the kernels' plain versions.
+
+Not here yet, each with its module (``ROADMAP.md`` queue 1): RPC and
+gRPC, Prometheus, the loop and liveness watchdogs, statesync, the
+indexer, light serving, the storage doctor, pex with the address book
+and seed mode, connection fuzzing and the fault plane's config wiring;
+the AOT warmup has no counterpart (the port's kernels build at first
+use).  The app is in-process (``local_client_creator``); the socket and
+gRPC apps come with ``abci/server.py``.
+"""
+
+from __future__ import annotations
+
+import os
+
+from ..abci.application import Application
+from ..blocksync.reactor import BlocksyncReactor
+from ..config import Config, test_consensus_config
+from ..consensus.reactor import ConsensusReactor
+from ..consensus.replay import Handshaker
+from ..consensus.state import ConsensusState
+from ..consensus.wal import WAL
+from ..crypto import plan as _plan
+from ..crypto import scheduler as _vsched
+from ..evidence import EvidencePool, EvidenceReactor
+from ..libs import tracing
+from ..libs.pubsub import EventBus
+from ..mempool.clist_mempool import CListMempool
+from ..mempool.reactor import MempoolReactor
+from ..p2p import NodeInfo, NodeKey, PeerScorer, Switch, Transport
+from ..proxy.multi_app_conn import AppConns, local_client_creator
+from ..sm.execution import BlockExecutor
+from ..sm.pruner import Pruner
+from ..storage import BlockStore, MemDB, State, StateStore, open_db
+from ..storage.db import DataDirLock
+from ..types.genesis import GenesisDoc
+from ..types.priv_validator import PrivValidator
+
+__all__ = ["Node"]
+
+
+def _parse_laddr(laddr: str) -> tuple[str, int]:
+    addr = laddr.removeprefix("tcp://")
+    host, _, port = addr.rpartition(":")
+    return host or "127.0.0.1", int(port)
+
+
+class Node:
+    def __init__(self):
+        # populated by create()
+        self.config: Config | None = None
+        self.genesis: GenesisDoc | None = None
+        self.device = None
+        self.block_store: BlockStore | None = None
+        self.state_store: StateStore | None = None
+        self.app_conns: AppConns | None = None
+        self.event_bus: EventBus | None = None
+        self.mempool: CListMempool | None = None
+        self.block_exec: BlockExecutor | None = None
+        self.consensus: ConsensusState | None = None
+        self.consensus_reactor: ConsensusReactor | None = None
+        self.mempool_reactor: MempoolReactor | None = None
+        self.blocksync_reactor: BlocksyncReactor | None = None
+        self.evidence_pool: EvidencePool | None = None
+        self.evidence_reactor: EvidenceReactor | None = None
+        self.pruner: Pruner | None = None
+        self.fast_sync = False
+        self.node_key: NodeKey | None = None
+        self.transport: Transport | None = None
+        self.switch: Switch | None = None
+        self.listen_addr: str | None = None
+        self.home: str | None = None
+        self.name = "node"
+        self.wal: WAL | None = None
+        self._dbs: list = []
+        self._data_lock: DataDirLock | None = None
+        self._holds_scheduler = False
+        self._started = False
+        self._closed = False
+
+    # ------------------------------------------------------------- create
+
+    @classmethod
+    async def create(cls, genesis_doc: GenesisDoc, app: Application,
+                     priv_validator: PrivValidator | None = None,
+                     config: Config | None = None,
+                     node_key: NodeKey | None = None,
+                     home: str | None = None,
+                     fast_sync: bool = False,
+                     name: str = "node") -> "Node":
+        """Build a node of ``app`` (in process) on ``config.base.device``
+        (raising without a card unless it is ``"cpu"``).  With ``home``
+        the stores are ``config.storage.db_backend`` files and the WAL a
+        file under ``home/data``, whose lock the node holds until
+        :meth:`stop`; without, everything is in memory."""
+        if app is None:
+            raise ValueError("no application: the port runs an in-process "
+                             "app (socket and gRPC apps come with "
+                             "abci/server.py)")
+        self = cls()
+        self.name = name
+        self.home = home
+        self.fast_sync = fast_sync
+        cfg = config or Config(consensus=test_consensus_config())
+        self.config = cfg
+        self.genesis = genesis_doc
+        self.device = cfg.base.device
+        _plan.resolve_devices(self.device)       # raises without a card
+        try:
+            await self._build(genesis_doc, app, priv_validator, node_key)
+        except BaseException:
+            await self._close_resources()
+            raise
+        return self
+
+    async def _build(self, genesis_doc, app, priv_validator,
+                     node_key) -> None:
+        cfg, home, name, device = self.config, self.home, self.name, \
+            self.device
+
+        def make_db(filename: str):
+            db = MemDB() if home is None else open_db(
+                cfg.storage.db_backend, os.path.join(home, "data", filename))
+            self._dbs.append(db)
+            return db
+
+        if home is not None:
+            # refuse to double-open a home
+            self._data_lock = DataDirLock(os.path.join(home, "data"))
+            self.wal = WAL(os.path.join(home, "data", "cs.wal"))
+        self.block_store = BlockStore(make_db("blockstore.db"))
+        self.state_store = StateStore(make_db("state.db"))
+        state = self.state_store.load() or State.from_genesis(genesis_doc)
+
+        self.app_conns = AppConns(local_client_creator(app), node=name)
+        await self.app_conns.start()
+        self.event_bus = EventBus()
+        mp = cfg.mempool
+        self.mempool = CListMempool(
+            self.app_conns.mempool, max_txs=mp.size,
+            max_tx_bytes=mp.max_tx_bytes, max_txs_bytes=mp.max_txs_bytes,
+            cache_size=mp.cache_size,
+            keep_invalid_txs_in_cache=mp.keep_invalid_txs_in_cache,
+            shards=mp.shards, coalesce_ms=mp.coalesce_ms,
+            coalesce_max=mp.coalesce_max, recheck=mp.recheck,
+            metrics_node=name)
+        self.evidence_pool = EvidencePool(
+            make_db("evidence.db"), state_store=self.state_store,
+            block_store=self.block_store, device=device)
+        self.evidence_pool.state = state
+        self.pruner = Pruner(self.state_store, self.block_store, name=name)
+        self.block_exec = BlockExecutor(
+            self.state_store, self.block_store, self.app_conns.consensus,
+            self.mempool, evidence_pool=self.evidence_pool,
+            event_bus=self.event_bus, device=device, pruner=self.pruner)
+        state = await Handshaker(
+            self.state_store, self.block_store, genesis_doc).handshake(
+            state, self.app_conns, self.block_exec)
+
+        self.consensus = ConsensusState(
+            cfg.consensus, state, self.block_exec, self.block_store,
+            wal=self.wal, priv_validator=priv_validator,
+            event_bus=self.event_bus, name=name)
+        self.consensus.on_conflicting_vote = \
+            self.evidence_pool.report_conflicting_votes
+
+        gossip_sleep = cfg.consensus.peer_gossip_sleep_duration / 1e9
+        self.consensus_reactor = ConsensusReactor(
+            self.consensus, gossip_sleep=gossip_sleep)
+        self.mempool_reactor = MempoolReactor(
+            self.mempool, gossip_sleep=gossip_sleep,
+            gossip_mode=mp.gossip_mode, fetch_timeout_s=mp.fetch_timeout_s,
+            batch_bytes=mp.gossip_batch_bytes)
+        self.blocksync_reactor = BlocksyncReactor(
+            self.block_exec, self.block_store, state,
+            fast_sync=self.fast_sync,
+            switch_to_consensus=self._switch_to_consensus, device=device,
+            verify_window=cfg.blocksync.verify_window, name=f"{name}.bs")
+        if self.fast_sync:
+            self.consensus_reactor.wait_sync = True
+        self.evidence_reactor = EvidenceReactor(self.evidence_pool)
+
+        self.node_key = node_key or NodeKey.generate()
+        self.transport = Transport(self.node_key, self._node_info,
+                                   device=device)
+        p2p = cfg.p2p
+        scorer = PeerScorer(
+            enabled=p2p.quality_enable,
+            disconnect_score=p2p.quality_disconnect_score,
+            ban_score=p2p.quality_ban_score,
+            half_life_s=p2p.quality_half_life_s,
+            ban_ttl_s=p2p.quality_ban_ttl_s,
+            ban_ttl_max_s=p2p.quality_ban_ttl_max_s)
+        self.switch = Switch(
+            self.transport, emulated_latency=p2p.emulated_latency_ms / 1e3,
+            scorer=scorer, name=name)
+        self.switch.add_reactor("consensus", self.consensus_reactor)
+        self.switch.add_reactor("mempool", self.mempool_reactor)
+        self.switch.add_reactor("blocksync", self.blocksync_reactor)
+        self.switch.add_reactor("evidence", self.evidence_reactor)
+
+    async def _switch_to_consensus(self, state) -> None:
+        """Blocksync caught up: adopt the synced state and start consensus
+        (reference consensus Reactor.SwitchToConsensus)."""
+        self.consensus._update_to_state(state)
+        await self.consensus.start()
+        self.consensus_reactor.switch_to_consensus()
+
+    def _node_info(self) -> NodeInfo:
+        return NodeInfo(
+            node_id=self.node_key.id,
+            listen_addr=self.listen_addr or "",
+            network=self.genesis.chain_id,
+            channels=self.switch.channel_ids if self.switch else b"",
+            moniker=self.name)
+
+    # ---------------------------------------------------------- lifecycle
+
+    async def start(self) -> None:
+        """node.go:579 OnStart: the verification scheduler on the node's
+        device, then listen, the reactors, the pruner and consensus
+        (deferred to the blocksync handoff under ``fast_sync``)."""
+        inst = self.config.instrumentation
+        if inst.tracing:
+            # process-wide, never flipped off at stop (in-process nodes
+            # share the flight recorder)
+            tracing.configure(enabled=True,
+                              ring_size=inst.tracing_ring_size)
+        base = self.config.base
+        # before the listener: a peer's first vote needs the scheduler
+        await _vsched.acquire_scheduler(
+            device=self.device, max_wait_ms=base.vote_sched_max_wait_ms,
+            max_lanes=base.vote_sched_max_lanes,
+            cache_size=base.vote_sched_cache_size,
+            verify_timeout_s=base.vote_sched_verify_timeout_s)
+        self._holds_scheduler = True
+        self._started = True
+        try:
+            host, port = _parse_laddr(self.config.p2p.laddr)
+            self.listen_addr = await self.transport.listen(host, port)
+            await self.switch.start()
+            await self.pruner.start()
+            if not self.fast_sync:
+                await self.consensus.start()
+        except BaseException:
+            await self.stop()
+            raise
+
+    async def stop(self) -> None:
+        """Stop consensus, the switch (peers, reactors, listener), the
+        pruner and the app connections; release the scheduler; close the
+        WAL, every store and the data-directory lock.  Idempotent, and
+        safe on a node whose :meth:`start` failed."""
+        if self._started:
+            self._started = False
+            await self.consensus.stop()
+            await self.switch.stop()
+            await self.pruner.stop()
+        if self._holds_scheduler:
+            self._holds_scheduler = False
+            await _vsched.release_scheduler()
+        await self._close_resources()
+
+    async def _close_resources(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        if self.app_conns is not None:
+            await self.app_conns.stop()
+        if self.wal is not None:
+            wal, self.wal = self.wal, None
+            wal.close()
+        dbs, self._dbs = self._dbs, []
+        for db in dbs:
+            db.close()
+        if self._data_lock is not None:
+            lock, self._data_lock = self._data_lock, None
+            lock.release()
+
+    async def dial_peer(self, addr: str, persistent: bool = True):
+        return await self.switch.dial_peer(addr, persistent=persistent)
+
+    # ------------------------------------------------------------- status
+
+    def height(self) -> int:
+        return self.block_store.height()

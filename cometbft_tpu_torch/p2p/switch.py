@@ -1,0 +1,346 @@
+"""Switch: reactor registry and peer lifecycle (counterpart of
+``cometbft_tpu/p2p/switch.py``; reference: ``p2p/switch.go:72,110,163,269``).
+
+Owns the Transport, accepts/dials peers, builds each peer's MConnection
+from the union of reactor channel descriptors, dispatches received messages
+to the owning reactor, fans out broadcasts, scores misbehavior through one
+:class:`PeerScorer`, and reconnects persistent peers with exponential
+backoff after errors (switch.go reconnectToPeer).  The JAX package's
+per-peer telemetry (its periodic flush into Prometheus series and the
+``/net_info`` snapshot) comes with the Prometheus exposition and RPC;
+each MConnection's counters are read by ``MConnection.telemetry``."""
+
+from __future__ import annotations
+
+import asyncio
+import random
+
+from ..libs import aio, clock
+
+from ..libs import log as tmlog
+from .conn import (ConnectionLostError, MConnection, MConnectionError,
+                   PongTimeoutError)
+from .metrics import p2p_metrics
+from .node_info import NodeInfo
+from .peer import Peer
+from .quality import PeerMisbehaviorError, PeerScorer
+from .reactor import ChannelDescriptor, Reactor
+from .transport import Transport
+
+RECONNECT_BASE_DELAY = 0.5
+RECONNECT_MAX_DELAY = 30.0
+RECONNECT_MAX_ATTEMPTS = 20
+
+
+class SwitchError(Exception):
+    pass
+
+
+class Switch:
+    def __init__(self, transport: Transport,
+                 emulated_latency: float = 0.0,
+                 scorer: PeerScorer | None = None,
+                 name: str = ""):
+        self.transport = transport
+        self.emulated_latency = emulated_latency
+        # node-wide peer reputation: every layer's misbehavior reports
+        # funnel through report_peer into this one scorer, which orders
+        # disconnects and timed bans (p2p/quality.py)
+        self.scorer = scorer if scorer is not None else PeerScorer()
+        self.reactors: dict[str, Reactor] = {}
+        self._chan_to_reactor: dict[int, Reactor] = {}
+        self._descriptors: list[ChannelDescriptor] = []
+        self.peers: dict[str, Peer] = {}
+        # node ids we have EVER dialed persistently: the ban exemption
+        # must hold while the peer is between connections (late async
+        # misbehavior reports land after removal) and for its inbound
+        # reconnects (which never carry persistent=True themselves)
+        self._persistent_ids: set[str] = set()
+        self._running = False
+        self._reconnect_tasks: dict[str, asyncio.Task] = {}
+        # error teardowns in flight (stop() awaits them)
+        self._teardowns: set[asyncio.Task] = set()
+        transport.on_accept = self._on_accepted
+
+        # labeled per node id: multi-node in-process ensembles share the
+        # process-wide registry
+        self._m_node = transport.node_key.id[:8]
+        self.log = tmlog.logger("p2p", node=name or self._m_node)
+        self._m = p2p_metrics()
+        self._m_peers_out = self._m.peers.bind(node=self._m_node,
+                                               direction="outbound")
+        self._m_peers_in = self._m.peers.bind(node=self._m_node,
+                                              direction="inbound")
+        self._m_rtt = self._m.ping_rtt_seconds.bind(node=self._m_node)
+        # per-channel dispatch counters, pre-bound at add_reactor time so
+        # the receive hot path pays one dict lookup + one bound inc
+        self._m_reactor_msgs: dict[int, object] = {}
+
+    # ----------------------------------------------------------- reactors
+
+    def add_reactor(self, name: str, reactor: Reactor) -> None:
+        for desc in reactor.get_channels():
+            if desc.channel_id in self._chan_to_reactor:
+                raise SwitchError(
+                    f"channel {desc.channel_id:#x} already claimed")
+            self._chan_to_reactor[desc.channel_id] = reactor
+            self._descriptors.append(desc)
+            self._m_reactor_msgs[desc.channel_id] = \
+                self._m.reactor_msgs.bind(reactor=name, node=self._m_node)
+        self.reactors[name] = reactor
+        reactor.set_switch(self)
+
+    @property
+    def channel_ids(self) -> bytes:
+        return bytes(sorted(d.channel_id for d in self._descriptors))
+
+    # ---------------------------------------------------------- lifecycle
+
+    async def start(self) -> None:
+        self._running = True
+        for reactor in self.reactors.values():
+            await reactor.start()
+
+    async def stop(self) -> None:
+        self._running = False
+        # cancel everything BEFORE the first await: a yield here would
+        # let an in-flight reconnect dial land a peer after the removal
+        # snapshot below, leaking its MConnection tasks
+        tasks = list(self._reconnect_tasks.values())
+        for task in tasks:
+            task.cancel()
+        self._reconnect_tasks.clear()
+        for peer in list(self.peers.values()):
+            await self._remove_peer(peer, "switch stopping")
+        for reactor in self.reactors.values():
+            await reactor.stop()
+        await self.transport.close()
+        for task in tasks + list(self._teardowns):
+            try:
+                await task
+            except (asyncio.CancelledError, Exception):
+                pass
+
+    # -------------------------------------------------------------- peers
+
+    async def _on_accepted(self, conn, node_info: NodeInfo) -> None:
+        try:
+            await self._add_peer(conn, node_info, outbound=False)
+        except SwitchError as e:
+            # refusing an inbound (banned / duplicate / stopping) is a
+            # normal outcome, not an unretrieved task exception
+            self.log.debug("inbound peer refused", err=str(e))
+
+    async def dial_peer(self, addr: str, persistent: bool = False) -> Peer:
+        try:
+            conn, node_info = await self.transport.dial(addr)
+        except asyncio.CancelledError:
+            raise
+        except Exception:
+            self._m.dial_failures.inc(node=self._m_node)
+            raise
+        return await self._add_peer(conn, node_info, outbound=True,
+                                    persistent=persistent, dial_addr=addr)
+
+    async def _add_peer(self, conn, node_info: NodeInfo, outbound: bool,
+                        persistent: bool = False,
+                        dial_addr: str | None = None) -> Peer:
+        if not self._running:
+            # an accept (or concurrent dial) whose handshake finishes
+            # while stop() runs must not land a peer after the removal
+            # snapshot — its MConnection tasks would never be cancelled
+            # and the peer gauges would report a phantom forever
+            conn.close()
+            raise SwitchError("switch is not running")
+        own_id = self.transport.node_key.id
+        if node_info.node_id == own_id:
+            conn.close()
+            raise SwitchError("refusing to connect to self")
+        if node_info.node_id in self.peers:
+            conn.close()
+            raise SwitchError(f"duplicate peer {node_info.node_id[:12]}")
+        if persistent:
+            self._persistent_ids.add(node_info.node_id)
+        if not persistent and \
+                node_info.node_id not in self._persistent_ids and \
+                self.scorer.is_banned(node_info.node_id):
+            # admission control: a timed ban refuses the connection at
+            # the door (inbound and plain outbound alike).  Persistent
+            # peers are operator-pinned and exempt from bans — including
+            # their INBOUND reconnects, which don't carry the flag.
+            conn.close()
+            raise SwitchError(f"peer {node_info.node_id[:12]} is banned")
+
+        peer_box: list[Peer] = []
+        reactor_msgs = self._m_reactor_msgs
+
+        def on_receive(chan_id: int, msg: bytes) -> None:
+            reactor = self._chan_to_reactor.get(chan_id)
+            if reactor is not None and peer_box:
+                bound = reactor_msgs.get(chan_id)
+                if bound is not None:
+                    bound.inc()
+                reactor.receive(chan_id, peer_box[0], msg)
+
+        def on_error(exc: Exception) -> None:
+            if peer_box:
+                aio.spawn(self.stop_peer_for_error(peer_box[0], exc),
+                          self._teardowns)
+
+        mconn = MConnection(conn, self._descriptors, on_receive, on_error,
+                            emulated_latency=self.emulated_latency)
+        mconn.on_rtt = self._m_rtt.observe
+        peer = Peer(node_info, mconn, outbound, persistent, dial_addr)
+        peer_box.append(peer)
+        self.peers[peer.id] = peer
+        self._set_peer_gauges()
+        mconn.start()
+        for reactor in self.reactors.values():
+            reactor.add_peer(peer)
+        return peer
+
+    def _set_peer_gauges(self) -> None:
+        n_out = sum(1 for p in self.peers.values() if p.outbound)
+        self._m_peers_out.set(n_out)
+        self._m_peers_in.set(len(self.peers) - n_out)
+
+    # ------------------------------------------------------- peer quality
+
+    @staticmethod
+    def _classify_error(err) -> str | None:
+        """Map a connection-teardown cause to a misbehavior event, or
+        None when it isn't the peer's fault (plain network failures) or
+        was already scored (PeerMisbehaviorError)."""
+        if not isinstance(err, Exception):
+            return None                      # string reason / None
+        if isinstance(err, (PeerMisbehaviorError, ConnectionLostError,
+                            asyncio.CancelledError)):
+            return None
+        if isinstance(err, PongTimeoutError):
+            return "pong_timeout"
+        if isinstance(err, MConnectionError):
+            return "malformed_frame"         # post-AEAD decode/framing
+        if isinstance(err, (ConnectionError, OSError)):
+            return None
+        return "protocol_error"              # reactor raised on input
+
+    def _score(self, peer_id: str, event: str, *, persistent: bool,
+               detail: str = "", weight: float | None = None) -> str | None:
+        """Record one event with the scorer + metrics; returns the
+        ordered action without executing it."""
+        action = self.scorer.report(peer_id, event, weight=weight,
+                                    persistent=persistent, detail=detail)
+        self._m.misbehavior.inc(node=self._m_node, event=event)
+        if action == "ban":
+            self._m.peer_bans.inc(node=self._m_node, reason=event)
+            self.log.warn("peer banned", peer=peer_id[:12], reason=event,
+                          detail=detail[:80])
+        return action
+
+    def report_peer(self, peer_id: str, event: str, detail: str = "",
+                    weight: float | None = None,
+                    disconnect: bool = False) -> str | None:
+        """Reactor-facing misbehavior report.  Scores the event; when
+        the scorer orders a disconnect/ban — or the caller already
+        decided the peer must go (``disconnect=True``, e.g. blocksync
+        dropping a bad block server) — the peer is stopped.  Persistent
+        peers are re-dialed by stop_peer_for_error as usual."""
+        peer = self.peers.get(peer_id)
+        # a late report for a disconnected peer must still honor the
+        # persistent-peer ban exemption
+        persistent = (peer.persistent if peer is not None else False) \
+            or peer_id in self._persistent_ids
+        action = self._score(peer_id, event, persistent=persistent,
+                             detail=detail, weight=weight)
+        if peer is not None and (action is not None or disconnect):
+            aio.spawn(self.stop_peer_for_error(
+                peer, PeerMisbehaviorError(event, detail)), self._teardowns)
+        return action
+
+    async def stop_peer_for_error(self, peer: Peer, err) -> None:
+        """switch.go StopPeerForError + persistent reconnect."""
+        if peer.id not in self.peers:
+            return
+        if isinstance(err, PongTimeoutError):
+            self._m.pong_timeouts.inc(node=self._m_node)
+        event = self._classify_error(err)
+        if event is not None:
+            # connection-level misbehavior (garbage frames, reactor
+            # blow-ups, silent death) feeds the same ledger as the
+            # in-band reports, so a reconnect-and-misbehave loop
+            # escalates to a timed ban
+            self._score(peer.id, event,
+                        persistent=(peer.persistent
+                                    or peer.id in self._persistent_ids),
+                        detail=repr(err)[:160])
+        await self._remove_peer(peer, err)
+        if self._running and peer.persistent and peer.dial_addr:
+            self._schedule_reconnect(peer.dial_addr)
+
+    async def _remove_peer(self, peer: Peer, reason) -> None:
+        self.peers.pop(peer.id, None)
+        self._set_peer_gauges()
+        for reactor in self.reactors.values():
+            try:
+                reactor.remove_peer(peer, reason)
+            except Exception:
+                pass
+        await peer.stop()
+
+    def _schedule_reconnect(self, addr: str) -> None:
+        if addr in self._reconnect_tasks:
+            return
+
+        async def _reconnect():
+            delay = RECONNECT_BASE_DELAY
+            attempts = 0
+            while True:
+                await clock.sleep(delay * (1 + 0.2 * random.random()))
+                if not self._running:
+                    return
+                if any(p.dial_addr == addr for p in self.peers.values()):
+                    return      # already re-dialed (a racing loop won)
+                try:
+                    await self.dial_peer(addr, persistent=True)
+                    return
+                except asyncio.CancelledError:
+                    raise
+                except Exception as e:
+                    if isinstance(e, SwitchError) and \
+                            "duplicate peer" in str(e):
+                        # the peer reconnected INBOUND while we backed
+                        # off: mission accomplished — without this the
+                        # now-unbounded loop would re-handshake against
+                        # a connected peer every max-delay forever
+                        return
+                    attempts += 1
+                    if attempts == RECONNECT_MAX_ATTEMPTS:
+                        # the reference gives up here — silently losing
+                        # an operator-pinned peer forever.  Log + count
+                        # the backoff exhaustion, then keep retrying at
+                        # the max delay (with jitter) indefinitely: a
+                        # persistent peer is persistent.
+                        self._m.reconnect_giveups.inc(node=self._m_node)
+                        self.log.warn(
+                            "persistent-peer reconnect exhausted backoff; "
+                            "continuing at max delay", addr=addr,
+                            attempts=attempts, err=repr(e)[:80])
+                    delay = min(delay * 2, RECONNECT_MAX_DELAY)
+
+        task = asyncio.create_task(_reconnect())
+        task.add_done_callback(
+            lambda _t: self._reconnect_tasks.pop(addr, None))
+        self._reconnect_tasks[addr] = task
+
+    # ---------------------------------------------------------- broadcast
+
+    def broadcast(self, channel_id: int, msg: bytes,
+                  except_peer: Peer | None = None) -> None:
+        """Fan a message to every connected peer (switch.go:269)."""
+        for peer in self.peers.values():
+            if except_peer is not None and peer.id == except_peer.id:
+                continue
+            peer.send(channel_id, msg)
+
+    def n_peers(self) -> int:
+        return len(self.peers)

@@ -1,8 +1,10 @@
 """The port stands alone: no module of ``cometbft_tpu_torch`` and nothing
-``chip_smoke.py`` imports pulls in ``jax``, the JAX package or
+``chip_smoke.py`` imports pulls in ``jax``, the JAX package,
 ``msgpack`` (absent on the card's machine; the port's codec carries its
-own), at import time (checked in a fresh interpreter) or lazily inside a
-function (checked on the source), and its CUDA and host C++ sources
+own), ``cryptography`` (the secret connection's X25519 and AEAD are the
+port's own), ``grpc`` or ``psycopg2``, at import time (checked in a
+fresh interpreter) or lazily inside a function (checked on the source),
+and its CUDA and host C++ sources
 include only headers of the port's own ``csrc/`` (or headers the port
 generates)."""
 
@@ -19,7 +21,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "cometbft_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "cometbft_tpu", "msgpack")
+FORBIDDEN = ("jax", "jaxlib", "cometbft_tpu", "msgpack", "cryptography",
+             "grpc", "psycopg2")
 
 
 def _port_modules():
