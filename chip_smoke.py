@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port's commit-, light-header and BLS
 aggregate-commit verification paths, of lane-sharded commit
 verification over a device set, of the light client, of blocksync
-catch-up, of consensus in one process and of the networked node over
-loopback TCP, on one card.
+catch-up, of consensus in one process, of the networked node over
+loopback TCP and of BASELINE configs[4]'s mixed-key commits, on one
+card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -139,13 +140,26 @@ Phases, each of which must pass or the script exits non-zero:
    ci.toml's kill:5 / restart:7 of validator02 from its home (LogDB
    stores, WAL file, ``FilePV`` files); (c) ``networks/large.toml``'s 12
    validators at their skewed powers with ``ND_LARGE_LATENCY_MS`` of
-   emulated latency to height ``ND_LARGE_HEIGHT``; (d) vote extensions
-   at 4 validators.  Each part's wall and rounds a height, the mesh's
+   emulated latency to height ``ND_LARGE_HEIGHT``, validator08 on the
+   native database (its blocks read back from its files after the stop);
+   (d) vote extensions at 4 validators.  Each part's wall and rounds a height, the mesh's
    wall, the bytes sent and received a height, the scheduler's tallies
    and (a), (c) the device busy share; the oracle's calls counted (must
-   be 0) and every stored commit re-checked by it afterwards.
+   be 0) and every stored commit re-checked by it afterwards;
+14. BASELINE configs[4] (``phase_stress``): 10,000 validators, the
+   first 1,000 secp256k1, each signing a precommit and an extension
+   (keys and signatures from the native signers in the pool): (a) the
+   20,000 lanes in one batch verifier (Ed25519 lanes on the card,
+   secp256k1 lanes on host threads), tampered lanes caught at their
+   indices, sigs/s, the parts timed apart, the device busy share; (b)
+   ``VerifyCommit`` and ``VerifyCommitLight`` of the mixed 10,000-lane
+   commit, a bad secp256k1 lane rejected at its index,
+   ``ValidatorSet.hash`` through the tree kernel against hashlib; (c)
+   a mixed-key network (one secp256k1 validator of four) to height 3;
+   (d) the native host tree against the hashlib level loop at 64 to
+   2,047 leaves; (e) is validator08 of phase 13 (c).
 
-Phases 4, 6, 7, 8, 9, 10, 11, 12 and 13 are the main path: the launch counters
+Phases 4, 6, 7, 8, 9, 10, 11, 12, 13 and 14 are the main path: the launch counters
 are zeroed just before each and read just after; each phase's kernels
 must have launched, no plain version may have run, and neither
 standalone hash kernel (``OFF_PATH``: the RLC lane stage hashes its
@@ -166,7 +180,8 @@ shard each: the cross-card copy of the partial sums and the overlap of
 the cards, which one card cannot show.  ``python3 chip_smoke.py
 --blocksync`` runs only phases 1 and 2, phase 3's sweep and phase 11;
 ``python3 chip_smoke.py --consensus`` the same with phase 12, ``--node``
-with phase 13 (options together run their phases).
+with phase 13, ``--stress`` with phase 14 (options together run their
+phases; ``--stress --node`` gives phase 14 its part (e)).
 
 The line before the last is a JSON object with one entry per kernel
 (launches on the main path, max_abs_err, times, bound); the last line is
@@ -3441,6 +3456,7 @@ ND_LARGE_POWERS = (40, 25, 15, 10, 10, 10, 5, 5, 5, 5, 5, 5)  # large.toml
 ND_LARGE_LATENCY_MS = 10.0       # (c): large.toml's emulated latency
 ND_LARGE_HEIGHT = 6              # (c)
 ND_EXT_HEIGHT = 4                # (d): vote extensions from height 1
+ND_NATIVE_AT = 7                 # (c): validator08, on the native database
 ND_TIMEOUT_S = 240               # a part's wait for its heights
 
 
@@ -3458,9 +3474,9 @@ def _nd_genesis(powers, tag: bytes, ext_height: int = 0):
 
 
 async def _nd_node(doc, pv, name: str, dev, *, home=None, fast_sync=False,
-                   latency_ms: float = 0.0):
+                   latency_ms: float = 0.0, db_backend: str = "logdb"):
     """A port ``Node`` of the kvstore app on ``dev``: the JAX package's
-    test timeouts, a loopback listener on port 0, ``LogDB`` stores
+    test timeouts, a loopback listener on port 0, ``db_backend`` stores
     under ``home`` (else in memory)."""
     from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
     from cometbft_tpu_torch.config import Config, test_consensus_config
@@ -3471,7 +3487,7 @@ async def _nd_node(doc, pv, name: str, dev, *, home=None, fast_sync=False,
     cfg.base.device = str(dev)
     cfg.p2p.laddr = "tcp://127.0.0.1:0"
     cfg.p2p.emulated_latency_ms = latency_ms
-    cfg.storage.db_backend = "logdb" if home else "memdb"
+    cfg.storage.db_backend = db_backend if home else "memdb"
     return await Node.create(
         doc, KVStoreApplication(device=dev), priv_validator=pv, config=cfg,
         node_key=NodeKey.from_secret(b"smoke-" + name.encode()), home=home,
@@ -3602,7 +3618,9 @@ def phase_node(dev):
         conflicting sign), all agreeing at ``ND_CI_HEIGHT``;
     (c) large.toml's 12 validators at their skewed powers with
         ``ND_LARGE_LATENCY_MS`` of emulated latency, to height
-        ``ND_LARGE_HEIGHT``;
+        ``ND_LARGE_HEIGHT``, validator08 (``ND_NATIVE_AT``) on the native
+        database: its blocks read while it runs and from its files
+        after the stop equal the others' (phase 14 (e));
     (d) vote extensions from height 1 at 4 validators to height
         ``ND_EXT_HEIGHT``: a stored extended commit carries 3 or more
         extension signatures.
@@ -3763,11 +3781,16 @@ def phase_node(dev):
                 "app_replayed_to": replayed,
                 "double_sign_refused": refused}
 
-    def part_c():
+    def part_c(tmp):
         doc, pvs = _nd_genesis(ND_LARGE_POWERS, b"nd-large")
+        # large.toml: validator08 keeps its stores in the native database
+        v08_home = os.path.join(tmp, "validator08")
         nodes = [run(_nd_node(doc, pv, f"validator{i + 1:02d}", dev,
-                              latency_ms=ND_LARGE_LATENCY_MS))
+                              latency_ms=ND_LARGE_LATENCY_MS,
+                              home=v08_home if i == ND_NATIVE_AT else None,
+                              db_backend="native"))
                  for i, pv in enumerate(pvs)]
+        v08 = nodes[ND_NATIVE_AT]
         walls, seen = [], {}
         try:
             t0 = time.perf_counter()
@@ -3782,12 +3805,34 @@ def phase_node(dev):
             stats = vsched.get_scheduler().stats()
             summary = _nd_summary(nodes, ND_LARGE_HEIGHT, walls, mesh_s,
                                   seen, wall, stats)
+            # validator08's blocks read from its native store while open
+            live = {h: v08.block_store.load_block(h).hash()
+                    for h in range(1, ND_LARGE_HEIGHT + 1)}
+            backend = type(v08.block_store.db).__name__
         finally:
             stop(nodes)
-        _nd_agree(nodes, ND_LARGE_HEIGHT, "c")
+        others = [n for n in nodes if n is not v08]
+        _nd_agree(others, ND_LARGE_HEIGHT, "c")
+        from cometbft_tpu_torch.storage import BlockStore
+        from cometbft_tpu_torch.storage.nativedb import NativeDB
+
+        db = NativeDB(os.path.join(v08_home, "data", "blockstore.db"))
+        try:
+            stored = {h: BlockStore(db).load_block(h).hash()
+                      for h in range(1, ND_LARGE_HEIGHT + 1)}
+        finally:
+            db.close()
+        want = {h: others[0].block_store.load_block(h).hash()
+                for h in range(1, ND_LARGE_HEIGHT + 1)}
+        if backend != "NativeDB" or live != want or stored != want:
+            raise AssertionError(
+                f"phase 13 (c) / 14 (e): validator08 on {backend} disagrees "
+                "with the other validators")
         keep["c"] = (nodes[0], doc, ND_LARGE_HEIGHT)
         return {**summary, "first_commit_s": seen["first"],
-                "last_commit_s": seen["last"], "profile": prof}
+                "last_commit_s": seen["last"], "profile": prof,
+                "native": {"backend": backend, "heights": ND_LARGE_HEIGHT,
+                           "agree": True}}
 
     def part_d():
         doc, pvs = _nd_genesis(ND_CI_POWERS, b"nd-ext", ext_height=1)
@@ -3831,7 +3876,8 @@ def phase_node(dev):
         out["a"] = part_a()
         with tempfile.TemporaryDirectory() as d:
             out["b"] = part_b(d)
-        out["c"] = part_c()
+        with tempfile.TemporaryDirectory() as d:
+            out["c"] = part_c(d)
         out["d"] = part_d()
         return out
 
@@ -3901,6 +3947,382 @@ def report_node(nd, launches, card) -> None:
           f"{b['double_sign_refused']}  [{card}]")
     print(f"node (d) extension signatures in a stored extended commit: "
           f"{nd['d']['extension_signatures']}")
+
+
+# ------------------------------------- phase 14: BASELINE configs[4] on the card
+
+ST_VALS = 10_000                 # BASELINE configs[4]: 10,000 validators
+ST_SECP = 1_000                  # the first 10% hold secp256k1 keys
+ST_CHAIN = "stress"              # bench.py:_child_stress's commit
+ST_HEIGHT = 5
+ST_REPS = 5                      # timed calls of each (a), (b) measurement
+ST_TREE_LEAVES = (64, 256, 1000, 2047)   # (d): the host tree routes
+ST_TREE_REPS = 20
+ST_CS_HEIGHT = 3                 # (c): the mixed-key network's top
+ST_RECHECK_EVERY = 20            # (a)'s lanes the oracles re-check: 1 in 20
+
+
+def _stress_msgs(i: int):
+    """Validator i's precommit and extension sign bytes (chain "stress",
+    height 5, round 0, as ``bench.py:_child_stress`` builds them)."""
+    from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.canonical import (
+        canonical_vote_extension_sign_bytes, canonical_vote_sign_bytes)
+    from cometbft_tpu_torch.types.vote import PRECOMMIT_TYPE
+
+    bid = BlockID(b"\x11" * 32, PartSetHeader(1, b"\x22" * 32))
+    return (canonical_vote_sign_bytes(ST_CHAIN, PRECOMMIT_TYPE, ST_HEIGHT, 0,
+                                      bid, 1_700_000_000_000_000_000 + i),
+            canonical_vote_extension_sign_bytes(ST_CHAIN, ST_HEIGHT, 0,
+                                                b"ext%d" % i))
+
+
+def _stress_sign(task):
+    """Pool worker: validators lo..hi-1 of configs[4], the first
+    ``n_secp`` of the set secp256k1, as (key type, public key, precommit
+    signature, extension signature), keys and signatures from the native
+    signers."""
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    from cometbft_tpu_torch.crypto.secp256k1 import Secp256k1PrivKey
+
+    lo, hi, n_secp = task
+    out = []
+    for i in range(lo, hi):
+        cls = Secp256k1PrivKey if i < n_secp else Ed25519PrivKey
+        priv = cls.from_secret(b"stress%d" % i)
+        sb, eb = _stress_msgs(i)
+        out.append((priv.type(), priv.pub_key().bytes(), priv.sign(sb),
+                    priv.sign(eb)))
+    return out
+
+
+def _flip(sig: bytes, at: int = 40) -> bytes:
+    return sig[:at] + bytes([sig[at] ^ 1]) + sig[at + 1:]
+
+
+def _oracle_verify(pub, msg: bytes, sig: bytes) -> bool:
+    """The pure-Python oracles: ZIP-215 for Ed25519, big-int ECDSA for
+    secp256k1."""
+    from cometbft_tpu_torch.crypto import _ed25519_py, _secp256k1_py
+
+    if pub.type() == "secp256k1":
+        return len(sig) == 64 and _secp256k1_py.verify(
+            pub.bytes(), msg, int.from_bytes(sig[:32], "big"),
+            int.from_bytes(sig[32:], "big"))
+    return _ed25519_py.verify_zip215(pub.bytes(), msg, sig)
+
+
+def phase_stress(pool, dev):
+    """Phase 14: BASELINE configs[4] on the card ("10k-validator
+    ExtendedCommit w/ vote extensions + secp256k1 mixed keys"):
+
+    (a) the stress batch: ``ST_VALS`` validators, the first ``ST_SECP``
+        secp256k1 (``from_secret(b"stress%d")``), the rest Ed25519, each
+        signing a precommit and an extension: 20,000 lanes in one
+        ``create_batch_verifier()`` on the card (Ed25519 lanes in one
+        device call, secp256k1 lanes on host threads meanwhile), every
+        lane ok; one tampered Ed25519 and one tampered secp256k1 lane
+        caught at their indices; sigs/s and p50 over ``ST_REPS`` calls,
+        the host secp256k1 lanes alone (on the host threads and on one
+        thread), the Ed25519 lanes alone, and the device busy share;
+    (b) a ``ST_VALS``-validator mixed ``Commit`` of the same keys and
+        precommits: ``VerifyCommit`` and ``VerifyCommitLight`` p50 over
+        ``ST_REPS`` calls, a commit with a bad secp256k1 lane rejected at
+        its lane, ``ValidatorSet.hash`` of the mixed set through the tree
+        kernel equal to hashlib;
+    (c) consensus in one process on the card: validator 0 secp256k1,
+        three Ed25519, to height ``ST_CS_HEIGHT``, the secp256k1
+        signature in the stored commits;
+    (d) the host trees: native (``kv_merkle_levels``, ``kv_merkle_root``)
+        against the hashlib level loop at ``ST_TREE_LEAVES`` leaves of
+        the set's validator encodings, equal roots and levels, median of
+        ``ST_TREE_REPS`` calls each.
+
+    (e), validator08 of phase 13 (c) on the native database, is reported
+    with phase 13.  The launch counters are zeroed just before (a)-(c)'s
+    first calls and read just after (the main path); the Ed25519 oracle
+    must not be called there, and afterwards one lane in
+    ``ST_RECHECK_EVERY`` of (a) and every stored lane of (c) are
+    re-checked by the pure-Python oracles."""
+    import asyncio
+
+    from cometbft_tpu_torch import native
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.crypto import merkle
+    from cometbft_tpu_torch.crypto.keys import pub_key_from_type_bytes
+    from cometbft_tpu_torch.crypto.secp256k1 import Secp256k1PrivKey
+    from cometbft_tpu_torch.testing import make_inproc_network
+    from cometbft_tpu_torch.types import validation as V
+    from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.commit import (BLOCK_ID_FLAG_COMMIT,
+                                                 Commit, CommitSig)
+    from cometbft_tpu_torch.types.priv_validator import MockPV
+    from cometbft_tpu_torch.types.validator_set import Validator, ValidatorSet
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    spans = [(lo, min(lo + 250, ST_VALS), ST_SECP)
+             for lo in range(0, ST_VALS, 250)]
+    rows = [r for part in pool.map(_stress_sign, spans) for r in part]
+    pubs = [pub_key_from_type_bytes(kt, pk) for kt, pk, _, _ in rows]
+    items = []
+    for i, (_, _, s1, s2) in enumerate(rows):
+        sb, eb = _stress_msgs(i)
+        items += [(pubs[i], sb, s1), (pubs[i], eb, s2)]
+    out["fixture_s"] = time.perf_counter() - t0
+    secp_lanes = [j for j, it in enumerate(items)
+                  if it[0].type() == "secp256k1"]
+    ed_items = [it for it in items if it[0].type() == "ed25519"]
+    secp_raw = [(items[j][0].bytes(), items[j][1], items[j][2])
+                for j in secp_lanes]
+    out["lanes"] = {"all": len(items), "secp256k1": len(secp_lanes),
+                    "ed25519": len(ed_items)}
+
+    def batch(its):
+        bv = cbatch.create_batch_verifier(dev)
+        for it in its:
+            bv.add(*it)
+        return bv.verify()
+
+    bad_ed = 2 * ((ST_SECP + ST_VALS) // 2)    # a precommit lane, Ed25519
+    bad_secp = 2 * 17 + 1                  # an extension lane, secp256k1
+    tampered = list(items)
+    for j in (bad_ed, bad_secp):
+        p, m, sg = tampered[j]
+        tampered[j] = (p, m, _flip(sg))
+
+    # (b)'s commit: the set sorted by address, lane of validator i signed
+    # by its precommit (the same sign bytes)
+    bid = BlockID(b"\x11" * 32, PartSetHeader(1, b"\x22" * 32))
+    vals = ValidatorSet([Validator(p, 10) for p in pubs])
+    index = {p.address(): i for i, p in enumerate(pubs)}
+    sigs = [CommitSig(BLOCK_ID_FLAG_COMMIT, v.address,
+                      1_700_000_000_000_000_000 + index[v.address],
+                      rows[index[v.address]][2]) for v in vals.validators]
+    commit = Commit(ST_HEIGHT, 0, bid, sigs)
+    bad_lane = next(k for k, v in enumerate(vals.validators)
+                    if v.pub_key.type() == "secp256k1")
+    bad_commit = Commit(ST_HEIGHT, 0, bid, [
+        CommitSig(c.block_id_flag, c.validator_address, c.timestamp_ns,
+                  _flip(c.signature) if k == bad_lane else c.signature)
+        for k, c in enumerate(sigs)])
+    encodings = [v.simple_encode() for v in vals.validators]
+    want_hash = merkle.hash_from_byte_slices(encodings)
+
+    def verify_commit():
+        V.VerifyCommit(ST_CHAIN, vals, bid, ST_HEIGHT, commit, device=dev)
+
+    def verify_light():
+        V.VerifyCommitLight(ST_CHAIN, vals, bid, ST_HEIGHT, commit,
+                            device=dev)
+
+    def rejected(fn_name):
+        try:
+            getattr(V, fn_name)(ST_CHAIN, vals, bid, ST_HEIGHT, bad_commit,
+                                device=dev)
+        except V.ErrInvalidSignature as e:
+            return e.idx
+        return None
+
+    loop = asyncio.new_event_loop()
+    cs_top = {}
+
+    def part_c():
+        def pv_factory(i):
+            if i == 0:
+                return MockPV(Secp256k1PrivKey.from_secret(b"mixsecp%d" % i))
+            return MockPV.from_secret(b"mixed%d" % i)
+
+        async def go():
+            net = await make_inproc_network(4, chain_id=CHAIN_ID, device=dev,
+                                            pv_factory=pv_factory)
+            try:
+                t1 = time.perf_counter()
+                await net.start()
+                await net.wait_for_height(ST_CS_HEIGHT, timeout=CS_TIMEOUT_S)
+                wall = time.perf_counter() - t1
+            finally:
+                await net.stop()
+            _check_agreement(net, ST_CS_HEIGHT)
+            return net, wall
+
+        net, wall = loop.run_until_complete(go())
+        node = net.nodes[0]
+        c3 = node.block_store.load_block(ST_CS_HEIGHT).last_commit
+        vs = node.state_store.load_validators(ST_CS_HEIGHT - 1)
+        kinds = sorted({vs.get_by_index(k).pub_key.type()
+                        for k, cs in enumerate(c3.signatures)
+                        if cs.is_commit()})
+        if kinds != ["ed25519", "secp256k1"]:
+            raise AssertionError(f"phase 14 (c): block {ST_CS_HEIGHT}'s "
+                                 f"last commit holds {kinds} lanes")
+        cs_top["node"] = node
+        return {"wall_s": wall, "lane_kinds": kinds,
+                "height": node.block_store.height()}
+
+    calls, restore = _oracle_counter()
+    host0 = dict(cbatch.HOST_LANES)
+
+    def main_path():
+        ok, lanes = batch(items)
+        if not ok or not all(lanes):
+            raise AssertionError(f"phase 14 (a): {lanes.count(False)} of "
+                                 f"{len(lanes)} lanes rejected")
+        ok, lanes = batch(tampered)
+        caught = [j for j, v in enumerate(lanes) if not v]
+        if ok or caught != sorted((bad_ed, bad_secp)):
+            raise AssertionError(f"phase 14 (a): tampered lanes caught at "
+                                 f"{caught}, want {[bad_secp, bad_ed]}")
+        out["caught"] = caught
+        verify_commit()
+        verify_light()
+        out["rejected_at"] = {f: rejected(f) for f in
+                              ("VerifyCommit", "VerifyCommitLight")}
+        if set(out["rejected_at"].values()) != {bad_lane}:
+            raise AssertionError(f"phase 14 (b): bad lane {bad_lane} "
+                                 f"rejected at {out['rejected_at']}")
+        got = vals.hash(dev)
+        if got != want_hash:
+            raise AssertionError("phase 14 (b): ValidatorSet.hash differs "
+                                 "from hashlib")
+        out["c"] = part_c()
+
+    t0 = time.perf_counter()
+    try:
+        launches, _ = _path_launches(main_path, (
+            "ed25519_tables", "ed25519_rlc_gather", "ed25519_verify_gather",
+            "merkle_tree_leaves"))
+    finally:
+        restore()
+    out["main_path_s"] = time.perf_counter() - t0
+    out["oracle_calls"] = calls[0]
+    if calls[0]:
+        raise AssertionError(f"phase 14: the Ed25519 oracle was called "
+                             f"{calls[0]} times on the path")
+    out["host_lanes_main_path"] = {
+        k: v - host0.get(k, 0) for k, v in cbatch.HOST_LANES.items()}
+
+    # (a) timed
+    out["batch"] = time_host_spread(lambda: batch(items), ST_REPS)
+    out["sigs_per_s"] = len(items) / out["batch"]["p50_ms"] * 1e3
+    out["ed25519_only"] = time_host_spread(lambda: batch(ed_items), ST_REPS)
+    out["secp_threads"] = time_host_spread(
+        lambda: native.secp256k1_verify_lanes(secp_raw).result(), ST_REPS)
+    chunk = native.SECP_CHUNK
+    native.SECP_CHUNK = len(secp_raw)
+    try:
+        out["secp_one_thread"] = time_host_spread(
+            lambda: native.secp256k1_verify_lanes(secp_raw).result(), 3)
+    finally:
+        native.SECP_CHUNK = chunk
+    out["profile_batch"] = profile_call(lambda: batch(items))
+    # (b) timed
+    out["verify_commit"] = time_host_spread(verify_commit, ST_REPS)
+    out["verify_commit_light"] = time_host_spread(verify_light, ST_REPS)
+    out["valset_hash"] = time_host_spread(lambda: vals.hash(dev), ST_REPS)
+    out["profile_verify_commit"] = profile_call(verify_commit)
+    # (d) the host tree routes
+    trees = {}
+    for n in ST_TREE_LEAVES:
+        leaves = encodings[:n]
+        lv_h = merkle._levels_hashlib(leaves)
+        lv_n = native.merkle_levels(leaves)
+        if lv_h != lv_n or native.merkle_root(leaves) != lv_h[-1][0] or \
+                lv_h[-1][0] != merkle.hash_from_byte_slices(leaves):
+            raise AssertionError(f"phase 14 (d): native tree differs at {n}")
+
+        def med(fn):
+            ts = []
+            for _ in range(ST_TREE_REPS):
+                t1 = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t1) * 1e3)
+            return statistics.median(ts)
+
+        trees[n] = {
+            "levels_hashlib_ms": med(lambda: merkle._levels_hashlib(leaves)),
+            "levels_native_ms": med(lambda: native.merkle_levels(leaves)),
+            "root_native_ms": med(lambda: native.merkle_root(leaves))}
+        trees[n]["faster"] = ("native" if trees[n]["levels_native_ms"]
+                              < trees[n]["levels_hashlib_ms"] else "hashlib")
+    out["trees"] = trees
+    out["sha_ni"] = "sha_ni" in native._host_id()
+    # the oracles over (a)'s lanes and (c)'s stored commits
+    t0 = time.perf_counter()
+    sample = range(0, len(items), ST_RECHECK_EVERY)
+    bad = [j for j in sample if not _oracle_verify(*items[j])]
+    if bad:
+        raise AssertionError(f"phase 14: oracle rejects lanes {bad[:5]}")
+    node = cs_top["node"]
+    rechecked = 0
+    for h in range(1, ST_CS_HEIGHT + 1):
+        vs = node.state_store.load_validators(h) or node.state.validators
+        c = node.block_store.load_block_commit(h) or \
+            node.block_store.load_seen_commit()
+        for k, cs in enumerate(c.signatures):
+            if cs.is_absent():
+                continue
+            if not _oracle_verify(vs.get_by_index(k).pub_key,
+                                  c.vote_sign_bytes(CHAIN_ID, k),
+                                  cs.signature):
+                raise AssertionError(f"phase 14 (c): stored commit {h} "
+                                     f"lane {k} fails the oracle")
+            rechecked += 1
+    out["oracle_rechecked"] = {"a": len(sample), "c": rechecked}
+    out["recheck_s"] = time.perf_counter() - t0
+    loop.close()
+    return launches, out
+
+
+def report_stress(st, launches, card, nd=None) -> None:
+    """Phase 14's lines ((e) from phase 13's part (c))."""
+    print(f"stress (phase 14): {st.get('phase_s', 0.0):.1f} s; fixture "
+          f"{st['fixture_s']:.1f} s (native signers in the pool), main path "
+          f"{st['main_path_s']:.1f} s; "
+          f"lanes {st['lanes']}; launches {launches}; host lanes on the "
+          f"path {st['host_lanes_main_path']}; Ed25519 oracle calls on the "
+          f"path {st['oracle_calls']}; re-checked by the oracles "
+          f"{st['oracle_rechecked']} in {st['recheck_s']:.1f} s")
+    print(f"stress (a) {st['lanes']['all']} lanes in one batch verifier: "
+          f"{st['sigs_per_s']:.0f} sigs/s, {_spread(st['batch'])}; "
+          f"tampered lanes caught at {st['caught']}  [{card}]")
+    print(f"stress (a) apart: Ed25519 lanes alone {_spread(st['ed25519_only'])}"
+          f"; secp256k1 lanes on host threads "
+          f"{_spread(st['secp_threads'])}; on one thread "
+          f"{_spread(st['secp_one_thread'])}  [{card}]")
+    prof = st["profile_batch"]
+    print(f"profile stress (a): wall {prof['wall_ms']:.1f} ms, device "
+          f"{prof['device_ms']} ms (busy {prof['device_busy_share']}), "
+          f"kernels {prof['kernels_ms']}  [{card}]")
+    print(f"stress (b) VerifyCommit@{ST_VALS} mixed: "
+          f"{_spread(st['verify_commit'])}; VerifyCommitLight: "
+          f"{_spread(st['verify_commit_light'])}; bad secp256k1 lane "
+          f"rejected at {st['rejected_at']}  [{card}]")
+    print(f"stress (b) ValidatorSet.hash@{ST_VALS} mixed (tree kernel, "
+          f"equal to hashlib): {_spread(st['valset_hash'])}  [{card}]")
+    prof = st["profile_verify_commit"]
+    print(f"profile stress (b) VerifyCommit: wall {prof['wall_ms']:.1f} ms,"
+          f" device {prof['device_ms']} ms (busy "
+          f"{prof['device_busy_share']}), kernels {prof['kernels_ms']}  "
+          f"[{card}]")
+    c = st["c"]
+    print(f"stress (c) mixed-key consensus, 4 validators (1 secp256k1) to "
+          f"height {ST_CS_HEIGHT}: {c['wall_s']:.2f} s; lanes of block "
+          f"{ST_CS_HEIGHT}'s last commit {c['lane_kinds']}  [{card}]")
+    for n, t in st["trees"].items():
+        print(f"stress (d) host tree at {n} leaves (median of "
+              f"{ST_TREE_REPS}): hashlib levels {t['levels_hashlib_ms']:.3f}"
+              f" ms, native levels {t['levels_native_ms']:.3f} ms, native "
+              f"root {t['root_native_ms']:.3f} ms; faster {t['faster']}  "
+              f"[{card}]")
+    print(f"stress (d) merkle.py's route from 64 leaves: native; host CPU "
+          f"has SHA-NI: {st['sha_ni']}")
+    if nd is not None and "native" in nd.get("c", {}):
+        e = nd["c"]["native"]
+        print(f"stress (e) = node (c): validator08 on the native database "
+              f"({e['backend']}), {e['heights']} heights, every block equal "
+              f"to the other 11 validators' while running and read back "
+              f"from its files after the stop: {e['agree']}  [{card}]")
 
 
 def op_counts():
@@ -4073,6 +4495,9 @@ def main(argv=None) -> int:
                     help="run only the build, the kernel sweep and phase 12")
     ap.add_argument("--node", action="store_true",
                     help="run only the build, the kernel sweep and phase 13")
+    ap.add_argument("--stress", action="store_true",
+                    help="run only the build, the kernel sweep and phase 14 "
+                    "(with --node, also its part (e) in phase 13)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4126,7 +4551,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     fx = Fixtures(max(SIZES))
     print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
-    if args.blocksync or args.consensus or args.node:
+    if args.blocksync or args.consensus or args.node or args.stress:
         rec = {k: {"mismatches": 0} for k in _build.KERNELS}
         t0 = time.perf_counter()
         sweep = phase_sweep(fx, dev, rec)
@@ -4136,13 +4561,19 @@ def main(argv=None) -> int:
         if any(sweep.values()):
             raise AssertionError(f"sweep mismatches: {sweep}")
         part = {}
-        if args.blocksync:
+        if args.blocksync or args.stress:
             ctx = multiprocessing.get_context("spawn")
             with ctx.Pool(os.cpu_count()) as pool:
-                keys = pool_keys(pool, BS_VALS)
-                bs_launches, bs = phase_blocksync(pool, keys, dev, 5)
-            report_blocksync(bs, bs_launches, card)
-            part["blocksync"] = bs
+                if args.blocksync:
+                    keys = pool_keys(pool, BS_VALS)
+                    bs_launches, bs = phase_blocksync(pool, keys, dev, 5)
+                if args.stress:
+                    t0 = time.perf_counter()
+                    st_launches, st = phase_stress(pool, dev)
+                    st["phase_s"] = time.perf_counter() - t0
+            if args.blocksync:
+                report_blocksync(bs, bs_launches, card)
+                part["blocksync"] = bs
         if args.consensus:
             t0 = time.perf_counter()
             cs_launches, cs = phase_consensus(dev)
@@ -4155,6 +4586,9 @@ def main(argv=None) -> int:
             nd["phase_s"] = time.perf_counter() - t0
             report_node(nd, nd_launches, card)
             part["node"] = nd
+        if args.stress:
+            report_stress(st, st_launches, card, part.get("node"))
+            part["stress"] = st
         if args.record:
             os.makedirs(os.path.dirname(os.path.abspath(args.record)),
                         exist_ok=True)
@@ -4309,6 +4743,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         bs_launches, bs = phase_blocksync(pool, keys, dev, 5)
         bs["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st_launches, st = phase_stress(pool, dev)
+        st["phase_s"] = time.perf_counter() - t0
     report_blocksync(bs, bs_launches, card)
     t0 = time.perf_counter()
     cs_launches, cs = phase_consensus(dev)
@@ -4318,6 +4755,7 @@ def main(argv=None) -> int:
     nd_launches, nd = phase_node(dev)
     nd["phase_s"] = time.perf_counter() - t0
     report_node(nd, nd_launches, card)
+    report_stress(st, st_launches, card, nd)
     print(f"light client (phase 10): fixtures {lc['fixture_s']}, first "
           f"calls {lc['first_call_s']} s, phase {lc['phase_s']:.1f} s; "
           f"launches {lc_launches}")
@@ -4389,7 +4827,8 @@ def main(argv=None) -> int:
              f"light{BIG_VALS}": l10k_launches, f"bls{BLS_VALS}": bls_launches,
              f"mesh{MESH_SHARDS}": mesh_launches,
              "light_client": lc_launches, "blocksync": bs_launches,
-             "consensus": cs_launches, "node": nd_launches}
+             "consensus": cs_launches, "node": nd_launches,
+             "stress": st_launches}
 
     c = op_counts()
     print(f"field multiplications per group op: {c}")
@@ -4448,7 +4887,7 @@ def main(argv=None) -> int:
                        "throughput": tp, "op_counts": c, "merkle": mk,
                        "light150": l150, "light10k": l10k, "bls": bls,
                        "light_client": lc, "blocksync": bs,
-                       "consensus": cs, "node": nd,
+                       "consensus": cs, "node": nd, "stress": st,
                        "mesh": mesh, "build_log": _build.build_log(),
                        "ptxas": usage}, f, indent=1,
                       default=str)

@@ -35,6 +35,7 @@ import torch
 
 from .crypto.bls12381 import Bls12381PubKey
 from .crypto.keys import Ed25519PubKey
+from .crypto.secp256k1 import Secp256k1PubKey
 from .light.types import LightBlock
 from .ops import fe
 from .storage.statestore import State, state_from_dict
@@ -69,7 +70,8 @@ def tables_from_jax(ypx, ymx, z2, t2d, ok, device="cpu"):
     return tab, torch.from_numpy(np.asarray(ok, bool).copy()).to(device)
 
 
-_KEY_CLASSES = {"ed25519": Ed25519PubKey, "bls12_381": Bls12381PubKey}
+_KEY_CLASSES = {"ed25519": Ed25519PubKey, "secp256k1": Secp256k1PubKey,
+                "bls12_381": Bls12381PubKey}
 
 
 def validator_set_from_arrays(pubs, powers, key_types=None,
@@ -77,9 +79,9 @@ def validator_set_from_arrays(pubs, powers, key_types=None,
                               proposer_address=None) -> ValidatorSet:
     """pubs (N, 32) uint8 (or N byte strings) and powers (N,) int64 -> a
     ValidatorSet (sorted by address, so rows given in the JAX set's order
-    keep their index).  ``key_types``, N strings ("ed25519" or
-    "bls12_381"), gives each key's type; without it every key is
-    Ed25519.  A new set's proposer priorities are those of one increment;
+    keep their index).  ``key_types``, N strings ("ed25519",
+    "secp256k1" or "bls12_381"), gives each key's type; without it every
+    key is Ed25519.  A new set's proposer priorities are those of one increment;
     ``priorities`` (N,) instead sets each row's priority and
     ``proposer_address`` the proposer (b"": none), as a set that has
     rotated or been updated holds them."""

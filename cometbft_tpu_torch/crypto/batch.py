@@ -47,6 +47,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .. import native as _native
 from ..ops import _build
 from ..ops import ed25519 as _ed
 from ..ops import rlc as _rlc
@@ -54,7 +55,7 @@ from ..ops import sha512 as _sha
 from ..parallel import mesh as _mesh
 from . import plan as _plan
 
-__all__ = ["RLC_MIN_LANES", "DISPATCHES", "BatchVerifier",
+__all__ = ["RLC_MIN_LANES", "DISPATCHES", "HOST_LANES", "BatchVerifier",
            "create_batch_verifier", "verify_dense", "device_verify_ed25519",
            "device_verify_ed25519_cached", "device_call", "device_submit",
            "DEVICE_THREAD_NAME"]
@@ -65,6 +66,8 @@ RLC_MIN_LANES = 128
 TABLE_CACHE_ENTRIES = 4
 # verdict calls by route
 DISPATCHES: collections.Counter = collections.Counter()
+# lanes BatchVerifier verified on the host, by key type
+HOST_LANES: collections.Counter = collections.Counter()
 
 
 def _padded_lane_args(pubs, rs, ss, msgs, msg_lens, device):
@@ -261,11 +264,18 @@ def verify_dense(pubs, sigs, msgs, lens, device=None, valset_pubs=None,
 
 class BatchVerifier:
     """Accumulate (pubkey, msg, sig) triples and verify them at once (the
-    reference's ``crypto.BatchVerifier``): Ed25519 lanes in one dense
-    device call, BLS12-381 lanes one by one on the host, as the JAX
-    package's verifier routes them.  ``verify()`` returns ``(all_ok,
-    per_sig)``; an empty batch is not ok.  An Ed25519 signature that is
-    not 64 bytes is rejected without a launch."""
+    reference's ``crypto.BatchVerifier``), routed as the JAX package's
+    ``TpuBatchVerifier`` routes them (``cometbft_tpu/crypto/batch.py:
+    985``): Ed25519 lanes in one dense device call; secp256k1 lanes on
+    host threads in the native library (``native.
+    secp256k1_verify_lanes``), started before the device call and joined
+    after it; BLS12-381 lanes one by one in the host library.  No TPU
+    kernel computes secp256k1 or a single BLS signature: the JAX package
+    verifies those lanes on its host too.  ``verify()`` returns
+    ``(all_ok, per_sig)``; an empty batch is not ok.  An Ed25519
+    signature that is not 64 bytes is rejected without a launch.
+    :data:`HOST_LANES` counts the lanes verified on the host, by key
+    type."""
 
     def __init__(self, device=None):
         _plan.resolve_devices(device)        # raises without a card
@@ -285,9 +295,18 @@ class BatchVerifier:
         if n == 0:
             return False, []
         oks = [False] * n
+        secp = [i for i, (p, _, _) in enumerate(self._items)
+                if p.type() == "secp256k1"]
+        pending = None
+        if secp:
+            pending = _native.secp256k1_verify_lanes(
+                [(self._items[i][0].bytes(), self._items[i][1],
+                  self._items[i][2]) for i in secp])
+            HOST_LANES["secp256k1"] += len(secp)
         for i, (pub, m, s) in enumerate(self._items):
             if pub.type() == "bls12_381":
                 oks[i] = pub.verify_signature(m, s)
+                HOST_LANES["bls12_381"] += 1
         ed = [i for i, (p, _, s) in enumerate(self._items)
               if p.type() == "ed25519" and len(s) == 64]
         if ed:
@@ -305,6 +324,9 @@ class BatchVerifier:
             _, out = verify_dense(pubs, sigs, msgs, lens, self._device)
             for j, i in enumerate(ed):
                 oks[i] = bool(out[j])
+        if pending is not None:
+            for i, ok in zip(secp, pending.result()):
+                oks[i] = bool(ok)
         return all(oks), oks
 
 

@@ -1,8 +1,8 @@
 """Ed25519 keys, key type names and addresses for the port.
 
-Counterpart of ``cometbft_tpu/crypto/keys.py`` for the two key types the
-port carries: ``ed25519`` here and ``bls12_381`` in
-``crypto/bls12381.py``.  Ed25519: 32-byte public keys, 64-byte private
+Counterpart of ``cometbft_tpu/crypto/keys.py`` for the three key types
+the port carries: ``ed25519`` here, ``secp256k1`` in
+``crypto/secp256k1.py`` and ``bls12_381`` in ``crypto/bls12381.py``.  Ed25519: 32-byte public keys, 64-byte private
 keys (seed || pubkey), addresses = first 20 bytes of SHA-256 of the
 pubkey.  Key derivation and signing go through the native signer
 (``native.ed25519_pubkey``/``ed25519_sign``, ``csrc/host/
@@ -23,12 +23,14 @@ import os
 from .. import native as _native
 from . import _ed25519_py as _ref
 
-__all__ = ["ED25519_KEY_TYPE", "BLS12381_KEY_TYPE", "ADDRESS_SIZE",
+__all__ = ["ED25519_KEY_TYPE", "SECP256K1_KEY_TYPE", "BLS12381_KEY_TYPE",
+           "ADDRESS_SIZE",
            "address_hash", "Ed25519PubKey", "Ed25519PrivKey",
            "pub_key_from_type_bytes", "priv_key_from_type_bytes",
            "gen_priv_key"]
 
 ED25519_KEY_TYPE = "ed25519"
+SECP256K1_KEY_TYPE = "secp256k1"
 BLS12381_KEY_TYPE = "bls12_381"
 ADDRESS_SIZE = 20
 
@@ -103,36 +105,34 @@ class Ed25519PrivKey:
         return Ed25519PubKey(self._raw[32:])
 
 
-def pub_key_from_type_bytes(key_type: str, raw: bytes):
-    """A public key from its type name and bytes (the JAX package's
-    ``crypto/keys.py:63``) for the port's two key types; any other type,
-    secp256k1 included, raises ValueError."""
+def _key_classes(key_type: str):
+    """The (PubKey, PrivKey) classes of a key type: the one registry
+    behind every dispatch site (``cometbft_tpu/crypto/keys.py:46``)."""
     if key_type == ED25519_KEY_TYPE:
-        return Ed25519PubKey(raw)
-    if key_type == BLS12381_KEY_TYPE:
-        from .bls12381 import Bls12381PubKey
+        return Ed25519PubKey, Ed25519PrivKey
+    if key_type == SECP256K1_KEY_TYPE:
+        from .secp256k1 import Secp256k1PrivKey, Secp256k1PubKey
 
-        return Bls12381PubKey(raw)
+        return Secp256k1PubKey, Secp256k1PrivKey
+    if key_type == BLS12381_KEY_TYPE:
+        from .bls12381 import Bls12381PrivKey, Bls12381PubKey
+
+        return Bls12381PubKey, Bls12381PrivKey
     raise ValueError(f"unsupported pubkey type {key_type!r}")
 
 
-def _priv_key_class(key_type: str):
-    if key_type == ED25519_KEY_TYPE:
-        return Ed25519PrivKey
-    if key_type == BLS12381_KEY_TYPE:
-        from .bls12381 import Bls12381PrivKey
-
-        return Bls12381PrivKey
-    raise ValueError(f"unsupported privkey type {key_type!r}")
+def pub_key_from_type_bytes(key_type: str, raw: bytes):
+    """A public key from its type name and bytes (the JAX package's
+    ``crypto/keys.py:63``); an unknown type raises ValueError."""
+    return _key_classes(key_type)[0](raw)
 
 
 def priv_key_from_type_bytes(key_type: str, raw: bytes):
     """A private key from its type name and bytes (the JAX package's
-    ``crypto/keys.py:67``) for the port's two key types; any other type,
-    secp256k1 included, raises ValueError."""
-    return _priv_key_class(key_type)(raw)
+    ``crypto/keys.py:67``); an unknown type raises ValueError."""
+    return _key_classes(key_type)[1](raw)
 
 
 def gen_priv_key(key_type: str = ED25519_KEY_TYPE):
     """A new random key of ``key_type`` (``crypto/keys.py:71``)."""
-    return _priv_key_class(key_type).generate()
+    return _key_classes(key_type)[1].generate()

@@ -11,9 +11,12 @@ and an odd tail node is promoted unchanged, which gives the same tree as
 the recursive split.  Routing by leaf count, as in the JAX package:
 
 - below 64 leaves, the recursive hashlib function;
-- from 64 up to ``MERKLE_KERNEL_MIN_LEAVES``, the hashlib level loop
-  (the JAX package runs its native C++ tree here; the port has none
-  yet);
+- from 64 up to ``MERKLE_KERNEL_MIN_LEAVES``, the native C++ tree
+  (``native.merkle_root``, ``merkle_levels``: ``csrc/host/kvstore.cpp``,
+  the JAX package's route here), which beat the hashlib level loop
+  2-3x at 64 to 2,047 leaves on the H100's host (``chip_smoke.py``
+  phase 14 (d): 1.5 against 4.6 ms for every level of 2,047 leaves,
+  0.87 ms for the root alone);
 - at ``MERKLE_KERNEL_MIN_LEAVES`` leaves or more, the SHA-256 kernels of
   ``ops/sha256.py`` on ``device``: one ``merkle_tree_leaves`` call over
   the padded leaves hashes them and builds every level above them (items
@@ -42,6 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import native as _native
 from ..ops import sha256 as _s
 from . import plan as _plan
 
@@ -98,7 +102,7 @@ def hash_from_byte_slices_fast(items: list[bytes], device=None) -> bytes:
     if n < _PROOF_LEVEL_MIN:
         return hash_from_byte_slices(items)
     if n < MERKLE_KERNEL_MIN_LEAVES:
-        return _levels_hashlib(items)[-1][0]
+        return _native.merkle_root(items)
     buf = _kernel_levels(items, _plan.resolve_devices(device)[0])
     return _s.words_to_bytes(buf[-1:].cpu().numpy())[0].tobytes()
 
@@ -118,7 +122,8 @@ def _level_widths(n: int) -> list[int]:
 
 
 def _levels_hashlib(items: list[bytes]) -> list[list[bytes]]:
-    """Every tree level with hashlib, leaves first."""
+    """Every tree level with hashlib, leaves first (the tests' plain
+    version of the native tree)."""
     lv = [_sha(LEAF_PREFIX + it) for it in items]
     levels = [lv]
     while len(lv) > 1:
@@ -296,7 +301,7 @@ def proofs_from_byte_slices(items: list[bytes], device=None
     if total < _PROOF_LEVEL_MIN:
         return proofs_from_byte_slices_reference(items)
     if total < MERKLE_KERNEL_MIN_LEAVES:
-        levels = _levels_hashlib(items)
+        levels = _native.merkle_levels(items)
     else:
         levels = _levels_kernel(items, _plan.resolve_devices(device)[0])
     return _proofs_from_levels(levels, total)

@@ -229,10 +229,14 @@ class Node:
 
     # ---------------------------------------------------------- lifecycle
 
-    async def start(self) -> None:
+    async def start(self, consensus: bool = True) -> None:
         """node.go:579 OnStart: the verification scheduler on the node's
         device, then listen, the reactors, the pruner and consensus
-        (deferred to the blocksync handoff under ``fast_sync``)."""
+        (deferred to the blocksync handoff under ``fast_sync``).  With
+        ``consensus=False`` the state machine waits for
+        :meth:`start_consensus`: in-process nodes share one event loop,
+        and a running node's synchronous checks would hold it while its
+        peers' handshakes wait, so a harness meshes the nodes first."""
         inst = self.config.instrumentation
         if inst.tracing:
             # process-wide, never flipped off at stop (in-process nodes
@@ -253,11 +257,18 @@ class Node:
             self.listen_addr = await self.transport.listen(host, port)
             await self.switch.start()
             await self.pruner.start()
-            if not self.fast_sync:
-                await self.consensus.start()
+            if consensus:
+                await self.start_consensus()
         except BaseException:
             await self.stop()
             raise
+
+    async def start_consensus(self) -> None:
+        """Start the consensus state machine of a node started with
+        ``consensus=False`` (under ``fast_sync``, the blocksync handoff
+        starts it instead)."""
+        if not self.fast_sync and self.consensus._task is None:
+            await self.consensus.start()
 
     async def stop(self) -> None:
         """Stop consensus, the switch (peers, reactors, listener), the

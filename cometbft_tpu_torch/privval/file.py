@@ -2,9 +2,8 @@
 double-sign protection (counterpart of ``cometbft_tpu/privval/file.py``;
 reference: ``privval/file.go:75-142`` FilePVKey / FilePVLastSignState,
 ``:164`` FilePV, ``:332`` signVote).  The key and state files are the
-JAX package's: each package loads the other's.  Ed25519 and BLS12-381
-keys; a secp256k1 key file raises ValueError until that key type is
-ported.
+JAX package's: each package loads the other's.  Ed25519, secp256k1 and
+BLS12-381 keys.
 
 Safety argument (file.go:100 CheckHRS): the signer never signs two
 different messages for the same (height, round, step).  The last sign

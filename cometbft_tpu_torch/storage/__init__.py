@@ -1,5 +1,5 @@
 """Storage layer (counterpart of ``cometbft_tpu/storage``): the key-value
-interface with its in-memory and append-only log backends, the block
+interface with its in-memory, append-only log and native backends, the block
 store and the state store."""
 
 from .blockstore import BlockMeta, BlockStore

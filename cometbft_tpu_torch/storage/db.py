@@ -6,8 +6,8 @@ interface, ``DataDirLock``, the height-ordered key layout, the in-memory
 ``MemDB`` and ``LogDB``, a crash-safe append-only record log with an
 in-memory index and size-triggered compaction, whose files are the JAX
 package's byte for byte (each package opens the other's).  ``open_db``
-makes the ``"memdb"`` and ``"logdb"`` backends; the C++ engine
-(``"native"``, ``storage/nativedb.py``) comes later and is refused.
+makes the ``"memdb"`` and ``"logdb"`` backends and the C++ engine
+(``"native"``, ``storage/nativedb.py``).
 """
 
 from __future__ import annotations
@@ -425,8 +425,8 @@ class LogDB(KVStore):
 
 def open_db(backend: str, path: str | None = None) -> KVStore:
     """Backend factory, the one dispatch point (``storage.db_backend``):
-    ``"memdb"`` or ``"logdb"``.  ``"native"``, the JAX package's C++
-    engine, raises ValueError until ``storage/nativedb.py`` is ported."""
+    ``"memdb"``, ``"logdb"`` or ``"native"`` (the C++ engine of
+    ``storage/nativedb.py``, file-compatible with ``"logdb"``)."""
     if backend == "memdb":
         return MemDB()
     if backend == "logdb":
@@ -434,6 +434,9 @@ def open_db(backend: str, path: str | None = None) -> KVStore:
             raise ValueError("logdb requires a path")
         return LogDB(path)
     if backend == "native":
-        raise ValueError("db backend 'native' is not in the port yet "
-                         "(storage/nativedb.py); use 'logdb'")
+        from .nativedb import NativeDB
+
+        if not path:
+            raise ValueError("native requires a path")
+        return NativeDB(path)
     raise ValueError(f"unknown db backend {backend!r}")

@@ -51,15 +51,15 @@ def _go_div(a: int, b: int) -> int:
 
 
 def _pubkey_proto(pk) -> bytes:
-    """cometbft.crypto.v1.PublicKey oneof: 1=ed25519, 3=bls12_381 (2 is
-    secp256k1, which the port does not carry)."""
-    fld = {"ed25519": 1, "bls12_381": 3}[pk.type()]
+    """cometbft.crypto.v1.PublicKey oneof: 1=ed25519, 2=secp256k1,
+    3=bls12_381."""
+    fld = {"ed25519": 1, "secp256k1": 2, "bls12_381": 3}[pk.type()]
     return wire.field_bytes(fld, pk.bytes(), force=True)
 
 
 @dataclass
 class Validator:
-    pub_key: object                  # Ed25519PubKey or Bls12381PubKey
+    pub_key: object          # Ed25519, Secp256k1 or Bls12381 PubKey
     voting_power: int
     proposer_priority: int = 0
     _address: bytes = field(default=b"", repr=False)

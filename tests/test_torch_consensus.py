@@ -146,6 +146,44 @@ def test_vote_extensions_enabled():
     assert run(main())
 
 
+def test_mixed_key_validator_set_commits():
+    """``tests/test_consensus.py:244`` on the port: validator 0 has a
+    secp256k1 key, three have Ed25519 keys; the network commits to height
+    3 with the secp256k1 signature in the stored commits.  Its lanes
+    verify in the host library (the JAX package's route for them), every
+    Ed25519 lane on the device."""
+    from cometbft_tpu_torch.crypto import batch as cryptobatch
+    from cometbft_tpu_torch.crypto.secp256k1 import Secp256k1PrivKey
+    from cometbft_tpu_torch.types.priv_validator import MockPV
+
+    def pv_factory(i):
+        if i == 0:
+            return MockPV(Secp256k1PrivKey.from_secret(b"mixsecp%d" % i))
+        return MockPV.from_secret(b"mixed%d" % i)
+
+    async def main():
+        host0 = cryptobatch.HOST_LANES["secp256k1"]
+        net = await make_inproc_network(4, chain_id="mixed-net",
+                                        pv_factory=pv_factory, device="cpu")
+        try:
+            await net.start()
+            await net.wait_for_height(3, timeout=100)
+            _agree(net.nodes, 3)
+            node = net.nodes[0]
+            commit = node.block_store.load_block(3).last_commit
+            vals = node.state_store.load_validators(2)
+            types = {vals.get_by_index(i).pub_key.type()
+                     for i, cs in enumerate(commit.signatures)
+                     if cs.is_commit()}
+            assert "secp256k1" in types and "ed25519" in types, types
+            assert cryptobatch.HOST_LANES["secp256k1"] > host0
+        finally:
+            await net.stop()
+        return True
+
+    assert run(main())
+
+
 def test_invalid_proposal_is_rejected_and_chain_continues():
     async def main():
         from cometbft_tpu_torch.types import codec

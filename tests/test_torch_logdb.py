@@ -138,8 +138,13 @@ def test_open_db_backends(tmp_path):
     db.close()
     with pytest.raises(ValueError):
         tdb.open_db("logdb")
+    from cometbft_tpu_torch.storage.nativedb import NativeDB
+
+    db = tdb.open_db("native", str(tmp_path / "n.db"))
+    assert isinstance(db, NativeDB)
+    db.close()
     with pytest.raises(ValueError):
-        tdb.open_db("native", str(tmp_path / "n.db"))
+        tdb.open_db("native")
     with pytest.raises(ValueError):
         tdb.open_db("leveldb", str(tmp_path / "l.db"))
 

@@ -19,8 +19,9 @@ from cometbft_tpu_torch.crypto import scheduler as vsched
 from cometbft_tpu_torch.node import Node
 from cometbft_tpu_torch.p2p import secret_connection as psc
 
-from torch_node_fixtures import (agree, genesis, make_node, mesh,  # noqa: F401
-                                 no_host_verify, run, stop_all, wait_height)
+from torch_node_fixtures import (agree, genesis, make_node,  # noqa: F401
+                                 no_host_verify, run, start_meshed,
+                                 stop_all, wait_height)
 
 torch.set_num_threads(1)
 
@@ -34,11 +35,9 @@ def test_four_nodes_commit_over_tcp():
                  enumerate(pvs)]
         checks0 = psc.HANDSHAKE_CHECKS["cpu"]
         try:
-            for n in nodes:
-                await n.start()
+            await start_meshed(nodes)
             sched = vsched.get_scheduler()
             assert sched is not None and sched.device == "cpu"
-            await mesh(nodes)
             assert psc.HANDSHAKE_CHECKS["cpu"] - checks0 == 12
             for i in range(4):
                 await nodes[0].mempool.check_tx(b"gk%d=gv%d" % (i, i))
@@ -78,9 +77,7 @@ def test_vote_extensions_over_tcp():
         nodes = [await make_node(doc, pv, i, "te") for i, pv in
                  enumerate(pvs)]
         try:
-            for n in nodes:
-                await n.start()
-            await mesh(nodes)
+            await start_meshed(nodes)
             await wait_height(nodes, 4)
             agree(nodes, 4)
             for n in nodes:

@@ -16,8 +16,9 @@ from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
 from cometbft_tpu_torch.types.evidence import DuplicateVoteEvidence
 from cometbft_tpu_torch.types.vote import PRECOMMIT_TYPE, Vote
 
-from torch_node_fixtures import (genesis, make_node, mesh,  # noqa: F401
-                                 no_host_verify, run, stop_all, wait_height)
+from torch_node_fixtures import (genesis, make_node,  # noqa: F401
+                                 no_host_verify, run, start_meshed,
+                                 stop_all, wait_height)
 
 torch.set_num_threads(1)
 
@@ -41,9 +42,7 @@ def test_double_sign_detected_and_gossiped_over_tcp():
         nodes = [await make_node(doc, pv, i, "ev", app=apps[i])
                  for i, pv in enumerate(pvs)]
         try:
-            for n in nodes:
-                await n.start()
-            await mesh(nodes)
+            await start_meshed(nodes)
             byz = nodes[3]
             byz_addr = pvs[3].get_pub_key().address()
             byz_idx, _ = byz.consensus.state.validators.get_by_address(

@@ -21,7 +21,8 @@ from cometbft_tpu_torch.types.vote import (PRECOMMIT_TYPE, PREVOTE_TYPE,
                                            Proposal, Vote)
 
 from torch_node_fixtures import (agree, genesis, make_node, mesh,  # noqa: F401
-                                 no_host_verify, run, stop_all, wait_height)
+                                 no_host_verify, run, start_meshed,
+                                 stop_all, wait_height)
 
 torch.set_num_threads(1)
 
@@ -101,9 +102,7 @@ def test_restart_from_home(tmp_path):
                  for i, pv in enumerate(pvs)]
         live = list(nodes)
         try:
-            for n in nodes:
-                await n.start()
-            await mesh(nodes)
+            await start_meshed(nodes)
             await wait_height(nodes, 2)
             victim = nodes[2]
             await victim.stop()

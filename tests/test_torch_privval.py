@@ -3,8 +3,9 @@ the JAX package's, on the CPU: the Ed25519 and BLS cases of
 ``tests/test_privval.py`` on both packages side by side; the key and
 state files of the same key and the same signing sequence are equal
 byte for byte, and each package loads the other's (and refuses what the
-other refuses); a secp256k1 key file raises until that key type is
-ported; a sign-state persist failure withholds the signature and halts
+other refuses), for Ed25519, secp256k1 and BLS keys; a secp256k1 key
+file round-trips between the packages and an out-of-range one raises in
+both; a sign-state persist failure withholds the signature and halts
 consensus; and the port's in-process network commits on FilePV
 signers."""
 
@@ -19,6 +20,7 @@ import torch
 from cometbft_tpu.crypto import bls12381 as jbls
 from cometbft_tpu.crypto.keys import Ed25519PrivKey as JEdPriv
 from cometbft_tpu.crypto.keys import pub_key_from_type_bytes as j_pub
+from cometbft_tpu.crypto.secp256k1 import Secp256k1PrivKey as JSecpPriv
 from cometbft_tpu.privval import file as jpv
 from cometbft_tpu.types.block_id import BlockID as JBlockID
 from cometbft_tpu.types.block_id import PartSetHeader as JPSH
@@ -28,6 +30,7 @@ from cometbft_tpu_torch.crypto import _ed25519_py as ref
 from cometbft_tpu_torch.crypto import bls12381 as tbls
 from cometbft_tpu_torch.crypto import scheduler as vsched
 from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+from cometbft_tpu_torch.crypto.secp256k1 import Secp256k1PrivKey
 from cometbft_tpu_torch.libs import failures as F
 from cometbft_tpu_torch.privval import file as tpv
 from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
@@ -61,6 +64,9 @@ def _key(pkg, key_type, secret=b"pv-key"):
     if key_type == "bls12_381":
         mod = tbls if pkg == "port" else jbls
         return mod.Bls12381PrivKey.from_secret(secret)
+    if key_type == "secp256k1":
+        return (Secp256k1PrivKey if pkg == "port" else
+                JSecpPriv).from_secret(secret)
     return (Ed25519PrivKey if pkg == "port" else JEdPriv).from_secret(secret)
 
 
@@ -109,7 +115,7 @@ def _files(pv):
         return f.read(), g.read()
 
 
-@pytest.mark.parametrize("key_type", ["ed25519", "bls12_381"])
+@pytest.mark.parametrize("key_type", ["ed25519", "secp256k1", "bls12_381"])
 def test_files_equal_and_cross_load(tmp_path, key_type):
     """The same key and signing sequence give equal key and state files,
     and each package loads the other's files and refuses the same
@@ -231,14 +237,38 @@ def test_filepv_bls_signs_aggregation_domain(tmp_path, pkg):
 
 
 def test_secp256k1_key_file_raises(tmp_path):
+    """A secp256k1 key file round-trips between the packages byte for
+    byte (generated by either, loaded and signed with by the other); a
+    file whose scalar is out of range raises ValueError in both."""
     j = jpv.FilePV.generate(str(tmp_path / "k.json"), str(tmp_path / "s.json"),
                             key_type="secp256k1")
-    assert j.get_pub_key().type() == "secp256k1"
-    with pytest.raises(ValueError):
-        tpv.FilePV.load(str(tmp_path / "k.json"), str(tmp_path / "s.json"))
-    with pytest.raises(ValueError):
-        tpv.FilePV.generate(str(tmp_path / "k2.json"),
+    t = tpv.FilePV.load(str(tmp_path / "k.json"), str(tmp_path / "s.json"))
+    assert t.get_pub_key().type() == "secp256k1"
+    assert t.get_pub_key().bytes() == j.get_pub_key().bytes()
+    assert t.get_pub_key().address() == j.get_pub_key().address()
+    for pkg, pv in (("jax", j), ("port", t)):
+        v = _vote(pkg, pv, typ=PRECOMMIT_TYPE)
+        run(pv.sign_vote(CHAIN, v, sign_extension=False))
+        assert len(v.signature) == 64
+        assert _verify(pv.get_pub_key(), v.sign_bytes(CHAIN), v.signature)
+    assert j.signature == t.signature
+    g = tpv.FilePV.generate(str(tmp_path / "k2.json"),
                             str(tmp_path / "s2.json"), key_type="secp256k1")
+    g2 = jpv.FilePV.load(g.key_path, g.state_path)
+    assert g2.get_pub_key().bytes() == g.get_pub_key().bytes()
+    with open(g.key_path, "rb") as f:
+        raw = f.read()
+    g2.save_key()
+    with open(g.key_path, "rb") as f:
+        assert f.read() == raw
+    with open(g.key_path) as f:
+        kd = json.load(f)
+    kd["priv_key"] = "00" * 32
+    with open(g.key_path, "w") as f:
+        json.dump(kd, f)
+    for mod in (tpv, jpv):
+        with pytest.raises(ValueError):
+            mod.FilePV.load(g.key_path, g.state_path)
 
 
 def test_filepv_corrupt_state_file_raises_typed_error(tmp_path, pkg):
