@@ -3,8 +3,8 @@
 aggregate-commit verification paths, of lane-sharded commit
 verification over a device set, of the light client, of blocksync
 catch-up, of consensus in one process, of the networked node over
-loopback TCP and of BASELINE configs[4]'s mixed-key commits, on one
-card.
+loopback TCP, of BASELINE configs[4]'s mixed-key commits and of the RPC
+surface with light-client serving, on one card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -21,8 +21,9 @@ Phases, each of which must pass or the script exits non-zero:
    the same inputs at the main path's shapes (valid, tampered and ZIP-215
    edge lanes; RLC accept, reject, garbage padding and torsion batches),
    and against the pure-Python oracle; then one seeded random batch per
-   entry of ``SWEEP_LANES`` (up to 32,000 lanes, phase 11's largest
-   window; ``SWEEP_SIGNED`` distinct signed lanes, tiled above that)
+   entry of ``SWEEP_LANES`` (up to 64,032 lanes against 1,000 keys,
+   phase 15 (b)'s batch; ``SWEEP_SIGNED`` distinct signed lanes, tiled
+   above that)
    through every kernel and its plain version,
    and a ragged RLC batch (lanes of one, two and three SHA-512 blocks,
    NB = 3; also with a padding lane's active count 0, and with a lane's
@@ -157,9 +158,32 @@ Phases, each of which must pass or the script exits non-zero:
    ``ValidatorSet.hash`` through the tree kernel against hashlib; (c)
    a mixed-key network (one secp256k1 validator of four) to height 3;
    (d) the native host tree against the hashlib level loop at 64 to
-   2,047 leaves; (e) is validator08 of phase 13 (c).
+   2,047 leaves; (e) is validator08 of phase 13 (c);
+15. the RPC surface and light serving (``phase_rpc``, after phase 14
+   in a fresh process with a key pool of its own, ``--rpc-child``, so
+   that the collector sees its objects only): (a) ci.toml's 4 validators, each with an
+   ``RPCServer``, to height ``ND_CI_HEIGHT``: ``ND_TXS`` txs through
+   ``broadcast_tx_commit`` over HTTP (overload sheds retried and
+   counted), ``tx`` proofs, ``tx_search``, ``block_search``, WebSocket
+   subscriptions to NewBlock and Tx, ``abci_query`` proofs through
+   ``ProofOperators``, the same ``block``/``commit``/``validators`` on
+   all four nodes, each route's p50, min and max; (d) on those nodes
+   ``light.Client`` over ``RPCProvider``s (sequential, skipping),
+   ``run_light_proxy``'s verified answers and a forged primary refused;
+   (b) a ``LightServeTier`` behind an ``RPCServer`` over the stores of
+   a source chain as phase 11's (``BS_VALS``, BASELINE configs[3]'s
+   width; its light scope of ``RPC_ANCHORS`` anchors is phase 3's
+   largest sweep batch):
+   ``light_blocks`` and ``light_verify`` of ``RPC_ANCHORS`` heights cold
+   and warm (one K6a launch over every anchor's lanes, the memo), a
+   tampered anchor refused with K5b naming its lane, validator proofs;
+   (c) ``RPC_BIG_HEIGHTS`` heights of ``BIG_VALS`` validators (configs[4]'s
+   width): the validator tree by ``merkle_tree_leaves``, its root and
+   ``RPC_PROOF_SAMPLE`` proofs against hashlib, ``light_verify`` of the
+   anchors.  K5a, K5b, K6a and ``merkle_tree_leaves`` must launch; the
+   oracle's calls must be 0.
 
-Phases 4, 6, 7, 8, 9, 10, 11, 12, 13 and 14 are the main path: the launch counters
+Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15 are the main path: the launch counters
 are zeroed just before each and read just after; each phase's kernels
 must have launched, no plain version may have run, and neither
 standalone hash kernel (``OFF_PATH``: the RLC lane stage hashes its
@@ -180,8 +204,10 @@ shard each: the cross-card copy of the partial sums and the overlap of
 the cards, which one card cannot show.  ``python3 chip_smoke.py
 --blocksync`` runs only phases 1 and 2, phase 3's sweep and phase 11;
 ``python3 chip_smoke.py --consensus`` the same with phase 12, ``--node``
-with phase 13, ``--stress`` with phase 14 (options together run their
-phases; ``--stress --node`` gives phase 14 its part (e)).
+with phase 13, ``--stress`` with phase 14, ``--rpc`` with phase 15 (its
+fixtures built in it: the 1,000-validator source chain and 10,000 keys)
+(options together run their phases; ``--stress --node`` gives phase 14
+its part (e)).
 
 The line before the last is a JSON object with one entry per kernel
 (launches on the main path, max_abs_err, times, bound); the last line is
@@ -195,6 +221,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import gc
 import hashlib
 import json
 import multiprocessing
@@ -232,8 +259,11 @@ SIZES = (150, 1000)              # validators of the commit phase
 LANES = 10_000                   # lanes of the throughput phase
 REPS = 20                        # timed calls per measurement
 # lanes of the sweep's batches; 32,000 is phase 11's window (32 commits
-# of 1,000 validators), the largest batch the port runs
-SWEEP_LANES = (1, 77, 128, 129, 300, 640, 32_000)
+# of 1,000 validators), 64,032 phase 15 (b)'s light_verify (96 anchors of
+# 667 lanes of 1,000 validators), the largest batch the port runs
+SWEEP_LANES = (1, 77, 128, 129, 300, 640, 32_000, 64_032)
+# keys in an entry's table (64 where not listed): phase 15 (b)'s set
+SWEEP_KEYS = {64_032: 1_000}
 SWEEP_SIGNED = 640               # distinct signed lanes, tiled above this
 COMMIT_KERNELS = ("ed25519_tables", "ed25519_verify_gather",
                   "ed25519_rlc_gather")
@@ -302,7 +332,8 @@ BS_VALS = 1_000                  # validators of phase 11 (BASELINE configs[3])
 # signer (crypto/keys.py) in the pool
 BS_HEIGHTS = 97
 BS_BAD_AT = 40                   # (b): this block's last commit is forged
-BS_RUNS = 3                      # (a): timed catch-ups
+BS_RUNS = 2                      # (a): timed catch-ups (cut from 3 for
+                                 # the smoke's time limit)
 BS_T0 = 1_700_000_000_000_000_000
 # validators of the table kernel's checks: ragged, and both sides of the
 # lane stage's 16/32 crossover (ops/rlc.py:QUAD_LANES_BELOW)
@@ -750,7 +781,7 @@ def phase_kernels(fx, dev, reps, rec):
 
 
 def phase_sweep(fx, dev, rec):
-    """One seeded random batch per entry of SWEEP_LANES (one lane to 250
+    """One seeded random batch per entry of SWEEP_LANES (one lane to 501
     blocks of 128; at most SWEEP_SIGNED distinct signed lanes, tiled
     above that), each kernel against its plain version on the card:
     random keys, messages and tampered lanes (the tampered verdicts from
@@ -769,7 +800,8 @@ def phase_sweep(fx, dev, rec):
     mism = dict.fromkeys(COMMIT_KERNELS + ("sha512_scalar",), 0)
     for seed, n in enumerate(SWEEP_LANES):
         rng = np.random.default_rng(1000 + seed)
-        keys = rng.choice(len(fx.privs), size=min(n, 64), replace=False)
+        keys = rng.choice(len(fx.privs), size=SWEEP_KEYS.get(n, min(n, 64)),
+                          replace=False)
         m_lanes = min(n, SWEEP_SIGNED)   # signed lanes, tiled up to n
         pick = keys[rng.integers(0, len(keys), size=m_lanes)]
         pubs, msgs, sigs = [], [], []
@@ -2768,6 +2800,7 @@ class SourceChain:
             self.apply_s += time.perf_counter() - t2
         self.state = state
         self.store = ex.block_store
+        self.state_store = ex.state_store
 
     def liar_db(self) -> dict:
         """The source's records with block BS_BAD_AT's last commit (the
@@ -3474,10 +3507,12 @@ def _nd_genesis(powers, tag: bytes, ext_height: int = 0):
 
 
 async def _nd_node(doc, pv, name: str, dev, *, home=None, fast_sync=False,
-                   latency_ms: float = 0.0, db_backend: str = "logdb"):
+                   latency_ms: float = 0.0, db_backend: str = "logdb",
+                   rpc_laddr: str = ""):
     """A port ``Node`` of the kvstore app on ``dev``: the JAX package's
     test timeouts, a loopback listener on port 0, ``db_backend`` stores
-    under ``home`` (else in memory)."""
+    under ``home`` (else in memory), an RPC server on ``rpc_laddr`` (none
+    by default)."""
     from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
     from cometbft_tpu_torch.config import Config, test_consensus_config
     from cometbft_tpu_torch.node import Node
@@ -3486,6 +3521,7 @@ async def _nd_node(doc, pv, name: str, dev, *, home=None, fast_sync=False,
     cfg = Config(consensus=test_consensus_config())
     cfg.base.device = str(dev)
     cfg.p2p.laddr = "tcp://127.0.0.1:0"
+    cfg.rpc.laddr = rpc_laddr
     cfg.p2p.emulated_latency_ms = latency_ms
     cfg.storage.db_backend = db_backend if home else "memdb"
     return await Node.create(
@@ -4325,6 +4361,774 @@ def report_stress(st, launches, card, nd=None) -> None:
               f"from its files after the stop: {e['agree']}  [{card}]")
 
 
+RPC_ANCHORS = 96                 # (b): heights a request serves, anchors
+RPC_BIG_HEIGHTS = 4              # (c): heights of BIG_VALS validators
+RPC_PROOF_SAMPLE = 1000          # (c): validator proofs checked by hashlib
+RPC_BAD_ANCHOR = 40              # (b): the anchor whose lane RPC_BAD_LANE
+RPC_BAD_LANE = 7                 #      carries a flipped signature bit
+RPC_COLD_RUNS = 3                # (b): cold light_verify calls, new tiers
+RPC_REPS = 5                     # timed calls of a route or a warm call
+RPC_KERNELS = ("ed25519_tables", "ed25519_rlc_gather",
+               "ed25519_verify_gather", "merkle_tree_leaves")
+
+
+async def _rpc_submit(cli, method: str, sheds: list, **params):
+    """A tx route called as a client would: the node's overload shed
+    (-32099, the loop's lag past ``rpc.overload_shed_lag_s``) and the
+    admission gate's 503 (-32000) are retried after a pause; each is
+    counted in ``sheds``."""
+    import asyncio
+
+    from cometbft_tpu_torch.rpc import RPCError
+
+    for _ in range(200):
+        try:
+            return await cli.call(method, **params)
+        except RPCError as e:
+            if e.code not in (-32099, -32000):
+                raise
+            sheds.append(e.code)
+            await asyncio.sleep(0.1)
+    raise AssertionError(f"phase 15: {method} shed 200 times")
+
+
+async def _rpc_timed(cli, method: str, reps: int, **params) -> dict:
+    """p50, min and max ms of ``reps`` calls of one route over HTTP."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        await cli.call(method, **params)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return {"p50": statistics.median(ts), "min": min(ts), "max": max(ts)}
+
+
+def _ms(fn) -> float:
+    """Wall ms of one call of ``fn``."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _rpc_spread(ts: list) -> dict:
+    return {"p50": statistics.median(ts), "min": min(ts), "max": max(ts),
+            "n": len(ts)}
+
+
+def _min_lanes(commit, vals) -> int:
+    """Lanes of a commit's light scope: its signed lanes in order until
+    their power passes two thirds of the set's."""
+    needed = vals.total_voting_power() * 2 // 3
+    tally = lanes = 0
+    for cs, v in zip(commit.signatures, vals.validators):
+        if not cs.is_commit():
+            continue
+        tally += v.voting_power
+        lanes += 1
+        if tally > needed:
+            break
+    return lanes
+
+
+class _LightStores:
+    """Block and state store views over light blocks (part (c)): what
+    the serving tier reads of a node's stores."""
+
+    def __init__(self, blocks):
+        from types import SimpleNamespace
+
+        self.by_h = {lb.height: lb for lb in blocks}
+        self._ns = SimpleNamespace
+
+    def base(self):
+        return min(self.by_h)
+
+    def height(self):
+        return max(self.by_h)
+
+    def load_block(self, h):
+        lb = self.by_h.get(h)
+        return None if lb is None else self._ns(
+            header=lb.header, data=self._ns(txs=[]))
+
+    def load_block_commit(self, h):
+        lb = self.by_h.get(h)
+        return None if lb is None else lb.commit
+
+    def load_block_meta(self, h):
+        lb = self.by_h.get(h)
+        return None if lb is None else self._ns(block_id=lb.commit.block_id)
+
+    def load_seen_commit(self):
+        return None
+
+    def load_validators(self, h):
+        lb = self.by_h.get(h)
+        return None if lb is None else lb.validators
+
+
+def _serve(tier):
+    """An ``RPCServer`` over a serving tier alone (the light routes)."""
+    from types import SimpleNamespace
+
+    from cometbft_tpu_torch.rpc import RPCServer
+
+    return RPCServer(SimpleNamespace(light_serve=tier, config=None,
+                                     event_bus=None, home=None))
+
+
+def phase_rpc(pool, keys, dev):
+    """Phase 15: the RPC surface and light-client serving on the card,
+    in a process of its own (:func:`phase_rpc_fresh`).
+
+    (a) ``networks/ci.toml``'s 4 validators, each with an ``RPCServer``
+        on its own loopback port, meshed before consensus, to height
+        ``ND_CI_HEIGHT``: ``ND_TXS`` txs through ``broadcast_tx_commit``
+        over HTTP (sheds retried and counted), ``tx`` with its proof,
+        ``tx_search``, ``block_search``, a ``WSClient`` on
+        ``tm.event='NewBlock'`` and one on ``tm.event='Tx'``,
+        ``abci_query`` proofs through ``ProofOperators`` against the next
+        header's app hash, ``light_proofs`` of the txs, ``block``,
+        ``commit`` and ``validators`` equal on all four nodes, each
+        route's p50, min and max over HTTP;
+    (d) while they run: ``light.Client`` over ``RPCProvider``s,
+        sequential and skipping to the tip, ``run_light_proxy``'s
+        verified ``block``, ``commit`` and ``abci_query``, and a primary
+        serving a forged header refused;
+    (b) a ``LightServeTier`` behind an ``RPCServer`` over the stores of
+        phase 11's ``BS_VALS``-validator source chain (BASELINE
+        configs[3]'s width, built here): ``light_blocks`` of
+        ``RPC_ANCHORS`` heights cold and warm, ``light_verify`` of
+        ``RPC_ANCHORS`` anchors cold (one K6a launch; ``RPC_COLD_RUNS``
+        new tiers) and from the memo, a batch with one flipped signature
+        bit (that anchor refused, K5b naming its lane, every other
+        anchor ok), ``light_proofs`` of the validators (the native tree)
+        and of the (empty) tx list against the header's hashes, the
+        device busy share of a cold verify;
+    (c) ``RPC_BIG_HEIGHTS`` heights of ``BIG_VALS`` validators (BASELINE
+        configs[4]'s width): ``light_proofs(kind="validator")`` builds
+        the tree with ``merkle_tree_leaves`` (root = validators_hash,
+        ``RPC_PROOF_SAMPLE`` proofs checked by hashlib), and
+        ``light_verify`` of the ``RPC_BIG_HEIGHTS`` anchors.
+
+    The counters are zeroed just before (a) and read just after (c):
+    K5a, K5b, K6a and ``merkle_tree_leaves`` must have launched, no plain
+    version and no ``OFF_PATH`` kernel; the pure-Python oracle's calls
+    must be 0."""
+    import asyncio
+    import random
+
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.crypto.merkle import (Proof, ProofOp,
+                                                  ProofOperators)
+    from cometbft_tpu_torch.light import (SEQUENTIAL, SKIPPING, Client,
+                                          LightClientError, LightServeTier,
+                                          RPCProvider, TrustOptions,
+                                          run_light_proxy)
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.rpc import HTTPClient, RPCServer, WSClient
+    from cometbft_tpu_torch.rpc import core as rcore
+    from cometbft_tpu_torch.rpc.json import from_jsonable, jsonable
+    from cometbft_tpu_torch.types.header import tx_hash
+
+    loop = asyncio.new_event_loop()
+    run = loop.run_until_complete
+    out: dict = {}
+    t0 = time.perf_counter()
+    src = SourceChain(pool, keys[:BS_VALS], dev, loop)
+    big_vals, big = light_chain(pool, keys[:BIG_VALS], RPC_BIG_HEIGHTS, dev)
+    out["fixture_s"] = time.perf_counter() - t0
+    print(f"rpc fixture: {BS_HEIGHTS} heights of {BS_VALS} and "
+          f"{RPC_BIG_HEIGHTS} of {BIG_VALS} in {out['fixture_s']:.1f} s")
+    marks: dict = {}
+
+    def mark(part):
+        marks[part] = dict(_build.LAUNCHES)
+
+    def part_ad():
+        doc, pvs = _nd_genesis(ND_CI_POWERS, b"rpc-ci")
+        nodes = [run(_nd_node(doc, pv, f"validator0{i + 1}", dev,
+                              rpc_laddr="tcp://127.0.0.1:0"))
+                 for i, pv in enumerate(pvs)]
+        try:
+            t_a = time.perf_counter()
+            for n in nodes:
+                run(n.start(consensus=False))
+            walls: list = []
+            run(_nd_mesh(nodes, walls))
+            for n in nodes:
+                run(n.start_consensus())
+            a = run(_part_a(nodes))
+            a["wall_s"] = time.perf_counter() - t_a
+            mark("a")
+            t_d = time.perf_counter()
+            d = run(_part_d(nodes, a["top"]))
+            d["wall_s"] = time.perf_counter() - t_d
+            mark("d")
+        finally:
+            for n in nodes:
+                run(n.stop())
+        return a, d
+
+    async def _part_a(nodes):
+        sheds: list = []
+        clis = [HTTPClient(*n.rpc_addr) for n in nodes]
+        ws_blk = await WSClient.connect(*nodes[1].rpc_addr)
+        await ws_blk.subscribe("tm.event='NewBlock'")
+        ws_tx = await WSClient.connect(*nodes[2].rpc_addr)
+        await ws_tx.subscribe("tm.event='Tx'")
+        seen = {"blocks": [], "txs": []}
+
+        async def pump(ws, key):
+            while True:
+                e = await ws.next_event(timeout=ND_TIMEOUT_S)
+                v = e["data"]["value"]
+                seen[key].append(v["block"]["hdr"]["h"] if key == "blocks"
+                                 else e["events"]["tx.hash"])
+
+        pumps = [asyncio.ensure_future(pump(ws_blk, "blocks")),
+                 asyncio.ensure_future(pump(ws_tx, "txs"))]
+        txs = [b"rpc%d=val%d" % (i, i) for i in range(ND_TXS)]
+        senders = [HTTPClient(*nodes[i % 4].rpc_addr) for i in range(ND_TXS)]
+        t0 = time.perf_counter()
+        res = await asyncio.gather(*(
+            _rpc_submit(c, "broadcast_tx_commit", sheds, tx=tx.hex())
+            for c, tx in zip(senders, txs)))
+        commit_s = time.perf_counter() - t0
+        for c in senders:
+            await c.close()
+        if any(r["tx_result"]["code"] for r in res):
+            raise AssertionError(f"phase 15 (a): a tx failed: {res}")
+        tx_h = {tx: r["height"] for tx, r in zip(txs, res)}
+
+        async def reach(h):
+            while min(n.height() for n in nodes) < h:
+                await asyncio.sleep(0.01)
+
+        top = max(ND_CI_HEIGHT, max(tx_h.values()) + 2)
+        await asyncio.wait_for(reach(top), ND_TIMEOUT_S)
+        await asyncio.sleep(0.5)             # the last events land
+        for p in pumps:
+            p.cancel()
+        await ws_blk.close()
+        await ws_tx.close()
+        v0 = nodes[0]
+        checked = {"tx_proofs": 0, "query_proofs": 0, "tx_search": 0}
+        for i, (tx, h) in enumerate(tx_h.items()):
+            cli = clis[i % 4]
+            r = await cli.call("tx", hash=tx_hash(tx).hex(), prove=True)
+            header = v0.block_store.load_block(h).header
+            pf = r["proof"]["proof"]
+            proof = Proof(pf["total"], pf["index"],
+                          bytes.fromhex(pf["leaf_hash"]),
+                          tuple(bytes.fromhex(x) for x in pf["aunts"]))
+            if r["height"] != h or not proof.verify(header.data_hash,
+                                                    tx_hash(tx)):
+                raise AssertionError(f"phase 15 (a): tx proof of {tx}")
+            checked["tx_proofs"] += 1
+            key = tx.split(b"=")[0]
+            found = await cli.call("tx_search",
+                                   query=f"app.key='{key.decode()}'")
+            if [t["hash"] for t in found["txs"]] != [r["hash"]]:
+                raise AssertionError(f"phase 15 (a): tx_search {found}")
+            checked["tx_search"] += 1
+            q = (await cli.call("abci_query", data=key.hex(),
+                                prove=True))["response"]
+            await asyncio.wait_for(reach(q["height"] + 1), ND_TIMEOUT_S)
+            nxt = v0.block_store.load_block(q["height"] + 1).header
+            ProofOperators.decode([
+                ProofOp(o["type"], bytes.fromhex(o["key"]),
+                        bytes.fromhex(o["data"]))
+                for o in q["proof_ops"]]).verify(
+                nxt.app_hash, [key], bytes.fromhex(q["value"]))
+            checked["query_proofs"] += 1
+        allp = await clis[0].call("tx_search", query="tx.height >= 1",
+                                  per_page=100)
+        if allp["total_count"] != len(txs):
+            raise AssertionError(f"phase 15 (a): tx_search total {allp}")
+        blocks = await clis[1].call(
+            "block_search", query=f"block.height >= 1 AND block.height <= "
+            f"{top}", per_page=100)
+        if blocks["heights"] != list(range(1, top + 1)):
+            raise AssertionError(f"phase 15 (a): block_search {blocks}")
+        for h in sorted(set(tx_h.values())):
+            pr = await clis[3].call("light_proofs", height=h, kind="tx")
+            if pr["root"] != v0.block_store.load_block(h).header \
+                    .data_hash.hex():
+                raise AssertionError(f"phase 15 (a): tx proofs at {h}")
+        agree = 0
+        for h in range(1, top):
+            # one JSON-RPC batch a node: block, commit and validators
+            calls = [(route, {"height": h})
+                     for route in ("block", "commit", "validators")]
+            got = [await c.call_batch(calls) for c in clis]
+            if any(g != got[0] for g in got[1:]) or any(
+                    isinstance(x, Exception) for x in got[0]):
+                raise AssertionError(f"phase 15 (a): block, commit or "
+                                     f"validators at {h} differ")
+            agree += len(calls)
+        first = seen["blocks"][0] if seen["blocks"] else None
+        if first is None or seen["blocks"] != list(
+                range(first, first + len(seen["blocks"]))) or \
+                seen["blocks"][-1] < top:
+            raise AssertionError(f"phase 15 (a): NewBlock events "
+                                 f"{seen['blocks']}")
+        if sorted(seen["txs"]) != sorted(tx_hash(t).hex() for t in txs):
+            raise AssertionError(f"phase 15 (a): Tx events {seen['txs']}")
+        h_mid = sorted(tx_h.values())[0]
+        routes = {}
+        for route, params in (
+                ("health", {}), ("status", {}), ("block", {"height": h_mid}),
+                ("header", {"height": h_mid}),
+                ("commit", {"height": h_mid}),
+                ("validators", {"height": h_mid}),
+                ("tx", {"hash": tx_hash(txs[0]).hex(), "prove": True}),
+                ("tx_search", {"query": "tx.height >= 1"}),
+                ("block_search", {"query": "block.height >= 1"}),
+                ("abci_query", {"data": b"rpc0".hex(), "prove": True}),
+                ("light_block", {"height": h_mid}),
+                ("light_proofs", {"height": h_mid, "kind": "tx"})):
+            routes[route] = await _rpc_timed(clis[0], route, RPC_REPS,
+                                             **params)
+        for c in clis:
+            await c.close()
+        return {"top": top, "tx_heights": sorted(tx_h.values()),
+                "commit_wall_s": commit_s, "sheds": len(sheds),
+                "shed_codes": sorted(set(sheds)), "checked": checked,
+                "agree_checks": agree, "ws_blocks": len(seen["blocks"]),
+                "ws_txs": len(seen["txs"]), "routes_ms": routes,
+                "traffic": _nd_traffic(nodes)}
+
+    async def _part_d(nodes, top):
+        v0 = nodes[0]
+        trust = TrustOptions(TRUSTING_PERIOD_NS, 1,
+                             v0.block_store.load_block(1).hash())
+        # the tip when (d) starts: the chain moves on meanwhile, so a
+        # sequential client chasing the moving tip has no fixed work
+        tip_h = min(n.height() for n in nodes)
+        modes = {}
+        for mode in (SEQUENTIAL, SKIPPING):
+            t0 = time.perf_counter()
+            primary = RPCProvider(*v0.rpc_addr, "primary")
+            c = Client(CHAIN_ID, trust, primary,
+                       witnesses=[RPCProvider(*nodes[1].rpc_addr, "w1")],
+                       mode=mode, device=dev)
+            lb = await c.verify_light_block_at_height(tip_h)
+            if lb.header.hash() != v0.block_store.load_block(tip_h).hash():
+                raise AssertionError(f"phase 15 (d): {mode} verified "
+                                     "another header")
+            modes[mode] = {"ms": (time.perf_counter() - t0) * 1e3,
+                           "tip": tip_h,
+                           "trusted": len(c.store.db._data),
+                           "served_in_one_call":
+                               primary._has_light_block is True}
+        t0 = time.perf_counter()
+        moved = await c.update()               # skipping to the live tip
+        modes["update"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                           "tip": moved.height if moved else None,
+                           "trusted": len(c.store.db._data),
+                           "served_in_one_call": True}
+        server, paddr = await run_light_proxy(c, HTTPClient(*v0.rpc_addr))
+        try:
+            pc = HTTPClient(*paddr)
+            blk = await pc.call("block", height=top - 1)
+            cm = await pc.call("commit", height=top - 1)
+            q = await pc.call("abci_query", path="/key",
+                              data=b"rpc1".hex())
+            if not (blk["verified"] and cm["verified"] and q["verified"]) \
+                    or bytes.fromhex(q["response"]["value"]) != b"val1":
+                raise AssertionError("phase 15 (d): proxy answers")
+            proxy_ms = await _rpc_timed(pc, "commit", RPC_REPS,
+                                        height=top - 1)
+            await pc.close()
+        finally:
+            await server.close()
+
+        async def forged(env, height=None):
+            res = copy.deepcopy(await rcore.light_block(env, height))
+            res["light_block"]["header"]["ah"] = {"~b": "77" * 32}
+            return res
+
+        liar = RPCServer(v0, routes={"light_block": forged})
+        laddr = await liar.listen()
+        try:
+            c = Client(CHAIN_ID, trust, RPCProvider(*laddr, "liar"),
+                       device=dev)
+            try:
+                await c.verify_light_block_at_height(top - 2)
+                refused = None
+            except LightClientError as e:
+                refused = type(e).__name__
+        finally:
+            await liar.close()
+        if refused is None:
+            raise AssertionError("phase 15 (d): a forged header was "
+                                 "trusted")
+        return {"modes": modes, "proxy_commit_ms": proxy_ms,
+                "forged_refused": refused}
+
+    def part_b():
+        heights = list(range(1, RPC_ANCHORS + 1))
+        commits = {h: src.store.load_block_commit(h) for h in heights}
+        anchors = [{"height": h, "commit": jsonable(commits[h])}
+                   for h in heights]
+        vals = src.state.validators
+        lanes = sum(_min_lanes(commits[h], vals) for h in heights)
+        if SWEEP_KEYS.get(lanes) != len(vals):
+            raise AssertionError(
+                f"phase 15 (b): {lanes} lanes of {len(vals)} keys is not "
+                f"a shape of phase 3's sweep ({SWEEP_KEYS})")
+
+        # the serving node's clock just past its tip: the trusting
+        # period's window holds the whole chain (the fixture's block times
+        # are fixed, so the wall clock would put them out of it)
+        tip_ns = src.store.load_block(BS_HEIGHTS).header.time_ns
+
+        def tier():
+            return LightServeTier(src.store, src.state_store, CHAIN_ID,
+                                  device=dev,
+                                  now_ns=lambda: tip_ns + 60 * 10**9)
+
+        async def main():
+            t = tier()
+            srv = _serve(t)
+            cli = HTTPClient(*await srv.listen())
+            try:
+                r = {}
+                t0 = time.perf_counter()
+                lbs = await cli.call("light_blocks", heights=heights)
+                r["light_blocks_cold_ms"] = (time.perf_counter() - t0) * 1e3
+                for e in lbs["light_blocks"]:
+                    blk = src.store.load_block(e["height"])
+                    if e["light_block"]["header"] != jsonable(blk.header):
+                        raise AssertionError("phase 15 (b): light block "
+                                             f"{e['height']}")
+                r["light_blocks_warm_ms"] = await _rpc_timed(
+                    cli, "light_blocks", RPC_REPS, heights=heights)
+                if t.stats()["header_hits"] < RPC_ANCHORS * RPC_REPS:
+                    raise AssertionError("phase 15 (b): warm light_blocks "
+                                         f"missed the cache: {t.stats()}")
+                # the tier alone, without HTTP and JSON
+                r["light_blocks_warm_direct_ms"] = _rpc_spread(
+                    [_ms(lambda: t.light_blocks(heights))
+                     for _ in range(RPC_REPS)])
+                r["verify_cold_direct_ms"] = _ms(
+                    lambda: tier().verify_commits(anchors))
+                r["anchor_decode_ms"] = _ms(
+                    lambda: [from_jsonable(a["commit"]) for a in anchors])
+                k6a = _build.LAUNCHES.get("ed25519_rlc_gather", 0)
+                disp = dict(cbatch.DISPATCHES)
+                t0 = time.perf_counter()
+                v = await cli.call("light_verify", anchors=anchors)
+                cold = [(time.perf_counter() - t0) * 1e3]
+                r["cold_k6a_launches"] = _build.LAUNCHES.get(
+                    "ed25519_rlc_gather", 0) - k6a
+                r["cold_dispatches"] = {
+                    k: n - disp.get(k, 0) for k, n in
+                    cbatch.DISPATCHES.items() if n - disp.get(k, 0)}
+                if v["ok"] != RPC_ANCHORS or r["cold_k6a_launches"] != 1:
+                    raise AssertionError(f"phase 15 (b): cold verify "
+                                         f"{v['ok']} ok, K6a launches "
+                                         f"{r['cold_k6a_launches']}")
+                k6a = _build.LAUNCHES.get("ed25519_rlc_gather", 0)
+                memo = await _rpc_timed(cli, "light_verify", RPC_REPS,
+                                        anchors=anchors)
+                again = await cli.call("light_verify", anchors=anchors)
+                if not all(x["cached"] for x in again["results"]) or \
+                        _build.LAUNCHES.get("ed25519_rlc_gather", 0) != k6a:
+                    raise AssertionError("phase 15 (b): the memo missed")
+                r["memo_ms"] = memo
+                for _ in range(RPC_COLD_RUNS - 1):
+                    t2 = tier()
+                    s2 = _serve(t2)
+                    c2 = HTTPClient(*await s2.listen())
+                    t0 = time.perf_counter()
+                    await c2.call("light_verify", anchors=anchors)
+                    cold.append((time.perf_counter() - t0) * 1e3)
+                    await c2.close()
+                    await s2.close()
+                r["cold_ms"] = _rpc_spread(cold)
+                bad = copy.deepcopy(anchors)
+                sig = bad[RPC_BAD_ANCHOR]["commit"]["sigs"][RPC_BAD_LANE]
+                raw = bytearray.fromhex(sig["sig"]["~b"])
+                raw[9] ^= 0x10
+                sig["sig"]["~b"] = raw.hex()
+                tb = tier()
+                sb = _serve(tb)
+                cb = HTTPClient(*await sb.listen())
+                k5b = _build.LAUNCHES.get("ed25519_verify_gather", 0)
+                t0 = time.perf_counter()
+                vb = await cb.call("light_verify", anchors=bad)
+                r["tampered_ms"] = (time.perf_counter() - t0) * 1e3
+                r["tampered_k5b_launches"] = _build.LAUNCHES.get(
+                    "ed25519_verify_gather", 0) - k5b
+                oks = [x["ok"] for x in vb["results"]]
+                want = [i != RPC_BAD_ANCHOR for i in range(RPC_ANCHORS)]
+                err = vb["results"][RPC_BAD_ANCHOR].get("error", "")
+                if oks != want or f"#{RPC_BAD_LANE}" not in err or \
+                        not r["tampered_k5b_launches"]:
+                    raise AssertionError(f"phase 15 (b): tampered batch "
+                                         f"{vb['ok']} ok, error {err!r}")
+                r["tampered_error"] = err
+                await cb.close()
+                await sb.close()
+                h = RPC_ANCHORS
+                header = src.store.load_block(h).header
+                t0 = time.perf_counter()
+                pv = await cli.call("light_proofs", height=h,
+                                    kind="validator")
+                r["validator_proofs_cold_ms"] = (time.perf_counter() -
+                                                 t0) * 1e3
+                if pv["root"] != header.validators_hash.hex() or \
+                        pv["total"] != BS_VALS:
+                    raise AssertionError("phase 15 (b): validator root")
+                for p in pv["proofs"]:
+                    pr = Proof(p["total"], p["index"],
+                               bytes.fromhex(p["leaf_hash"]),
+                               tuple(bytes.fromhex(x) for x in p["aunts"]))
+                    enc = vals.validators[p["index"]].simple_encode()
+                    if not pr.verify(header.validators_hash, enc):
+                        raise AssertionError("phase 15 (b): validator "
+                                             f"proof {p['index']}")
+                r["validator_proofs_warm_ms"] = await _rpc_timed(
+                    cli, "light_proofs", RPC_REPS, height=h,
+                    kind="validator")
+                pt = await cli.call("light_proofs", height=h, kind="tx")
+                if pt["root"] != header.data_hash.hex():
+                    raise AssertionError("phase 15 (b): tx root")
+                r["tx_proofs_total"] = pt["total"]
+                r["stats"] = t.stats()
+                return r
+            finally:
+                await cli.close()
+                await srv.close()
+
+        t0 = time.perf_counter()
+        r = run(main())
+        r["wall_s"] = time.perf_counter() - t0
+        r["lanes"] = lanes
+        p50 = r["cold_ms"]["p50"] / 1e3
+        r["anchors_per_s"] = RPC_ANCHORS / p50
+        r["sig_verifies_per_s"] = lanes / p50
+
+        def cold_verify():
+            t2 = tier()
+
+            async def go():
+                s2 = _serve(t2)
+                c2 = HTTPClient(*await s2.listen())
+                try:
+                    await c2.call("light_verify", anchors=anchors)
+                finally:
+                    await c2.close()
+                    await s2.close()
+            run(go())
+
+        # the tracer warmed on a one-anchor verify of a new tier
+        r["profile"] = profile_call(cold_verify, top=6, warm=lambda: (
+            tier().verify_commits(anchors[:1])))
+        mark("b")
+        return r
+
+    def part_c():
+        vh = big[0].header.validators_hash
+        anchors = [{"height": lb.height, "commit": jsonable(lb.commit)}
+                   for lb in big]
+        lanes = sum(_min_lanes(lb.commit, big_vals) for lb in big)
+        sample = sorted(random.Random(15).sample(range(BIG_VALS),
+                                                 RPC_PROOF_SAMPLE))
+
+        async def main():
+            stores = _LightStores(big)
+            tip_ns = big[-1].header.time_ns
+            t = LightServeTier(stores, stores, CHAIN_ID, device=dev,
+                               now_ns=lambda: tip_ns + 60 * 10**9)
+            srv = _serve(t)
+            cli = HTTPClient(*await srv.listen())
+            try:
+                r = {}
+                tl = _build.LAUNCHES.get("merkle_tree_leaves", 0)
+                t0 = time.perf_counter()
+                pv = await cli.call("light_proofs", height=1,
+                                    kind="validator", indexes=sample)
+                r["validator_proofs_cold_ms"] = (time.perf_counter() -
+                                                 t0) * 1e3
+                r["tree_launches"] = _build.LAUNCHES.get(
+                    "merkle_tree_leaves", 0) - tl
+                if pv["root"] != vh.hex() or pv["total"] != BIG_VALS or \
+                        not r["tree_launches"]:
+                    raise AssertionError("phase 15 (c): validator tree")
+                for p in pv["proofs"]:
+                    pr = Proof(p["total"], p["index"],
+                               bytes.fromhex(p["leaf_hash"]),
+                               tuple(bytes.fromhex(x) for x in p["aunts"]))
+                    enc = big_vals.validators[p["index"]].simple_encode()
+                    if not pr.verify(vh, enc):
+                        raise AssertionError("phase 15 (c): proof "
+                                             f"{p['index']}")
+                r["proofs_checked"] = len(pv["proofs"])
+                r["validator_proofs_warm_ms"] = await _rpc_timed(
+                    cli, "light_proofs", RPC_REPS, height=1,
+                    kind="validator", indexes=sample)
+                k6a = _build.LAUNCHES.get("ed25519_rlc_gather", 0)
+                t0 = time.perf_counter()
+                v = await cli.call("light_verify", anchors=anchors)
+                r["verify_cold_ms"] = (time.perf_counter() - t0) * 1e3
+                r["verify_k6a_launches"] = _build.LAUNCHES.get(
+                    "ed25519_rlc_gather", 0) - k6a
+                if v["ok"] != RPC_BIG_HEIGHTS:
+                    raise AssertionError(f"phase 15 (c): verify {v}")
+                r["verify_memo_ms"] = await _rpc_timed(
+                    cli, "light_verify", RPC_REPS, anchors=anchors)
+                r["stats"] = t.stats()
+                return r
+            finally:
+                await cli.close()
+                await srv.close()
+
+        t0 = time.perf_counter()
+        r = run(main())
+        r["wall_s"] = time.perf_counter() - t0
+        r["lanes"] = lanes
+        mark("c")
+        return r
+
+    calls, restore = _oracle_counter()
+    # the phase's collections, timed
+    gc_t = {"collections": [0, 0, 0], "s": [0.0, 0.0, 0.0], "t0": 0.0}
+
+    def gc_timer(phase, info):
+        if phase == "start":
+            gc_t["t0"] = time.perf_counter()
+        else:
+            g = info["generation"]
+            gc_t["collections"][g] += 1
+            gc_t["s"][g] += time.perf_counter() - gc_t["t0"]
+
+    gc.collect()
+    gc_t["tracked"] = len(gc.get_objects())
+    gc.callbacks.append(gc_timer)
+    try:
+        def main_path():
+            a, d = part_ad()
+            return {"a": a, "d": d, "b": part_b(), "c": part_c()}
+
+        t0 = time.perf_counter()
+        launches, parts = _path_launches(main_path, RPC_KERNELS)
+        out["main_path_s"] = time.perf_counter() - t0
+    finally:
+        gc.callbacks.remove(gc_timer)
+        restore()
+        loop.close()
+    out["gc"] = {"tracked_objects": gc_t["tracked"],
+                 "collections": gc_t["collections"], "s": gc_t["s"]}
+    out.update(parts)
+    out["oracle_calls"] = calls[0]
+    if calls[0]:
+        raise AssertionError(f"phase 15: the oracle ran {calls[0]} times")
+    prev: dict = {}
+    out["launches_by_part"] = {}
+    for part in ("a", "d", "b", "c"):
+        cur = marks.get(part, {})
+        out["launches_by_part"][part] = {
+            k: v - prev.get(k, 0) for k, v in cur.items()
+            if v - prev.get(k, 0)}
+        prev = cur
+    return launches, out
+
+
+def phase_rpc_fresh():
+    """Phase 15 in a fresh process (``--rpc-child``, with a key pool of
+    its own): its fixtures are built there, so the collector and the
+    caches hold phase 15's objects only, as a node's process holds its
+    own and not those of the smoke's earlier phases.  Returns the
+    launches and the record that the child wrote."""
+    import subprocess
+
+    import torch
+
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_rpc.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--rpc-child", path], check=True, timeout=600)
+    with open(path) as f:
+        d = json.load(f)
+    d["rp"]["phase_s"] = time.perf_counter() - t0
+    return d["launches"], d["rp"]
+
+
+def report_rpc(rp, launches, card) -> None:
+    """Phase 15's lines."""
+    a, b, c, d = rp["a"], rp["b"], rp["c"], rp["d"]
+    print(f"rpc (phase 15): main path {rp['main_path_s']:.1f} s (fixture "
+          f"{rp['fixture_s']:.1f} s); launches {launches}; by part "
+          f"{rp['launches_by_part']}; oracle calls {rp['oracle_calls']}; "
+          f"gc: {rp['gc']['tracked_objects']} objects tracked at the start, "
+          f"collections "
+          f"by generation {rp['gc']['collections']} taking "
+          f"{[round(x, 3) for x in rp['gc']['s']]} s")
+    print(f"rpc (a) ci.toml {len(ND_CI_POWERS)} validators with RPC to "
+          f"height {a['top']}: {a['wall_s']:.1f} s; {ND_TXS} "
+          f"broadcast_tx_commit in {a['commit_wall_s']:.2f} s at heights "
+          f"{a['tx_heights']}, sheds retried {a['sheds']} "
+          f"{a['shed_codes']}; checked {a['checked']}, agreement checks "
+          f"{a['agree_checks']}; websocket NewBlock events "
+          f"{a['ws_blocks']}, Tx events {a['ws_txs']}  [{card}]")
+    for route, t in a["routes_ms"].items():
+        print(f"rpc (a) route {route}: p50 {t['p50']:.2f} ms, min "
+              f"{t['min']:.2f}, max {t['max']:.2f}  [{card}]")
+    for mode, m in d["modes"].items():
+        print(f"rpc (d) light client {mode} over RPCProvider: "
+              f"{m['ms']:.1f} ms, to height {m['tip']}, trusted "
+              f"blocks {m['trusted']}, one call a block "
+              f"{m['served_in_one_call']}  [{card}]")
+    print(f"rpc (d) proxy commit p50 {d['proxy_commit_ms']['p50']:.2f} ms; "
+          f"forged header refused: {d['forged_refused']}  [{card}]")
+    print(f"rpc (b) {BS_VALS} validators: light_blocks of {RPC_ANCHORS} "
+          f"heights cold {b['light_blocks_cold_ms']:.1f} ms, warm p50 "
+          f"{b['light_blocks_warm_ms']['p50']:.1f} ms (min "
+          f"{b['light_blocks_warm_ms']['min']:.1f}, max "
+          f"{b['light_blocks_warm_ms']['max']:.1f}; the tier alone "
+          f"{b['light_blocks_warm_direct_ms']['p50']:.2f}); header cache "
+          f"hits {b['stats']['header_hits']}, misses "
+          f"{b['stats']['header_misses']}  [{card}]")
+    print(f"rpc (b) light_verify of {RPC_ANCHORS} anchors, host parts: the "
+          f"tier alone cold {b['verify_cold_direct_ms']:.1f} ms, of which "
+          f"decoding the anchors' commits {b['anchor_decode_ms']:.1f} ms  "
+          f"[{card}]")
+    print(f"rpc (b) light_verify of {RPC_ANCHORS} anchors ({b['lanes']} "
+          f"lanes, K6a launches {b['cold_k6a_launches']}, dispatches "
+          f"{b['cold_dispatches']}): cold p50 {b['cold_ms']['p50']:.1f} ms "
+          f"(min {b['cold_ms']['min']:.1f}, max {b['cold_ms']['max']:.1f}, "
+          f"{b['cold_ms']['n']} new tiers), {b['anchors_per_s']:.0f} "
+          f"anchors/s, {b['sig_verifies_per_s']:.0f} sig-verifies/s; memo "
+          f"p50 {b['memo_ms']['p50']:.2f} ms (min {b['memo_ms']['min']:.2f}, "
+          f"max {b['memo_ms']['max']:.2f})  [{card}]")
+    prof = b["profile"]
+    print(f"rpc (b) profile cold light_verify: wall {prof['wall_ms']:.1f} "
+          f"ms, device {prof['device_ms']} ms (busy "
+          f"{prof['device_busy_share']}), kernels {prof['kernels_ms']}  "
+          f"[{card}]")
+    print(f"rpc (b) tampered anchor {RPC_BAD_ANCHOR} lane {RPC_BAD_LANE}: "
+          f"{b['tampered_error']!r}, K5b launches "
+          f"{b['tampered_k5b_launches']}, {b['tampered_ms']:.1f} ms; "
+          f"validator proofs ({BS_VALS} leaves) cold "
+          f"{b['validator_proofs_cold_ms']:.1f} ms, warm p50 "
+          f"{b['validator_proofs_warm_ms']['p50']:.2f} ms  [{card}]")
+    print(f"rpc (c) {BIG_VALS} validators: {c['proofs_checked']} validator "
+          f"proofs, tree launches {c['tree_launches']}, cold "
+          f"{c['validator_proofs_cold_ms']:.1f} ms, warm p50 "
+          f"{c['validator_proofs_warm_ms']['p50']:.2f} ms; light_verify of "
+          f"{RPC_BIG_HEIGHTS} anchors ({c['lanes']} lanes, K6a launches "
+          f"{c['verify_k6a_launches']}) {c['verify_cold_ms']:.1f} ms, memo "
+          f"p50 {c['verify_memo_ms']['p50']:.2f} ms  [{card}]")
+
+
 def op_counts():
     """Field multiplications of each group operation, counted by running
     the plain versions on one lane on the CPU."""
@@ -4498,6 +5302,12 @@ def main(argv=None) -> int:
     ap.add_argument("--stress", action="store_true",
                     help="run only the build, the kernel sweep and phase 14 "
                     "(with --node, also its part (e) in phase 13)")
+    ap.add_argument("--rpc", action="store_true",
+                    help="run only the build, the kernel sweep and phase 15")
+    ap.add_argument("--rpc-child", metavar="PATH", default=None,
+                    help="run only phase 15, over the kernels built, and "
+                    "write its launches and record as JSON to PATH (how "
+                    "the other runs start phase 15, in a fresh process)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4510,6 +5320,13 @@ def main(argv=None) -> int:
     from cometbft_tpu_torch.ops import _build
 
     dev = torch.device("cuda:0")
+    if args.rpc_child:
+        with multiprocessing.get_context("spawn").Pool(
+                os.cpu_count()) as pool:
+            launches, rp = phase_rpc(pool, pool_keys(pool, BIG_VALS), dev)
+        with open(args.rpc_child, "w") as f:
+            json.dump({"launches": launches, "rp": rp}, f, default=str)
+        return 0
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"]).splitlines()[0]
     clock = _run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -4551,7 +5368,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     fx = Fixtures(max(SIZES))
     print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
-    if args.blocksync or args.consensus or args.node or args.stress:
+    if args.blocksync or args.consensus or args.node or args.stress or \
+            args.rpc:
         rec = {k: {"mismatches": 0} for k in _build.KERNELS}
         t0 = time.perf_counter()
         sweep = phase_sweep(fx, dev, rec)
@@ -4561,6 +5379,8 @@ def main(argv=None) -> int:
         if any(sweep.values()):
             raise AssertionError(f"sweep mismatches: {sweep}")
         part = {}
+        if args.rpc:
+            rp_launches, rp = phase_rpc_fresh()
         if args.blocksync or args.stress:
             ctx = multiprocessing.get_context("spawn")
             with ctx.Pool(os.cpu_count()) as pool:
@@ -4589,6 +5409,9 @@ def main(argv=None) -> int:
         if args.stress:
             report_stress(st, st_launches, card, part.get("node"))
             part["stress"] = st
+        if args.rpc:
+            report_rpc(rp, rp_launches, card)
+            part["rpc"] = rp
         if args.record:
             os.makedirs(os.path.dirname(os.path.abspath(args.record)),
                         exist_ok=True)
@@ -4746,6 +5569,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         st_launches, st = phase_stress(pool, dev)
         st["phase_s"] = time.perf_counter() - t0
+    rp_launches, rp = phase_rpc_fresh()
     report_blocksync(bs, bs_launches, card)
     t0 = time.perf_counter()
     cs_launches, cs = phase_consensus(dev)
@@ -4756,6 +5580,7 @@ def main(argv=None) -> int:
     nd["phase_s"] = time.perf_counter() - t0
     report_node(nd, nd_launches, card)
     report_stress(st, st_launches, card, nd)
+    report_rpc(rp, rp_launches, card)
     print(f"light client (phase 10): fixtures {lc['fixture_s']}, first "
           f"calls {lc['first_call_s']} s, phase {lc['phase_s']:.1f} s; "
           f"launches {lc_launches}")
@@ -4828,7 +5653,7 @@ def main(argv=None) -> int:
              f"mesh{MESH_SHARDS}": mesh_launches,
              "light_client": lc_launches, "blocksync": bs_launches,
              "consensus": cs_launches, "node": nd_launches,
-             "stress": st_launches}
+             "stress": st_launches, "rpc": rp_launches}
 
     c = op_counts()
     print(f"field multiplications per group op: {c}")
@@ -4888,7 +5713,7 @@ def main(argv=None) -> int:
                        "light150": l150, "light10k": l10k, "bls": bls,
                        "light_client": lc, "blocksync": bs,
                        "consensus": cs, "node": nd, "stress": st,
-                       "mesh": mesh, "build_log": _build.build_log(),
+                       "rpc": rp, "mesh": mesh, "build_log": _build.build_log(),
                        "ptxas": usage}, f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))

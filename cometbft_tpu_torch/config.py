@@ -12,10 +12,14 @@ default.
 - The JAX package's fields that steer only its TPU host fallback or its
   compile cache (``min_device_lanes``, ``device_wait_s``,
   ``device_warmup``, ``compile_bundle_*``) have no counterpart; the
-  sections and fields of modules the port has not yet (RPC, statesync,
-  light serving, the indexer, the fault plane, pex, fuzzing, the storage
-  doctor, the watchdogs, Prometheus) come with those modules, and TOML
+  sections and fields of modules the port has not yet (statesync, the
+  fault plane, pex, fuzzing, the storage doctor, the liveness watchdog,
+  gRPC, tracing's incident bundles) come with those modules, and TOML
   load and save with ``cmd/``.
+- ``RPCConfig.laddr`` is ``tcp://127.0.0.1:26657`` as in the JAX
+  package: a node started with it listens there; in-process networks
+  give each node ``tcp://127.0.0.1:0`` (a free port) or ``""`` (no RPC
+  server).
 """
 
 from __future__ import annotations
@@ -23,8 +27,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 __all__ = ["NS", "MS", "ConsensusConfig", "test_consensus_config",
-           "BaseConfig", "MempoolConfig", "P2PConfig", "BlockSyncConfig",
-           "StorageConfig", "InstrumentationConfig", "Config"]
+           "BaseConfig", "MempoolConfig", "P2PConfig", "RPCConfig",
+           "BlockSyncConfig", "LightServeConfig", "StorageConfig",
+           "TxIndexConfig", "InstrumentationConfig", "Config"]
 
 NS = 1_000_000_000
 MS = 1_000_000
@@ -115,18 +120,82 @@ class P2PConfig:
 
 
 @dataclass
+class RPCConfig:
+    laddr: str = "tcp://127.0.0.1:26657"
+    grpc_laddr: str = ""              # not served by the port (no grpc)
+    max_open_connections: int = 900
+    max_subscription_clients: int = 100
+    unsafe: bool = False              # dial_seeds/dial_peers/flush_mempool
+    # CORS (config/config.go:353-364): origins may carry one wildcard
+    # each; '*' alone allows every origin
+    cors_allowed_origins: list[str] = field(default_factory=list)
+    cors_allowed_methods: list[str] = field(
+        default_factory=lambda: ["HEAD", "GET", "POST"])
+    cors_allowed_headers: list[str] = field(
+        default_factory=lambda: ["Origin", "Accept", "Content-Type",
+                                 "X-Requested-With", "X-Server-Time"])
+    # HTTPS (config/config.go:428-442): both files set -> TLS, else plain
+    # HTTP; relative paths resolve against the home's config directory
+    tls_cert_file: str = ""
+    tls_key_file: str = ""
+    # shed broadcast_tx_* with a retryable error while the event loop's
+    # scheduling lag (libs/loopwatch) exceeds this many seconds; 0
+    # disables
+    overload_shed_lag_s: float = 2.0
+    # admission gate (rpc/server.py): handlers running at once, and
+    # requests waiting beyond them; past both, HTTP 503 + Retry-After
+    max_concurrent_requests: int = 64
+    max_queued_requests: int = 256
+    shed_retry_after_s: float = 1.0
+
+
+@dataclass
 class BlockSyncConfig:
     # blocks whose commits fill one device batch during catch-up
     verify_window: int = 32
 
 
 @dataclass
+class LightServeConfig:
+    """Light-client serving tier (light/serve.py): bounds of its caches
+    and of one request's work."""
+
+    enable: bool = True
+    # signed header + commit + validator set LRU entries, and their
+    # approximate byte budget (0: bounded by count only)
+    header_cache_size: int = 4096
+    header_cache_bytes: int = 256 * 1024 * 1024
+    # per-block proof trees kept ((height, kind) entries)
+    proof_cache_blocks: int = 64
+    # whole-commit verdict memo of client anchors (positive verdicts)
+    verify_cache_size: int = 4096
+    # trusting period that keys the header LRU's window
+    trust_period_ns: int = 168 * 3600 * NS
+    # heights per light_blocks / anchors per light_verify, and proofs
+    # per light_proofs
+    max_batch: int = 128
+    max_proofs: int = 4096
+
+
+@dataclass
 class StorageConfig:
-    db_backend: str = "logdb"         # logdb | memdb
+    db_backend: str = "logdb"         # logdb | native | memdb
+
+
+@dataclass
+class TxIndexConfig:
+    indexer: str = "kv"               # kv | null (psql is not ported)
+    psql_conn: str = ""
 
 
 @dataclass
 class InstrumentationConfig:
+    # a Prometheus text listener of its own besides the RPC's /metrics
+    prometheus: bool = False
+    prometheus_listen_addr: str = ":26660"
+    # event-loop stall watchdog (libs/loopwatch), whose lag the RPC's
+    # overload shedding reads; 0 disables
+    loop_stall_threshold_s: float = 1.0
     # flight-recorder tracing (libs/tracing): off by default
     tracing: bool = False
     tracing_ring_size: int = 8192
@@ -151,7 +220,10 @@ class Config:
     consensus: ConsensusConfig = field(default_factory=ConsensusConfig)
     mempool: MempoolConfig = field(default_factory=MempoolConfig)
     p2p: P2PConfig = field(default_factory=P2PConfig)
+    rpc: RPCConfig = field(default_factory=RPCConfig)
     blocksync: BlockSyncConfig = field(default_factory=BlockSyncConfig)
+    lightserve: LightServeConfig = field(default_factory=LightServeConfig)
     storage: StorageConfig = field(default_factory=StorageConfig)
+    tx_index: TxIndexConfig = field(default_factory=TxIndexConfig)
     instrumentation: InstrumentationConfig = field(
         default_factory=InstrumentationConfig)

@@ -29,10 +29,18 @@ the recursive split.  Routing by leaf count, as in the JAX package:
   under a device set the tree is not sharded, as the JAX package's
   live tree is not; ``"cpu"`` runs the plain versions.
 
+:class:`TreeCache` keeps every level of one tree (built on the same
+routes, ``device`` read only at 2,048 leaves or more) and gathers
+inclusion proofs for any leaf indexes from them with no re-hashing: the
+light-serving tier's per-block proof cache (``light/serve.py``).
+
 For provable key-value stores (the kvstore app's app hash): :func:`kv_leaf`
 binds the key into the leaf, and :class:`ValueOp` proves a (key, value)
 against a root (``crypto/merkle/proof_value.go``); its serialized
 :class:`ProofOp` is the JAX package's, byte for byte.
+:class:`ProofOperators` decodes a chain of serialized ops through the
+decoders that :func:`register_proof_op` registers and verifies a value
+at a key path against a root (``crypto/merkle/proof_op.go``).
 """
 
 from __future__ import annotations
@@ -53,7 +61,8 @@ __all__ = ["LEAF_PREFIX", "INNER_PREFIX", "MERKLE_KERNEL_MIN_LEAVES",
            "leaf_hash", "inner_hash", "hash_from_byte_slices",
            "hash_from_byte_slices_fast", "Proof",
            "proofs_from_byte_slices", "proofs_from_byte_slices_reference",
-           "ProofOp", "ProofOpError", "kv_leaf", "ValueOp"]
+           "TreeCache", "ProofOp", "ProofOpError", "kv_leaf", "ValueOp",
+           "register_proof_op", "ProofOperators"]
 
 LEAF_PREFIX = b"\x00"
 INNER_PREFIX = b"\x01"
@@ -171,6 +180,18 @@ def _kernel_levels(items: list[bytes], dev: torch.device) -> torch.Tensor:
     return _s.merkle_tree(buf, n)
 
 
+def _levels(items: list[bytes], device) -> list[list[bytes]]:
+    """Every level of a tree of one leaf or more, leaves first, routed
+    by leaf count (module docstring); ``device`` is read only on the
+    kernel route."""
+    n = len(items)
+    if n < _PROOF_LEVEL_MIN:
+        return _levels_hashlib(items)
+    if n < MERKLE_KERNEL_MIN_LEAVES:
+        return _native.merkle_levels(items)
+    return _levels_kernel(items, _plan.resolve_devices(device)[0])
+
+
 def _levels_kernel(items: list[bytes], dev) -> list[list[bytes]]:
     raw = _s.words_to_bytes(_kernel_levels(items, dev).cpu().numpy())
     raw = raw.tobytes()
@@ -250,6 +271,14 @@ def proofs_from_byte_slices_reference(items: list[bytes]
     return root, proofs
 
 
+def _aunts(levels: list[list[bytes]], index: int) -> tuple[bytes, ...]:
+    """Aunts of leaf ``index``, bottom-up: its ancestor at level l is node
+    index >> l, whose sibling (index >> l) ^ 1 is absent exactly where
+    it falls off the level's width (a promoted odd tail)."""
+    return tuple(nodes[sib] for lvl_i, nodes in enumerate(levels[:-1])
+                 if (sib := (index >> lvl_i) ^ 1) < len(nodes))
+
+
 def _proofs_from_levels(levels: list[list[bytes]], total: int
                         ) -> tuple[bytes, list[Proof]]:
     """All aunt paths from the levels with no re-hashing: per level one
@@ -282,13 +311,11 @@ def _proofs_from_levels(levels: list[list[bytes]], total: int
         starts.append(start)
     min_start = min(starts, default=total)
     leaves = levels[0]
-    nlv = len(cols)
     proofs = list(map(Proof._make,
                       zip(repeat(total, min_start), count(), leaves,
                           zip(*cols))))
     for i in range(min_start, total):    # leaves under a promoted node
-        aunts = tuple(cols[k][i] for k in range(nlv) if i < starts[k])
-        proofs.append(Proof(total, i, leaves[i], aunts))
+        proofs.append(Proof(total, i, leaves[i], _aunts(levels, i)))
     return root, proofs
 
 
@@ -300,11 +327,52 @@ def proofs_from_byte_slices(items: list[bytes], device=None
     total = len(items)
     if total < _PROOF_LEVEL_MIN:
         return proofs_from_byte_slices_reference(items)
-    if total < MERKLE_KERNEL_MIN_LEAVES:
-        levels = _native.merkle_levels(items)
-    else:
-        levels = _levels_kernel(items, _plan.resolve_devices(device)[0])
-    return _proofs_from_levels(levels, total)
+    return _proofs_from_levels(_levels(items, device), total)
+
+
+class TreeCache:
+    """Every level of one tree, built once, then inclusion proofs for any
+    leaf indexes by index arithmetic over the levels, with no re-hashing
+    (the light-serving seam: a block's tx or validator tree is built on
+    the first proof request, and every later request is a gather).
+    Proofs equal :func:`proofs_from_byte_slices_reference`'s (aunts
+    bottom-up, promoted odd-tail nodes skipped)."""
+
+    __slots__ = ("levels", "total")
+
+    def __init__(self, levels: list[list[bytes]], total: int):
+        self.levels = levels
+        self.total = total
+
+    @classmethod
+    def build(cls, items: list[bytes], device=None) -> "TreeCache":
+        """The levels of ``items``' tree, routed by leaf count as
+        :func:`proofs_from_byte_slices`: hashlib below 64 leaves, the
+        native tree up to ``MERKLE_KERNEL_MIN_LEAVES``, from there one
+        ``merkle_tree_leaves`` call on ``device`` (None: the plan's first
+        device, raising without a card; ``"cpu"``: the plain version)."""
+        if not items:
+            return cls([[_sha(b"")]], 0)
+        return cls(_levels(items, device), len(items))
+
+    @property
+    def root(self) -> bytes:
+        return self.levels[-1][0]
+
+    def nbytes(self) -> int:
+        """Retained size: 32 bytes a node over every level."""
+        return 32 * sum(len(lv) for lv in self.levels)
+
+    def proof(self, index: int) -> Proof:
+        """Inclusion proof of leaf ``index`` (IndexError out of range)."""
+        total = self.total
+        if not 0 <= index < total:
+            raise IndexError(f"leaf {index} out of range (total {total})")
+        return Proof(total, index, self.levels[0][index],
+                     _aunts(self.levels, index))
+
+    def proofs(self, indexes) -> list[Proof]:
+        return [self.proof(i) for i in indexes]
 
 
 # ------------------------------------------------------------- proof ops
@@ -363,3 +431,52 @@ class ValueOp:
 
         d = _msgpack.unpackb(op.data)
         return cls(op.key, Proof(d["t"], d["i"], d["l"], tuple(d["a"])))
+
+
+_OP_DECODERS = {ValueOp.TYPE: ValueOp.decode}
+
+
+def register_proof_op(type_: str, decoder) -> None:
+    """proof_op.go ProofRuntime.RegisterOpDecoder."""
+    _OP_DECODERS[type_] = decoder
+
+
+class ProofOperators:
+    """An ordered op chain: :meth:`verify` runs each op over the previous
+    op's output, consuming key path segments right to left
+    (proof_op.go ProofOperators.Verify)."""
+
+    def __init__(self, ops: list):
+        self.ops = ops
+
+    @classmethod
+    def decode(cls, ops: list[ProofOp]) -> "ProofOperators":
+        decoded = []
+        for op in ops:
+            dec = _OP_DECODERS.get(op.type)
+            if dec is None:
+                raise ProofOpError(f"unregistered proof op {op.type!r}")
+            decoded.append(dec(op))
+        return cls(decoded)
+
+    def verify(self, root: bytes, keypath: list[bytes],
+               value: bytes) -> None:
+        """Raises ProofOpError unless the chain proves ``value`` at
+        ``keypath`` under ``root``."""
+        if not self.ops:
+            raise ProofOpError("empty proof op chain")
+        args = [value]
+        keys = list(keypath)
+        for op in self.ops:
+            if getattr(op, "key", b""):
+                if not keys:
+                    raise ProofOpError("keypath exhausted")
+                if keys[-1] != op.key:
+                    raise ProofOpError(
+                        f"key mismatch: {keys[-1]!r} != {op.key!r}")
+                keys.pop()
+            args = op.run(args)
+        if keys:
+            raise ProofOpError(f"keypath not fully consumed: {keys!r}")
+        if args != [root]:
+            raise ProofOpError("computed root does not match")

@@ -1,0 +1,10 @@
+"""Event indexers (counterpart of ``cometbft_tpu/indexer``; reference:
+``state/txindex/kv`` and ``state/indexer/block/kv``): the kv tx and
+block indexers and the service that pumps the event bus into them.  The
+SQL sink (``indexer/psql.py``) needs ``psycopg2`` and is not ported."""
+
+from .block import BlockIndexer
+from .service import IndexerService
+from .tx import TxIndexer
+
+__all__ = ["TxIndexer", "BlockIndexer", "IndexerService"]

@@ -1,11 +1,13 @@
-"""Metrics: counters, gauges and histograms with labels (counterpart of
-``cometbft_tpu/libs/metrics.py``, without its Prometheus text
-exposition, which the networked node's RPC serves; reference:
-``libs/metrics/metrics.go`` and the per-subsystem ``metrics.gen.go``).
+"""Metrics: counters, gauges and histograms with labels, and their
+Prometheus text exposition (counterpart of ``cometbft_tpu/libs/
+metrics.py``; reference: ``libs/metrics/metrics.go`` and the
+per-subsystem ``metrics.gen.go``).
 
 One process-wide default registry: subsystems (consensus, the WAL, the
-mempool, the verification scheduler) construct their metric sets
-against it; callers read them through ``value``, ``count`` and ``sum``."""
+mempool, the verification scheduler, the RPC gate, the light-serving
+tier) construct their metric sets against it; callers read them through
+``value``, ``count`` and ``sum``, and ``GET /metrics`` (the RPC server,
+or the node's Prometheus listener) serves :meth:`Registry.collect`."""
 
 from __future__ import annotations
 
@@ -35,7 +37,51 @@ class Registry:
             self._metrics[metric.name] = metric
             return metric
 
+    def collect(self) -> str:
+        """Prometheus text exposition format."""
+        out = []
+        with self._lock:
+            metrics = list(self._metrics.values())
+        for m in metrics:
+            out.append(f"# HELP {m.name} {_escape_help(m.help)}")
+            out.append(f"# TYPE {m.name} {m.TYPE}")
+            out.extend(m.expose())
+        evicted = [(m.name, m.evicted_total) for m in metrics
+                   if m.evicted_total]
+        if evicted:
+            # a synthetic series (not a registered counter, whose own
+            # eviction would re-enter the guard): which metric churns
+            # label sets past its cap
+            out.append("# HELP metrics_label_evictions_total label sets "
+                       "evicted past a metric's cardinality cap")
+            out.append("# TYPE metrics_label_evictions_total counter")
+            for name, n in evicted:
+                out.append("metrics_label_evictions_total"
+                           f'{{metric="{_escape(name)}"}} {n}')
+        return "\n".join(out) + "\n"
+
+
 DEFAULT = Registry()
+
+
+def _escape(v) -> str:
+    """Prometheus label-value escaping (backslash, quote, newline)."""
+    return str(v).replace("\\", "\\\\").replace('"', '\\"') \
+        .replace("\n", "\\n")
+
+
+def _escape_help(text: str) -> str:
+    """HELP-line escaping (backslash and newline only: a raw multi-line
+    help string would corrupt the whole scrape)."""
+    return str(text).replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _label_str(labels: dict[str, str]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{_escape(v)}"'
+                     for k, v in sorted(labels.items()))
+    return "{" + inner + "}"
 
 
 # Default ceiling on distinct label sets per metric.  Per-peer labels
@@ -55,6 +101,9 @@ class _Metric:
         self.max_label_sets = max(1, int(max_label_sets))
         self.evicted_total = 0        # guarded by self._lock
         self._lock = threading.Lock()
+
+    def expose(self) -> list[str]:
+        return []
 
     def _evict_locked(self, *value_dicts: dict) -> None:
         """Drop the oldest labeled child so a new one fits the cap
@@ -105,6 +154,12 @@ class Counter(_Metric):
     def value(self, **labels) -> float:
         return self._values.get(tuple(sorted(labels.items())), 0.0)
 
+    def expose(self):
+        with self._lock:
+            return [f"{self.name}{_label_str(dict(k))} {v}"
+                    for k, v in sorted(self._values.items())]
+
+
 class _BoundCounter:
     """A counter pre-bound to one label set (see :meth:`Counter.bind`)."""
 
@@ -154,6 +209,12 @@ class Gauge(_Metric):
 
     def value(self, **labels) -> float:
         return self._values.get(tuple(sorted(labels.items())), 0.0)
+
+    def expose(self):
+        with self._lock:
+            return [f"{self.name}{_label_str(dict(k))} {v}"
+                    for k, v in sorted(self._values.items())]
+
 
 class _BoundGauge:
     """A gauge pre-bound to one label set (see :meth:`Gauge.bind`)."""
@@ -217,6 +278,25 @@ class Histogram(_Metric):
     def sum(self, **labels) -> float:
         """Sum of observed values for a label set."""
         return self._sums.get(tuple(sorted(labels.items())), 0.0)
+
+    def expose(self):
+        out = []
+        with self._lock:
+            for key in sorted(self._counts):
+                labels = dict(key)
+                acc = 0
+                for i, b in enumerate(self.buckets):
+                    acc += self._counts[key][i]
+                    lb = dict(labels, le=str(b))
+                    out.append(f"{self.name}_bucket{_label_str(lb)} {acc}")
+                lb = dict(labels, le="+Inf")
+                out.append(f"{self.name}_bucket{_label_str(lb)} "
+                           f"{self._totals[key]}")
+                out.append(f"{self.name}_sum{_label_str(labels)} "
+                           f"{self._sums[key]}")
+                out.append(f"{self.name}_count{_label_str(labels)} "
+                           f"{self._totals[key]}")
+        return out
 
 
 class _BoundHistogram:

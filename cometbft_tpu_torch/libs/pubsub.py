@@ -1,16 +1,18 @@
 """Async pub/sub event bus (reference: ``libs/pubsub/pubsub.go`` and
 ``types/event_bus.go``).
 
-Counterpart of ``cometbft_tpu/libs/pubsub.py`` for equality
-subscriptions: a query is a dict ``{attr: value}`` (``"tm.event"``
-matches the event type).  The query language of ``libs/query`` (a
-string or a ``Query``) comes with the RPC slice of the port; until then
-:meth:`EventBus.subscribe` refuses it with TypeError."""
+Counterpart of ``cometbft_tpu/libs/pubsub.py``: a subscription matches
+with the full query language of ``libs/query`` (a string, compiled at
+subscribe, or a ``Query``: ``tm.event='Tx' AND tx.height > 5``), or with
+an equality dict ``{attr: value}`` (``"tm.event"`` matches the event
+type), the form the reactors and the indexer use."""
 
 from __future__ import annotations
 
 import asyncio
 from dataclasses import dataclass, field
+
+from .query import Query
 
 __all__ = ["Message", "Subscription", "EventBus"]
 
@@ -30,11 +32,13 @@ class Message:
 
 @dataclass
 class Subscription:
-    query: dict
+    query: object                        # Query | dict[str, str]
     queue: asyncio.Queue = field(default_factory=lambda: asyncio.Queue(256))
     unbuffered: bool = False             # guaranteed delivery
 
     def matches(self, msg: Message) -> bool:
+        if isinstance(self.query, Query):
+            return self.query.matches(msg.event_map())
         for k, want in self.query.items():
             if k == "tm.event":
                 if msg.event_type != want:
@@ -51,15 +55,19 @@ class EventBus:
     def __init__(self):
         self._subs: dict[str, Subscription] = {}
 
-    def subscribe(self, subscriber: str, query: dict,
+    def subscribe(self, subscriber: str, query,
                   unbuffered: bool = False) -> Subscription:
-        """``query`` is an equality dict; ``unbuffered=True`` gives an
-        unbounded queue with no drop."""
-        if not isinstance(query, dict):
-            raise TypeError(
-                f"pubsub: a {type(query).__name__} query needs libs/query, "
-                "which is not in the port yet; pass an equality dict")
-        sub = Subscription(dict(query), unbuffered=unbuffered)
+        """``query`` is a :class:`Query`, a query string (compiled here,
+        raising ``QuerySyntaxError``) or an equality dict;
+        ``unbuffered=True`` gives an unbounded queue with no drop."""
+        if isinstance(query, str):
+            query = Query.parse(query)
+        elif isinstance(query, dict):
+            query = dict(query)
+        elif not isinstance(query, Query):
+            raise TypeError(f"pubsub: a query is a Query, a string or a "
+                            f"dict, not {type(query).__name__}")
+        sub = Subscription(query, unbuffered=unbuffered)
         if unbuffered:
             sub.queue = asyncio.Queue()
         self._subs[subscriber] = sub

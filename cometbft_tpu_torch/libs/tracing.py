@@ -189,3 +189,9 @@ def dump(limit: int = 1000, sub: str | None = None,
         recs = recs[-int(limit):]
     return [_to_dict(r) for r in recs]
 
+
+
+def stats() -> dict:
+    """The recorder's state, for ``/dump_trace``."""
+    return {"enabled": _ENABLED, "ring_size": _MAXLEN,
+            "buffered": len(_RING)}

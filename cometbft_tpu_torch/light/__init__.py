@@ -1,12 +1,16 @@
 """Light client (counterpart of ``cometbft_tpu/light``): header
-verification, the client with its trusted store, providers and the
-divergence detector.  The RPC provider, the proxy and the light-serving
-node come with later slices of the port."""
+verification, the client with its trusted store, providers (local and
+over RPC) and the divergence detector; the verified RPC proxy; and the
+serving tier a full node runs for a fleet of light clients
+(``light/serve.py``)."""
 
 from .client import SEQUENTIAL, SKIPPING, Client, TrustOptions
 from .detector import DivergenceError
 from .provider import (ErrLightBlockNotFound, LocalNodeProvider, Provider,
                        ProviderError)
+from .proxy import LightProxy, run_light_proxy
+from .rpc_provider import RPCProvider
+from .serve import LightServeError, LightServeTier
 from .store import TrustedStore
 from .types import (ErrInvalidHeader, ErrNewValSetCantBeTrusted, LightBlock,
                     LightClientError)
@@ -19,5 +23,6 @@ __all__ = [
     "ErrLightBlockNotFound", "LightBlock", "LightClientError",
     "ErrInvalidHeader", "ErrNewValSetCantBeTrusted", "DivergenceError",
     "verify", "verify_adjacent", "verify_non_adjacent",
-    "verify_sequential_batched",
+    "verify_sequential_batched", "RPCProvider", "LightProxy",
+    "run_light_proxy", "LightServeTier", "LightServeError",
 ]

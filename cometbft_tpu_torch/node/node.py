@@ -13,17 +13,28 @@ scheduler.py``), which :meth:`start` acquires and :meth:`stop` releases
 the block executor and blocksync.  ``device`` is ``"cuda"`` by default
 and raises without a card; ``"cpu"`` runs the kernels' plain versions.
 
-Not here yet, each with its module (``ROADMAP.md`` queue 1): RPC and
-gRPC, Prometheus, the loop and liveness watchdogs, statesync, the
-indexer, light serving, the storage doctor, pex with the address book
-and seed mode, connection fuzzing and the fault plane's config wiring;
-the AOT warmup has no counterpart (the port's kernels build at first
-use).  The app is in-process (``local_client_creator``); the socket and
-gRPC apps come with ``abci/server.py``.
+With ``rpc.laddr`` set (``tcp://127.0.0.1:0`` for a free port, ``""``
+for none) :meth:`start` serves the JSON-RPC, URI and WebSocket server
+(``rpc/server.py``) on it; the kv tx and block indexers
+(``tx_index.indexer = "kv"``) follow the event bus; the light-serving
+tier (``lightserve.enable``) answers the ``light_*`` routes on the
+node's device; the loop watchdog (``instrumentation.
+loop_stall_threshold_s``) gives the RPC's overload shedding its lag; and
+``instrumentation.prometheus`` adds a metrics listener of its own.
+
+Not here yet, each with its module (``ROADMAP.md`` queue 1): gRPC, the
+liveness watchdog, statesync, the storage doctor (``doctor_report`` and
+``compile_bundle_info`` stay None, as on a JAX node without them), the
+SQL event sink, pex with the address book and seed mode, connection
+fuzzing and the fault plane's config wiring; the AOT warmup has no
+counterpart (the port's kernels build at first use).  The app is
+in-process (``local_client_creator``); the socket and gRPC apps come
+with ``abci/server.py``.
 """
 
 from __future__ import annotations
 
+import asyncio
 import os
 
 from ..abci.application import Application
@@ -36,12 +47,18 @@ from ..consensus.wal import WAL
 from ..crypto import plan as _plan
 from ..crypto import scheduler as _vsched
 from ..evidence import EvidencePool, EvidenceReactor
+from ..indexer import BlockIndexer, IndexerService, TxIndexer
+from ..libs import log as tmlog
+from ..libs import metrics as _metrics
 from ..libs import tracing
+from ..libs.loopwatch import LoopWatchdog
 from ..libs.pubsub import EventBus
+from ..light.serve import LightServeTier
 from ..mempool.clist_mempool import CListMempool
 from ..mempool.reactor import MempoolReactor
 from ..p2p import NodeInfo, NodeKey, PeerScorer, Switch, Transport
 from ..proxy.multi_app_conn import AppConns, local_client_creator
+from ..rpc import RPCServer
 from ..sm.execution import BlockExecutor
 from ..sm.pruner import Pruner
 from ..storage import BlockStore, MemDB, State, StateStore, open_db
@@ -56,6 +73,32 @@ def _parse_laddr(laddr: str) -> tuple[str, int]:
     addr = laddr.removeprefix("tcp://")
     host, _, port = addr.rpartition(":")
     return host or "127.0.0.1", int(port)
+
+
+async def _serve_prometheus(laddr: str):
+    """The Prometheus exposition listener of its own (reference:
+    ``node/node.go``'s server on ``instrumentation.prometheus``); the RPC
+    server also serves ``GET /metrics``."""
+    host, port = _parse_laddr(laddr)
+
+    async def handle(reader, writer):
+        try:
+            # bounded reads: a silent client must not pin the handler
+            await asyncio.wait_for(reader.readline(), 10)   # request line
+            while (await asyncio.wait_for(reader.readline(), 10)).strip():
+                pass                                        # headers
+            body = _metrics.DEFAULT.collect().encode()
+            writer.write(b"HTTP/1.1 200 OK\r\nContent-Type: text/plain; "
+                         b"version=0.0.4\r\nContent-Length: "
+                         + str(len(body)).encode() + b"\r\n\r\n" + body)
+            await writer.drain()
+        except (ConnectionError, asyncio.IncompleteReadError,
+                asyncio.TimeoutError):
+            pass
+        finally:
+            writer.close()
+
+    return await asyncio.start_server(handle, host, port)
 
 
 class Node:
@@ -77,6 +120,16 @@ class Node:
         self.evidence_pool: EvidencePool | None = None
         self.evidence_reactor: EvidenceReactor | None = None
         self.pruner: Pruner | None = None
+        self.tx_indexer: TxIndexer | None = None
+        self.block_indexer: BlockIndexer | None = None
+        self.indexer_service: IndexerService | None = None
+        self.light_serve: LightServeTier | None = None
+        self.rpc_server: RPCServer | None = None
+        self.rpc_addr: tuple[str, int] | None = None
+        self.prometheus_server = None
+        self.loop_watchdog: LoopWatchdog | None = None
+        self.doctor_report = None              # no storage doctor yet
+        self.compile_bundle_info = None        # kernels build at first use
         self.fast_sync = False
         self.node_key: NodeKey | None = None
         self.transport: Transport | None = None
@@ -212,6 +265,29 @@ class Node:
         self.switch.add_reactor("blocksync", self.blocksync_reactor)
         self.switch.add_reactor("evidence", self.evidence_reactor)
 
+        if cfg.tx_index.indexer == "kv":
+            self.tx_indexer = TxIndexer(make_db("tx_index.db"))
+            self.block_indexer = BlockIndexer(make_db("block_index.db"))
+            self.indexer_service = IndexerService(
+                self.event_bus, self.tx_indexer, self.block_indexer,
+                name=f"{name}.idx")
+        elif cfg.tx_index.indexer not in ("", "null"):
+            raise ValueError(f"tx_index.indexer {cfg.tx_index.indexer!r}: "
+                             "the port indexes with kv or null (the SQL "
+                             "sink needs psycopg2)")
+        if cfg.lightserve.enable:
+            # passive: read by the light_* routes in worker threads
+            ls = cfg.lightserve
+            self.light_serve = LightServeTier(
+                self.block_store, self.state_store, genesis_doc.chain_id,
+                device=device, header_cache_size=ls.header_cache_size,
+                header_cache_bytes=ls.header_cache_bytes,
+                proof_cache_blocks=ls.proof_cache_blocks,
+                verify_cache_size=ls.verify_cache_size,
+                trust_period_ns=ls.trust_period_ns,
+                max_batch=ls.max_batch, max_proofs=ls.max_proofs,
+                name=name)
+
     async def _switch_to_consensus(self, state) -> None:
         """Blocksync caught up: adopt the synced state and start consensus
         (reference consensus Reactor.SwitchToConsensus)."""
@@ -256,12 +332,39 @@ class Node:
             host, port = _parse_laddr(self.config.p2p.laddr)
             self.listen_addr = await self.transport.listen(host, port)
             await self.switch.start()
+            if self.indexer_service is not None:
+                await self.indexer_service.start()
             await self.pruner.start()
+            await self._start_serving()
             if consensus:
                 await self.start_consensus()
         except BaseException:
             await self.stop()
             raise
+
+    async def _start_serving(self) -> None:
+        """The RPC server, the Prometheus listener and the loop
+        watchdog, as configured."""
+        cfg = self.config
+        if cfg.rpc.laddr:
+            self.rpc_server = RPCServer(self)
+            self.rpc_addr = await self.rpc_server.listen(
+                *_parse_laddr(cfg.rpc.laddr))
+        inst = cfg.instrumentation
+        if inst.prometheus:
+            self.prometheus_server = await _serve_prometheus(
+                inst.prometheus_listen_addr)
+        if inst.loop_stall_threshold_s > 0:
+            self.loop_watchdog = LoopWatchdog(
+                asyncio.get_running_loop(),
+                stall_threshold_s=inst.loop_stall_threshold_s,
+                name=self.name)
+            self.loop_watchdog.start()
+        elif cfg.rpc.laddr and cfg.rpc.overload_shed_lag_s > 0:
+            tmlog.logger("node", node=self.name).warn(
+                "rpc.overload_shed_lag_s is set but the loop watchdog is "
+                "off (instrumentation.loop_stall_threshold_s = 0): "
+                "overload shedding is inactive")
 
     async def start_consensus(self) -> None:
         """Start the consensus state machine of a node started with
@@ -271,14 +374,28 @@ class Node:
             await self.consensus.start()
 
     async def stop(self) -> None:
-        """Stop consensus, the switch (peers, reactors, listener), the
-        pruner and the app connections; release the scheduler; close the
-        WAL, every store and the data-directory lock.  Idempotent, and
-        safe on a node whose :meth:`start` failed."""
+        """Stop the RPC server, the Prometheus listener, the loop
+        watchdog, consensus, the switch (peers, reactors, listener), the
+        indexer service, the pruner and the app connections; release the
+        scheduler; close the WAL, every store and the data-directory
+        lock.  Idempotent, and safe on a node whose :meth:`start`
+        failed."""
         if self._started:
             self._started = False
+            if self.rpc_server is not None:
+                server, self.rpc_server = self.rpc_server, None
+                await server.close()
+            if self.prometheus_server is not None:
+                prom, self.prometheus_server = self.prometheus_server, None
+                prom.close()
+                await prom.wait_closed()
+            if self.loop_watchdog is not None:
+                wd, self.loop_watchdog = self.loop_watchdog, None
+                wd.stop()
             await self.consensus.stop()
             await self.switch.stop()
+            if self.indexer_service is not None:
+                await self.indexer_service.stop()
             await self.pruner.stop()
         if self._holds_scheduler:
             self._holds_scheduler = False

@@ -60,6 +60,20 @@ class Peer:
     def get(self, key: str):
         return self._data.get(key)
 
+    def telemetry(self) -> dict:
+        """The per-peer snapshot ``/net_info`` serves: identity,
+        direction, the MConnection's counters and gossip efficiency."""
+        return {
+            "node_id": self.id,
+            "moniker": self.node_info.moniker,
+            "remote_addr": self.dial_addr or "",
+            "outbound": self.outbound,
+            "persistent": self.persistent,
+            "connection_status": self.mconn.telemetry(),
+            "gossip": {"useful": self.gossip.useful,
+                       "duplicate": self.gossip.duplicate},
+        }
+
     def set(self, key: str, value) -> None:
         self._data[key] = value
 

@@ -342,5 +342,15 @@ class Switch:
                 continue
             peer.send(channel_id, msg)
 
+    def peer_snapshot(self) -> list[dict]:
+        """Each peer's telemetry with its scorer quality block, for
+        ``/net_info``."""
+        out = []
+        for p in self.peers.values():
+            d = p.telemetry()
+            d["quality"] = self.scorer.peer_info(p.id)
+            out.append(d)
+        return out
+
     def n_peers(self) -> int:
         return len(self.peers)

@@ -319,13 +319,17 @@ def test_finalize_response_encoding_matches_jax():
 def test_pubsub_and_fail_points():
     bus = pubsub.EventBus()
     sub = bus.subscribe("a", {"tm.event": "Tx", "tx.height": "3"})
+    # a query string compiles (libs/query); any other type is refused
+    q = bus.subscribe("b", "tm.event='Tx' AND tx.height > 3")
     with pytest.raises(TypeError):
-        bus.subscribe("b", "tm.event='Tx'")
+        bus.subscribe("bad", 5)
     bus.publish("Tx", 1, {"tx.height": "3"})
     bus.publish("Tx", 2, {"tx.height": "4"})
     bus.publish("NewBlock", 3, {"tx.height": "3"})
     assert sub.queue.qsize() == 1 and sub.queue.get_nowait().data == 1
-    assert bus.num_subscribers() == 1
+    assert q.queue.qsize() == 1 and q.queue.get_nowait().data == 2
+    assert bus.num_subscribers() == 2
+    bus.unsubscribe("b")
     small = bus.subscribe("c", {})
     for i in range(300):
         bus.publish("X", i)

@@ -213,6 +213,7 @@ def test_node_runs_on_the_native_backend(tmp_path, monkeypatch):
         cc.timeout_propose = 2000 * MS
         cfg = Config(consensus=cc)
         cfg.p2p.laddr = "tcp://127.0.0.1:0"
+        cfg.rpc.laddr = ""
         cfg.base.device = "cpu"
         cfg.storage.db_backend = "native"
         return cfg

@@ -74,6 +74,7 @@ def cpu_consensus_config():
 def config(db_backend="logdb") -> Config:
     cfg = Config(consensus=cpu_consensus_config())
     cfg.p2p.laddr = "tcp://127.0.0.1:0"
+    cfg.rpc.laddr = ""              # no RPC server unless a case asks
     cfg.base.device = "cpu"
     cfg.storage.db_backend = db_backend
     return cfg
