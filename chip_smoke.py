@@ -3,8 +3,8 @@
 aggregate-commit verification paths, of lane-sharded commit
 verification over a device set, of the light client, of blocksync
 catch-up, of consensus in one process, of the networked node over
-loopback TCP, of BASELINE configs[4]'s mixed-key commits and of the RPC
-surface with light-client serving, on one card.
+loopback TCP, of BASELINE configs[4]'s mixed-key commits, of the RPC
+surface with light-client serving and of statesync, on one card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -64,7 +64,7 @@ Phases, each of which must pass or the script exits non-zero:
 8. BLS, 10,000 validators, all BLS, every 50th absent: two linked
    headers whose commits carry one aggregate signature each (one
    signature under the signers' summed secret); ``VerifyCommitLight``
-   (cold, with the per-set table build, then 20 calls), ``VerifyCommit``
+   (cold, with the per-set table build, then ``REPS`` calls), ``VerifyCommit``
    and ``verify_adjacent``, a wrong aggregate (``ErrInvalidSignature`` on
    the first aggregate lane) and a stray bitmap bit
    (``ErrInvalidCommit``); the host pairings timed alone; then the G1
@@ -160,7 +160,7 @@ Phases, each of which must pass or the script exits non-zero:
    (d) the native host tree against the hashlib level loop at 64 to
    2,047 leaves; (e) is validator08 of phase 13 (c);
 15. the RPC surface and light serving (``phase_rpc``, after phase 14
-   in a fresh process with a key pool of its own, ``--rpc-child``, so
+   in a fresh process with a key pool of its own, ``--child rpc``, so
    that the collector sees its objects only): (a) ci.toml's 4 validators, each with an
    ``RPCServer``, to height ``ND_CI_HEIGHT``: ``ND_TXS`` txs through
    ``broadcast_tx_commit`` over HTTP (overload sheds retried and
@@ -182,8 +182,25 @@ Phases, each of which must pass or the script exits non-zero:
    ``RPC_PROOF_SAMPLE`` proofs against hashlib, ``light_verify`` of the
    anchors.  K5a, K5b, K6a and ``merkle_tree_leaves`` must launch; the
    oracle's calls must be 0.
+16. statesync (``phase_statesync``, after phase 15 in a fresh process of
+   its own, ``--child statesync``): (a) ci.toml's 4 validators from a
+   genesis ``app_state`` of at least 128 chunks; a fresh node whose
+   state provider's light client reads validator01's RPC restores a
+   snapshot and follows consensus (no fallback to genesis, the restored
+   keys over ``abci_query``, equal blocks, ``consensus_timeline``,
+   ``dump_incidents`` and the doctor's report over RPC), then inspect
+   mode over validator01's home serves its blocks; (b) 1,000 validators
+   and 200,000 genesis keys (a 61 MiB snapshot): a source node's 40
+   heights, a fresh node restores about 980 chunks over a secret
+   connection (the light client on the card, the app hash by
+   ``merkle_tree_leaves``) and blocksyncs to the tip; its readings
+   (discovery, light verification, transfer, apply, app hash,
+   blocksync, busy share, gc).  K5a, K6a and ``merkle_tree_leaves``
+   must launch; every launch's shape is recorded and each kernel is
+   held against its plain version at those shapes (the tree at (b)'s
+   leaves also against hashlib, roots and proofs).
 
-Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15 are the main path: the launch counters
+Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16 are the main path: the launch counters
 are zeroed just before each and read just after; each phase's kernels
 must have launched, no plain version may have run, and neither
 standalone hash kernel (``OFF_PATH``: the RLC lane stage hashes its
@@ -205,9 +222,9 @@ the cards, which one card cannot show.  ``python3 chip_smoke.py
 --blocksync`` runs only phases 1 and 2, phase 3's sweep and phase 11;
 ``python3 chip_smoke.py --consensus`` the same with phase 12, ``--node``
 with phase 13, ``--stress`` with phase 14, ``--rpc`` with phase 15 (its
-fixtures built in it: the 1,000-validator source chain and 10,000 keys)
-(options together run their phases; ``--stress --node`` gives phase 14
-its part (e)).
+fixtures built in it: the 1,000-validator source chain and 10,000 keys),
+``--statesync`` with phase 16 (options together run their phases;
+``--stress --node`` gives phase 14 its part (e)).
 
 The line before the last is a JSON object with one entry per kernel
 (launches on the main path, max_abs_err, times, bound); the last line is
@@ -257,7 +274,9 @@ G1_INT_PER_MUL = 966
 CHAIN_ID = "smoke-chain"
 SIZES = (150, 1000)              # validators of the commit phase
 LANES = 10_000                   # lanes of the throughput phase
-REPS = 20                        # timed calls per measurement
+# timed calls per measurement (cut from 20, as ST_REPS and RPC_REPS, to
+# keep the whole smoke well inside its limit on slower hosts)
+REPS = 5
 # lanes of the sweep's batches; 32,000 is phase 11's window (32 commits
 # of 1,000 validators), 64,032 phase 15 (b)'s light_verify (96 anchors of
 # 667 lanes of 1,000 validators), the largest batch the port runs
@@ -1658,7 +1677,7 @@ def phase_light10k(pool, keys, dev, reps):
                                                       reps),
         "profile_verify_adjacent": profile_call(calls["verify_adjacent"]),
         "profile_verify_commit": profile_call(calls["VerifyCommit"],
-                                              reps // 4),
+                                              reps),
         "profile_valset_hash": profile_call(calls["ValidatorSet.hash"])}, \
         (vals, h2), (h1, h2, h3)
 
@@ -2029,13 +2048,13 @@ def phase_light_client(pool, keys, chain150, blocks10k, dev, reps):
     wall = {"a_sequential150": time_host_spread(case_a, reps),
             "b_skipping150": time_host_spread(case_b, reps),
             "c_skipping10k": time_host_spread(case_c, reps),
-            "d_detector150": time_host_spread(case_d, max(3, reps // 4))}
+            "d_detector150": time_host_spread(case_d, reps)}
     prof = {"a_sequential150": profile_call(case_a),
             "c_skipping10k": profile_call(case_c)}
     loop.close()
     return launches, {
         "host_ms": light_client_host_ms(chain150[-1], blocks10k[-1],
-                                        max(3, reps // 4)),
+                                        reps),
         "fixture_s": fixture_s, "first_path_s": first_s,
         "first_call_s": first, "signed_blocks": {
             "b": skip_signer.blocks, "d": fork_signer.blocks},
@@ -2325,8 +2344,8 @@ def phase_mesh(fx10k, chain150, shards, reps, rec):
         sharded = time_host_spread(verify_commit, reps)
         single = time_host_spread(lambda: verify_commit(dev), reps)
         batched = time_host_spread(lambda: V.verify_commits_light_batched(
-            CHAIN_ID, chain150[0].validators, items), reps // 4)
-        prof = profile_call(verify_commit, reps // 4)
+            CHAIN_ID, chain150[0].validators, items), reps)
+        prof = profile_call(verify_commit, reps)
     finally:
         plan.set_devices(None)
     # the single-device route names the same lane
@@ -2666,7 +2685,7 @@ def phase_bls(pool, dev, reps, rec):
     pair = time_host_spread(
         lambda: B.verify_aggregate_affine(agg_pk, msg, c2.agg_signature),
         reps)
-    prof = profile_call(calls["VerifyCommitLight"], max(1, reps // 4))
+    prof = profile_call(calls["VerifyCommitLight"], reps)
     phase_bls_kernel(vals, signers, dev, reps, rec)
     return launches, {
         "fixture_s": fixture_s, "first_path_s": first_s,
@@ -3508,11 +3527,14 @@ def _nd_genesis(powers, tag: bytes, ext_height: int = 0):
 
 async def _nd_node(doc, pv, name: str, dev, *, home=None, fast_sync=False,
                    latency_ms: float = 0.0, db_backend: str = "logdb",
-                   rpc_laddr: str = ""):
-    """A port ``Node`` of the kvstore app on ``dev``: the JAX package's
-    test timeouts, a loopback listener on port 0, ``db_backend`` stores
-    under ``home`` (else in memory), an RPC server on ``rpc_laddr`` (none
-    by default)."""
+                   rpc_laddr: str = "", app=None,
+                   discovery_s: float | None = None, **kw):
+    """A port ``Node`` of the kvstore app (``app``, else a new one) on
+    ``dev``: the JAX package's test timeouts, a loopback listener on port
+    0, ``db_backend`` stores under ``home`` (else in memory), an RPC
+    server on ``rpc_laddr`` (none by default), a statesync discovery
+    round of ``discovery_s`` (else the default), the configuration
+    validated; ``kw`` goes to ``Node.create``."""
     from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
     from cometbft_tpu_torch.config import Config, test_consensus_config
     from cometbft_tpu_torch.node import Node
@@ -3524,10 +3546,13 @@ async def _nd_node(doc, pv, name: str, dev, *, home=None, fast_sync=False,
     cfg.rpc.laddr = rpc_laddr
     cfg.p2p.emulated_latency_ms = latency_ms
     cfg.storage.db_backend = db_backend if home else "memdb"
+    if discovery_s is not None:
+        cfg.statesync.discovery_time_s = discovery_s
+    cfg.validate()
     return await Node.create(
-        doc, KVStoreApplication(device=dev), priv_validator=pv, config=cfg,
-        node_key=NodeKey.from_secret(b"smoke-" + name.encode()), home=home,
-        fast_sync=fast_sync, name=name)
+        doc, app or KVStoreApplication(device=dev), priv_validator=pv,
+        config=cfg, node_key=NodeKey.from_secret(b"smoke-" + name.encode()),
+        home=home, fast_sync=fast_sync, name=name, **kw)
 
 
 async def _nd_dial(a, targets, walls: list) -> None:
@@ -4478,7 +4503,7 @@ def _serve(tier):
 
 def phase_rpc(pool, keys, dev):
     """Phase 15: the RPC surface and light-client serving on the card,
-    in a process of its own (:func:`phase_rpc_fresh`).
+    in a process of its own (:func:`phase_fresh`).
 
     (a) ``networks/ci.toml``'s 4 validators, each with an ``RPCServer``
         on its own loopback port, meshed before consensus, to height
@@ -5036,30 +5061,39 @@ def phase_rpc(pool, keys, dev):
     return launches, out
 
 
-def phase_rpc_fresh():
-    """Phase 15 in a fresh process (``--rpc-child``, with a key pool of
-    its own): its fixtures are built there, so the collector and the
-    caches hold phase 15's objects only, as a node's process holds its
-    own and not those of the smoke's earlier phases.  Returns the
-    launches and the record that the child wrote."""
-    import subprocess
-
+def phase_fresh(name: str):
+    """Phase ``name`` of ``CHILD_PHASES`` in a fresh process (``--child
+    NAME PATH``, with a key pool of its own): its fixtures are built
+    there, so the collector and the caches hold that phase's objects
+    only, as a node's process holds its own and not those of the smoke's
+    earlier phases.  Returns the launches and the record that the child
+    wrote."""
     import torch
 
     torch.cuda.empty_cache()
     sys.stdout.flush()
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "build", "chip_smoke_rpc.json")
+                        "build", f"chip_smoke_{name}.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     if os.path.exists(path):
         os.remove(path)
     t0 = time.perf_counter()
     subprocess.run([sys.executable, os.path.abspath(__file__),
-                    "--rpc-child", path], check=True, timeout=600)
+                    "--child", name, path], check=True, timeout=600)
     with open(path) as f:
         d = json.load(f)
-    d["rp"]["phase_s"] = time.perf_counter() - t0
-    return d["launches"], d["rp"]
+    d["record"]["phase_s"] = time.perf_counter() - t0
+    return d["launches"], d["record"]
+
+
+def run_child(name: str, path: str, dev) -> None:
+    """The child of :func:`phase_fresh`: phase ``name`` over the kernels
+    built, its launches and record written as JSON to ``path``."""
+    fn, n_keys = CHILD_PHASES[name]
+    with multiprocessing.get_context("spawn").Pool(os.cpu_count()) as pool:
+        launches, record = fn(pool, pool_keys(pool, n_keys), dev)
+    with open(path, "w") as f:
+        json.dump({"launches": launches, "record": record}, f, default=str)
 
 
 def report_rpc(rp, launches, card) -> None:
@@ -5127,6 +5161,709 @@ def report_rpc(rp, launches, card) -> None:
           f"{RPC_BIG_HEIGHTS} anchors ({c['lanes']} lanes, K6a launches "
           f"{c['verify_k6a_launches']}) {c['verify_cold_ms']:.1f} ms, memo "
           f"p50 {c['verify_memo_ms']['p50']:.2f} ms  [{card}]")
+
+
+# ------------------------------------------------ phase 16: statesync
+
+SS_BALLAST_CHUNKS = 128          # (a): genesis app_state of >= 128 chunks
+SS_BALLAST_KEYS = 27_000         # (a): keys of 16 bytes, 300-byte values
+SS_A_FOLLOW = 3                  # (a): heights followed past the restore
+SS_VALS = BS_VALS                # (b): BASELINE configs[3]'s width
+SS_KEYS = 200_000                # (b): genesis keys, 16 bytes (about
+#                                  64 MiB of snapshot at 300-byte values)
+SS_VALUE_BYTES = 300
+SS_HEIGHTS = 40                  # (b): the source chain's heights
+SS_BLOCKSYNC = 14                # (b): heights blocksynced past the
+#                                  snapshot (the tip is left to consensus)
+SS_KERNELS = ("ed25519_tables", "ed25519_rlc_gather", "merkle_tree_leaves")
+SS_TIMEOUT_S = 240               # a part's wait for its restore or heights
+
+
+def _ss_app_state(n: int, seed: int) -> bytes:
+    """Genesis ``app_state`` of ``n`` keys: 16 hex characters each (the
+    key index), values of ``SS_VALUE_BYTES`` hex characters from a
+    seeded generator; the kvstore's ``init_chain`` loads it."""
+    import numpy as np
+
+    raw = np.random.default_rng(seed).bytes(n * SS_VALUE_BYTES // 2).hex()
+    w = SS_VALUE_BYTES
+    return json.dumps({"%016x" % i: raw[i * w:(i + 1) * w]
+                       for i in range(n)}).encode()
+
+
+@contextlib.contextmanager
+def launch_shapes(seen: dict):
+    """Record the shape of the tensor each kernel launch is given (the
+    keys of a table build, the lanes of a verdict, the leaves and blocks
+    of a tree) into ``seen[name]``, a set."""
+    from cometbft_tpu_torch.ops import _build
+
+    inner = _build.launch
+
+    def launch(name, t, *args):
+        seen.setdefault(name, set()).add(tuple(t.shape))
+        return inner(name, t, *args)
+
+    _build.launch = launch
+    try:
+        yield seen
+    finally:
+        _build.launch = inner
+
+
+class _Stamps:
+    """Wall stamps of a state-syncing node's restore: wraps its syncer's
+    ``_restore`` and ``_obtain_manifest``, its ``add_chunk``, its state
+    provider's light calls and its app's chunk applies and app hash."""
+
+    def __init__(self, node, app):
+        self.t = {}
+        self.light_s = 0.0
+        self.apply_s = 0.0
+        self.hash_s = []
+        self.chunk_bytes = 0
+        self.chunks = 0
+        self.snapshot_chunks = None
+        sy = node.syncer
+        prov = sy.provider
+        for name in ("_restore", "_obtain_manifest"):
+            self._wrap_async(sy, name)
+        inner_add = sy.add_chunk
+
+        def add_chunk(*a, **kw):
+            self.chunks += 1
+            self.chunk_bytes += len(a[4])
+            self.t.setdefault("first_chunk", time.perf_counter())
+            self.t["last_chunk"] = time.perf_counter()
+            return inner_add(*a, **kw)
+
+        sy.add_chunk = add_chunk
+        for name in ("app_hash", "state", "commit"):
+            inner = getattr(prov, name)
+
+            async def timed(h, _inner=inner):
+                t0 = time.perf_counter()
+                try:
+                    return await _inner(h)
+                finally:
+                    self.light_s += time.perf_counter() - t0
+
+            setattr(prov, name, timed)
+        inner_apply = app.apply_snapshot_chunk
+
+        async def apply(*a, **kw):
+            if app._restoring is not None:
+                self.snapshot_chunks = app._restoring.chunks
+            t0 = time.perf_counter()
+            try:
+                return await inner_apply(*a, **kw)
+            finally:
+                self.apply_s += time.perf_counter() - t0
+
+        app.apply_snapshot_chunk = apply
+        inner_hash = app._compute_app_hash
+
+        def app_hash():
+            t0 = time.perf_counter()
+            try:
+                return inner_hash()
+            finally:
+                self.hash_s.append(time.perf_counter() - t0)
+
+        app._compute_app_hash = app_hash
+
+    def _wrap_async(self, obj, name):
+        inner = getattr(obj, name)
+
+        async def wrapped(*a, **kw):
+            self.t.setdefault(name + "_in", time.perf_counter())
+            try:
+                return await inner(*a, **kw)
+            finally:
+                self.t[name + "_out"] = time.perf_counter()
+
+        setattr(obj, name, wrapped)
+
+    def readings(self, t_start: float, t_done: float) -> dict:
+        t = self.t
+        xfer = t["last_chunk"] - t["_obtain_manifest_out"]
+        restore_hash = self.hash_s[-1] if self.hash_s else None
+        return {
+            "restored_s": t_done - t_start,
+            "discovery_s": t["_restore_in"] - t_start,
+            "light_verify_s": self.light_s,
+            "manifest_s": t["_obtain_manifest_out"]
+            - t["_obtain_manifest_in"],
+            "transfer_s": xfer, "chunks": self.chunks,
+            "chunk_mb": self.chunk_bytes / 2**20,
+            "mb_per_s": self.chunk_bytes / 2**20 / xfer if xfer > 0
+            else None,
+            "chunks_per_s": self.chunks / xfer if xfer > 0 else None,
+            "snapshot_chunks": self.snapshot_chunks,
+            "apply_s": self.apply_s - (restore_hash or 0.0),
+            "app_hash_s": restore_hash}
+
+
+def _ss_check_trees(leaf_shapes: set, items_b: list, dev) -> dict:
+    """``merkle_tree_leaves`` against its plain version and hashlib: on
+    (b)'s restored leaves (the root and every proof of the kernel route
+    against those of hashlib's levels; timed there, CUDA events over
+    ``REPS`` calls, the profiler's device ms and one plain call), and on
+    seeded random one-block leaves at every other (leaves, blocks) shape
+    the path launched."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.crypto import merkle
+    from cometbft_tpu_torch.ops import sha256 as S
+
+    def check(items):
+        blocks, active = merkle._leaf_blocks(items)
+        bt = torch.from_numpy(blocks.view(np.int32)).to(dev)
+        at = torch.from_numpy(active).to(dev)
+        got = S.merkle_tree_leaves(bt, at)
+        n = len(items)
+        plain = torch.empty_like(got)
+        plain[:n] = S._as_int32(S._leaf_state_plain(bt, at))
+        S._merkle_tree_plain(plain, n)
+        host = S.words_to_bytes(got.cpu().numpy().view(np.uint32))
+        levels = merkle._levels_hashlib(items)
+        want = [r for lv in levels for r in lv]
+        bad = (int((got != plain).any(1).sum())
+               + sum(h.tobytes() != w for h, w in zip(host, want))
+               + abs(len(host) - len(want)))
+        return (tuple(bt.shape), bad,
+                int((got.long() - plain.long()).abs().max()), levels,
+                (bt, at, got))
+
+    out = {"shapes": {}}
+    t0 = time.perf_counter()
+    shape, bad, err, levels, (bt, at, got) = check(items_b)
+    root, proofs = merkle.proofs_from_byte_slices(items_b, device=dev)
+    want_root, want = merkle._proofs_from_levels(levels, len(items_b))
+    bad_proofs = int(root != want_root) + sum(
+        a != b for a, b in zip(proofs, want)) + abs(len(proofs) - len(want))
+    n = len(items_b)
+
+    def plain_tree():
+        lv = torch.empty_like(got)
+        lv[:n] = S._as_int32(S._leaf_state_plain(bt, at))
+        return S._merkle_tree_plain(lv, n)
+
+    out["restored"] = {
+        "leaves": n, "shape": shape, "mismatches": bad,
+        "proof_mismatches": bad_proofs,
+        "ms": time_cuda(lambda: S.merkle_tree_leaves(bt, at, got), REPS),
+        "device_ms": _kernel_ms(profile_call(
+            lambda: S.merkle_tree_leaves(bt, at, got), REPS)["kernels_ms"],
+            "merkle_"),
+        "plain_ms": time_host(plain_tree),
+        "bound_inputs": (int(at.sum()), n, int(bt.shape[1])),
+        "check_s": time.perf_counter() - t0}
+    out["max_abs_err"] = err
+    rng = np.random.default_rng(1606)
+    for n, nb, _ in sorted(leaf_shapes - {shape}):
+        if nb != 1:
+            raise AssertionError(f"phase 16: a tree of {n} leaves of "
+                                 f"{nb} blocks, not checked")
+        _, bad_n, err, _, _ = check(_rand_leaves(rng, n, 0, 55))
+        out["shapes"][n] = bad_n
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+    out["mismatches"] = bad + bad_proofs + sum(out["shapes"].values())
+    return out
+
+
+def _ss_check_lanes(seen: dict, privs, dev) -> dict:
+    """K5a at every key count the path built a table of, K5b at every
+    lane count it checked lane by lane and K6a at every lane count of
+    its RLC verdicts, each against its plain version on the card: one
+    seeded batch of the largest lane count (``SWEEP_SIGNED`` distinct
+    lanes signed by the pool's keys with messages of vote sign bytes'
+    lengths, tiled; one in ten with a flipped signature bit, its verdict
+    from the oracle), each smaller shape a prefix of it, the per-lane
+    plain version over the largest K5b shape once.  K6a runs each shape
+    twice, on the untampered lanes (an accept) and with one lane
+    tampered (a reject), each verdict against the expected one; the
+    plain RLC verdict runs once a shape, the reject and the accept in
+    turn."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.crypto import _ed25519_py as ref
+    from cometbft_tpu_torch.ops import ed25519 as ed
+    from cometbft_tpu_torch.ops import rlc
+
+    rng = np.random.default_rng(1616)
+    mism = dict.fromkeys(("ed25519_tables", "ed25519_verify_gather",
+                          "ed25519_rlc_gather"), 0)
+    tables = sorted(s[0] for s in seen.get("ed25519_tables", ()))
+    for n in tables:
+        rows = [privs[i % len(privs)].pub_key().bytes() if i % 8 else
+                rng.bytes(32) for i in range(n)]
+        pub_t = torch.from_numpy(np.frombuffer(b"".join(rows), np.uint8)
+                                 .reshape(-1, 32).copy()).to(dev)
+        tab_k, ok_k = ed.prepare_pubkey_tables(pub_t)
+        tab_p, ok_p = ed._prepare_plain(pub_t)
+        mism["ed25519_tables"] += int((ok_k != ok_p).sum()) + int(
+            (ed.tables_canonical(tab_k) != ed.tables_canonical(tab_p))
+            .flatten(1).any(1).sum())
+    per_lane = sorted({s[0] for s in seen.get("ed25519_verify_gather", ())})
+    verdicts = sorted({s[0] for s in seen.get("ed25519_rlc_gather", ())})
+    n = max(per_lane + verdicts, default=0)
+    if n:
+        keys = privs[:min(n, len(privs))]
+        m_lanes = min(n, SWEEP_SIGNED)
+        pick = rng.integers(0, len(keys), size=m_lanes)
+        msgs = [rng.bytes(int(rng.integers(100, 160))) for _ in pick]
+        pubs = [keys[k].pub_key().bytes() for k in pick]
+        sigs = [keys[k].sign(m) for k, m in zip(pick, msgs)]
+        bad = rng.random(m_lanes) < 0.1
+        sigs_bad = list(sigs)
+        for i in np.flatnonzero(bad):
+            s = bytearray(sigs[i])
+            s[rng.integers(0, 64)] ^= 1 << int(rng.integers(0, 8))
+            sigs_bad[i] = bytes(s)
+        want = [not bad[i] or ref.verify_zip215(pubs[i], msgs[i],
+                                                 sigs_bad[i])
+                for i in range(m_lanes)]
+        tile = np.arange(n) % m_lanes
+        pubs, msgs, sigs, sigs_bad, want = ([x[i] for i in tile] for x in (
+            pubs, msgs, sigs, sigs_bad, want))
+        rows = [k.pub_key().bytes() for k in keys]
+        row_of = {r: j for j, r in enumerate(rows)}
+        pub_t = torch.from_numpy(np.frombuffer(b"".join(rows), np.uint8)
+                                 .reshape(-1, 32).copy()).to(dev)
+        tab, ok = ed.prepare_pubkey_tables(pub_t)
+        idx = torch.tensor([row_of[p] for p in pubs], dtype=torch.int32,
+                           device=dev)
+        rb, sb, blocks, active = _lanes_to_tensors(pubs, sigs, msgs, dev)
+        rb_bad, sb_bad, _, _ = _lanes_to_tensors(pubs, sigs_bad, msgs, dev)
+        lanes = (tab, ok, idx, rb_bad, sb_bad, blocks, active)
+        top = max(per_lane, default=0)
+        v_p = ed._verify_gather_plain(*(t[:top] if i >= 2 else t
+                                        for i, t in enumerate(lanes)))
+        for m in per_lane:
+            v_k = ed.verify_padded_gather(*(t[:m] if i >= 2 else t
+                                            for i, t in enumerate(lanes)))
+            mism["ed25519_verify_gather"] += int((v_k != v_p[:m]).sum()) \
+                + sum(a != b for a, b in zip(v_k.tolist(), want))
+        for j, m in enumerate(verdicts):
+            z = torch.from_numpy(rlc.host_rlc_coeffs(
+                m, rng_bytes=rng.bytes(16 * m))).to(dev)
+            one_bad = sb[:m].clone()
+            one_bad[m // 2, 5] ^= 0x20
+            for case, (s_t, expect) in enumerate(((sb[:m], True),
+                                                  (one_bad, False))):
+                args = (tab, ok, idx[:m], rb[:m], s_t, blocks[:m],
+                        active[:m], z)
+                k = bool(rlc.verify_batch_rlc_gather(*args))
+                mism["ed25519_rlc_gather"] += k != expect
+                if case == j % 2:
+                    mism["ed25519_rlc_gather"] += \
+                        k != bool(rlc._rlc_plain(*args))
+    return {"tables": tables, "per_lane": per_lane, "verdicts": verdicts,
+            "mismatches": mism}
+
+
+def phase_statesync(pool, keys, dev):
+    """Phase 16: statesync on the card, in a process of its own
+    (:func:`phase_fresh`), all nodes in it on one event loop.
+
+    (a) ``networks/ci.toml``'s 4 validators over loopback TCP (homes,
+        RPC servers, the JAX package's test timeouts) from a genesis
+        whose ``app_state`` holds ``SS_BALLAST_KEYS`` keys (at least
+        ``SS_BALLAST_CHUNKS`` chunks of snapshot): a fresh ``Node`` with
+        ``state_sync_provider=StateProvider(Client(..., RPCProvider))``,
+        its trusted header taken from validator01's RPC, restores a
+        snapshot and follows consensus ``SS_A_FOLLOW`` heights; no
+        fallback to genesis (``block_store.base() > 1``), the restored
+        keys over ``abci_query``, equal block hashes, the
+        ``consensus_timeline`` and ``dump_incidents`` routes in the JAX
+        package's shape, ``/status`` with the doctor's report; then
+        inspect mode over validator01's home serves ``status``,
+        ``block`` and ``validators`` as the live node did;
+    (b) ``SS_VALS`` validators (BASELINE configs[3]'s width, keys of the
+        pool): a source node (no consensus started) whose
+        ``KVStoreApplication`` on the card gets ``SS_KEYS`` keys through
+        genesis and makes ``SS_HEIGHTS`` heights with the port's
+        ``BlockExecutor`` (each commit signed in the pool, each app hash
+        a ``merkle_tree_leaves`` call); its first ``list_snapshots``
+        (every retained height serialized) timed; its snapshots above
+        ``SS_HEIGHTS - SS_BLOCKSYNC`` dropped (the static chain has no
+        headers above its tip to prove them); a fresh node restores
+        the newest one over a secret connection (its light client
+        walking from height 2 on the card, about 1,000 chunks, the app
+        hash over every key by ``merkle_tree_leaves``), blocksyncs to the
+        tip and must hold the source's blocks and app hash.
+
+    The counters are zeroed just before (a) and read just after (b):
+    K5a, K6a and ``merkle_tree_leaves`` must launch, no plain version and
+    no ``OFF_PATH`` kernel; the oracle's calls must be 0.  Every launch's
+    shape is recorded (:func:`launch_shapes`), and each kernel is then
+    held against its plain version at every shape the path ran."""
+    import asyncio
+    import tempfile
+
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    from cometbft_tpu_torch.light import Client, RPCProvider, TrustOptions
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.rpc import HTTPClient
+    from cometbft_tpu_torch.rpc.inspect import run_inspect
+    from cometbft_tpu_torch.statesync import StateProvider
+    from cometbft_tpu_torch.storage import State
+    from cometbft_tpu_torch.types.block_id import BlockID
+    from cometbft_tpu_torch.types.commit import (BLOCK_ID_FLAG_COMMIT,
+                                                 Commit, CommitSig,
+                                                 ExtendedCommit,
+                                                 ExtendedCommitSig)
+    from cometbft_tpu_torch.types.genesis import (GenesisDoc,
+                                                  GenesisValidator)
+
+    loop = asyncio.new_event_loop()
+    run = loop.run_until_complete
+    out: dict = {}
+    keep: dict = {}
+
+    async def wait_for(cond, what):
+        t0 = time.perf_counter()
+        while not cond():
+            if time.perf_counter() - t0 > SS_TIMEOUT_S:
+                raise AssertionError(f"phase 16: timed out waiting for "
+                                     f"{what}")
+            await asyncio.sleep(0.01)
+
+    async def statesyncer(doc, name, rpc_addr, trust_h, trust_hash, **kw):
+        light = Client(CHAIN_ID, TrustOptions(TRUSTING_PERIOD_NS, trust_h,
+                                              trust_hash),
+                       RPCProvider(*rpc_addr, "primary"), device=dev)
+        # a discovery round long enough for the dials and the first
+        # offers (the serving apps pack their snapshots then)
+        return await _nd_node(doc, None, name, dev,
+                              rpc_laddr="tcp://127.0.0.1:0",
+                              discovery_s=2.0,
+                              state_sync_provider=StateProvider(light, doc),
+                              **kw)
+
+    def part_a(tmp):
+        doc, pvs = _nd_genesis(ND_CI_POWERS, b"ss-ci")
+        doc.app_state = _ss_app_state(SS_BALLAST_KEYS, 1601)
+        homes = [os.path.join(tmp, f"validator0{i + 1}") for i in range(4)]
+        nodes = [run(_nd_node(doc, pv, f"validator0{i + 1}", dev,
+                              home=homes[i], rpc_laddr="tcp://127.0.0.1:0"))
+                 for i, pv in enumerate(pvs)]
+        from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+
+        fapp = KVStoreApplication(device=dev)
+        fresh, walls = None, []
+        try:
+            for n in nodes:
+                run(n.start(consensus=False))
+            run(_nd_mesh(nodes, walls))
+            for n in nodes:
+                run(n.start_consensus())
+            for i in range(ND_TXS):
+                run(nodes[0].mempool.check_tx(b"ss%d=tx%d" % (i, i)))
+            run(wait_for(lambda: min(n.height() for n in nodes) >= 4,
+                         "(a)'s height 4"))
+            lb2 = run(RPCProvider(*nodes[0].rpc_addr).light_block(2))
+            fresh = run(statesyncer(doc, "fresh", nodes[0].rpc_addr, 2,
+                                    lb2.header.hash(), app=fapp))
+            fresh.config.instrumentation.tracing = True
+            stamps = _Stamps(fresh, fapp)
+            t0 = time.perf_counter()
+            run(fresh.start())
+            run(_nd_dial(fresh, nodes, walls))
+            run(asyncio.wait_for(fresh.statesync_done, SS_TIMEOUT_S))
+            t_done = time.perf_counter()
+            restored_s = t_done - t0
+            snap_h = fresh.block_store.base()
+            if fresh.statesync_error is not None or snap_h <= 1:
+                raise AssertionError(f"phase 16 (a): no restore (base "
+                                     f"{snap_h}, {fresh.statesync_error})")
+            top = max(n.height() for n in nodes) + SS_A_FOLLOW
+            everyone = nodes + [fresh]
+            run(wait_for(lambda: min(n.height() for n in everyone) >= top,
+                         f"(a)'s height {top}"))
+            follow_s = time.perf_counter() - t0 - restored_s
+            cli = HTTPClient(*fresh.rpc_addr)
+            q = run(cli.call("abci_query", path="/key",
+                             data=(b"%016x" % 7).hex()))
+            txq = run(cli.call("abci_query", path="/key",
+                               data=b"ss0".hex()))
+            tl = run(cli.call("consensus_timeline", n=4))
+            inc = run(cli.call("dump_incidents"))
+            st = run(cli.call("status"))
+            vcli = HTTPClient(*nodes[0].rpc_addr)
+            live = {r: run(vcli.call(r, height=top))
+                    for r in ("block", "validators")}
+            vst = run(vcli.call("status"))
+            vinc = run(vcli.call("dump_incidents"))
+            tallies = dict(fresh.syncer.tallies)
+        finally:
+            for n in nodes + ([fresh] if fresh else []):
+                run(n.stop())
+        _nd_agree(nodes, top, "16 (a)")
+        for h in range(snap_h + 1, top + 1):
+            if fresh.block_store.load_block(h).hash() != \
+                    nodes[0].block_store.load_block(h).hash():
+                raise AssertionError(f"phase 16 (a): the restored node's "
+                                     f"block {h} differs")
+        want_val = json.loads(doc.app_state)["%016x" % 7].encode()
+        shape_ok = (
+            set(tl) == {"enabled", "buffered", "phases", "buckets",
+                        "waterfalls"}
+            and tl["phases"] == ["propose", "gossip", "prevote",
+                                 "precommit", "commit"]
+            and tl["buckets"] == ["gossip_wait", "verify", "app", "wal",
+                                  "idle"]
+            and tl["waterfalls"]
+            and set(tl["waterfalls"][0]) == {
+                "node", "height", "rounds", "complete", "catchup",
+                "wall0_ns", "total_s", "phases", "marks", "buckets"}
+            and set(inc) == set(vinc) == {"enabled", "incident_dir",
+                                          "trips", "incidents"}
+            and vinc["enabled"] and vinc["incidents"] == [])
+        if bytes.fromhex(q["response"]["value"]) != want_val or \
+                bytes.fromhex(txq["response"]["value"]) != b"tx0" or \
+                not shape_ok or st["doctor"] is None or \
+                not st["doctor"]["ok"] or not vst["doctor"]["ok"]:
+            raise AssertionError(f"phase 16 (a): restored keys, timeline "
+                                 f"{sorted(tl)}, incidents {inc}, doctor "
+                                 f"{st['doctor']}")
+        icfg = nodes[0].config
+
+        async def inspect():
+            server, addr = await run_inspect(homes[0], icfg, doc)
+            try:
+                ic = HTTPClient(*addr)
+                return {"status": await ic.call("status"),
+                        **{r: await ic.call(r, height=top)
+                           for r in ("block", "validators")}}
+            finally:
+                await server.close()
+                server.env.node.close()
+
+        seen = run(inspect())
+        if seen["block"] != live["block"] or \
+                seen["validators"] != live["validators"] or \
+                seen["status"]["sync_info"]["latest_block_height"] < \
+                vst["sync_info"]["latest_block_height"] or \
+                seen["status"]["node_info"]["network"] != \
+                vst["node_info"]["network"] or \
+                not seen["status"]["doctor"]["ok"]:
+            raise AssertionError("phase 16 (a): inspect mode serves "
+                                 "another chain than the live node")
+        readings = stamps.readings(t0, t_done)
+        chunks = readings["snapshot_chunks"]
+        if chunks is None or chunks < SS_BALLAST_CHUNKS:
+            raise AssertionError(f"phase 16 (a): a snapshot of {chunks} "
+                                 "chunks restored")
+        return {"snapshot_height": snap_h, "top": top,
+                "restored_s": restored_s, "follow_s": follow_s,
+                "chunks": chunks, "tallies": tallies, "readings": readings,
+                "waterfalls": len(tl["waterfalls"]),
+                "doctor": st["doctor"], "inspect": "equal"}
+
+    def part_b():
+        privs = [Ed25519PrivKey(k) for k in keys]
+        pubs = [p.pub_key() for p in privs]
+        key_of = {pk.address(): k for pk, k in zip(pubs, keys)}
+        # block times a second apart ending a minute ago: the light
+        # client's trusting period and clock drift hold them to now
+        t_gen = time.time_ns() - (SS_HEIGHTS + 60) * 10**9
+        doc = GenesisDoc(CHAIN_ID, genesis_time_ns=t_gen, validators=[
+            GenesisValidator(pk, 10) for pk in pubs])
+        t0 = time.perf_counter()
+        doc.app_state = _ss_app_state(SS_KEYS, 1602)
+        doc.validate_and_complete()
+        from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+
+        app = KVStoreApplication(device=dev)
+        src = run(_nd_node(doc, None, "source", dev, app=app,
+                           rpc_laddr="tcp://127.0.0.1:0"))
+        r = {"genesis_s": time.perf_counter() - t0}
+        fresh = None
+        try:
+            ex = src.block_exec
+            state = src.state_store.load()
+            last_ext = ExtendedCommit(0, 0, BlockID(), [])
+            t0 = time.perf_counter()
+            sign_s = 0.0
+            for h in range(1, SS_HEIGHTS + 1):
+                block, parts = run(ex.create_proposal_block(
+                    h, state, last_ext,
+                    state.validators.get_proposer().address,
+                    t_gen + h * 10**9))
+                bid = BlockID(block.hash(), parts.header())
+                commit = Commit(h, 0, bid, [
+                    CommitSig(BLOCK_ID_FLAG_COMMIT, v.address,
+                              block.header.time_ns + 1 + lane, b"")
+                    for lane, v in enumerate(state.validators.validators)])
+                t1 = time.perf_counter()
+                tasks = [(key_of[v.address],
+                          [commit.vote_sign_bytes(CHAIN_ID, lane)])
+                         for lane, v in
+                         enumerate(state.validators.validators)]
+                sigs = pool.map(_sign_all, tasks, chunksize=max(
+                    1, len(tasks) // (4 * os.cpu_count())))
+                for cs, (sig,) in zip(commit.signatures, sigs):
+                    cs.signature = sig
+                sign_s += time.perf_counter() - t1
+                ex.block_store.save_block(block, parts, commit)
+                state = run(ex.apply_block(state, bid, block))
+                last_ext = ExtendedCommit(h, 0, bid, [
+                    ExtendedCommitSig(cs) for cs in commit.signatures])
+            r["source_s"] = time.perf_counter() - t0
+            r["source_sign_s"] = sign_s
+            t0 = time.perf_counter()
+            snaps = run(app.list_snapshots())
+            r["first_list_snapshots_s"] = time.perf_counter() - t0
+            r["retained_heights"] = len(snaps)
+            r["snapshot_mb"] = snaps[-1].chunks * 64 / 1024
+            snap_h = SS_HEIGHTS - SS_BLOCKSYNC
+            for h in [h for h in app.snapshots if h > snap_h]:
+                del app.snapshots[h]
+            run(src.start(consensus=False))
+            lb2 = run(RPCProvider(*src.rpc_addr).light_block(2))
+            fapp = KVStoreApplication(device=dev)
+            fresh = run(statesyncer(doc, "fresh-b", src.rpc_addr, 2,
+                                    lb2.header.hash(), app=fapp))
+            stamps = _Stamps(fresh, fapp)
+            gc0 = gc.get_stats()[2]["collections"]
+
+            async def sync():
+                t_start = time.perf_counter()
+                await fresh.start()
+                await fresh.dial_peer(src.listen_addr, persistent=True)
+                await asyncio.wait_for(fresh.statesync_done, SS_TIMEOUT_S)
+                t_done = time.perf_counter()
+                await asyncio.wait_for(
+                    fresh.blocksync_reactor.synced.wait(), SS_TIMEOUT_S)
+                return t_start, t_done, time.perf_counter()
+
+            times = {}
+
+            def go():
+                times["t"] = run(sync())
+
+            prof = profile_call(go, top=6, warm=lambda: None)
+            t_start, t_done, t_synced = times["t"]
+            r["gc_full_collections"] = gc.get_stats()[2]["collections"] - gc0
+            if fresh.statesync_error is not None or \
+                    fresh.block_store.base() != snap_h:
+                raise AssertionError(f"phase 16 (b): restored at base "
+                                     f"{fresh.block_store.base()}, "
+                                     f"{fresh.statesync_error}")
+            r.update(stamps.readings(t_start, t_done))
+            r["snapshot_height"] = snap_h
+            r["tallies"] = dict(fresh.syncer.tallies)
+            blocks = fresh.height() - snap_h
+            r["blocksync_blocks"] = blocks
+            r["blocksync_s"] = t_synced - t_done
+            r["blocks_per_s"] = blocks / r["blocksync_s"]
+            r["profile"] = prof
+            if fresh.height() < SS_HEIGHTS - 1:
+                raise AssertionError(f"phase 16 (b): blocksync stopped at "
+                                     f"{fresh.height()}")
+            for h in range(snap_h + 1, fresh.height() + 1):
+                if fresh.block_store.load_block(h).hash() != \
+                        src.block_store.load_block(h).hash():
+                    raise AssertionError(f"phase 16 (b): block {h} differs")
+            want = src.state_store.load_finalize_block_response(
+                fresh.height())
+            if fresh.state_store.load_finalize_block_response(
+                    fresh.height()) != want or \
+                    fapp.height != fresh.height() or len(fapp.state) != \
+                    SS_KEYS:
+                raise AssertionError("phase 16 (b): the restored app "
+                                     "differs from the source's")
+            from cometbft_tpu_torch.crypto.merkle import kv_leaf
+
+            keep["leaves_b"] = [kv_leaf(k, fapp.state[k])
+                                for k in sorted(fapp.state)]
+        finally:
+            for n in ([fresh] if fresh else []) + [src]:
+                run(n.stop())
+        return r
+
+    profile_call(_sync, warm=_sync)
+    calls, restore = _oracle_counter()
+    seen: dict = {}
+    t_ph = time.perf_counter()
+
+    def main_path():
+        with tempfile.TemporaryDirectory() as d:
+            out["a"] = part_a(d)
+        out["b"] = part_b()
+        return out
+
+    try:
+        with launch_shapes(seen):
+            launches, _ = _path_launches(main_path, SS_KERNELS)
+    finally:
+        restore()
+    out["main_path_s"] = time.perf_counter() - t_ph
+    out["oracle_calls"] = calls[0]
+    if calls[0]:
+        raise AssertionError(f"phase 16: the host oracle was called "
+                             f"{calls[0]} times on the path")
+    out["shapes"] = {k: sorted(v) for k, v in seen.items()}
+    t0 = time.perf_counter()
+    privs = [Ed25519PrivKey(k) for k in keys]
+    trees = _ss_check_trees(seen.get("merkle_tree_leaves", set()),
+                            keep["leaves_b"], dev)
+    lanes = _ss_check_lanes(seen, privs, dev)
+    out["checks"] = {"trees": trees, "lanes": lanes,
+                     "check_s": time.perf_counter() - t0}
+    bad = {k: m for k, m in lanes["mismatches"].items() if m}
+    if trees["mismatches"]:
+        bad["merkle_tree_leaves"] = trees["mismatches"]
+    if bad:
+        raise AssertionError(f"phase 16: kernels against their plain "
+                             f"versions at the path's shapes: {bad}")
+    loop.close()
+    return launches, out
+
+
+def report_statesync(ss, launches, card) -> None:
+    """Phase 16's lines."""
+    a, b, ck = ss["a"], ss["b"], ss["checks"]
+    print(f"statesync (phase 16): {ss['phase_s']:.1f} s in its process, "
+          f"main path {ss['main_path_s']:.1f} s; launches {launches}; "
+          f"oracle calls on the path {ss['oracle_calls']}")
+    print(f"statesync (a) ci.toml 4 validators, {a['chunks']} chunks: "
+          f"restored at height {a['snapshot_height']} in "
+          f"{a['restored_s']:.2f} s, followed to {a['top']} in "
+          f"{a['follow_s']:.2f} s; tallies {a['tallies']}; timeline "
+          f"waterfalls {a['waterfalls']}; inspect {a['inspect']}  [{card}]")
+    print(f"statesync (b) {SS_VALS} validators, {SS_KEYS} keys: genesis "
+          f"{b['genesis_s']:.1f} s, source {SS_HEIGHTS} heights "
+          f"{b['source_s']:.1f} s (signing {b['source_sign_s']:.1f} s), "
+          f"first list_snapshots of {b['retained_heights']} heights "
+          f"{b['first_list_snapshots_s']:.2f} s; snapshot "
+          f"{b['snapshot_mb']:.1f} MiB  [{card}]")
+    print(f"statesync (b) restore at height {b['snapshot_height']}: "
+          f"{b['restored_s']:.2f} s = discovery {b['discovery_s']:.2f}, "
+          f"light verification {b['light_verify_s']:.2f}, manifest "
+          f"{b['manifest_s']:.2f}, transfer {b['transfer_s']:.2f} s of "
+          f"{b['chunks']} chunks ({b['chunk_mb']:.1f} MiB, "
+          f"{b['mb_per_s']:.1f} MiB/s, {b['chunks_per_s']:.0f} chunks/s), "
+          f"apply {b['apply_s']:.2f}, app hash {b['app_hash_s']:.3f}; "
+          f"tallies {b['tallies']}  [{card}]")
+    print(f"statesync (b) blocksync {b['blocksync_blocks']} blocks in "
+          f"{b['blocksync_s']:.2f} s ({b['blocks_per_s']:.2f} blocks/s); "
+          f"full gc collections {b['gc_full_collections']}; profile wall "
+          f"{b['profile']['wall_ms']:.0f} ms, device "
+          f"{b['profile']['device_ms']} ms (busy "
+          f"{b['profile']['device_busy_share']}), kernels "
+          f"{b['profile']['kernels_ms']}  [{card}]")
+    print(f"statesync shapes {ss['shapes']}")
+    print(f"statesync checks: merkle_tree_leaves {ck['trees']['restored']}"
+          f" (ms: CUDA events, device ms: the profiler, plain: one call);"
+          f" other trees {ck['trees']['shapes']}; K5a tables "
+          f"{ck['lanes']['tables']}, K5b lanes {ck['lanes']['per_lane']}, "
+          f"K6a lanes {ck['lanes']['verdicts']}: mismatches "
+          f"{ck['lanes']['mismatches']} in {ck['check_s']:.1f} s  [{card}]")
 
 
 def op_counts():
@@ -5285,6 +6022,12 @@ def bls_bound(rec, rate_ops):
 
 # --------------------------------------------------------------------- main
 
+# the phases that run in a fresh process of their own (phase_fresh):
+# name -> (phase, keys of its pool)
+CHILD_PHASES = {"rpc": (phase_rpc, BIG_VALS),
+                "statesync": (phase_statesync, SS_VALS)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--record", default=None,
@@ -5304,10 +6047,14 @@ def main(argv=None) -> int:
                     "(with --node, also its part (e) in phase 13)")
     ap.add_argument("--rpc", action="store_true",
                     help="run only the build, the kernel sweep and phase 15")
-    ap.add_argument("--rpc-child", metavar="PATH", default=None,
-                    help="run only phase 15, over the kernels built, and "
-                    "write its launches and record as JSON to PATH (how "
-                    "the other runs start phase 15, in a fresh process)")
+    ap.add_argument("--statesync", action="store_true",
+                    help="run only the build, the kernel sweep and phase 16")
+    ap.add_argument("--child", nargs=2, metavar=("NAME", "PATH"),
+                    default=None,
+                    help="run only phase NAME (rpc: 15, statesync: 16), "
+                    "over the kernels built, and write its launches and "
+                    "record as JSON to PATH (how the other runs start "
+                    "those phases, each in a fresh process)")
     args = ap.parse_args(argv)
 
     import torch
@@ -5320,12 +6067,8 @@ def main(argv=None) -> int:
     from cometbft_tpu_torch.ops import _build
 
     dev = torch.device("cuda:0")
-    if args.rpc_child:
-        with multiprocessing.get_context("spawn").Pool(
-                os.cpu_count()) as pool:
-            launches, rp = phase_rpc(pool, pool_keys(pool, BIG_VALS), dev)
-        with open(args.rpc_child, "w") as f:
-            json.dump({"launches": launches, "rp": rp}, f, default=str)
+    if args.child:
+        run_child(*args.child, dev)
         return 0
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"]).splitlines()[0]
@@ -5369,7 +6112,7 @@ def main(argv=None) -> int:
     fx = Fixtures(max(SIZES))
     print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
     if args.blocksync or args.consensus or args.node or args.stress or \
-            args.rpc:
+            args.rpc or args.statesync:
         rec = {k: {"mismatches": 0} for k in _build.KERNELS}
         t0 = time.perf_counter()
         sweep = phase_sweep(fx, dev, rec)
@@ -5380,7 +6123,9 @@ def main(argv=None) -> int:
             raise AssertionError(f"sweep mismatches: {sweep}")
         part = {}
         if args.rpc:
-            rp_launches, rp = phase_rpc_fresh()
+            rp_launches, rp = phase_fresh("rpc")
+        if args.statesync:
+            ss_launches, ss = phase_fresh("statesync")
         if args.blocksync or args.stress:
             ctx = multiprocessing.get_context("spawn")
             with ctx.Pool(os.cpu_count()) as pool:
@@ -5412,6 +6157,9 @@ def main(argv=None) -> int:
         if args.rpc:
             report_rpc(rp, rp_launches, card)
             part["rpc"] = rp
+        if args.statesync:
+            report_statesync(ss, ss_launches, card)
+            part["statesync"] = ss
         if args.record:
             os.makedirs(os.path.dirname(os.path.abspath(args.record)),
                         exist_ok=True)
@@ -5498,7 +6246,7 @@ def main(argv=None) -> int:
     for k, v in lat.items():
         print(f"p50 {k}: {v:.2f} ms  [{card}]")
 
-    tp = phase_throughput(sets, dev, LANES, REPS // 4)
+    tp = phase_throughput(sets, dev, LANES, REPS)
     print(f"throughput {tp['lanes']} lanes [{card}]: RLC kernel "
           f"{tp['rlc_sig_per_s']:.0f} sig/s ({tp['rlc_ms']:.2f} ms), "
           f"per-lane kernel {tp['per_lane_sig_per_s']:.0f} sig/s "
@@ -5569,7 +6317,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         st_launches, st = phase_stress(pool, dev)
         st["phase_s"] = time.perf_counter() - t0
-    rp_launches, rp = phase_rpc_fresh()
+    rp_launches, rp = phase_fresh("rpc")
+    ss_launches, ss = phase_fresh("statesync")
     report_blocksync(bs, bs_launches, card)
     t0 = time.perf_counter()
     cs_launches, cs = phase_consensus(dev)
@@ -5581,6 +6330,7 @@ def main(argv=None) -> int:
     report_node(nd, nd_launches, card)
     report_stress(st, st_launches, card, nd)
     report_rpc(rp, rp_launches, card)
+    report_statesync(ss, ss_launches, card)
     print(f"light client (phase 10): fixtures {lc['fixture_s']}, first "
           f"calls {lc['first_call_s']} s, phase {lc['phase_s']:.1f} s; "
           f"launches {lc_launches}")
@@ -5653,7 +6403,8 @@ def main(argv=None) -> int:
              f"mesh{MESH_SHARDS}": mesh_launches,
              "light_client": lc_launches, "blocksync": bs_launches,
              "consensus": cs_launches, "node": nd_launches,
-             "stress": st_launches, "rpc": rp_launches}
+             "stress": st_launches, "rpc": rp_launches,
+             "statesync": ss_launches}
 
     c = op_counts()
     print(f"field multiplications per group op: {c}")
@@ -5671,6 +6422,14 @@ def main(argv=None) -> int:
     print(f"bound K7 sharded verdict: {bd_mesh['rlc_sharded'][2]:.3e} int "
           f"ops, {bd_mesh['rlc_sharded'][3]} bytes -> {mv['bound_ms']:.4f} "
           f"ms ({mv['bound_by']})")
+    k8_ss = ss["checks"]["trees"]["restored"]
+    bd_ss = merkle_bounds({**rec, "merkle_tree_leaves": {
+        "bound_inputs": k8_ss["bound_inputs"]}}, rate_ops)
+    print(f"bound merkle_tree_leaves at {k8_ss['leaves']} leaves "
+          f"(statesync): {bd_ss['merkle_tree_leaves'][2]:.3e} int ops, "
+          f"{bd_ss['merkle_tree_leaves'][3]} bytes -> "
+          f"{bd_ss['merkle_tree_leaves'][0]:.4f} ms "
+          f"({bd_ss['merkle_tree_leaves'][1]})")
     kernels = []
     for k, r in rec.items():
         bound_ms, by, ops, nbytes = bd[k]
@@ -5701,6 +6460,13 @@ def main(argv=None) -> int:
                 "card_device_ms": r["card_device_ms"],
                 "card_bound_ms": bd_mesh["sums_card"][0]}
                if k == "ed25519_rlc_sums" else {}),
+            **({"shape_statesync": f"n={k8_ss['leaves']} one-block "
+                                   "leaves (phase 16 (b))",
+                "ms_statesync": k8_ss["ms"],
+                "device_ms_statesync": k8_ss["device_ms"],
+                "plain_ms_statesync": k8_ss["plain_ms"],
+                "bound_ms_statesync": bd_ss[k][0]}
+               if k == "merkle_tree_leaves" else {}),
             **({"ptxas": {n: usage.get(n) for n in ENTRY_KERNELS[k]}}
                if k in ENTRY_KERNELS else {})})
     if args.record:
@@ -5713,7 +6479,8 @@ def main(argv=None) -> int:
                        "light150": l150, "light10k": l10k, "bls": bls,
                        "light_client": lc, "blocksync": bs,
                        "consensus": cs, "node": nd, "stress": st,
-                       "rpc": rp, "mesh": mesh, "build_log": _build.build_log(),
+                       "rpc": rp, "statesync": ss, "mesh": mesh,
+                       "build_log": _build.build_log(),
                        "ptxas": usage}, f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))

@@ -103,6 +103,13 @@ class BlocksyncReactor(Reactor):
             asyncio.create_task(self._apply_routine()),
             asyncio.create_task(self._status_routine()),
         ]
+        if self.switch is not None:
+            # peers that connected while statesync held us sent their
+            # ranges to a pool that did not exist yet: ask again, as the
+            # reference's pool routine does when it starts
+            # (BroadcastStatusRequest); the JAX package's reactor does
+            # not, and its restored node learns no peer height
+            self.switch.broadcast(BLOCKSYNC_CHANNEL, _pack("sreq"))
 
     async def stop(self) -> None:
         for t in self._tasks:

@@ -12,10 +12,12 @@ default.
 - The JAX package's fields that steer only its TPU host fallback or its
   compile cache (``min_device_lanes``, ``device_wait_s``,
   ``device_warmup``, ``compile_bundle_*``) have no counterpart; the
-  sections and fields of modules the port has not yet (statesync, the
-  fault plane, pex, fuzzing, the storage doctor, the liveness watchdog,
-  gRPC, tracing's incident bundles) come with those modules, and TOML
-  load and save with ``cmd/``.
+  sections and fields of modules the port has not yet (the fault plane,
+  pex, fuzzing, gRPC) come with those modules, and TOML load and save
+  with ``cmd/``.
+- :meth:`Config.validate` holds the fields of ``StateSyncConfig``, the
+  storage doctor's and the liveness watchdog's to the JAX package's
+  bounds (``config.go`` ValidateBasic), raising :class:`ConfigError`.
 - ``RPCConfig.laddr`` is ``tcp://127.0.0.1:26657`` as in the JAX
   package: a node started with it listens there; in-process networks
   give each node ``tcp://127.0.0.1:0`` (a free port) or ``""`` (no RPC
@@ -28,8 +30,9 @@ from dataclasses import dataclass, field
 
 __all__ = ["NS", "MS", "ConsensusConfig", "test_consensus_config",
            "BaseConfig", "MempoolConfig", "P2PConfig", "RPCConfig",
-           "BlockSyncConfig", "LightServeConfig", "StorageConfig",
-           "TxIndexConfig", "InstrumentationConfig", "Config"]
+           "BlockSyncConfig", "StateSyncConfig", "LightServeConfig",
+           "StorageConfig", "TxIndexConfig", "InstrumentationConfig",
+           "Config", "ConfigError"]
 
 NS = 1_000_000_000
 MS = 1_000_000
@@ -156,6 +159,33 @@ class BlockSyncConfig:
 
 
 @dataclass
+class StateSyncConfig:
+    enable: bool = False
+    trust_height: int = 0
+    trust_hash: str = ""
+    trust_period: int = 168 * 3600 * NS
+    rpc_servers: list[str] = field(default_factory=list)
+    # fetch discipline (statesync/syncer.py): a chunk request with no
+    # progress for this long fails the restore attempt (re-issued to
+    # another peer after half of it); outstanding requests per serving
+    # peer; one discovery broadcast's offer window and the
+    # discover-pick-restore rounds; a chunk's refetch budget; the byte
+    # budget of retained spool blobs (what a retried restore resumes
+    # from)
+    chunk_timeout_s: float = 10.0
+    max_inflight_per_peer: int = 4
+    discovery_time_s: float = 0.5
+    discovery_rounds: int = 5
+    chunk_retries: int = 3
+    spool_retain_bytes: int = 64 * 1024 * 1024
+    # serving side (statesync/reactor.py): the served-chunk LRU's byte
+    # budget, and the admission gate's concurrent loads and queue
+    chunk_cache_bytes: int = 64 * 1024 * 1024
+    serve_concurrency: int = 8
+    serve_queue: int = 64
+
+
+@dataclass
 class LightServeConfig:
     """Light-client serving tier (light/serve.py): bounds of its caches
     and of one request's work."""
@@ -180,6 +210,11 @@ class LightServeConfig:
 @dataclass
 class StorageConfig:
     db_backend: str = "logdb"         # logdb | native | memdb
+    # the storage doctor (node/doctor.py): the boot-time cross-store
+    # check with repair, and the heights its deep hash-chain scan walks
+    # back from the tip (0: the whole store)
+    doctor_enable: bool = True
+    doctor_deep_scan_window: int = 128
 
 
 @dataclass
@@ -199,6 +234,17 @@ class InstrumentationConfig:
     # flight-recorder tracing (libs/tracing): off by default
     tracing: bool = False
     tracing_ring_size: int = 8192
+    # the liveness watchdog (node/watchdog.py): a step, commit or peer
+    # silence longer than the threshold writes an incident bundle (0
+    # disables); how often it looks, the least time between two bundles,
+    # the bundles kept, their directory (relative to the home) and the
+    # WAL records each carries
+    watchdog_stall_threshold_s: float = 60.0
+    watchdog_check_interval_s: float = 5.0
+    watchdog_min_interval_s: float = 300.0
+    watchdog_max_bundles: int = 16
+    watchdog_incident_dir: str = "data/incidents"
+    watchdog_wal_tail: int = 200
 
 
 @dataclass
@@ -206,6 +252,9 @@ class BaseConfig:
     # where the node checks signatures: "cuda" (or a CUDA device),
     # "cpu" for the kernels' plain versions
     device: str = "cuda"
+    # the file signer's last-sign state under the home (read by the
+    # storage doctor in inspect mode)
+    priv_validator_state_file: str = "data/priv_validator_state.json"
     # the coalescing vote-verification scheduler (crypto/scheduler.py),
     # which the port's node always runs: it holds the node's device
     vote_sched_max_wait_ms: float = 2.0
@@ -222,8 +271,61 @@ class Config:
     p2p: P2PConfig = field(default_factory=P2PConfig)
     rpc: RPCConfig = field(default_factory=RPCConfig)
     blocksync: BlockSyncConfig = field(default_factory=BlockSyncConfig)
+    statesync: StateSyncConfig = field(default_factory=StateSyncConfig)
     lightserve: LightServeConfig = field(default_factory=LightServeConfig)
     storage: StorageConfig = field(default_factory=StorageConfig)
     tx_index: TxIndexConfig = field(default_factory=TxIndexConfig)
     instrumentation: InstrumentationConfig = field(
         default_factory=InstrumentationConfig)
+
+    def validate(self) -> None:
+        """The statesync, storage-doctor and liveness-watchdog bounds of
+        the JAX package's ``Config.validate``."""
+        inst = self.instrumentation
+        if inst.watchdog_stall_threshold_s < 0:
+            raise ConfigError(
+                "instrumentation.watchdog_stall_threshold_s must be >= 0")
+        if inst.watchdog_stall_threshold_s > 0:
+            if inst.watchdog_check_interval_s <= 0:
+                raise ConfigError(
+                    "instrumentation.watchdog_check_interval_s must be "
+                    "positive when the watchdog is enabled")
+            if inst.watchdog_min_interval_s < 0:
+                raise ConfigError(
+                    "instrumentation.watchdog_min_interval_s must be >= 0")
+            if inst.watchdog_max_bundles < 1:
+                raise ConfigError(
+                    "instrumentation.watchdog_max_bundles must be >= 1")
+            if inst.watchdog_wal_tail < 0:
+                raise ConfigError(
+                    "instrumentation.watchdog_wal_tail must be >= 0")
+        if self.storage.doctor_deep_scan_window < 0:
+            raise ConfigError(
+                "storage.doctor_deep_scan_window must be >= 0")
+        ss = self.statesync
+        if ss.chunk_timeout_s <= 0:
+            raise ConfigError("statesync.chunk_timeout_s must be positive")
+        if not 1 <= ss.max_inflight_per_peer <= 64:
+            raise ConfigError(
+                "statesync.max_inflight_per_peer must be in [1, 64]")
+        if ss.discovery_time_s <= 0:
+            raise ConfigError(
+                "statesync.discovery_time_s must be positive")
+        if not 1 <= ss.discovery_rounds <= 100:
+            raise ConfigError(
+                "statesync.discovery_rounds must be in [1, 100]")
+        if not 0 <= ss.chunk_retries <= 100:
+            raise ConfigError(
+                "statesync.chunk_retries must be in [0, 100]")
+        if ss.spool_retain_bytes < 0 or ss.chunk_cache_bytes < 0:
+            raise ConfigError(
+                "statesync byte budgets must be >= 0")
+        if ss.serve_concurrency < 1:
+            raise ConfigError(
+                "statesync.serve_concurrency must be >= 1")
+        if ss.serve_queue < 0:
+            raise ConfigError("statesync.serve_queue must be >= 0")
+
+
+class ConfigError(Exception):
+    pass

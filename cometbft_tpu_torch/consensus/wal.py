@@ -13,9 +13,9 @@ height so replay starts after the last one.
 The log rotates into fixed-size segments (``<path>``, ``<path>.001``,
 ...); segments wholly behind the previous EndHeight sentinel are pruned.
 A torn tail is truncated on open, and reading stops at the first corrupt
-record.  The node's WAL tooling (``iter_wal_records_readonly``,
-``last_end_height``, ``quarantine_wal``) comes with the networked
-node."""
+record.  The read-only tooling (``iter_wal_records_readonly``,
+``last_end_height``) and ``quarantine_wal`` serve the storage doctor,
+the liveness watchdog's WAL tail and inspect mode."""
 
 from __future__ import annotations
 
@@ -97,6 +97,65 @@ def _iter_segment_file(path: str):
         yield _msgpack.unpackb(raw[off + _HDR.size:end])
         off = end
     yield True
+
+
+def iter_wal_records_readonly(path: str):
+    """Strictly read-only record stream across segments for tooling
+    (scripts/wal2json): no truncation, no append handle, no fsync, no
+    directory creation.  Raises WALError if the WAL does not exist;
+    raises WALError at a corrupt record (after yielding everything intact
+    before it) so callers can report instead of silently stopping."""
+    segs = wal_segments(path)
+    if not segs:
+        raise WALError(f"no WAL at {path}")
+    for seg in segs:
+        clean = False
+        for item in _iter_segment_file(seg):
+            if isinstance(item, bool):
+                clean = item
+                break
+            yield item
+        if not clean:
+            raise WALError(f"corrupt record in {seg}; later segments "
+                           f"not decoded")
+
+
+def last_end_height(path: str) -> int | None:
+    """Read-only: the last EndHeight sentinel across all segments (the
+    storage doctor's WAL-lineage anchor).  Stops at the first corruption
+    like replay does — records past a corrupt span are unreachable by
+    any replay, so their sentinels must not anchor anything."""
+    last = None
+    for seg in wal_segments(path):
+        clean = False
+        for item in _iter_segment_file(seg):
+            if isinstance(item, bool):
+                clean = item
+                break
+            if item.get("#") == "endheight":
+                last = item["h"]
+        if not clean:
+            break
+    return last
+
+
+def quarantine_wal(path: str) -> list[str]:
+    """Move every WAL segment aside (``<seg>.quarantine``), returning
+    the new paths.  Used by the storage doctor when the WAL's lineage
+    runs AHEAD of the (repaired) stores: replaying records for heights
+    the stores no longer hold would feed consensus a stream from a
+    discarded timeline.  Double-sign safety does not depend on the WAL —
+    the privval last-sign-state survives untouched."""
+    moved = []
+    for seg in wal_segments(path):
+        dst = seg + ".quarantine"
+        i = 0
+        while os.path.exists(dst):
+            i += 1
+            dst = f"{seg}.quarantine.{i}"
+        os.replace(seg, dst)
+        moved.append(dst)
+    return moved
 
 
 class WAL:

@@ -74,8 +74,8 @@ from . import plan as _plan
 __all__ = ["cache_key", "VerifiedSigCache", "VerificationScheduler",
            "get_scheduler", "set_scheduler", "acquire_scheduler",
            "release_scheduler", "cache_active", "dense_cache_active",
-           "verify_cached", "verify_uncached", "cache_lookup",
-           "cache_seed"]
+           "verify_cached", "verify_cached_all", "verify_uncached",
+           "cache_lookup", "cache_seed"]
 
 
 def _sched_metrics():
@@ -402,22 +402,41 @@ class VerificationScheduler(BaseService):
         (``VoteSet._verify`` inside the consensus handler): a cache hit,
         or one lane on the device, waited for; a positive verdict seeds
         the cache."""
-        key = cache_key(pub.bytes(), msg, sig)
+        return self.verify_sync_all([(pub, msg, sig)], source)
+
+    def verify_sync_all(self, items, source: str = "sync") -> bool:
+        """:meth:`verify_sync` of ``(pub, msg, sig)`` items that stand or
+        fall together (a precommit and its extension): True when every
+        one is a cache hit or passes, the misses checked in one device
+        call on the device-owner thread (counted once under ``sync``),
+        each passing lane seeding the cache.  A lane count costs the
+        plain versions no more than one lane, so a signed extension adds
+        no check."""
         bound = self._bound.get(source)
         if bound is None:
             bound = (self._m[3].bind(source=source),
                      self._m[4].bind(source=source))
             self._bound[source] = bound
-        if self.cache.hit(key):
-            bound[0].inc()
-            self._t_hits += 1
+        misses = []
+        for pub, msg, sig in items:
+            key = cache_key(pub.bytes(), msg, sig)
+            if self.cache.hit(key):
+                bound[0].inc()
+                self._t_hits += 1
+            else:
+                bound[1].inc()
+                self._t_misses += 1
+                misses.append((key, (pub, msg, sig)))
+        if not misses:
             return True
-        bound[1].inc()
-        self._t_misses += 1
-        ok = self._check_one(pub, msg, sig, "sync")
-        if ok:
-            self.cache.seed(key)
-        return ok
+        with self._t_lock:
+            self._t_single["sync"] += 1
+        lanes = [item for _, item in misses]
+        oks = cryptobatch.device_call(lambda: self._check_lanes(lanes))
+        for (key, _), ok in zip(misses, oks):
+            if ok:
+                self.cache.seed(key)
+        return all(oks)
 
     def verify_fresh(self, pub, msg: bytes, sig: bytes) -> bool:
         """One lane on the device that neither reads nor seeds the cache
@@ -628,7 +647,14 @@ def verify_cached(pub, msg: bytes, sig: bytes,
     (``VoteSet._verify``): a cache hit, else one lane on the
     scheduler's device, seeding the cache.  Raises ``RuntimeError`` with
     no scheduler registered."""
-    return _registered().verify_sync(pub, msg, sig, source=source)
+    return verify_cached_all([(pub, msg, sig)], source)
+
+
+def verify_cached_all(items, source: str = "votes") -> bool:
+    """:func:`verify_cached` of items that stand or fall together, the
+    misses in one device call.  Raises ``RuntimeError`` with no scheduler
+    registered."""
+    return _registered().verify_sync_all(items, source=source)
 
 
 def verify_uncached(pub, msg: bytes, sig: bytes) -> bool:

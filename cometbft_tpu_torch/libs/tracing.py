@@ -5,7 +5,8 @@ in-memory ring buffer.
 Every subsystem on the commit path emits spans (an interval: a consensus
 step, a scheduler dispatch) and events (a point: a WAL fsync, a
 micro-batch flush) into one process-wide ring; :func:`dump` returns it
-as JSON-able dicts, filtered by subsystem or height.
+as JSON-able dicts, filtered by subsystem or height, and
+:func:`snapshot` as raw tuples for ``libs/timeline``.
 
 - **Disabled means free.**  Tracing is off until :func:`configure`
   turns it on.  ``event()`` returns on its first instruction;
@@ -170,6 +171,12 @@ def _rec_matches_height(attrs: dict, height: int) -> bool:
     return False
 
 
+def snapshot() -> list[tuple]:
+    """The raw ring as a list (newest last): the input of
+    ``libs/timeline``; each element is the record tuple above."""
+    return list(_RING)
+
+
 def dump(limit: int = 1000, sub: str | None = None,
          height: int | None = None) -> list[dict]:
     """The newest ``limit`` COMPLETED records (``limit <= 0``: the whole
@@ -188,7 +195,6 @@ def dump(limit: int = 1000, sub: str | None = None,
     if limit and int(limit) > 0:
         recs = recs[-int(limit):]
     return [_to_dict(r) for r in recs]
-
 
 
 def stats() -> dict:

@@ -22,14 +22,26 @@ node's device; the loop watchdog (``instrumentation.
 loop_stall_threshold_s``) gives the RPC's overload shedding its lag; and
 ``instrumentation.prometheus`` adds a metrics listener of its own.
 
+Every node serves snapshots (``statesync/reactor.py``, channels 0x60
+and 0x61, as the JAX node advertises them); a node created with
+``state_sync_provider`` (a ``statesync.StateProvider`` over a light
+client) and an empty block store skips the app handshake, restores a
+snapshot from its peers (``statesync/syncer.py``), bootstraps its
+stores at the snapshot height and hands off to blocksync
+(:meth:`_run_statesync`).  With ``storage.doctor_enable`` the storage
+doctor (``node/doctor.py``) checks the stores at :meth:`create`, before
+the WAL opens, and ``/status`` serves its report; with
+``instrumentation.watchdog_stall_threshold_s`` and a home, the liveness
+watchdog (``node/watchdog.py``) writes incident bundles that
+``/dump_incidents`` lists.
+
 Not here yet, each with its module (``ROADMAP.md`` queue 1): gRPC, the
-liveness watchdog, statesync, the storage doctor (``doctor_report`` and
-``compile_bundle_info`` stay None, as on a JAX node without them), the
 SQL event sink, pex with the address book and seed mode, connection
 fuzzing and the fault plane's config wiring; the AOT warmup has no
-counterpart (the port's kernels build at first use).  The app is
-in-process (``local_client_creator``); the socket and gRPC apps come
-with ``abci/server.py``.
+counterpart (``compile_bundle_info`` stays None: the port's kernels
+build at first use).  The app is in-process
+(``local_client_creator``); the socket and gRPC apps come with
+``abci/server.py``.
 """
 
 from __future__ import annotations
@@ -61,10 +73,13 @@ from ..proxy.multi_app_conn import AppConns, local_client_creator
 from ..rpc import RPCServer
 from ..sm.execution import BlockExecutor
 from ..sm.pruner import Pruner
+from ..statesync import StatesyncReactor, Syncer
 from ..storage import BlockStore, MemDB, State, StateStore, open_db
 from ..storage.db import DataDirLock
 from ..types.genesis import GenesisDoc
 from ..types.priv_validator import PrivValidator
+from .doctor import StorageDoctor
+from .watchdog import LivenessWatchdog, resolve_incident_dir
 
 __all__ = ["Node"]
 
@@ -128,7 +143,12 @@ class Node:
         self.rpc_addr: tuple[str, int] | None = None
         self.prometheus_server = None
         self.loop_watchdog: LoopWatchdog | None = None
-        self.doctor_report = None              # no storage doctor yet
+        self.liveness_watchdog: LivenessWatchdog | None = None
+        self.statesync_reactor: StatesyncReactor | None = None
+        self.syncer: Syncer | None = None
+        self.statesync_done: asyncio.Task | None = None
+        self.statesync_error: BaseException | None = None
+        self.doctor_report = None
         self.compile_bundle_info = None        # kernels build at first use
         self.fast_sync = False
         self.node_key: NodeKey | None = None
@@ -153,12 +173,14 @@ class Node:
                      node_key: NodeKey | None = None,
                      home: str | None = None,
                      fast_sync: bool = False,
+                     state_sync_provider=None,
                      name: str = "node") -> "Node":
         """Build a node of ``app`` (in process) on ``config.base.device``
         (raising without a card unless it is ``"cpu"``).  With ``home``
         the stores are ``config.storage.db_backend`` files and the WAL a
         file under ``home/data``, whose lock the node holds until
-        :meth:`stop`; without, everything is in memory."""
+        :meth:`stop`; without, everything is in memory.  The storage
+        doctor's refusal (``doctor.DoctorError``) raises here."""
         if app is None:
             raise ValueError("no application: the port runs an in-process "
                              "app (socket and gRPC apps come with "
@@ -166,21 +188,22 @@ class Node:
         self = cls()
         self.name = name
         self.home = home
-        self.fast_sync = fast_sync
+        self.fast_sync = fast_sync or state_sync_provider is not None
         cfg = config or Config(consensus=test_consensus_config())
         self.config = cfg
         self.genesis = genesis_doc
         self.device = cfg.base.device
         _plan.resolve_devices(self.device)       # raises without a card
         try:
-            await self._build(genesis_doc, app, priv_validator, node_key)
+            await self._build(genesis_doc, app, priv_validator, node_key,
+                              state_sync_provider)
         except BaseException:
             await self._close_resources()
             raise
         return self
 
-    async def _build(self, genesis_doc, app, priv_validator,
-                     node_key) -> None:
+    async def _build(self, genesis_doc, app, priv_validator, node_key,
+                     state_sync_provider) -> None:
         cfg, home, name, device = self.config, self.home, self.name, \
             self.device
 
@@ -190,12 +213,22 @@ class Node:
             self._dbs.append(db)
             return db
 
+        wal_path = None
         if home is not None:
             # refuse to double-open a home
             self._data_lock = DataDirLock(os.path.join(home, "data"))
-            self.wal = WAL(os.path.join(home, "data", "cs.wal"))
+            wal_path = os.path.join(home, "data", "cs.wal")
         self.block_store = BlockStore(make_db("blockstore.db"))
         self.state_store = StateStore(make_db("state.db"))
+        if cfg.storage.doctor_enable:
+            # before the WAL opens: a repair may quarantine its segments
+            self.doctor_report = StorageDoctor(
+                self.block_store, self.state_store, wal_path=wal_path,
+                priv_validator=priv_validator,
+                deep_scan_window=cfg.storage.doctor_deep_scan_window,
+                name=name).boot_check(repair=True)
+        if wal_path is not None:
+            self.wal = WAL(wal_path)
         state = self.state_store.load() or State.from_genesis(genesis_doc)
 
         self.app_conns = AppConns(local_client_creator(app), node=name)
@@ -219,9 +252,14 @@ class Node:
             self.state_store, self.block_store, self.app_conns.consensus,
             self.mempool, evidence_pool=self.evidence_pool,
             event_bus=self.event_bus, device=device, pruner=self.pruner)
-        state = await Handshaker(
-            self.state_store, self.block_store, genesis_doc).handshake(
-            state, self.app_conns, self.block_exec)
+        state_syncing = (state_sync_provider is not None
+                         and self.block_store.height() == 0)
+        if not state_syncing:
+            # a state-syncing app gets its state from the snapshot, not
+            # InitChain or replay
+            state = await Handshaker(
+                self.state_store, self.block_store, genesis_doc).handshake(
+                state, self.app_conns, self.block_exec)
 
         self.consensus = ConsensusState(
             cfg.consensus, state, self.block_exec, self.block_store,
@@ -245,6 +283,24 @@ class Node:
         if self.fast_sync:
             self.consensus_reactor.wait_sync = True
         self.evidence_reactor = EvidenceReactor(self.evidence_pool)
+        ss = cfg.statesync
+        self.statesync_reactor = StatesyncReactor(
+            self.app_conns, name=f"{name}.ss",
+            chunk_cache_bytes=ss.chunk_cache_bytes,
+            serve_concurrency=ss.serve_concurrency,
+            serve_queue=ss.serve_queue)
+        if state_syncing:
+            self.syncer = Syncer(
+                self.app_conns, state_sync_provider,
+                reactor=self.statesync_reactor, name=name,
+                chunk_timeout=ss.chunk_timeout_s,
+                max_inflight_per_peer=ss.max_inflight_per_peer,
+                discovery_time=ss.discovery_time_s,
+                discovery_rounds=ss.discovery_rounds,
+                chunk_retries=ss.chunk_retries,
+                spool_retain_bytes=ss.spool_retain_bytes)
+            self.statesync_reactor.syncer = self.syncer
+            self.blocksync_reactor.hold = True
 
         self.node_key = node_key or NodeKey.generate()
         self.transport = Transport(self.node_key, self._node_info,
@@ -264,6 +320,7 @@ class Node:
         self.switch.add_reactor("mempool", self.mempool_reactor)
         self.switch.add_reactor("blocksync", self.blocksync_reactor)
         self.switch.add_reactor("evidence", self.evidence_reactor)
+        self.switch.add_reactor("statesync", self.statesync_reactor)
 
         if cfg.tx_index.indexer == "kv":
             self.tx_indexer = TxIndexer(make_db("tx_index.db"))
@@ -287,6 +344,43 @@ class Node:
                 trust_period_ns=ls.trust_period_ns,
                 max_batch=ls.max_batch, max_proofs=ls.max_proofs,
                 name=name)
+
+    async def _run_statesync(self) -> None:
+        """node.go OnStart startStateSync: snapshot restore, stores
+        bootstrapped at its height, then blocksync.  A failed restore
+        falls back to the app handshake from genesis and blocksync, as
+        the JAX node does; that fallback is the reference's semantics,
+        not a device fallback."""
+        lg = tmlog.logger("statesync", node=self.name)
+        try:
+            state, commit = await self.syncer.sync()
+            self.state_store.bootstrap(state)
+            self.block_store.bootstrap_statesync(state.last_block_height,
+                                                 commit)
+            self.evidence_pool.state = state
+            self.blocksync_reactor.state = state
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:
+            # InitChain was skipped for the snapshot: run the handshake
+            # now.  If the app already restored part of a snapshot the
+            # handshake itself fails, loudly.
+            lg.error("statesync failed; falling back to blocksync",
+                     err=repr(e))
+            try:
+                state = await Handshaker(
+                    self.state_store, self.block_store,
+                    self.genesis).handshake(
+                    State.from_genesis(self.genesis), self.app_conns,
+                    self.block_exec)
+                self.blocksync_reactor.state = state
+            except Exception as e2:
+                self.statesync_error = e2
+                lg.error("statesync fallback failed; node needs "
+                         "unsafe-reset-all", err=repr(e2))
+                return
+        self.blocksync_reactor.hold = False
+        await self.blocksync_reactor.start_sync()
 
     async def _switch_to_consensus(self, state) -> None:
         """Blocksync caught up: adopt the synced state and start consensus
@@ -336,8 +430,12 @@ class Node:
                 await self.indexer_service.start()
             await self.pruner.start()
             await self._start_serving()
+            if self.syncer is not None:
+                self.statesync_done = asyncio.create_task(
+                    self._run_statesync())
             if consensus:
                 await self.start_consensus()
+            await self._start_watchdog()
         except BaseException:
             await self.stop()
             raise
@@ -366,6 +464,24 @@ class Node:
                 "off (instrumentation.loop_stall_threshold_s = 0): "
                 "overload shedding is inactive")
 
+    async def _start_watchdog(self) -> None:
+        inst = self.config.instrumentation
+        incident_dir = self.incident_dir()
+        if inst.watchdog_stall_threshold_s > 0 and incident_dir is not None:
+            self.liveness_watchdog = LivenessWatchdog(
+                self, incident_dir,
+                stall_threshold_s=inst.watchdog_stall_threshold_s,
+                check_interval_s=inst.watchdog_check_interval_s,
+                min_interval_s=inst.watchdog_min_interval_s,
+                max_bundles=inst.watchdog_max_bundles,
+                wal_tail_records=inst.watchdog_wal_tail)
+            await self.liveness_watchdog.start()
+
+    def incident_dir(self) -> str | None:
+        """Where the watchdog's incident bundles live
+        (``watchdog.resolve_incident_dir``)."""
+        return resolve_incident_dir(self.config, self.home)
+
     async def start_consensus(self) -> None:
         """Start the consensus state machine of a node started with
         ``consensus=False`` (under ``fast_sync``, the blocksync handoff
@@ -374,14 +490,24 @@ class Node:
             await self.consensus.start()
 
     async def stop(self) -> None:
-        """Stop the RPC server, the Prometheus listener, the loop
-        watchdog, consensus, the switch (peers, reactors, listener), the
-        indexer service, the pruner and the app connections; release the
-        scheduler; close the WAL, every store and the data-directory
-        lock.  Idempotent, and safe on a node whose :meth:`start`
-        failed."""
+        """Stop statesync, the liveness watchdog, the RPC server, the
+        Prometheus listener, the loop watchdog, consensus, the switch
+        (peers, reactors, listener), the indexer service, the pruner and
+        the app connections; release the scheduler; close the WAL, every
+        store and the data-directory lock.  Idempotent, and safe on a
+        node whose :meth:`start` failed."""
         if self._started:
             self._started = False
+            if self.statesync_done is not None:
+                task, self.statesync_done = self.statesync_done, None
+                task.cancel()
+                try:
+                    await task
+                except (asyncio.CancelledError, Exception):
+                    pass
+            if self.liveness_watchdog is not None:
+                wd, self.liveness_watchdog = self.liveness_watchdog, None
+                await wd.stop()
             if self.rpc_server is not None:
                 server, self.rpc_server = self.rpc_server, None
                 await server.close()

@@ -225,3 +225,16 @@ class PeerScorer:
                         "expires_in_s": round(ban["expiry"] - now, 1),
                         "ttl_s": ban["ttl_s"]})
         return out
+
+    def snapshot(self) -> dict:
+        """Whole-ledger view for incident bundles and debugging."""
+        now = clock.monotonic()
+        return {
+            "peers": {pid: {"score": round(self._decayed(r, now), 3),
+                            "events": dict(r.events),
+                            "ban_count": r.ban_count,
+                            "last_event": r.last_event or None}
+                      for pid, r in self._peers.items()},
+            "bans": self.bans_snapshot(),
+            "bans_total": self.bans_total,
+        }

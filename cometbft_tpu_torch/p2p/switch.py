@@ -342,6 +342,16 @@ class Switch:
                 continue
             peer.send(channel_id, msg)
 
+    def quietest_peer_recv_age_s(self) -> float | None:
+        """Seconds since the most recently heard-from peer last produced
+        a complete packet: the liveness watchdog's "all peers went
+        quiet" input (None with no peers)."""
+        if not self.peers:
+            return None
+        now = clock.monotonic()
+        return min(now - p.mconn.last_recv_mono
+                   for p in self.peers.values())
+
     def peer_snapshot(self) -> list[dict]:
         """Each peer's telemetry with its scorer quality block, for
         ``/net_info``."""

@@ -1,7 +1,8 @@
 """The RPC surface (counterpart of ``cometbft_tpu/rpc``): the JSON-RPC,
 URI and WebSocket server with its routes, and the HTTP and WebSocket
-clients.  gRPC (``rpc/grpc.py``) needs ``grpc`` and is not ported;
-``rpc/inspect.py`` comes with the storage doctor."""
+clients, and inspect mode (``rpc/inspect.py``: the routes over a stopped
+node's home).  gRPC (``rpc/grpc.py``) needs ``grpc`` and is not
+ported."""
 
 from .client import HTTPClient, WSClient
 from .core import ROUTES, Environment, RPCError

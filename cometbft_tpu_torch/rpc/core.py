@@ -8,9 +8,9 @@ Handlers return plain JSON-able dicts (domain objects projected through
 ``rpc.json.jsonable``, equal to the JAX package's).  A route's
 docstring is its ``/openapi`` summary, kept as the JAX package's.  The light routes run
 the serving tier (``light/serve.py``) in worker threads, whose device
-work queues on the device-owner thread.  ``dump_incidents`` and
-``consensus_timeline`` come with the liveness watchdog and
-``libs/timeline.py``."""
+work queues on the device-owner thread.  ``consensus_timeline`` folds
+the flight recorder (``libs/timeline.py``); ``dump_incidents`` lists the
+liveness watchdog's bundles (``node/watchdog.py``)."""
 
 from __future__ import annotations
 
@@ -121,9 +121,9 @@ async def status(env: Environment) -> dict:
             "pub_key": pv.get_pub_key().bytes().hex() if pv else "",
         },
         "consensus_info": consensus_info,
-        # the storage doctor's boot report and the compile bundle's
-        # state: None on the port (no doctor yet; its kernels build at
-        # first use), as on a JAX node without them
+        # the storage doctor's boot report (node/doctor.py); the compile
+        # bundle's state is None on the port (its kernels build at first
+        # use), as on a JAX node without one
         "doctor": (node.doctor_report.to_dict()
                    if getattr(node, "doctor_report", None) is not None
                    else None),
@@ -738,6 +738,70 @@ async def dump_trace(env: Environment, limit=1000, sub=None,
     }
 
 
+async def consensus_timeline(env: Environment, height=0, n=8,
+                             node=None) -> dict:
+    """Per-height commit-latency waterfalls folded from the flight
+    recorder (``libs/timeline``): ordered phases (propose -> gossip ->
+    prevote -> precommit -> commit), emitter marks, and residual
+    buckets (gossip_wait/verify/app/wal/idle) that sum exactly to the
+    measured commit latency.  ``height=H`` selects one height,
+    otherwise the newest ``n`` per node; ``node=`` filters an in-proc
+    ensemble's shared ring.  Requires ``[instrumentation] tracing``."""
+    from ..libs import timeline
+
+    h = int(height)
+    k = int(n)
+    if h < 0 or k < 0:
+        raise RPCError(-32602, "height and n must be >= 0")
+    st = tracing.stats()
+    waterfalls = await asyncio.to_thread(
+        timeline.fold, tracing.snapshot(),
+        node=str(node) if node is not None else None,
+        height=h or None, limit=k)
+    return {
+        "enabled": st["enabled"],
+        "buffered": st["buffered"],
+        "phases": list(timeline.PHASES),
+        "buckets": list(timeline.BUCKETS),
+        "waterfalls": waterfalls,
+    }
+
+
+async def dump_incidents(env: Environment, limit=50, name=None) -> dict:
+    """List the liveness watchdog's black-box incident bundles (newest
+    first, metadata only — filenames carry timestamp + reasons, bodies
+    can run megabytes of trace ring).  Pass ``name=<listing name>`` to
+    fetch one parsed bundle inline.  Always answers, even with the
+    watchdog disabled or no home dir: ``enabled: false`` + an empty
+    list, so operator tooling can probe unconditionally."""
+    from ..node.watchdog import list_incidents, load_incident
+
+    node = env.node
+    wd = getattr(node, "liveness_watchdog", None)
+    incident_fn = getattr(node, "incident_dir", None)
+    incident_dir = incident_fn() if callable(incident_fn) else None
+    out = {
+        "enabled": wd is not None,
+        "incident_dir": incident_dir or "",
+        "trips": wd.trips if wd is not None else 0,
+        "incidents": (list_incidents(incident_dir, int(limit))
+                      if incident_dir else []),
+    }
+    if name is not None:
+        if not incident_dir:
+            raise RPCError(-32603, "no incident directory on this node")
+        # a bundle body can run megabytes of trace ring: read + parse
+        # in a worker thread — this route bypasses the admission gate
+        # (diagnostics must answer during overload), so it especially
+        # must not stall the event loop
+        bundle = await asyncio.to_thread(
+            load_incident, incident_dir, str(name))
+        if bundle is None:
+            raise RPCError(-32603, f"no incident bundle {name!r}")
+        out["bundle"] = bundle
+    return out
+
+
 # ---------------------------------------------------- unsafe (dev-only)
 
 async def dial_seeds(env: Environment, seeds=None) -> dict:
@@ -799,6 +863,8 @@ ROUTES = {
     "genesis_chunked": genesis_chunked,
     "check_tx": check_tx,
     "dump_trace": dump_trace,
+    "dump_incidents": dump_incidents,
+    "consensus_timeline": consensus_timeline,
     "light_block": light_block,
     "light_blocks": light_blocks,
     "light_proofs": light_proofs,

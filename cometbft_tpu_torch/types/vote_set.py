@@ -144,15 +144,18 @@ class VoteSet:
         # the zero-timestamp aggregation domain (Vote.sign_bytes_for)
         sb = vote.sign_bytes_for(self.chain_id, val.pub_key.type())
         if self.extensions_enabled and vote.type == PRECOMMIT_TYPE:
-            if not check(val.pub_key, sb, vote.signature):
-                return False
             if vote.block_id.is_nil():
                 # nil precommits carry no extension to require
                 # (vote.go VerifyVoteAndExtension skips the check)
-                return True
-            return check(val.pub_key,
-                         vote.extension_sign_bytes(self.chain_id),
-                         vote.extension_signature)
+                return check(val.pub_key, sb, vote.signature)
+            items = [(val.pub_key, sb, vote.signature),
+                     (val.pub_key, vote.extension_sign_bytes(self.chain_id),
+                      vote.extension_signature)]
+            if use_cache:
+                # the vote and its extension in one device call: on a
+                # shared event loop each call holds every node
+                return _vsched.verify_cached_all(items)
+            return all(_vsched.verify_uncached(*it) for it in items)
         if vote.extension_signature and not self.extensions_enabled:
             return False
         return check(val.pub_key, sb, vote.signature)

@@ -668,3 +668,32 @@ def test_sync_check_waits_behind_a_queued_flush(monkeypatch):
             await s.stop()
 
     _run(main())
+
+
+def test_verify_sync_all_checks_misses_in_one_call():
+    """A precommit and its extension stand or fall together: the cache
+    misses of ``verify_sync_all`` go to the device in one call (counted
+    once under ``sync``), each passing lane seeds the cache, and one
+    bad lane fails the whole (its good partner still seeded)."""
+    tp, _ = _signed(3, seed=21)
+
+    async def main():
+        s = VerificationScheduler(device="cpu", max_wait_ms=0.0,
+                                  verify_timeout_s=60)
+        await s.start()
+        try:
+            assert s.verify_sync(*tp[0]) is True          # seeds tp[0]
+            assert s.verify_sync_all([tp[0], tp[1]]) is True
+            assert s.stats()["single_checks"] == {"sync": 2}
+            assert s.verify_sync_all([tp[0], tp[1]]) is True   # all hits
+            assert s.stats()["single_checks"] == {"sync": 2}
+            pub, msg, sig = tp[2]
+            bad = (pub, msg, bytes([sig[0] ^ 1]) + sig[1:])
+            assert s.verify_sync_all([tp[2], bad]) is False
+            st = s.stats()
+            assert st["single_checks"] == {"sync": 3}
+            assert s.cache.hit(vsched.cache_key(pub.bytes(), msg, sig))
+        finally:
+            await s.stop()
+
+    _run(main())

@@ -5,8 +5,10 @@ port, so parallel test workers never collide), full mesh over TCP, the
 host oracle patched to raise.  A one-lane check of the plain versions
 takes 0.3-0.7 s here, on the event loop's thread for a vote-set miss or
 a proposal; a 4-validator height needs 12 of them (8 own votes, 4
-proposals) plus two a connection at the handshake (1.1 s a connection),
-so heights take seconds.  The loop stands still during a check, so the
+proposals; a precommit and its vote extension are one check) plus two a
+connection at the handshake (1.1 s a connection), so heights take
+seconds and a vote-extension network reaches height 4 in about 40 s.
+The loop stands still during a check, so the
 JAX package's test timeouts (80 ms to propose) would expire before
 peers' messages are handled and every height would run several rounds:
 :func:`cpu_consensus_config` keeps its commit timeout but waits 2 s to
@@ -80,10 +82,11 @@ def config(db_backend="logdb") -> Config:
     return cfg
 
 
-async def make_node(doc, pv, i, tag="n", home=None, app=None, **kw):
+async def make_node(doc, pv, i, tag="n", home=None, app=None,
+                    config_=None, **kw):
     return await Node.create(
         doc, app or KVStoreApplication(device="cpu"), priv_validator=pv,
-        config=config(), node_key=NodeKey.from_secret(b"%s%d" % (
+        config=config_ or config(), node_key=NodeKey.from_secret(b"%s%d" % (
             tag.encode(), i)), home=home, name=f"{tag}{i}", **kw)
 
 
