@@ -4,7 +4,8 @@ aggregate-commit verification paths, of lane-sharded commit
 verification over a device set, of the light client, of blocksync
 catch-up, of consensus in one process, of the networked node over
 loopback TCP, of BASELINE configs[4]'s mixed-key commits, of the RPC
-surface with light-client serving and of statesync, on one card.
+surface with light-client serving, of statesync, and of discovery under
+faults (networks/chaos.toml), on one card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -138,8 +139,8 @@ Phases, each of which must pass or the script exits non-zero:
    repo's e2e manifests: (a) ``networks/ci.toml``'s 4 validators to
    height ``ND_CI_HEIGHT`` with ``ND_TXS`` txs injected on node 0 and a
    full node (``fast_sync``) started at height ``ND_FULL_AT``; (b)
-   ci.toml's kill:5 / restart:7 of validator02 from its home (LogDB
-   stores, WAL file, ``FilePV`` files); (c) ``networks/large.toml``'s 12
+   ci.toml's kill:5 / restart:7 of validator02 from its home is phase
+   17's, where chaos.toml has the same perturbation; (c) ``networks/large.toml``'s 12
    validators at their skewed powers with ``ND_LARGE_LATENCY_MS`` of
    emulated latency to height ``ND_LARGE_HEIGHT``, validator08 on the
    native database (its blocks read back from its files after the stop);
@@ -199,8 +200,38 @@ Phases, each of which must pass or the script exits non-zero:
    must launch; every launch's shape is recorded and each kernel is
    held against its plain version at those shapes (the tree at (b)'s
    leaves also against hashlib, roots and proofs).
+17. discovery and faults (``phase_chaos``, after phase 16 in a fresh
+   process of its own, ``--child chaos``: the fault plane is
+   process-wide): ``networks/chaos.toml``'s seed and 4 validators, which
+   dial only the seed and find each other through pex, 20 ms of emulated
+   latency, drop-mode connection fuzzing from 5 s after each connection
+   opens; joiner01 blocksyncs from height 4 and is voted in by a ``val:``
+   tx at 6; validator02 stopped at 5 and restarted from its home at 7;
+   validator03 partitioned from 8 to 9 (``p2p.send.drop`` and
+   ``p2p.recv.drop`` armed with ``node=validator03``); light01 verifies
+   to height 12 over RPC; 15 txs/s of load for 25 s; validator04's app
+   and key in another process (``--serve-remote``: an ``ABCIServer`` and
+   a signer dialling the node's ``SignerListener``).  Every live node at
+   12 or more with equal blocks, the joiner in the set from two heights
+   after the block that carried its ``val:`` tx and signing, light01's headers
+   the chain's, every accepted tx in every app (the remote one over
+   ``abci_query``), every app's calls legal, each of validator04's votes
+   and proposals signed once remotely, the books and the seed's
+   hang-ups, the partition's drops in the plane's log; its readings
+   (heights, discovery, tear-downs, fuzz decisions, bytes, the signer's
+   and the socket app's round trips, busy share).  K5a and K5b must
+   launch; every launch's shape is recorded and each held against its
+   plain version there.
 
-Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16 are the main path: the launch counters
+The fresh processes of phases 15-17 start right after the build
+(``--after``): each reaches the card and loads the kernels, then waits
+for its turn, so that its set-up overlaps the phases before it.  In the
+whole run phases 15 and 16, one after the other, run beside phases 12
+and 13 (``fresh_beside``): all four are host-bound, the card busy under
+2% of their time; phase 16's timing of the tree kernel at 200,000
+leaves then shares the card with phase 13's one-lane launches.
+
+Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 are the main path: the launch counters
 are zeroed just before each and read just after; each phase's kernels
 must have launched, no plain version may have run, and neither
 standalone hash kernel (``OFF_PATH``: the RLC lane stage hashes its
@@ -224,7 +255,8 @@ the cards, which one card cannot show.  ``python3 chip_smoke.py
 with phase 13, ``--stress`` with phase 14, ``--rpc`` with phase 15 (its
 fixtures built in it: the 1,000-validator source chain and 10,000 keys),
 ``--statesync`` with phase 16 (options together run their phases;
-``--stress --node`` gives phase 14 its part (e)).
+``--stress --node`` gives phase 14 its part (e)); ``--chaos`` runs only
+phases 1, 2 and 17.
 
 The line before the last is a JSON object with one entry per kernel
 (launches on the main path, max_abs_err, times, bound); the last line is
@@ -247,6 +279,9 @@ import statistics
 import subprocess
 import sys
 import time
+
+# when this module was loaded: a child phase's set-up is timed from here
+_T_LOADED = time.perf_counter()
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 memory rate
 INT_LANES_PER_SM = 64            # 32-bit integer lanes per SM per clock
@@ -1499,7 +1534,7 @@ def _expect_raise(fn, cls, check=None):
 
 
 def profile_call(fn, calls: int = 1, top=8, verdicts: bool = False,
-                 warm=None) -> dict:
+                 warm=None, host: bool = True) -> dict:
     """Wall time of ``calls`` synchronized calls of ``fn`` and the device
     time of what they ran, by name (the ``top`` longest, or all for
     None), from ``torch.profiler`` (a first traced call of ``warm``, by
@@ -1507,11 +1542,15 @@ def profile_call(fn, calls: int = 1, top=8, verdicts: bool = False,
     first events of a process's first trace were missing on the card;
     device time is None when the profiler saw no device activity).
     Times are per call.  With ``verdicts`` also the device ms of each
-    RLC verdict traced, in order (:func:`_window_verdicts_ms`)."""
+    RLC verdict traced, in order (:func:`_window_verdicts_ms`).  With
+    ``host=False`` only the device is traced (no host op is recorded: a
+    minute of a node network's Python would be a large trace to keep
+    and to sum)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host \
+        else [ProfilerActivity.CUDA]
     _sync()
     with profile(activities=acts):
         (warm or fn)()
@@ -3503,7 +3542,6 @@ ND_CI_POWERS = (10, 10, 10, 10)  # networks/ci.toml: validator01..04
 ND_CI_HEIGHT = 10                # (a), (b): heights every node reaches
 ND_TXS = 8                       # (a): txs injected on node 0 only
 ND_FULL_AT = 4                   # (a): full01's start_at
-ND_KILL_AT, ND_RESTART_AT = 5, 7  # (b): validator02's kill:5, restart:7
 ND_LARGE_POWERS = (40, 25, 15, 10, 10, 10, 5, 5, 5, 5, 5, 5)  # large.toml
 ND_LARGE_LATENCY_MS = 10.0       # (c): large.toml's emulated latency
 ND_LARGE_HEIGHT = 6              # (c)
@@ -3671,12 +3709,9 @@ def phase_node(dev):
         0 only, to height ``ND_CI_HEIGHT``; at height ``ND_FULL_AT`` a
         fifth, non-validator node (full01, ``fast_sync``) blocksyncs,
         switches to consensus and follows two heights past its switch;
-    (b) ci.toml's kill:5 and restart:7 on validator02, with home
-        directories (LogDB stores, WAL file, ``FilePV`` files): stopped
-        at height ``ND_KILL_AT``, restarted from its home once the others
-        pass ``ND_RESTART_AT`` (the app handshake replays the stored
-        blocks, the WAL catches it up, the file signer refuses a
-        conflicting sign), all agreeing at ``ND_CI_HEIGHT``;
+    (b) ci.toml's kill:5 and restart:7 of validator02 from its home
+        is phase 17's (the same perturbation in chaos.toml, with its
+        checks of the LogDB stores, the WAL and the ``FilePV`` files);
     (c) large.toml's 12 validators at their skewed powers with
         ``ND_LARGE_LATENCY_MS`` of emulated latency, to height
         ``ND_LARGE_HEIGHT``, validator08 (``ND_NATIVE_AT``) on the native
@@ -3698,7 +3733,6 @@ def phase_node(dev):
 
     from cometbft_tpu_torch.crypto import scheduler as vsched
     from cometbft_tpu_torch.p2p import secret_connection as psc
-    from cometbft_tpu_torch.privval import FilePV
 
     loop = asyncio.new_event_loop()
     run = loop.run_until_complete
@@ -3765,82 +3799,6 @@ def phase_node(dev):
         keep["a"] = (nodes[1], doc, top)
         return {**summary, "full_switch_s": t_switch,
                 "full_switch_height": h_switch, "profile": prof}
-
-    def part_b(tmp):
-        homes = [os.path.join(tmp, f"validator0{i + 1}") for i in range(4)]
-
-        def file_pv(i):
-            kp = os.path.join(homes[i], "config", "priv_validator_key.json")
-            sp = os.path.join(homes[i], "data",
-                              "priv_validator_state.json")
-            if os.path.exists(kp):
-                return FilePV.load(kp, sp)
-            from cometbft_tpu_torch.types.priv_validator import MockPV
-
-            pv = FilePV(MockPV.from_secret(b"nd-home%d" % i).priv_key, kp,
-                        sp)
-            pv.save_key()
-            pv._save_state()
-            return pv
-
-        pvs = [file_pv(i) for i in range(4)]
-        from cometbft_tpu_torch.types.genesis import (GenesisDoc,
-                                                      GenesisValidator)
-
-        doc = GenesisDoc(chain_id=CHAIN_ID, validators=[
-            GenesisValidator(pv.get_pub_key(), p)
-            for pv, p in zip(pvs, ND_CI_POWERS)])
-        nodes = [run(_nd_node(doc, pv, f"home0{i + 1}", dev,
-                              home=homes[i])) for i, pv in enumerate(pvs)]
-        live = list(nodes)
-        walls, seen = [], {}
-        try:
-            t0 = time.perf_counter()
-            for n in nodes:
-                run(n.start())
-            mesh_s = run(_nd_mesh(nodes, walls))
-            victim = nodes[1]
-            watch([victim], ND_KILL_AT, t0, seen)
-            run(victim.stop())
-            live.remove(victim)
-            stopped_at = victim.height()
-            watch(live, ND_RESTART_AT, t0, {})
-            t_r = time.perf_counter()
-            pv = file_pv(1)
-            back = run(_nd_node(doc, pv, "home02", dev, home=homes[1]))
-            replayed = run(back.app_conns.query.info()).last_block_height
-            if back.height() != stopped_at or replayed != stopped_at:
-                raise AssertionError(
-                    f"phase 13 (b): restarted at {back.height()}, app "
-                    f"replayed to {replayed}, stopped at {stopped_at}")
-            run(back.start())
-            live.insert(1, back)
-            run(_nd_dial(back, [n for n in live if n is not back], walls))
-
-            async def caught_up():
-                while back.height() < min(n.height() for n in live
-                                          if n is not back):
-                    await asyncio.sleep(0.005)
-
-            run(asyncio.wait_for(caught_up(), ND_TIMEOUT_S))
-            t_caught = time.perf_counter() - t_r
-            watch(live, ND_CI_HEIGHT, t0, seen)
-            wall = time.perf_counter() - t0
-            stats = vsched.get_scheduler().stats()
-            summary = _nd_summary(live, ND_CI_HEIGHT, walls, mesh_s, seen,
-                                  wall, stats)
-            refused = run(_nd_refuses_conflict(pv))
-            if not refused:
-                raise AssertionError("phase 13 (b): FilePV signed a "
-                                     "conflicting message")
-        finally:
-            stop(live)
-        _nd_agree(live, ND_CI_HEIGHT, "b")
-        keep["b"] = (back, doc, ND_CI_HEIGHT)
-        return {**summary, "stopped_at": stopped_at,
-                "restart_to_caught_up_s": t_caught,
-                "app_replayed_to": replayed,
-                "double_sign_refused": refused}
 
     def part_c(tmp):
         doc, pvs = _nd_genesis(ND_LARGE_POWERS, b"nd-large")
@@ -3936,8 +3894,6 @@ def phase_node(dev):
     def main_path():
         out["a"] = part_a()
         with tempfile.TemporaryDirectory() as d:
-            out["b"] = part_b(d)
-        with tempfile.TemporaryDirectory() as d:
             out["c"] = part_c(d)
         out["d"] = part_d()
         return out
@@ -3970,11 +3926,10 @@ def report_node(nd, launches, card) -> None:
           f"re-checked by it afterwards {nd['oracle_rechecked']} in "
           f"{nd['recheck_s']:.1f} s")
     names = {"a": f"ci.toml {len(ND_CI_POWERS)} validators + full01",
-             "b": "ci.toml kill:5 restart:7, homes",
              "c": f"large.toml {len(ND_LARGE_POWERS)} validators, "
                   f"{ND_LARGE_LATENCY_MS:g} ms latency",
              "d": "vote extensions at 4"}
-    for k in ("a", "b", "c", "d"):
+    for k in ("a", "c", "d"):
         p = nd[k]
         per = p["per_height_s"]
         st = p["scheduler"]
@@ -3998,14 +3953,10 @@ def report_node(nd, launches, card) -> None:
                   f"device {prof['device_ms']} ms (busy "
                   f"{prof['device_busy_share']}), kernels "
                   f"{prof['kernels_ms']}  [{card}]")
-    a, b = nd["a"], nd["b"]
+    a = nd["a"]
     print(f"node (a) full01 started at height {ND_FULL_AT}, switched to "
           f"consensus at height {a['full_switch_height']} after "
           f"{a['full_switch_s']:.2f} s  [{card}]")
-    print(f"node (b) validator02 stopped at {b['stopped_at']}, its app "
-          f"replayed to {b['app_replayed_to']}, restart to caught up "
-          f"{b['restart_to_caught_up_s']:.2f} s, conflicting sign refused "
-          f"{b['double_sign_refused']}  [{card}]")
     print(f"node (d) extension signatures in a stored extended commit: "
           f"{nd['d']['extension_signatures']}")
 
@@ -5061,37 +5012,116 @@ def phase_rpc(pool, keys, dev):
     return launches, out
 
 
+_PRESPAWNED: dict = {}           # name -> the child waiting for its go
+
+
+def _child_paths(name: str):
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(base, exist_ok=True)
+    return (os.path.join(base, f"chip_smoke_{name}.json"),
+            os.path.join(base, f"chip_smoke_{name}.go"))
+
+
+def _stop_prespawned() -> None:
+    for proc in list(_PRESPAWNED.values()):
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    _PRESPAWNED.clear()
+
+
+def prespawn(names) -> None:
+    """Start the children of :func:`phase_fresh` ahead of their turn
+    (``--after GO``): each imports, reaches the card and loads the built
+    kernels, then waits for its go file, so that its set-up overlaps the
+    phases before it.  A child never given its go is killed at exit."""
+    import atexit
+
+    if not _PRESPAWNED:
+        atexit.register(_stop_prespawned)
+    for name in names:
+        path, go = _child_paths(name)
+        for f in (path, go):
+            if os.path.exists(f):
+                os.remove(f)
+        _PRESPAWNED[name] = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--child", name,
+             path, "--after", go])
+
+
 def phase_fresh(name: str):
     """Phase ``name`` of ``CHILD_PHASES`` in a fresh process (``--child
     NAME PATH``, with a key pool of its own): its fixtures are built
     there, so the collector and the caches hold that phase's objects
     only, as a node's process holds its own and not those of the smoke's
-    earlier phases.  Returns the launches and the record that the child
-    wrote."""
+    earlier phases.  The child :func:`prespawn` started is given its go
+    and waited for (and killed at exit if the smoke fails meanwhile).
+    Returns the launches and the record that the child wrote;
+    ``phase_s`` runs from the go."""
     import torch
 
     torch.cuda.empty_cache()
     sys.stdout.flush()
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "build", f"chip_smoke_{name}.json")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    if os.path.exists(path):
-        os.remove(path)
+    path, go = _child_paths(name)
+    proc = _PRESPAWNED[name]
     t0 = time.perf_counter()
-    subprocess.run([sys.executable, os.path.abspath(__file__),
-                    "--child", name, path], check=True, timeout=600)
+    open(go, "w").close()
+    if proc.wait(timeout=600):
+        raise subprocess.CalledProcessError(proc.returncode, proc.args)
+    _PRESPAWNED.pop(name)
+    t1 = time.perf_counter()
     with open(path) as f:
         d = json.load(f)
-    d["record"]["phase_s"] = time.perf_counter() - t0
+    d["record"]["phase_s"] = t1 - t0
+    # the child's exit after it wrote its record
+    d["record"]["exit_s"] = time.time() - os.path.getmtime(path) - (
+        time.perf_counter() - t1)
     return d["launches"], d["record"]
+
+
+def fresh_beside(names):
+    """Phases ``names`` (:func:`phase_fresh`), one after another, on a
+    thread of their own, while the caller runs its next phases: the
+    fresh-process phases that read no kernel's time run beside the
+    in-process node phases, both host-bound with the card idle over 98%
+    of the time, and the run's wall shrinks by the shorter of the two.
+    The children write their records to files and print little, so
+    their output and the caller's do not interleave within a line.
+    Returns a function that waits for them and returns their (launches,
+    record) pairs in order, raising the first one's failure."""
+    import threading
+
+    out, err = [], []
+
+    def run():
+        try:
+            for name in names:
+                out.append(phase_fresh(name))
+        except BaseException as e:          # re-raised by join()
+            err.append(e)
+
+    sys.stdout.flush()
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+
+    def join():
+        t.join()
+        if err:
+            raise err[0]
+        return out
+    return join
 
 
 def run_child(name: str, path: str, dev) -> None:
     """The child of :func:`phase_fresh`: phase ``name`` over the kernels
     built, its launches and record written as JSON to ``path``."""
     fn, n_keys = CHILD_PHASES[name]
-    with multiprocessing.get_context("spawn").Pool(os.cpu_count()) as pool:
-        launches, record = fn(pool, pool_keys(pool, n_keys), dev)
+    if n_keys:
+        with multiprocessing.get_context("spawn").Pool(
+                os.cpu_count()) as pool:
+            launches, record = fn(pool, pool_keys(pool, n_keys), dev)
+    else:
+        launches, record = fn(None, [], dev)
     with open(path, "w") as f:
         json.dump({"launches": launches, "record": record}, f, default=str)
 
@@ -6024,11 +6054,802 @@ def bls_bound(rec, rate_ops):
 
 # the phases that run in a fresh process of their own (phase_fresh):
 # name -> (phase, keys of its pool)
+# ------------------------- phase 17: networks/chaos.toml, discovery and faults
+
+CX_POWERS = (10, 10, 10, 10)     # chaos.toml: validator01..04
+CX_TOP = 12                      # chaos.toml's final_height
+CX_LATENCY_MS = 20.0             # its emulated_latency_ms
+CX_FUZZ_AFTER_S = 5.0            # runner.py: fuzz from 5 s after connect
+CX_FUZZ_SEED = 17                # every node's fuzz_seed, and the plane's
+CX_JOINER_AT = 4                 # joiner01's start_at
+CX_VALSET_AT, CX_JOINER_POWER = 6, 15   # [validator_update.6] joiner01 = 15
+CX_KILL_AT, CX_RESTART_AT = 5, 7  # validator02's kill:5, restart:7
+CX_PART_AT, CX_HEAL_AT = 8, 9    # validator03's pause:8, resume:9
+CX_LIGHT_AT = 6                  # light01's start_at
+CX_LOAD_RATE, CX_LOAD_S, CX_TX_BYTES = 15.0, 25.0, 96   # [load]
+CX_STALL_GRACE_S = 10.0          # runner.py: a recovery fires after this
+CX_TIMEOUT_S = 240               # the phase's wait for its heights
+CX_CHECK_KEYS = 64               # keys of the kernels' checks at the shapes
+# pex's ensure-peers period (p2p.pex_interval_seconds): chaos.toml keeps
+# the default 30 s (PERF.md section 6 has a run at 5 s beside it)
+CX_PEX_INTERVAL_S = 30.0
+
+
+def _cx_counter_total(c) -> float:
+    """The sum of a counter over its label sets."""
+    return sum(c._values.values())
+
+
+def serve_remote(listener: str, home: str) -> None:
+    """Phase 17's out-of-process pair (``--serve-remote``), one process:
+    validator04's kvstore (``RecordingApp``) behind an ``ABCIServer`` on a
+    free port, written to ``home/abci_port``, and its ``FilePV`` (the key
+    and state files under ``home``) behind a signer that dials the node's
+    ``SignerListener`` at ``listener`` and redials.  On SIGTERM it writes
+    ``home/record.json``: every sign request by (height, round, type or
+    "proposal"), the double-sign refusals, the app's calls and its
+    grammar check."""
+    import asyncio
+    import signal
+
+    from cometbft_tpu_torch.abci.grammar import RecordingApp
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.abci.server import ABCIServer
+    from cometbft_tpu_torch.privval import (DoubleSignError, FilePV,
+                                            serve_dialer)
+
+    host, _, port = listener.rpartition(":")
+    signed, refusals = [], []
+
+    async def main():
+        app = RecordingApp(KVStoreApplication(device="cuda:0"))
+        server = ABCIServer(app, port=0)
+        await server.start()
+        pv = FilePV.load(os.path.join(home, "priv_validator_key.json"),
+                         os.path.join(home, "priv_validator_state.json"))
+        vote_in, prop_in = pv.sign_vote, pv.sign_proposal
+
+        async def sign_vote(chain_id, vote, sign_extension):
+            try:
+                await vote_in(chain_id, vote, sign_extension)
+            except DoubleSignError as e:
+                refusals.append(str(e))
+                raise
+            signed.append((vote.height, vote.round, vote.type))
+
+        async def sign_proposal(chain_id, proposal):
+            try:
+                await prop_in(chain_id, proposal)
+            except DoubleSignError as e:
+                refusals.append(str(e))
+                raise
+            signed.append((proposal.height, proposal.round, "proposal"))
+
+        pv.sign_vote, pv.sign_proposal = sign_vote, sign_proposal
+        stop = asyncio.Event()
+        asyncio.get_running_loop().add_signal_handler(signal.SIGTERM,
+                                                      stop.set)
+        dialer = asyncio.create_task(serve_dialer(pv, host, int(port),
+                                                  retry_interval=0.1))
+        with open(os.path.join(home, "abci_port.tmp"), "w") as f:
+            f.write(str(server.port))
+        os.replace(os.path.join(home, "abci_port.tmp"),
+                   os.path.join(home, "abci_port"))
+        await stop.wait()
+        dialer.cancel()
+        await server.stop()
+        try:
+            grammar = app.check()
+        except Exception as e:       # recorded, judged by the phase
+            grammar = f"{type(e).__name__}: {e}"
+        with open(os.path.join(home, "record.json"), "w") as f:
+            json.dump({"signed": signed, "refusals": refusals,
+                       "calls": len(app.calls), "grammar_heights": grammar,
+                       "app_height": app.inner.height}, f)
+
+    asyncio.run(main())
+
+
+def phase_chaos(pool, keys, dev):
+    """Phase 17: ``networks/chaos.toml`` on the card, in a process of its
+    own (:func:`phase_fresh`, ``--child chaos``: the fault plane is
+    process-wide), every node a port ``Node`` over loopback TCP on
+    ``dev``, configured as the JAX package's e2e runner configures them
+    (``cometbft_tpu/e2e/runner.py:93-128``): 20 ms of emulated latency,
+    drop-mode connection fuzzing from 5 s after each connection opens
+    (``fuzz_prob_drop_rw`` 0.01, ``fuzz_seed`` ``CX_FUZZ_SEED``), the JAX
+    package's test timeouts.  seed01 runs in seed mode; validator01-04
+    dial only it (as the JAX package's ``cmd`` dials seeds) and find each
+    other through pex.  Perturbations by the network's height, as the
+    runner applies them: joiner01 (``fast_sync``) starts at 4 and is
+    voted in at 6 with power 15 by a ``val:`` tx; validator02 is stopped
+    at 5 and restarted from its home (LogDB stores, WAL, ``FilePV``
+    files, the same listen address) at 7; validator03's pause:8 /
+    resume:9 is a partition (``p2p.send.drop`` and ``p2p.recv.drop``
+    armed with ``node=validator03`` from 8 to 9: a SIGSTOP needs one
+    process per node); light01 starts at 6 (``light.Client`` over the
+    validators' ``RPCProvider``s, sequential to height 12); load of 15
+    txs/s for 25 s of 96-byte txs through ``broadcast_tx_async``.  An
+    addition chaos.toml does not state: validator04's kvstore and its
+    key run in one other process (``--serve-remote``: an ``ABCIServer``
+    and a ``FilePV`` behind a signer that dials the node's
+    ``SignerListener``).
+
+    Checks: every live node at ``CX_TOP`` or more with equal blocks;
+    joiner01 in the set and signing commits; light01's headers the
+    chain's; every accepted load tx in every app (the remote one over
+    ``abci_query``); every app's calls legal (``RecordingApp.check``);
+    each of validator04's votes and proposals signed once by the remote
+    signer, no refusal; each validator's book holding the others; the
+    seed's hang-ups; the partition's drops in the plane's event log.
+    K5a and K5b must launch and no plain version run; the oracle's calls
+    must be 0, then every stored commit is re-checked by it; every
+    launch's shape is recorded and K5a and K5b held against their plain
+    versions there (:func:`_ss_check_lanes`)."""
+    import asyncio
+    import base64
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from cometbft_tpu_torch.abci.client import SocketClient
+    from cometbft_tpu_torch.abci.grammar import RecordingApp
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.config import Config, test_consensus_config
+    from cometbft_tpu_torch.crypto import scheduler as vsched
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    from cometbft_tpu_torch.libs import failures
+    from cometbft_tpu_torch.light import (SEQUENTIAL, Client, RPCProvider,
+                                          TrustOptions)
+    from cometbft_tpu_torch.node import Node
+    from cometbft_tpu_torch.p2p import NodeKey
+    from cometbft_tpu_torch.p2p import secret_connection as psc
+    from cometbft_tpu_torch.p2p.metrics import p2p_metrics
+    from cometbft_tpu_torch.p2p.switch import Switch
+    from cometbft_tpu_torch.privval import FilePV, SignerListener
+    from cometbft_tpu_torch.rpc import HTTPClient
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from cometbft_tpu_torch.types.priv_validator import MockPV
+
+    loop = asyncio.new_event_loop()
+    run = loop.run_until_complete
+    out: dict = {"pex_interval_s": CX_PEX_INTERVAL_S}
+    keep: dict = {}
+    # the process's plane, armed (with no rule) as CMT_CHAOS would arm a
+    # node's process; the partition's rules are armed and disarmed on it
+    failures.configure(enabled=True, seed=CX_FUZZ_SEED)
+
+    names = [f"validator0{i + 1}" for i in range(len(CX_POWERS))]
+    pvs = [MockPV.from_secret(b"cx-" + n.encode()) for n in names]
+    jpv = MockPV.from_secret(b"cx-joiner01")
+    doc = GenesisDoc(chain_id=CHAIN_ID, validators=[
+        GenesisValidator(pv.get_pub_key(), p)
+        for pv, p in zip(pvs, CX_POWERS)])
+
+    # the tallies the readings read, from wrappers of the switch and the
+    # socket client (class level: every node of the phase)
+    teardowns: dict = {}
+    adds = [0]
+    hangups = [0]
+    app_ms: list = []
+    sw_err, sw_add, sw_hang = (Switch.stop_peer_for_error, Switch._add_peer,
+                               Switch.stop_peer_gracefully)
+    sc_call = SocketClient.call
+
+    async def stop_peer_for_error(self, peer, err):
+        if peer.id in self.peers:
+            k = type(err).__name__
+            teardowns[k] = teardowns.get(k, 0) + 1
+        return await sw_err(self, peer, err)
+
+    async def add_peer(self, *a, **kw):
+        p = await sw_add(self, *a, **kw)
+        adds[0] += 1
+        return p
+
+    async def stop_gracefully(self, peer):
+        hangups[0] += 1
+        return await sw_hang(self, peer)
+
+    async def timed_call(self, method, **params):
+        t0 = time.perf_counter()
+        try:
+            return await sc_call(self, method, **params)
+        finally:
+            app_ms.append((time.perf_counter() - t0) * 1e3)
+
+    Switch.stop_peer_for_error = stop_peer_for_error
+    Switch._add_peer = add_peer
+    Switch.stop_peer_gracefully = stop_gracefully
+    SocketClient.call = timed_call
+
+    def config(seed_mode=False, laddr="tcp://127.0.0.1:0", home=None,
+               rpc=True):
+        cfg = Config(consensus=test_consensus_config())
+        cfg.base.device = str(dev)
+        cfg.p2p.laddr = laddr
+        cfg.rpc.laddr = "tcp://127.0.0.1:0" if rpc else ""
+        cfg.p2p.emulated_latency_ms = CX_LATENCY_MS
+        cfg.p2p.seed_mode = seed_mode
+        cfg.p2p.pex_interval_seconds = CX_PEX_INTERVAL_S
+        cfg.p2p.test_fuzz = True
+        cfg.p2p.fuzz_start_after_s = CX_FUZZ_AFTER_S
+        cfg.p2p.fuzz_seed = CX_FUZZ_SEED
+        cfg.storage.db_backend = "logdb" if home else "memdb"
+        return cfg
+
+    async def make(name, pv, cfg, app, home=None, fast_sync=False):
+        cfg.validate()
+        return await Node.create(
+            doc, app, priv_validator=pv, config=cfg,
+            node_key=NodeKey.from_secret(b"cx-" + name.encode()),
+            home=home, fast_sync=fast_sync, name=name)
+
+    async def dial_seed(n, seed_addr):
+        """The JAX package's cmd dial_seed: retried, not persistent."""
+        delay = 0.5
+        for _ in range(30):
+            try:
+                await n.dial_peer(seed_addr, persistent=False)
+                return
+            except Exception as e:
+                if "duplicate peer" in str(e):
+                    return
+                await asyncio.sleep(delay)
+                delay = min(delay * 1.5, 5.0)
+
+    def file_pv(home):
+        kp = os.path.join(home, "config", "priv_validator_key.json")
+        sp = os.path.join(home, "data", "priv_validator_state.json")
+        return kp, sp
+
+    async def scenario(tmp):
+        r: dict = {}
+        t0 = time.perf_counter()
+        listener, proc, rhome = keep["listener"], *keep["remote"]
+        await listener.wait_for_signer(timeout=120.0)
+        port_file = os.path.join(rhome, "abci_port")
+        while not os.path.exists(port_file):
+            if proc.poll() is not None:
+                raise AssertionError("phase 17: the remote app and signer "
+                                     f"exited with {proc.returncode}")
+            await asyncio.sleep(0.05)
+        with open(port_file) as f:
+            abci_port = int(f.read())
+        # what the main path waited for the remote pair
+        r["remote_wait_s"] = time.perf_counter() - t0
+        sign_ms = []
+        for meth in ("sign_vote", "sign_proposal"):
+            inner = getattr(listener, meth)
+
+            async def timed(*a, _inner=inner, **kw):
+                t1 = time.perf_counter()
+                try:
+                    return await _inner(*a, **kw)
+                finally:
+                    sign_ms.append((time.perf_counter() - t1) * 1e3)
+
+            setattr(listener, meth, timed)
+
+        seed = await make("seed01", None, config(seed_mode=True, rpc=False),
+                          RecordingApp(KVStoreApplication(device=dev)))
+        homes = {n: os.path.join(tmp, n) for n in names}
+        v02_pv = FilePV(pvs[1].priv_key, *file_pv(homes["validator02"]))
+        v02_pv.save_key()
+        v02_pv._save_state()
+        apps = {n: RecordingApp(KVStoreApplication(device=dev))
+                for n in ("validator01", "validator02", "validator03")}
+        nodes = {}
+        for i, n in enumerate(names):
+            if n == "validator04":
+                cfg = config()
+                cfg.base.abci = "socket"
+                cfg.base.proxy_app = f"127.0.0.1:{abci_port}"
+                nodes[n] = await make(n, listener, cfg, None)
+            elif n == "validator02":
+                nodes[n] = await make(n, v02_pv, config(home=homes[n]),
+                                      apps[n], home=homes[n])
+            else:
+                nodes[n] = await make(n, pvs[i], config(), apps[n])
+        live = dict(nodes)
+        all_nodes = [seed] + list(nodes.values())
+        keep["nodes"] = all_nodes
+        await seed.start()
+        seed_addr = seed.listen_addr
+        t_start = time.perf_counter()
+        for n in nodes.values():
+            n.config.p2p.seeds = seed_addr
+            await n.start()
+        r["start_s"] = t_start - t0
+        await asyncio.gather(*(dial_seed(n, seed_addr)
+                               for n in nodes.values()))
+        ids = {n: nodes[n].node_key.id for n in names}
+
+        marks, rounds = {}, {}
+        events = {}
+        stamps = {"discovery_s": None, "met_all_s": None}
+        met = {n: set() for n in names}      # peers each validator has had
+        heights_by_minute = []
+        v01 = nodes["validator01"]
+        cli = HTTPClient(*v01.rpc_addr)
+        sheds: list = []
+        accepted: dict = {}
+        load_done = asyncio.Event()
+
+        async def load():
+            """runner.py _drive_load: 15 txs/s for 25 s, 96 bytes each."""
+            rng = np.random.default_rng(1717)
+            end = time.perf_counter() + CX_LOAD_S
+            i = 0
+            while time.perf_counter() < end:
+                key = b"e2e%06d" % i
+                tx = key + b"=" + rng.bytes(CX_TX_BYTES).hex().encode()[
+                    :CX_TX_BYTES - len(key) - 1]
+                await _rpc_submit(cli, "broadcast_tx_async", sheds,
+                                  tx=tx.hex())
+                accepted[key] = tx[len(key) + 1:]
+                i += 1
+                await asyncio.sleep(1.0 / CX_LOAD_RATE)
+            load_done.set()
+
+        light_out: dict = {}
+
+        async def light01():
+            trust = TrustOptions(TRUSTING_PERIOD_NS, 1,
+                                 v01.block_store.load_block(1).hash())
+            c = Client(CHAIN_ID, trust,
+                       RPCProvider(*v01.rpc_addr, "primary"),
+                       witnesses=[RPCProvider(*nodes[w].rpc_addr, w)
+                                  for w in ("validator03", "validator04")],
+                       mode=SEQUENTIAL, device=dev)
+            t1 = time.perf_counter()
+            for h in range(2, CX_TOP + 1):
+                # the primary and both witnesses past h
+                while min(nodes[n].height() for n in (
+                        "validator01", "validator03", "validator04")) \
+                        < h + 1:
+                    await asyncio.sleep(0.02)
+                lb = await c.verify_light_block_at_height(h)
+                light_out[h] = lb.header.hash()
+            light_out["s"] = time.perf_counter() - t1
+
+        async def valset_tx():
+            pk = jpv.get_pub_key().bytes()
+            tx = b"val:" + base64.b64encode(pk) + b"!" + \
+                b"%0*d" % (len(str(CX_JOINER_POWER)) + 1, CX_JOINER_POWER)
+            vcli = HTTPClient(*v01.rpc_addr)
+            try:
+                res = await _rpc_submit(vcli, "broadcast_tx_sync", sheds,
+                                        tx=tx.hex())
+            finally:
+                await vcli.close()
+            if res.get("code", 0) != 0:
+                raise AssertionError(f"phase 17: valset tx rejected {res}")
+            keep["valset_tx"] = tx
+
+        tasks = [asyncio.create_task(load())]
+        joiner = None
+        stopped_at = None
+        v02_addr = nodes["validator02"].listen_addr
+        schedule = [(CX_JOINER_AT, "start", "joiner01"),
+                    (CX_KILL_AT, "kill", "validator02"),
+                    (CX_VALSET_AT, "valset", "joiner01"),
+                    (CX_LIGHT_AT, "start", "light01"),
+                    (CX_RESTART_AT, "restart", "validator02"),
+                    (CX_PART_AT, "pause", "validator03"),
+                    (CX_HEAL_AT, "resume", "validator03")]
+        last_perturb = time.perf_counter()
+        deadline = time.perf_counter() + CX_TIMEOUT_S
+        next_minute = t_start + 60.0
+        while True:
+            now = time.perf_counter()
+            h = v01.height()
+            for hh in range(1, h + 1):
+                if hh not in marks:
+                    marks[hh] = now - t_start
+                    rounds[hh] = _commit_round(v01, hh)
+            for n in names:
+                if n in live:
+                    met[n] |= set(live[n].switch.peers)
+            if stamps["discovery_s"] is None and all(
+                    set(ids.values()) - {ids[n]} <= set(live[n].switch.peers)
+                    for n in names if n in live):
+                stamps["discovery_s"] = now - t_start
+            if stamps["met_all_s"] is None and all(
+                    set(ids.values()) - {ids[n]} <= met[n] for n in names):
+                stamps["met_all_s"] = now - t_start
+            if "v02_back" in stamps and "v02_caught_s" not in stamps and \
+                    live["validator02"].height() >= min(
+                        x.height() for n, x in live.items()
+                        if n != "validator02"):
+                # the restarted node caught up with the others
+                stamps["v02_caught_s"] = now - stamps["v02_back"]
+            if now >= next_minute:
+                heights_by_minute.append(h)
+                next_minute += 60.0
+            fired = True
+            while fired:
+                fired = False
+                for i, (at, action, who) in enumerate(schedule):
+                    earlier = any(w == who for _, _, w in schedule[:i])
+                    due = at <= h or (action in ("restart", "resume")
+                                      and not earlier
+                                      and now - last_perturb
+                                      > CX_STALL_GRACE_S)
+                    if not due:
+                        continue
+                    schedule.pop(i)
+                    events[f"{action} {who}"] = {"height": h,
+                                                 "s": now - t_start}
+                    if action == "start" and who == "joiner01":
+                        apps[who] = RecordingApp(
+                            KVStoreApplication(device=dev))
+                        joiner = await make("joiner01", jpv, config(),
+                                            apps[who], fast_sync=True)
+                        await joiner.start()
+                        live["joiner01"] = joiner
+                        keep["nodes"].append(joiner)
+                        tasks.append(asyncio.create_task(
+                            dial_seed(joiner, seed_addr)))
+                    elif action == "start":
+                        tasks.append(asyncio.create_task(light01()))
+                    elif action == "valset":
+                        await valset_tx()
+                    elif action == "kill":
+                        victim = live.pop(who)
+                        await victim.stop()
+                        stopped_at = victim.height()
+                    elif action == "restart":
+                        pv = FilePV.load(*file_pv(homes[who]))
+                        keep["v02_pv"] = pv
+                        app = RecordingApp(KVStoreApplication(device=dev))
+                        apps[who] = app
+                        back = await make(who, pv, config(
+                            home=homes[who], laddr=f"tcp://{v02_addr}"),
+                            app, home=homes[who])
+                        replayed = (await back.app_conns.query.info()
+                                    ).last_block_height
+                        r["v02"] = {"stopped_at": stopped_at,
+                                    "restarted_at": back.height(),
+                                    "app_replayed_to": replayed}
+                        if back.height() != stopped_at or \
+                                replayed != stopped_at:
+                            raise AssertionError(
+                                f"phase 17: validator02 restarted at "
+                                f"{back.height()}, its app replayed to "
+                                f"{replayed}, stopped at {stopped_at}")
+                        await back.start()
+                        stamps["v02_back"] = time.perf_counter()
+                        live[who] = back
+                        nodes[who] = back
+                        keep["nodes"].append(back)
+                        tasks.append(asyncio.create_task(
+                            dial_seed(back, seed_addr)))
+                    elif action == "pause":
+                        failures.arm(f"p2p.send.drop:node={who}")
+                        failures.arm(f"p2p.recv.drop:node={who}")
+                    elif action == "resume":
+                        failures.disarm("p2p.send.drop")
+                        failures.disarm("p2p.recv.drop")
+                    last_perturb = time.perf_counter()
+                    fired = True
+                    break
+            for t in tasks:
+                if t.done() and t.exception() is not None:
+                    raise t.exception()
+            if not schedule and load_done.is_set() and \
+                    min(n.height() for n in live.values()) >= CX_TOP and \
+                    "s" in light_out:
+                break
+            if now > deadline:
+                raise AssertionError(
+                    f"phase 17: deadline at height {h} (pex every "
+                    f"{CX_PEX_INTERVAL_S:g} s): heights each minute "
+                    f"{heights_by_minute}, pending {schedule}, live "
+                    f"{ {n: x.height() for n, x in live.items()} }")
+            await asyncio.sleep(0.01)
+        r["load_s"] = time.perf_counter() - t_start
+        # every accepted tx committed everywhere: in-process apps read
+        # directly, validator04's remote app over abci_query
+        vcli = HTTPClient(*nodes["validator04"].rpc_addr)
+
+        async def remote_has(key):
+            res = await vcli.call("abci_query", path="/key", data=key.hex())
+            return bytes.fromhex(res["response"]["value"])
+
+        missing = dict(accepted)
+        while missing:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase 17: {len(missing)} accepted "
+                                     "txs never committed")
+            for k in list(missing):
+                if all(a.inner.state.get(k) == accepted[k]
+                       for a in apps.values()) and \
+                        await remote_has(k) == accepted[k]:
+                    missing.pop(k)
+            await asyncio.sleep(0.05)
+        r["scheduler"] = vsched.get_scheduler().stats()
+        top = min(n.height() for n in live.values())
+        r["top"] = top
+        await vcli.close()
+        await cli.close()
+        for t in tasks:
+            t.cancel()
+        # JSON-safe: the record crosses to the parent process
+        r.update(per_height_s=[marks[h] - marks[h - 1]
+                               for h in range(2, CX_TOP + 1)],
+                 rounds=[rounds.get(h) for h in range(1, CX_TOP + 1)],
+                 events=events, heights_by_minute=heights_by_minute,
+                 discovery_s=stamps["discovery_s"],
+                 met_all_s=stamps["met_all_s"],
+                 v02_restart_to_caught_up_s=stamps.get("v02_caught_s"),
+                 light={"s": light_out["s"], "headers": CX_TOP - 1},
+                 accepted=len(accepted), sheds=len(sheds),
+                 sign_ms=sign_ms)
+        keep["light"] = light_out
+        keep["live"] = live
+        keep["apps"] = apps
+        keep["accepted"] = accepted
+        keep["listener"] = listener
+        keep["ids"] = ids
+        return r
+
+    def start_remote(tmp):
+        """validator04's app and key, in a process of their own, started
+        first: its start-up overlaps the tracer's warm-up."""
+        rhome = os.path.join(tmp, "remote")
+        os.makedirs(rhome)
+        rpv = FilePV(pvs[3].priv_key,
+                     os.path.join(rhome, "priv_validator_key.json"),
+                     os.path.join(rhome, "priv_validator_state.json"))
+        rpv.save_key()
+        rpv._save_state()
+        listener = SignerListener()
+        keep["listener"] = listener
+        lhost, lport = run(listener.listen())
+        keep["remote"] = (subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serve-remote",
+             f"{lhost}:{lport}", rhome]), rhome)
+
+    def stop_remote():
+        proc = keep["remote"][0]
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=60)
+
+    tmp = tempfile.mkdtemp(prefix="chaos", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    t_ph = time.perf_counter()
+    out["setup_s"] = t_ph - _T_LOADED
+    start_remote(tmp)
+    try:
+        profile_call(_sync, warm=_sync, host=False)
+    except BaseException:
+        stop_remote()
+        raise
+    calls, restore = _oracle_counter()
+    checks0 = sum(psc.HANDSHAKE_CHECKS.values())
+    seen: dict = {}
+
+    def main_path():
+        box = {}
+
+        def go():
+            box["r"] = run(scenario(tmp))
+
+        try:
+            box["profile"] = profile_call(go, top=6, warm=lambda: None,
+                                          host=False)
+        finally:
+            for n in keep.get("nodes", []):
+                run(n.stop())
+            run(keep["listener"].close())
+            stop_remote()
+        return box
+
+    try:
+        with launch_shapes(seen):
+            launches, box = _path_launches(
+                main_path, ("ed25519_tables", "ed25519_verify_gather"))
+    finally:
+        restore()
+        Switch.stop_peer_for_error, Switch._add_peer = sw_err, sw_add
+        Switch.stop_peer_gracefully = sw_hang
+        SocketClient.call = sc_call
+    r = box["r"]
+    out.update(r)
+    out["profile"] = box["profile"]
+    out["main_path_s"] = time.perf_counter() - t_ph
+    out["handshake_checks"] = sum(psc.HANDSHAKE_CHECKS.values()) - checks0
+    out["oracle_calls"] = calls[0]
+    if calls[0]:
+        raise AssertionError(f"phase 17: the host oracle was called "
+                             f"{calls[0]} times on the path")
+    live, apps, top = keep["live"], keep["apps"], r["top"]
+    if top < CX_TOP:
+        raise AssertionError(f"phase 17: live nodes at {top}")
+    for h in range(1, top + 1):
+        if len({n.block_store.load_block(h).hash()
+                for n in live.values()}) != 1:
+            raise AssertionError(f"phase 17: fork at height {h}")
+    # joiner01: in the set from two heights after the block that carried
+    # its val: tx (an update a block returns sets the validators of the
+    # height after next), and signing commits
+    jaddr = jpv.get_pub_key().address()
+    v01 = live["validator01"]
+    carried = [h for h in range(1, top + 1)
+               if keep["valset_tx"] in v01.block_store.load_block(h).data.txs]
+    in_set = [h for h in range(1, top + 1)
+              if v01.state_store.load_validators(h) is not None and
+              v01.state_store.load_validators(h).get_by_address(jaddr)
+              [1] is not None]
+    if len(carried) != 1 or in_set != list(range(carried[0] + 2, top + 1)):
+        raise AssertionError(f"phase 17: joiner01's val: tx in blocks "
+                             f"{carried}, joiner01 in the set at {in_set}")
+    j_signed = []
+    for h in range(in_set[0], top + 1):
+        c = v01.block_store.load_block_commit(h)
+        if c is None:
+            continue
+        vals = v01.state_store.load_validators(h)
+        idx = vals.get_by_address(jaddr)[0]
+        if not c.signatures[idx].is_absent():
+            j_signed.append(h)
+    if not j_signed:
+        raise AssertionError("phase 17: joiner01 signed no commit")
+    out["joiner"] = {"tx_in_block": carried[0], "in_set_from": in_set[0],
+                     "signed_commits": j_signed,
+                     "switched_to_consensus":
+                         not live["joiner01"].consensus_reactor.wait_sync}
+    # light01: the chain's headers
+    bad = [h for h in range(2, CX_TOP + 1)
+           if keep["light"][h] != v01.block_store.load_block(h).hash()]
+    if bad:
+        raise AssertionError(f"phase 17: light01 verified other headers at "
+                             f"{bad}")
+    # every accepted load tx in every in-process app (the remote app's
+    # were read over abci_query)
+    for n, a in apps.items():
+        lost = [k for k, v in keep["accepted"].items()
+                if a.inner.state.get(k) != v]
+        if lost:
+            raise AssertionError(f"phase 17: {n}'s app lacks {len(lost)} "
+                                 "accepted txs")
+    # the grammar of every app, the remote one from its record
+    grammar = {n: a.check() for n, a in apps.items()}
+    proc, rhome = keep["remote"]
+    with open(os.path.join(rhome, "record.json")) as f:
+        rrec = json.load(f)
+    if not isinstance(rrec["grammar_heights"], int) or \
+            rrec["grammar_heights"] < top:
+        raise AssertionError(f"phase 17: the remote app's calls "
+                             f"{rrec['grammar_heights']}")
+    grammar["validator04 (remote)"] = rrec["grammar_heights"]
+    out["grammar_heights"] = grammar
+    # the remote signer: each vote and proposal signed once, no refusal
+    signed = [tuple(s) for s in rrec["signed"]]
+    if rrec["refusals"] or len(set(signed)) != len(signed) or not signed:
+        raise AssertionError(f"phase 17: remote signer signed {len(signed)}"
+                             f" ({len(set(signed))} distinct), refusals "
+                             f"{rrec['refusals'][:3]}")
+    out["remote"] = {"signed": len(signed),
+                     "proposals": sum(1 for s in signed
+                                      if s[2] == "proposal"),
+                     "refusals": 0, "app_calls": rrec["calls"],
+                     "app_height": rrec["app_height"],
+                     "listener_round_trips": len(r["sign_ms"])}
+    # books: each validator holds the others it learned through the seed
+    ids = keep["ids"]
+    books = {}
+    for n in (x for x in live if x.startswith("validator")):
+        held = {i for i, _ in live[n].addr_book.sample(1000)}
+        books[n] = sorted(m for m, i in ids.items() if i in held)
+        if set(ids) - {n} - set(books[n]):
+            raise AssertionError(f"phase 17: {n}'s book lacks "
+                                 f"{set(ids) - {n} - set(books[n])}")
+    out["books"] = books
+    if not hangups[0]:
+        raise AssertionError("phase 17: the seed never hung up")
+    # the plane's log: the partition's drops
+    ev = failures.events()
+    drops = {s: sum(1 for e in ev if e["site"] == s
+                    and e.get("node") == "validator03")
+             for s in ("p2p.send.drop", "p2p.recv.drop")}
+    if not all(drops.values()):
+        raise AssertionError(f"phase 17: partition drops {drops}")
+    fuzz = {}
+    for n in keep["nodes"]:
+        for k, v in n.transport.fuzz_config.counts.items():
+            fuzz[k] = fuzz.get(k, 0) + v
+    mets = p2p_metrics()
+    out.update(
+        hangups=hangups[0], partition_drops=drops, fuzz=fuzz,
+        teardowns=teardowns, peer_adds=adds[0],
+        payload_sent=_cx_counter_total(mets.peer_send_bytes),
+        payload_recv=_cx_counter_total(mets.peer_recv_bytes),
+        app_ms=app_ms, v02_refuses_conflict=run(_nd_refuses_conflict(
+            keep["v02_pv"])))
+    if not out["v02_refuses_conflict"]:
+        raise AssertionError("phase 17: validator02's FilePV signed a "
+                             "conflicting message")
+    t0 = time.perf_counter()
+    out["oracle_rechecked"] = {
+        n: _oracle_recheck(_nd_recheck_target(live[n], doc), top)
+        for n in ("validator01", "validator02", "joiner01")}
+    out["recheck_s"] = time.perf_counter() - t0
+    out["shapes"] = {k: sorted(v) for k, v in seen.items()}
+    t0 = time.perf_counter()
+    privs = [Ed25519PrivKey.from_secret(b"cx-check%d" % i)
+             for i in range(CX_CHECK_KEYS)]
+    lanes = _ss_check_lanes(seen, privs, dev)
+    out["checks"] = {"lanes": lanes, "check_s": time.perf_counter() - t0}
+    bad = {k: m for k, m in lanes["mismatches"].items() if m}
+    if bad:
+        raise AssertionError(f"phase 17: kernels against their plain "
+                             f"versions at the path's shapes: {bad}")
+    out["checks_s"] = time.perf_counter() - t_ph - out["main_path_s"]
+    shutil.rmtree(tmp, ignore_errors=True)
+    loop.close()
+    return launches, out
+
+
+def report_chaos(cx, launches, card) -> None:
+    """Phase 17's lines."""
+    per, rounds = cx["per_height_s"], cx["rounds"]
+    print(f"chaos (phase 17): {cx['phase_s']:.1f} s in its process (set-up "
+          f"{cx['setup_s']:.1f} s, main path {cx['main_path_s']:.1f} s, "
+          f"checks {cx['checks_s']:.1f} s, exit {cx['exit_s']:.1f} s); pex "
+          f"every "
+          f"{cx['pex_interval_s']:g} s; launches {launches}; handshake "
+          f"device checks {cx['handshake_checks']}; oracle calls on the "
+          f"path {cx['oracle_calls']}, stored lanes re-checked by it "
+          f"afterwards {cx['oracle_rechecked']} in {cx['recheck_s']:.1f} s")
+    print(f"chaos heights 1-{CX_TOP}: a height "
+          f"{[round(x, 3) for x in per]} s (mean over 2-{CX_TOP} "
+          f"{statistics.mean(per):.3f}); rounds {rounds}, heights with "
+          f"round > 0 {[h + 1 for h, x in enumerate(rounds) if x]}; top "
+          f"{cx['top']} after {cx['load_s']:.1f} s; heights each minute "
+          f"{cx['heights_by_minute']}  [{card}]")
+    print(f"chaos discovery: every validator a peer of every other at "
+          f"once after {cx['discovery_s']} s, each having met every other "
+          f"after {cx['met_all_s']} s; peers added {cx['peer_adds']}, "
+          f"tear-downs {cx['teardowns']}, seed hang-ups {cx['hangups']}; "
+          f"fuzz decisions {cx['fuzz']}; partition drops "
+          f"{cx['partition_drops']}; books {cx['books']}  [{card}]")
+    top = cx["top"]
+    print(f"chaos traffic: payload bytes a height sent "
+          f"{cx['payload_sent'] / top:.0f}, received "
+          f"{cx['payload_recv'] / top:.0f}; load {cx['accepted']} txs "
+          f"accepted, sheds {cx['sheds']}; events {cx['events']}  [{card}]")
+    sm, am = cx["sign_ms"], cx["app_ms"]
+    print(f"chaos remote: signer round trips {len(sm)} p50 "
+          f"{statistics.median(sm):.2f} ms max {max(sm):.2f} ms; socket "
+          f"app calls {len(am)} p50 {statistics.median(am):.3f} ms max "
+          f"{max(am):.2f} ms; {cx['remote']}; grammar heights "
+          f"{cx['grammar_heights']}; joiner01 {cx['joiner']}; light01 "
+          f"verified 2-{CX_TOP} in {cx['light']['s']:.2f} s; validator02 "
+          f"{cx['v02']}, restart to caught up "
+          f"{cx['v02_restart_to_caught_up_s']} s, conflicting sign refused "
+          f"{cx['v02_refuses_conflict']}  [{card}]")
+    prof = cx["profile"]
+    print(f"profile chaos: wall {prof['wall_ms']:.0f} ms, device "
+          f"{prof['device_ms']} ms (busy {prof['device_busy_share']}), "
+          f"kernels {prof['kernels_ms']}  [{card}]")
+    ck = cx["checks"]["lanes"]
+    print(f"chaos shapes {cx['shapes']}; K5a tables {ck['tables']}, K5b "
+          f"lanes {ck['per_lane']}: mismatches {ck['mismatches']} in "
+          f"{cx['checks']['check_s']:.1f} s  [{card}]")
+
+
 CHILD_PHASES = {"rpc": (phase_rpc, BIG_VALS),
-                "statesync": (phase_statesync, SS_VALS)}
+                "statesync": (phase_statesync, SS_VALS),
+                "chaos": (phase_chaos, 0)}
 
 
 def main(argv=None) -> int:
+    global _T_LOADED
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--record", default=None,
                     help="also write the full record as JSON to this path")
@@ -6049,9 +6870,20 @@ def main(argv=None) -> int:
                     help="run only the build, the kernel sweep and phase 15")
     ap.add_argument("--statesync", action="store_true",
                     help="run only the build, the kernel sweep and phase 16")
+    ap.add_argument("--chaos", action="store_true",
+                    help="run only the build and phase 17")
+    ap.add_argument("--serve-remote", nargs=2, metavar=("LISTENER", "DIR"),
+                    default=None,
+                    help="serve phase 17's remote app and signer (how "
+                    "phase 17 starts that process)")
+    ap.add_argument("--after", default=None, metavar="GO",
+                    help="with --child: reach the card and load the "
+                    "kernels, then wait for the file GO before the phase "
+                    "(how the whole run starts its children ahead)")
     ap.add_argument("--child", nargs=2, metavar=("NAME", "PATH"),
                     default=None,
-                    help="run only phase NAME (rpc: 15, statesync: 16), "
+                    help="run only phase NAME (rpc: 15, statesync: 16, "
+                    "chaos: 17), "
                     "over the kernels built, and write its launches and "
                     "record as JSON to PATH (how the other runs start "
                     "those phases, each in a fresh process)")
@@ -6067,9 +6899,23 @@ def main(argv=None) -> int:
     from cometbft_tpu_torch.ops import _build
 
     dev = torch.device("cuda:0")
-    if args.child:
-        run_child(*args.child, dev)
+    if args.serve_remote:
+        serve_remote(*args.serve_remote)
         return 0
+    if args.child:
+        if args.after:
+            torch.zeros(1, device=dev)
+            for k in _build.KERNELS:
+                _build.load(k)
+            while not os.path.exists(args.after):
+                time.sleep(0.02)
+            _T_LOADED = time.perf_counter()     # the phase starts here
+        run_child(*args.child, dev)
+        # the record is written: skip the interpreter's teardown of the
+        # phase's objects (the card's context, idle worker threads)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"]).splitlines()[0]
     clock = _run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -6108,24 +6954,31 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    t0 = time.perf_counter()
-    fx = Fixtures(max(SIZES))
-    print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
-    if args.blocksync or args.consensus or args.node or args.stress or \
-            args.rpc or args.statesync:
+    swept = args.blocksync or args.consensus or args.node or args.stress \
+        or args.rpc or args.statesync
+    prespawn([n for n, on in (("rpc", args.rpc),
+                              ("statesync", args.statesync),
+                              ("chaos", args.chaos)) if on])
+    if swept:
+        fx = Fixtures(max(SIZES))
+        print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
+    if swept or args.chaos:
         rec = {k: {"mismatches": 0} for k in _build.KERNELS}
         t0 = time.perf_counter()
-        sweep = phase_sweep(fx, dev, rec)
-        print(f"sweep: {len(SWEEP_LANES)} random batches of {SWEEP_LANES} "
-              f"lanes in {time.perf_counter() - t0:.1f} s, mismatches "
-              f"{sweep}")
-        if any(sweep.values()):
-            raise AssertionError(f"sweep mismatches: {sweep}")
+        if swept:
+            sweep = phase_sweep(fx, dev, rec)
+            print(f"sweep: {len(SWEEP_LANES)} random batches of "
+                  f"{SWEEP_LANES} lanes in {time.perf_counter() - t0:.1f} "
+                  f"s, mismatches {sweep}")
+            if any(sweep.values()):
+                raise AssertionError(f"sweep mismatches: {sweep}")
         part = {}
         if args.rpc:
             rp_launches, rp = phase_fresh("rpc")
         if args.statesync:
             ss_launches, ss = phase_fresh("statesync")
+        if args.chaos:
+            cx_launches, cx = phase_fresh("chaos")
         if args.blocksync or args.stress:
             ctx = multiprocessing.get_context("spawn")
             with ctx.Pool(os.cpu_count()) as pool:
@@ -6160,6 +7013,9 @@ def main(argv=None) -> int:
         if args.statesync:
             report_statesync(ss, ss_launches, card)
             part["statesync"] = ss
+        if args.chaos:
+            report_chaos(cx, cx_launches, card)
+            part["chaos"] = cx
         if args.record:
             os.makedirs(os.path.dirname(os.path.abspath(args.record)),
                         exist_ok=True)
@@ -6170,6 +7026,10 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
+    # the fresh processes of phases 15-17 reach the card meanwhile
+    prespawn(("rpc", "statesync", "chaos"))
+    fx = Fixtures(max(SIZES))
+    print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
     rec = {k: {"name": k, "route": "cuda"} for k in _build.KERNELS}
     sources = {"sha256_leaves": ("csrc/sha256.cu",
                                  "cometbft_tpu/ops/sha256.py:115"),
@@ -6317,20 +7177,30 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         st_launches, st = phase_stress(pool, dev)
         st["phase_s"] = time.perf_counter() - t0
-    rp_launches, rp = phase_fresh("rpc")
-    ss_launches, ss = phase_fresh("statesync")
+    cx_launches, cx = phase_fresh("chaos")
     report_blocksync(bs, bs_launches, card)
+    # phases 15 and 16 run beside phases 12 and 13
+    t_beside = time.perf_counter()
+    join_fresh = fresh_beside(("rpc", "statesync"))
     t0 = time.perf_counter()
     cs_launches, cs = phase_consensus(dev)
     cs["phase_s"] = time.perf_counter() - t0
-    report_consensus(cs, cs_launches, card)
     t0 = time.perf_counter()
     nd_launches, nd = phase_node(dev)
     nd["phase_s"] = time.perf_counter() - t0
+    t_nodes = time.perf_counter() - t_beside
+    (rp_launches, rp), (ss_launches, ss) = join_fresh()
+    beside_s = time.perf_counter() - t_beside
+    print(f"phases 12-13 beside 15-16: {beside_s:.1f} s (phases 12-13 "
+          f"{t_nodes:.1f} s, 15-16 {rp['phase_s'] + ss['phase_s']:.1f} s;"
+          f" one after another {t_nodes + rp['phase_s'] + ss['phase_s']:.1f}"
+          f" s)")
+    report_consensus(cs, cs_launches, card)
     report_node(nd, nd_launches, card)
     report_stress(st, st_launches, card, nd)
     report_rpc(rp, rp_launches, card)
     report_statesync(ss, ss_launches, card)
+    report_chaos(cx, cx_launches, card)
     print(f"light client (phase 10): fixtures {lc['fixture_s']}, first "
           f"calls {lc['first_call_s']} s, phase {lc['phase_s']:.1f} s; "
           f"launches {lc_launches}")
@@ -6404,7 +7274,7 @@ def main(argv=None) -> int:
              "light_client": lc_launches, "blocksync": bs_launches,
              "consensus": cs_launches, "node": nd_launches,
              "stress": st_launches, "rpc": rp_launches,
-             "statesync": ss_launches}
+             "statesync": ss_launches, "chaos": cx_launches}
 
     c = op_counts()
     print(f"field multiplications per group op: {c}")
@@ -6479,7 +7349,8 @@ def main(argv=None) -> int:
                        "light150": l150, "light10k": l10k, "bls": bls,
                        "light_client": lc, "blocksync": bs,
                        "consensus": cs, "node": nd, "stress": st,
-                       "rpc": rp, "statesync": ss, "mesh": mesh,
+                       "rpc": rp, "statesync": ss, "chaos": cx,
+                       "mesh": mesh,
                        "build_log": _build.build_log(),
                        "ptxas": usage}, f, indent=1,
                       default=str)

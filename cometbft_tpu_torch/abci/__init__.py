@@ -1,11 +1,13 @@
 """ABCI 2.0: the application interface (counterpart of
-``cometbft_tpu/abci``; reference: ``abci/``), the in-process client and
-the kvstore application.  The socket and gRPC clients come with the
-networked node."""
+``cometbft_tpu/abci``; reference: ``abci/``), the in-process and socket
+clients, the socket server, the call-grammar checker and the kvstore
+application.  The gRPC client is not ported (it needs ``grpc``)."""
 
 from .application import Application
-from .client import ABCIClient, ABCIClientError, LocalClient
+from .client import ABCIClient, ABCIClientError, LocalClient, SocketClient
+from .grammar import GrammarError, RecordingApp, check_sequence
 from .kvstore import KVStoreApplication
+from .server import ABCIServer
 from .types import (CODE_TYPE_OK, PROCESS_PROPOSAL_ACCEPT,
                     PROCESS_PROPOSAL_REJECT, VERIFY_VOTE_EXT_ACCEPT,
                     VERIFY_VOTE_EXT_REJECT, CheckTxResponse, CommitResponse,
@@ -17,7 +19,8 @@ from .types import (CODE_TYPE_OK, PROCESS_PROPOSAL_ACCEPT,
 
 __all__ = [
     "Application", "ABCIClient", "ABCIClientError", "LocalClient",
-    "KVStoreApplication",
+    "SocketClient", "ABCIServer", "GrammarError", "RecordingApp",
+    "check_sequence", "KVStoreApplication",
     "CheckTxResponse", "CommitResponse", "Event", "EventAttribute",
     "ExecTxResult", "ExtendVoteResponse", "FinalizeBlockRequest",
     "FinalizeBlockResponse", "PrepareProposalRequest",

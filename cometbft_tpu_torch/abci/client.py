@@ -1,26 +1,35 @@
-"""ABCI clients (reference: ``abci/client/``).
+"""ABCI clients (counterpart of ``cometbft_tpu/abci/client.py``;
+reference: ``abci/client/``): the ``ABCIClient`` interface (one
+awaitable method per ABCI call), the method dispatch shared with the
+socket server (:func:`dispatch_to_app`), the in-process client, and the
+pipelined socket client (``abci/client/socket_client.go``).
 
-Counterpart of ``cometbft_tpu/abci/client.py`` for the in-process
-path: the ``ABCIClient`` interface (one awaitable method per ABCI call),
-the method dispatch shared with a server (:func:`dispatch_to_app`), the
-local client, and the dataclass value encoding the block executor
-stores a FinalizeBlock response with (:func:`_encode_value`,
-:func:`_decode_value`).  The socket client and its framing come with the
-node slice of the port.
+Socket frames are the JAX package's bytes: a ``>I`` length, then
+MessagePack of ``{id, method, params}`` or ``{id, ok, result|error}``
+(packed with ``types/_msgpack.py``), with dataclass values as
+``{"__dc__": name, field: value, ...}`` maps (:func:`_encode_value`,
+:func:`_decode_value`), the encoding the block executor also stores a
+FinalizeBlock response with.  A port client talks to a JAX
+``ABCIServer`` and the reverse.
 """
 
 from __future__ import annotations
 
 import asyncio
+import itertools
+import struct
 from abc import ABC, abstractmethod
 from dataclasses import fields, is_dataclass
 
+from ..types import _msgpack
 from ..types import params as _params
 from . import types as t
 from .application import Application
 
 __all__ = ["ABCIClientError", "ABCIClient", "dispatch_to_app",
-           "LocalClient"]
+           "LocalClient", "SocketClient", "read_frame", "write_frame"]
+
+_LEN = struct.Struct(">I")
 
 
 class ABCIClientError(Exception):
@@ -210,3 +219,85 @@ def _decode_value(v):
     if isinstance(v, list):
         return [_decode_value(x) for x in v]
     return v
+
+
+async def read_frame(reader: asyncio.StreamReader):
+    hdr = await reader.readexactly(_LEN.size)
+    (n,) = _LEN.unpack(hdr)
+    return _msgpack.unpackb(await reader.readexactly(n))
+
+
+def write_frame(writer: asyncio.StreamWriter, obj) -> None:
+    """One frame of ``obj``, whose values are already encoded
+    (:func:`_encode_value`)."""
+    raw = _msgpack.packb(obj)
+    writer.write(_LEN.pack(len(raw)) + raw)
+
+
+class SocketClient(ABCIClient):
+    """Pipelined socket client (``abci/client/socket_client.go``):
+    requests stream out with sequence ids, and a reader task resolves
+    their futures.  A lost connection fails every pending and later
+    call with :class:`ABCIClientError`; nothing falls back to a local
+    app."""
+
+    def __init__(self, reader: asyncio.StreamReader,
+                 writer: asyncio.StreamWriter):
+        self.reader = reader
+        self.writer = writer
+        self._seq = itertools.count(1)
+        self._pending: dict[int, asyncio.Future] = {}
+        self._reader_task = asyncio.create_task(self._read_loop())
+        self._err: Exception | None = None
+
+    @classmethod
+    async def connect(cls, host: str = "127.0.0.1", port: int = 26658,
+                      unix_path: str | None = None) -> "SocketClient":
+        if unix_path:
+            reader, writer = await asyncio.open_unix_connection(unix_path)
+        else:
+            reader, writer = await asyncio.open_connection(host, port)
+        return cls(reader, writer)
+
+    async def _read_loop(self):
+        try:
+            while True:
+                frame = await read_frame(self.reader)
+                fut = self._pending.pop(frame["id"], None)
+                if fut is None or fut.done():
+                    continue
+                if frame.get("ok", False):
+                    fut.set_result(_decode_value(frame["result"]))
+                else:
+                    fut.set_exception(ABCIClientError(frame.get("error")))
+        except (asyncio.IncompleteReadError, ConnectionError,
+                asyncio.CancelledError) as e:
+            self._err = ABCIClientError(f"connection lost: {e!r}")
+            for fut in self._pending.values():
+                if not fut.done():
+                    fut.set_exception(self._err)
+            self._pending.clear()
+
+    async def call(self, method: str, **params):
+        if self._err:
+            raise self._err
+        rid = next(self._seq)
+        fut = asyncio.get_running_loop().create_future()
+        self._pending[rid] = fut
+        # the read loop may have died between the check and the
+        # registration: a future must not be stranded
+        if self._err or self._reader_task.done():
+            self._pending.pop(rid, None)
+            raise self._err or ABCIClientError("connection closed")
+        write_frame(self.writer, {"id": rid, "method": method,
+                                  "params": _encode_value(params)})
+        await self.writer.drain()
+        return await fut
+
+    async def close(self):
+        self._reader_task.cancel()
+        self.writer.close()
+        try:
+            await self.writer.wait_closed()
+        except Exception:
+            pass

@@ -11,13 +11,12 @@ default.
   run them).
 - The JAX package's fields that steer only its TPU host fallback or its
   compile cache (``min_device_lanes``, ``device_wait_s``,
-  ``device_warmup``, ``compile_bundle_*``) have no counterpart; the
-  sections and fields of modules the port has not yet (the fault plane,
-  pex, fuzzing, gRPC) come with those modules, and TOML load and save
-  with ``cmd/``.
-- :meth:`Config.validate` holds the fields of ``StateSyncConfig``, the
-  storage doctor's and the liveness watchdog's to the JAX package's
-  bounds (``config.go`` ValidateBasic), raising :class:`ConfigError`.
+  ``device_warmup``, ``compile_bundle_*``) have no counterpart, nor
+  the gRPC app and the SQL sink; TOML load and save come with ``cmd/``.
+- :meth:`Config.validate` holds the application, fuzzing, signer and
+  fault-plane fields, ``StateSyncConfig``, the storage doctor's and the
+  liveness watchdog's to the JAX package's bounds (``config.go``
+  ValidateBasic), raising :class:`ConfigError`.
 - ``RPCConfig.laddr`` is ``tcp://127.0.0.1:26657`` as in the JAX
   package: a node started with it listens there; in-process networks
   give each node ``tcp://127.0.0.1:0`` (a free port) or ``""`` (no RPC
@@ -32,7 +31,7 @@ __all__ = ["NS", "MS", "ConsensusConfig", "test_consensus_config",
            "BaseConfig", "MempoolConfig", "P2PConfig", "RPCConfig",
            "BlockSyncConfig", "StateSyncConfig", "LightServeConfig",
            "StorageConfig", "TxIndexConfig", "InstrumentationConfig",
-           "Config", "ConfigError"]
+           "ChaosConfig", "Config", "ConfigError"]
 
 NS = 1_000_000_000
 MS = 1_000_000
@@ -107,10 +106,38 @@ class MempoolConfig:
 @dataclass
 class P2PConfig:
     laddr: str = "tcp://0.0.0.0:26656"
+    external_address: str = ""
+    # comma-separated dial addresses; the node's starter dials them
+    # (seeds once, persistent peers with redial), as the JAX package's
+    # cmd does
+    seeds: str = ""
+    persistent_peers: str = ""
+    max_num_inbound_peers: int = 40
+    max_num_outbound_peers: int = 10
+    # peer exchange (p2p/pex.py) and its address book; in seed mode the
+    # node crawls the book and hangs up after harvesting
+    pex: bool = True
+    pex_interval_seconds: float = 30.0     # ensurePeersPeriod
+    seed_mode: bool = False
+    addr_book_path: str = "config/addrbook.json"
     # one-way delay injected at the MConnection receive side, emulating
     # geo-distribution on one machine (the reference's e2e runner,
     # test/e2e/runner/latency_emulation.go)
     emulated_latency_ms: float = 0.0
+    # cadence of the switch's per-peer flush into the peer-labelled
+    # Prometheus series; 0 disables it
+    telemetry_flush_interval_s: float = 2.0
+    # connection fuzzing on every peer stream (p2p/fuzz.py; reference
+    # p2p/fuzz.go and config.FuzzConnConfig), from fuzz_start_after_s
+    # after the connection opens, decisions from random.Random(fuzz_seed)
+    test_fuzz: bool = False
+    fuzz_mode: str = "drop"           # drop | delay
+    fuzz_max_delay_s: float = 3.0
+    fuzz_prob_drop_rw: float = 0.01
+    fuzz_prob_drop_conn: float = 0.0
+    fuzz_prob_sleep: float = 0.0
+    fuzz_start_after_s: float = 10.0
+    fuzz_seed: int = 0
     # peer quality (p2p/quality.py): decaying per-peer misbehavior
     # scores; crossing the disconnect score drops the peer, crossing the
     # ban score issues a timed ban (TTL doubling per repeat offense)
@@ -252,6 +279,16 @@ class BaseConfig:
     # where the node checks signatures: "cuda" (or a CUDA device),
     # "cpu" for the kernels' plain versions
     device: str = "cuda"
+    # with a tcp://host:port here, the node's starter listens and the
+    # remote signer dials in (privval/signer.py SignerListener) instead
+    # of the file signer
+    priv_validator_laddr: str = ""
+    # deadline of one remote-signer round trip in seconds (0: none)
+    priv_validator_timeout_s: float = 5.0
+    # the application: "builtin" (in process) or "socket" (an ABCI
+    # socket server at proxy_app, abci/server.py)
+    abci: str = "builtin"
+    proxy_app: str = "kvstore"
     # the file signer's last-sign state under the home (read by the
     # storage doctor in inspect mode)
     priv_validator_state_file: str = "data/priv_validator_state.json"
@@ -261,6 +298,19 @@ class BaseConfig:
     vote_sched_max_lanes: int = 256
     vote_sched_cache_size: int = 65536
     vote_sched_verify_timeout_s: float = 0.0
+
+
+@dataclass
+class ChaosConfig:
+    """Deterministic fault injection (``libs/failures.py``), off by
+    default; the ``CMT_CHAOS`` environment variable overrides it."""
+
+    enable: bool = False
+    # master seed; per-site generators derive from "{seed}:{site}"
+    seed: int = 0
+    # fault specs, "site:key=value:...", e.g. "wal.fsync.eio:at=40"
+    faults: list[str] = field(default_factory=list)
+    log_size: int = 8192
 
 
 @dataclass
@@ -277,10 +327,32 @@ class Config:
     tx_index: TxIndexConfig = field(default_factory=TxIndexConfig)
     instrumentation: InstrumentationConfig = field(
         default_factory=InstrumentationConfig)
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
 
     def validate(self) -> None:
-        """The statesync, storage-doctor and liveness-watchdog bounds of
-        the JAX package's ``Config.validate``."""
+        """The application, fuzzing, signer, statesync, storage-doctor,
+        liveness-watchdog and fault-plane bounds of the JAX package's
+        ``Config.validate`` (the gRPC app is not ported)."""
+        if self.base.abci not in ("builtin", "socket"):
+            raise ConfigError(f"base.abci must be builtin|socket, "
+                              f"got {self.base.abci!r}")
+        if self.p2p.fuzz_mode not in ("drop", "delay"):
+            raise ConfigError(f"p2p.fuzz_mode must be drop|delay, "
+                              f"got {self.p2p.fuzz_mode!r}")
+        if self.base.priv_validator_timeout_s < 0:
+            raise ConfigError(
+                "base.priv_validator_timeout_s must be >= 0")
+        if self.chaos.log_size < 16:
+            raise ConfigError("chaos.log_size must be >= 16")
+        if self.chaos.enable:
+            from .libs.failures import FaultSpecError, parse_fault_spec
+
+            for spec in self.chaos.faults:
+                try:
+                    parse_fault_spec(spec)
+                except FaultSpecError as e:
+                    raise ConfigError(f"bad chaos.faults entry: {e}") \
+                        from None
         inst = self.instrumentation
         if inst.watchdog_stall_threshold_s < 0:
             raise ConfigError(

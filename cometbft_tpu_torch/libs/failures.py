@@ -1,11 +1,14 @@
 """Deterministic node-wide fault-injection plane (counterpart of
-``cometbft_tpu/libs/failures.py``, without its config-file and
-environment wiring, which belong to the node).
+``cometbft_tpu/libs/failures.py``).
 
 - **Named sites.**  Each injection point is a named site
-  (``wal.fsync.eio``, ``wal.write.torn``, ``sched.dispatch.raise``); a
-  site is one :func:`fire` call, which returns ``None`` (no fault this
-  time) or the armed rule's parameter dict (inject now).
+  (``wal.fsync.eio``, ``wal.write.torn``, ``sched.dispatch.raise``,
+  ``p2p.send.drop``, ``signer.round_trip.hang``, ...); a site is one
+  :func:`fire` call, which returns ``None`` (no fault this time) or the
+  armed rule's parameter dict (inject now).  The JAX package's
+  ``device.dispatch.hang`` and ``device.dispatch.raise`` fire into its
+  host fallback, which the port has not: their specs are accepted and
+  never fire, as for any site nobody calls.
 - **Seeded, deterministic schedules.**  Every site is gated by a
   :class:`FaultRule` parsed from a spec string
   (``"site:key=value:key=value"``).  Index triggers (``at=N``,
@@ -13,12 +16,20 @@ environment wiring, which belong to the node).
   only on the site's own call counter; ``prob=P`` draws from a per-site
   ``random.Random`` seeded from ``"{seed}:{site}"``.
 - **Bounded event log.**  Every fired fault appends one dict to a
-  ``deque(maxlen=N)``, read by :func:`events`.
+  ``deque(maxlen=N)``, read by :func:`events`; :func:`signature`
+  projects it onto sorted ``(site, call-index, fire-index)`` tuples.
 - **Zero overhead when disabled**: a module flag and a
   first-instruction return from :func:`fire`.
 
-Arm it with :func:`configure` (``faults=["wal.fsync.eio:at=40"]``);
-:func:`reset` disarms everything.
+Arm it with :func:`configure` (``faults=["wal.fsync.eio:at=40"]``), from
+a node's ``[chaos]`` section (:func:`configure_from_config`) or, winning
+over it, the ``CMT_CHAOS`` environment variable::
+
+    CMT_CHAOS="seed=7;wal.fsync.eio:at=40;p2p.recv.corrupt:prob=0.02:max=20"
+
+:func:`arm` and :func:`disarm` change one rule mid-run; :func:`reset`
+disarms everything.  The plane is process-wide: in-process nodes share
+one schedule, and a ``node=<name>`` selector arms one node's sites.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import random
 import threading
 from collections import deque
 
+ENV_VAR = "CMT_CHAOS"
 
 _ENABLED = False
 _PLANE: "ChaosPlane | None" = None
@@ -213,6 +225,22 @@ class ChaosPlane:
     def events(self) -> list[dict]:
         return [dict(e) for e in self.log]
 
+    def signature(self) -> list[tuple]:
+        """Order-independent deterministic projection of the event log:
+        sorted ``(site, call-index, fire-index)`` tuples.  Two same-seed
+        runs of the same workload produce equal signatures even though
+        cross-site interleaving (hence ``seq``) differs."""
+        return sorted((e["site"], e["n"], e["fire"]) for e in self.log)
+
+    def stats(self) -> dict:
+        return {
+            "seed": self.seed,
+            "sites": {s: {"calls": r.calls, "fired": r.fired}
+                      for s, r in self.rules.items()},
+            "events": len(self.log),
+        }
+
+
 # ------------------------------------------------------------- module API
 
 
@@ -220,6 +248,18 @@ def is_enabled() -> bool:
     """Hot-path gate for call sites that would otherwise build detail
     dicts or bytearrays just to have :func:`fire` drop them."""
     return _ENABLED
+
+
+def armed_prefix(prefix: str) -> bool:
+    """True when any armed rule's site starts with ``prefix``: the gate
+    of a cluster of sites (``p2p.send.*`` is five :func:`fire` calls a
+    packet); skipping the cluster is behaviour-identical, because sites
+    that are not armed count no calls.  Reads the live rule table, so a
+    mid-run :func:`arm` or :func:`disarm` holds from the next packet."""
+    plane = _PLANE
+    if not _ENABLED or plane is None:
+        return False
+    return any(s.startswith(prefix) for s in plane.rules)
 
 
 def fire(site: str, **detail) -> "dict | None":
@@ -272,6 +312,71 @@ def configure(enabled: bool | None = None, seed: int | None = None,
             _ENABLED = bool(enabled)
 
 
+def configure_from_config(chaos_cfg) -> None:
+    """A node's wiring (``config.ChaosConfig``).  The ``CMT_CHAOS``
+    environment variable, when set, wins outright: it arms subprocess
+    nodes without their config files.  Process-wide and sticky: a
+    disabled section never disarms a plane another in-process node
+    armed."""
+    import os
+
+    env = os.environ.get(ENV_VAR, "").strip()
+    if env:
+        seed, faults, log_size = _parse_env(env)
+        configure(enabled=True, seed=seed, faults=faults,
+                  log_size=log_size)
+        return
+    if chaos_cfg is not None and chaos_cfg.enable:
+        configure(enabled=True, seed=chaos_cfg.seed,
+                  faults=list(chaos_cfg.faults),
+                  log_size=chaos_cfg.log_size)
+
+
+def _parse_env(env: str) -> tuple[int, list[str], int]:
+    """``"seed=7;log=4096;site:k=v;site2"`` -> (seed, specs, log_size).
+    A clause with '=' and no ':' is a plane param; anything else is a
+    fault spec."""
+    seed, log_size = 0, 8192
+    faults: list[str] = []
+    for clause in env.split(";"):
+        clause = clause.strip()
+        if not clause:
+            continue
+        if "=" in clause and ":" not in clause:
+            key, _, raw = clause.partition("=")
+            key = key.strip()
+            if key == "seed":
+                seed = int(raw)
+            elif key == "log":
+                log_size = int(raw)
+            else:
+                raise FaultSpecError(f"unknown {ENV_VAR} param {key!r}")
+        else:
+            faults.append(clause)
+    return seed, faults, log_size
+
+
+def arm(spec: str) -> None:
+    """Add one rule to the installed plane without resetting counters or
+    the event log: phased scenarios arm faults as they go (the new
+    rule's call index starts at its arming point)."""
+    with _CONF_LOCK:
+        if _PLANE is None:
+            raise FaultSpecError("no chaos plane installed; configure() "
+                                 "first")
+        rule = parse_fault_spec(spec)
+        if rule.site in _PLANE.rules:
+            raise FaultSpecError(f"site {rule.site!r} already armed")
+        _PLANE.rules[rule.site] = rule
+
+
+def disarm(site: str) -> None:
+    """Remove one rule (its logged events stay in the log)."""
+    with _CONF_LOCK:
+        if _PLANE is not None:
+            _PLANE.rules.pop(site, None)
+
+
 def reset() -> None:
     """Disarm everything (tests)."""
     global _ENABLED, _PLANE
@@ -282,4 +387,14 @@ def reset() -> None:
 
 def events() -> list[dict]:
     return _PLANE.events() if _PLANE is not None else []
+
+
+def signature() -> list[tuple]:
+    return _PLANE.signature() if _PLANE is not None else []
+
+
+def stats() -> dict:
+    if _PLANE is None:
+        return {"enabled": False}
+    return {"enabled": _ENABLED, **_PLANE.stats()}
 

@@ -203,6 +203,12 @@ class Gauge(_Metric):
                     self._evict_locked(self._values)
                 self._values[key] = float(amount)
 
+    def remove(self, **labels) -> None:
+        """Drop one labelled child (a departed peer's gauge would report
+        its last value forever)."""
+        with self._lock:
+            self._values.pop(tuple(sorted(labels.items())), None)
+
     def bind(self, **labels) -> "_BoundGauge":
         """Pre-resolve a label set for hot paths (see Counter.bind)."""
         return _BoundGauge(self, tuple(sorted(labels.items())))

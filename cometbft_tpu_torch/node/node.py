@@ -35,13 +35,24 @@ the WAL opens, and ``/status`` serves its report; with
 watchdog (``node/watchdog.py``) writes incident bundles that
 ``/dump_incidents`` lists.
 
-Not here yet, each with its module (``ROADMAP.md`` queue 1): gRPC, the
-SQL event sink, pex with the address book and seed mode, connection
-fuzzing and the fault plane's config wiring; the AOT warmup has no
+Discovery and faults, as the JAX node wires them: the fault plane from
+``config.chaos`` (or ``CMT_CHAOS``) at :meth:`create`, before the
+stores open; with ``p2p.test_fuzz`` every peer stream through the
+connection fuzzer (``p2p/fuzz.py``); with ``p2p.pex`` an address book
+(``p2p/addrbook.py``, a JSON file under the home) that the peer scorer
+records its timed bans in, and the pex reactor (``p2p/pex.py``; in
+``p2p.seed_mode`` it crawls and hangs up); every MConnection scoped by
+the node's name for ``node=<name>`` fault rules.  ``app=None`` with
+``base.abci = "socket"`` connects to an ABCI socket server at
+``base.proxy_app`` (raising if none answers; nothing falls back to a
+local app).  The remote signer is a ``priv_validator`` like any other
+(``privval/signer.SignerListener``).  Seeds and persistent peers are
+dialled by the node's starter, as the JAX package's ``cmd`` does; the
+port's ``cmd/`` comes later (``ROADMAP.md`` queue 1).
+
+Not here: gRPC apps, the SQL event sink; the AOT warmup has no
 counterpart (``compile_bundle_info`` stays None: the port's kernels
-build at first use).  The app is in-process
-(``local_client_creator``); the socket and gRPC apps come with
-``abci/server.py``.
+build at first use).
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ from ..crypto import plan as _plan
 from ..crypto import scheduler as _vsched
 from ..evidence import EvidencePool, EvidenceReactor
 from ..indexer import BlockIndexer, IndexerService, TxIndexer
+from ..libs import failures as _failures
 from ..libs import log as tmlog
 from ..libs import metrics as _metrics
 from ..libs import tracing
@@ -68,8 +80,11 @@ from ..libs.pubsub import EventBus
 from ..light.serve import LightServeTier
 from ..mempool.clist_mempool import CListMempool
 from ..mempool.reactor import MempoolReactor
-from ..p2p import NodeInfo, NodeKey, PeerScorer, Switch, Transport
-from ..proxy.multi_app_conn import AppConns, local_client_creator
+from ..p2p import (AddrBook, NodeInfo, NodeKey, PeerScorer, PexReactor,
+                   Switch, Transport)
+from ..p2p.fuzz import FuzzConnConfig
+from ..proxy.multi_app_conn import (AppConns, local_client_creator,
+                                    socket_client_creator)
 from ..rpc import RPCServer
 from ..sm.execution import BlockExecutor
 from ..sm.pruner import Pruner
@@ -145,6 +160,8 @@ class Node:
         self.loop_watchdog: LoopWatchdog | None = None
         self.liveness_watchdog: LivenessWatchdog | None = None
         self.statesync_reactor: StatesyncReactor | None = None
+        self.addr_book: AddrBook | None = None
+        self.pex_reactor: PexReactor | None = None
         self.syncer: Syncer | None = None
         self.statesync_done: asyncio.Task | None = None
         self.statesync_error: BaseException | None = None
@@ -175,21 +192,22 @@ class Node:
                      fast_sync: bool = False,
                      state_sync_provider=None,
                      name: str = "node") -> "Node":
-        """Build a node of ``app`` (in process) on ``config.base.device``
-        (raising without a card unless it is ``"cpu"``).  With ``home``
+        """Build a node of ``app`` (in process; ``None`` with
+        ``base.abci = "socket"`` for the socket app at
+        ``base.proxy_app``) on ``config.base.device`` (raising without a
+        card unless it is ``"cpu"``).  With ``home``
         the stores are ``config.storage.db_backend`` files and the WAL a
         file under ``home/data``, whose lock the node holds until
         :meth:`stop`; without, everything is in memory.  The storage
         doctor's refusal (``doctor.DoctorError``) raises here."""
-        if app is None:
-            raise ValueError("no application: the port runs an in-process "
-                             "app (socket and gRPC apps come with "
-                             "abci/server.py)")
+        cfg = config or Config(consensus=test_consensus_config())
+        if app is None and cfg.base.abci != "socket":
+            raise ValueError("no application: pass app or configure "
+                             "base.abci='socket' with base.proxy_app addr")
         self = cls()
         self.name = name
         self.home = home
         self.fast_sync = fast_sync or state_sync_provider is not None
-        cfg = config or Config(consensus=test_consensus_config())
         self.config = cfg
         self.genesis = genesis_doc
         self.device = cfg.base.device
@@ -206,6 +224,9 @@ class Node:
                      state_sync_provider) -> None:
         cfg, home, name, device = self.config, self.home, self.name, \
             self.device
+        # the fault plane before the stores open: sites that fire at
+        # open time must see it (process-wide and sticky)
+        _failures.configure_from_config(cfg.chaos)
 
         def make_db(filename: str):
             db = MemDB() if home is None else open_db(
@@ -231,7 +252,14 @@ class Node:
             self.wal = WAL(wal_path)
         state = self.state_store.load() or State.from_genesis(genesis_doc)
 
-        self.app_conns = AppConns(local_client_creator(app), node=name)
+        if app is not None:
+            creator = local_client_creator(app)
+        else:
+            # out-of-process app over the ABCI socket (proxy/client.go's
+            # remote creator)
+            creator = socket_client_creator(*_parse_laddr(
+                cfg.base.proxy_app))
+        self.app_conns = AppConns(creator, node=name)
         await self.app_conns.start()
         self.event_bus = EventBus()
         mp = cfg.mempool
@@ -303,11 +331,26 @@ class Node:
             self.blocksync_reactor.hold = True
 
         self.node_key = node_key or NodeKey.generate()
-        self.transport = Transport(self.node_key, self._node_info,
-                                   device=device)
         p2p = cfg.p2p
+        fuzz_cfg = None
+        if p2p.test_fuzz:
+            fuzz_cfg = FuzzConnConfig(
+                mode=p2p.fuzz_mode, max_delay_s=p2p.fuzz_max_delay_s,
+                prob_drop_rw=p2p.fuzz_prob_drop_rw,
+                prob_drop_conn=p2p.fuzz_prob_drop_conn,
+                prob_sleep=p2p.fuzz_prob_sleep,
+                start_after_s=p2p.fuzz_start_after_s, seed=p2p.fuzz_seed)
+        self.transport = Transport(self.node_key, self._node_info,
+                                   device=device, fuzz_config=fuzz_cfg)
+        # the book before the switch: the scorer records its timed bans
+        # there (without pex it keeps them in memory)
+        if p2p.pex:
+            book_path = None
+            if home is not None:
+                book_path = os.path.join(home, p2p.addr_book_path)
+            self.addr_book = AddrBook(book_path)
         scorer = PeerScorer(
-            enabled=p2p.quality_enable,
+            self.addr_book, enabled=p2p.quality_enable,
             disconnect_score=p2p.quality_disconnect_score,
             ban_score=p2p.quality_ban_score,
             half_life_s=p2p.quality_half_life_s,
@@ -315,12 +358,20 @@ class Node:
             ban_ttl_max_s=p2p.quality_ban_ttl_max_s)
         self.switch = Switch(
             self.transport, emulated_latency=p2p.emulated_latency_ms / 1e3,
-            scorer=scorer, name=name)
+            scorer=scorer, name=name,
+            telemetry_interval=p2p.telemetry_flush_interval_s)
         self.switch.add_reactor("consensus", self.consensus_reactor)
         self.switch.add_reactor("mempool", self.mempool_reactor)
         self.switch.add_reactor("blocksync", self.blocksync_reactor)
         self.switch.add_reactor("evidence", self.evidence_reactor)
         self.switch.add_reactor("statesync", self.statesync_reactor)
+        if p2p.pex:
+            self.pex_reactor = PexReactor(
+                self.addr_book, self.node_key.id,
+                max_outbound=p2p.max_num_outbound_peers,
+                request_interval=p2p.pex_interval_seconds,
+                seed_mode=p2p.seed_mode)
+            self.switch.add_reactor("pex", self.pex_reactor)
 
         if cfg.tx_index.indexer == "kv":
             self.tx_indexer = TxIndexer(make_db("tx_index.db"))

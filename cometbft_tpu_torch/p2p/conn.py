@@ -7,10 +7,12 @@ lowest recently-sent/priority ratio (``selectChannelToGossipOn``
 connection.go:549); packets of <= ``PACKET_PAYLOAD`` bytes with an eof bit
 for message re-assembly; ping/pong keepalive with a pong deadline; flowrate
 metering on both directions; optional one-way latency emulation.  The
-packets are the JAX package's bytes.  The JAX package's fault-injection
-sites on the packet path (``p2p.send.*``, ``p2p.recv.*``) come with the
-node's fault-plane wiring, and rate limiting with a caller that sets a
-rate.
+packets are the JAX package's bytes.  With the fault plane armed
+(``libs/failures.py``) the packet path runs the JAX package's sites:
+``p2p.send.{drop,corrupt,delay,reorder,duplicate}`` a packet and
+``p2p.recv.{drop,corrupt}`` a complete message, each with the
+connection's ``chaos_scope`` (its node's name) as the ``node`` detail.
+Rate limiting comes with a caller that sets a rate.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from __future__ import annotations
 import asyncio
 import struct
 
-from ..libs import clock
+from ..libs import clock, failures
 from ..libs.flowrate import Monitor
 from .reactor import ChannelDescriptor
 from .secret_connection import SecretConnection
@@ -113,6 +115,11 @@ class MConnection:
         # rises without throttling bandwidth)
         self.emulated_latency = emulated_latency
         self._send_wakeup = asyncio.Event()
+        # one packet held back by the p2p.send.reorder site
+        self._chaos_held: dict | None = None
+        # the fault sites' node selector (the switch stamps its node's
+        # name: a rule with node=<name> arms one node's links)
+        self.chaos_scope = ""
         self._pong_due: float | None = None
         self._pong_to_send = False
         self._tasks: list[asyncio.Task] = []
@@ -211,9 +218,18 @@ class MConnection:
                         ch.sending = ch.queue.get_nowait()
                         ch.sent_off = 0
                     chunk, eof = ch.next_packet()
-                    await self._write_frame(
-                        _MSG_HDR.pack(len(chunk) + 3, _T_MSG,
-                                      ch.desc.channel_id, eof) + chunk)
+                    if failures.armed_prefix("p2p.send.") or \
+                            self._chaos_held is not None:
+                        # the held-packet check releases a reordered
+                        # packet with the next send even after the last
+                        # p2p.send.* rule was disarmed
+                        await self._chaos_send_packet(
+                            ch, {"t": "m", "c": ch.desc.channel_id,
+                                 "e": eof, "d": chunk})
+                    else:
+                        await self._write_frame(
+                            _MSG_HDR.pack(len(chunk) + 3, _T_MSG,
+                                          ch.desc.channel_id, eof) + chunk)
                     ch.recent += len(chunk)
                     ch.sent_bytes += len(chunk)
                     if eof:
@@ -224,6 +240,10 @@ class MConnection:
                     ch.recent *= 0.8
                 if not any(c.has_data() for c in self.channels.values()) \
                         and not self._pong_to_send:
+                    if self._chaos_held is not None:
+                        # an idle wire must not strand a reordered packet
+                        held, self._chaos_held = self._chaos_held, None
+                        await self._write_packet(held)
                     try:
                         await clock.wait_for(self._send_wakeup.wait(), 0.5)
                     except asyncio.TimeoutError:
@@ -232,6 +252,47 @@ class MConnection:
             raise
         except Exception as e:
             self._fail(e)
+
+    async def _chaos_send_packet(self, ch: _Channel, pkt: dict) -> None:
+        """The send-side fault sites of one packet, in order:
+        ``p2p.send.drop`` swallows it (the peer's reassembly sees a
+        hole), ``p2p.send.corrupt`` flips one seeded bit of its payload,
+        ``p2p.send.delay`` sleeps ``delay`` (50 ms by default) before the
+        write, ``p2p.send.reorder`` holds it until after the next packet
+        (or wire idle), ``p2p.send.duplicate`` writes it twice.  The
+        caller's accounting proceeds regardless, as on a lossy link."""
+        name = ch.display_name
+        scope = self.chaos_scope
+        if failures.fire("p2p.send.drop", chan=name,
+                         node=scope) is not None:
+            return
+        f = failures.fire("p2p.send.corrupt", chan=name, node=scope)
+        if f is not None and pkt["d"]:
+            data = bytearray(pkt["d"])
+            rng = failures.site_rng("p2p.send.corrupt")
+            data[rng.randrange(len(data))] ^= 1 << rng.randrange(8)
+            pkt = dict(pkt, d=bytes(data))
+        f = failures.fire("p2p.send.delay", chan=name, node=scope)
+        if f is not None:
+            await clock.sleep(float(f.get("delay", 0.05)))
+        f = failures.fire("p2p.send.reorder", chan=name, node=scope)
+        if f is not None and self._chaos_held is None:
+            self._chaos_held = pkt      # released after the next packet
+            return
+        await self._write_packet(pkt)
+        if failures.fire("p2p.send.duplicate", chan=name,
+                         node=scope) is not None:
+            await self._write_packet(pkt)
+        if self._chaos_held is not None:
+            held, self._chaos_held = self._chaos_held, None
+            await self._write_packet(held)
+
+    async def _write_packet(self, packet: dict) -> None:
+        """The fault sites' late encoder: the frames of the hot path."""
+        d = packet.get("d", b"")
+        await self._write_frame(
+            _MSG_HDR.pack(len(d) + 3, _T_MSG, packet["c"],
+                          1 if packet.get("e") else 0) + d)
 
     async def _write_frame(self, data: bytes) -> None:
         await self.conn.write(data)
@@ -290,6 +351,21 @@ class MConnection:
             ch.recv_buf.clear()
             ch.recv_msgs += 1
             self.last_msg_recv_mono = clock.monotonic()
+            if failures.armed_prefix("p2p.recv."):
+                # receive-side faults act on complete messages, the unit
+                # a reactor sees: drop one, or flip one seeded bit
+                if failures.fire("p2p.recv.drop", chan=ch.display_name,
+                                 node=self.chaos_scope) is not None:
+                    return
+                f = failures.fire("p2p.recv.corrupt",
+                                  chan=ch.display_name,
+                                  node=self.chaos_scope)
+                if f is not None and msg:
+                    data = bytearray(msg)
+                    rng = failures.site_rng("p2p.recv.corrupt")
+                    data[rng.randrange(len(data))] ^= \
+                        1 << rng.randrange(8)
+                    msg = bytes(data)
             if self.emulated_latency > 0:
                 # equal delays preserve delivery order (asyncio timer
                 # heap breaks ties by schedule sequence)

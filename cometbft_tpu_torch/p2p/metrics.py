@@ -2,12 +2,18 @@
 reference: ``p2p/metrics.go``).
 
 One lazily-built process-wide set: in-process nodes share the default
-registry, so every series carries a ``node`` label.  These are the JAX
-package's node-labeled series (closed label sets: the number of
-in-process nodes times a closed enum).  Its peer-labeled series, which a
-periodic sampler flushes from the MConnection counters for Prometheus,
-come with the Prometheus exposition; the counters themselves are read
-directly (``MConnection.telemetry``).
+registry, so every series carries a ``node`` label.  Two tiers, as in
+the JAX package:
+
+- node-labelled series (dial failures, handshakes, ping RTT, reactor
+  messages, misbehaviour, bans, pong timeouts, reconnect give-ups):
+  closed label sets, the in-process nodes times a closed enum;
+- peer-labelled series (per-peer, per-channel throughput, queue depth
+  and drops, rates, RTT, score): open under churn, so each is made with
+  a label budget (:data:`PEER_LABEL_BUDGET`, times the channels for the
+  channel-split ones) past which the oldest child is evicted.  The
+  switch's telemetry routine writes them from the MConnection's plain
+  counters, never the packet path.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ __all__ = ["PEER_LABEL_BUDGET", "peer_label", "p2p_metrics"]
 
 # distinct peers a node's per-peer series may track at once
 PEER_LABEL_BUDGET = 128
+# channel-split per-peer series carry peer x channel children
+_CHANNELS_PER_PEER = 8
 
 
 def peer_label(peer_id: str) -> str:
@@ -31,6 +39,7 @@ def peer_label(peer_id: str) -> str:
 
 @functools.cache
 def p2p_metrics() -> SimpleNamespace:
+    chan_budget = PEER_LABEL_BUDGET * _CHANNELS_PER_PEER
     return SimpleNamespace(
         peers=m.gauge(
             "p2p_peers",
@@ -60,6 +69,10 @@ def p2p_metrics() -> SimpleNamespace:
         reactor_msgs=m.counter(
             "p2p_reactor_msgs_total",
             "complete messages dispatched to each reactor"),
+        queue_full_drops=m.counter(
+            "p2p_send_queue_full_total",
+            "sends refused because the per-channel send queue was full, "
+            "by channel (backpressure visible per channel, node-wide)"),
         misbehavior=m.counter(
             "p2p_peer_misbehavior_total",
             "misbehavior events reported to the peer scorer, by typed "
@@ -73,4 +86,46 @@ def p2p_metrics() -> SimpleNamespace:
             "persistent-peer reconnect loops that exhausted the "
             "exponential backoff budget (they keep retrying at the max "
             "delay; this counts the downshifts)"),
+        # ---------------------------------------------- peer-labelled
+        peer_send_bytes=m.counter(
+            "p2p_peer_send_bytes_total",
+            "bytes of message payload sent to a peer, by channel",
+            max_label_sets=chan_budget),
+        peer_recv_bytes=m.counter(
+            "p2p_peer_recv_bytes_total",
+            "bytes of message payload received from a peer, by channel",
+            max_label_sets=chan_budget),
+        peer_send_msgs=m.counter(
+            "p2p_peer_send_msgs_total",
+            "complete messages sent to a peer, by channel",
+            max_label_sets=chan_budget),
+        peer_recv_msgs=m.counter(
+            "p2p_peer_recv_msgs_total",
+            "complete messages received from a peer, by channel",
+            max_label_sets=chan_budget),
+        peer_queue_depth=m.gauge(
+            "p2p_peer_send_queue",
+            "send-queue depth (messages waiting) per peer channel",
+            max_label_sets=chan_budget),
+        peer_queue_drops=m.counter(
+            "p2p_peer_send_queue_full_total",
+            "queue-full send drops per peer channel",
+            max_label_sets=chan_budget),
+        peer_send_rate=m.gauge(
+            "p2p_peer_send_rate_bytes",
+            "flowrate send EMA (bytes/sec, idle-decaying) per peer",
+            max_label_sets=PEER_LABEL_BUDGET),
+        peer_recv_rate=m.gauge(
+            "p2p_peer_recv_rate_bytes",
+            "flowrate recv EMA (bytes/sec, idle-decaying) per peer",
+            max_label_sets=PEER_LABEL_BUDGET),
+        peer_rtt=m.gauge(
+            "p2p_peer_rtt_seconds",
+            "last measured ping RTT per peer",
+            max_label_sets=PEER_LABEL_BUDGET),
+        peer_score=m.gauge(
+            "p2p_peer_score",
+            "decaying misbehavior score per connected peer (0 = clean; "
+            "crossing the configured thresholds disconnects / bans)",
+            max_label_sets=PEER_LABEL_BUDGET),
     )

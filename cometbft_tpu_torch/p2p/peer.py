@@ -41,6 +41,12 @@ class Peer:
     def id(self) -> str:
         return self.node_info.node_id
 
+    @property
+    def remote_addr(self) -> str:
+        """The peer's proven socket address (empty if unknown)."""
+        conn = getattr(self.mconn, "conn", None)
+        return getattr(conn, "remote_addr", "") or ""
+
     def has_channel(self, channel_id: int) -> bool:
         """Whether the REMOTE advertised this channel in its handshake
         NodeInfo (reference peer.go hasChannel).  An empty advertisement

@@ -20,9 +20,8 @@ Design:
 - **Two thresholds.**  Crossing ``disconnect_score`` disconnects the
   peer (the Switch re-admits it on the next dial); crossing
   ``ban_score`` issues a **timed** ban — TTL ``ban_ttl_s`` doubling per
-  repeat offense up to ``ban_ttl_max_s`` — kept in memory (the JAX
-  package also records it in the address book, which comes with
-  ``p2p/addrbook.py``).
+  repeat offense up to ``ban_ttl_max_s`` — recorded in the address book
+  (persisted across restarts) or a local map when no book exists.
 - **Persistent peers are exempt from bans** (an operator pinned them on
   purpose): they are scored and disconnected like anyone else, and the
   Switch's persistent-reconnect machinery re-dials them.
@@ -99,7 +98,7 @@ class _PeerQ:
 
 
 class PeerScorer:
-    def __init__(self, *, enabled: bool = True,
+    def __init__(self, addr_book=None, *, enabled: bool = True,
                  disconnect_score: float = DISCONNECT_SCORE,
                  ban_score: float = BAN_SCORE,
                  half_life_s: float = HALF_LIFE_S,
@@ -107,6 +106,7 @@ class PeerScorer:
                  ban_ttl_max_s: float = BAN_TTL_MAX_S,
                  max_tracked: int = MAX_TRACKED):
         self.enabled = enabled
+        self.book = addr_book
         self.disconnect_score = disconnect_score
         self.ban_score = ban_score
         self.half_life_s = max(half_life_s, 1e-3)
@@ -114,7 +114,8 @@ class PeerScorer:
         self.ban_ttl_max_s = ban_ttl_max_s
         self.max_tracked = max_tracked
         self._peers: dict[str, _PeerQ] = {}
-        # bans: reason + expiry
+        # ban mirror: reason + expiry for reporting; the address book
+        # (when present) is the durable, admission-authoritative copy
         self._bans: dict[str, dict] = {}
         self.bans_total = 0
 
@@ -186,15 +187,21 @@ class PeerScorer:
         self.bans_total += 1
         self._bans[peer_id] = {"reason": reason, "expiry": expiry,
                                "ttl_s": ttl}
+        if self.book is not None:
+            self.book.mark_bad(peer_id, ttl=ttl)
 
     def is_banned(self, peer_id: str) -> bool:
+        if self.book is not None and self.book.is_banned(peer_id):
+            return True
         ban = self._bans.get(peer_id)
         if ban is None:
             return False
         if ban["expiry"] <= clock.walltime():
             self._bans.pop(peer_id, None)
             return False
-        return True
+        # the mirror rules only without a book (the book may have
+        # expired the ban early, and wins then)
+        return self.book is None
 
     # ---------------------------------------------------------- reporting
 
@@ -224,6 +231,14 @@ class PeerScorer:
             out.append({"node_id": pid, "reason": ban["reason"],
                         "expires_in_s": round(ban["expiry"] - now, 1),
                         "ttl_s": ban["ttl_s"]})
+        if self.book is not None:
+            # bans loaded from a persisted book have no mirror entry
+            seen = {b["node_id"] for b in out}
+            for pid, expiry in self.book.banned().items():
+                if pid not in seen:
+                    out.append({"node_id": pid, "reason": "persisted",
+                                "expires_in_s": round(expiry - now, 1),
+                                "ttl_s": None})
         return out
 
     def snapshot(self) -> dict:

@@ -72,6 +72,19 @@ class SecretConnection:
         self._buf = bytearray()
         self.remote_pub_key = remote_pub_key
 
+    @property
+    def remote_addr(self) -> str:
+        """The socket's remote ``host:port``: the only address an inbound
+        peer has proven (its advertised listen address is hearsay, and
+        pex attributes addresses to this one)."""
+        try:
+            peername = self._writer.get_extra_info("peername")
+            if peername:
+                return f"{peername[0]}:{peername[1]}"
+        except Exception:
+            pass
+        return ""
+
     # -------------------------------------------------------------- frames
 
     def _nonce(self, counter: int) -> bytes:

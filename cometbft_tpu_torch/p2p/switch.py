@@ -5,10 +5,11 @@ Owns the Transport, accepts/dials peers, builds each peer's MConnection
 from the union of reactor channel descriptors, dispatches received messages
 to the owning reactor, fans out broadcasts, scores misbehavior through one
 :class:`PeerScorer`, and reconnects persistent peers with exponential
-backoff after errors (switch.go reconnectToPeer).  The JAX package's
-per-peer telemetry (its periodic flush into Prometheus series and the
-``/net_info`` snapshot) comes with the Prometheus exposition and RPC;
-each MConnection's counters are read by ``MConnection.telemetry``."""
+backoff after errors (switch.go reconnectToPeer).  A telemetry routine
+flushes each peer's plain MConnection counters into the peer-labelled
+Prometheus series every ``telemetry_interval`` seconds (0: never), and
+drops a departed peer's gauges.  Every MConnection carries the switch's
+``name`` as its fault-plane scope (``node=<name>`` rules)."""
 
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from ..libs import aio, clock
 from ..libs import log as tmlog
 from .conn import (ConnectionLostError, MConnection, MConnectionError,
                    PongTimeoutError)
-from .metrics import p2p_metrics
+from .metrics import p2p_metrics, peer_label
 from .node_info import NodeInfo
 from .peer import Peer
 from .quality import PeerMisbehaviorError, PeerScorer
@@ -30,6 +31,9 @@ from .transport import Transport
 RECONNECT_BASE_DELAY = 0.5
 RECONNECT_MAX_DELAY = 30.0
 RECONNECT_MAX_ATTEMPTS = 20
+# per-peer telemetry flush cadence (Prometheus series are written here,
+# never from the packet path)
+TELEMETRY_FLUSH_INTERVAL = 2.0
 
 
 class SwitchError(Exception):
@@ -40,8 +44,12 @@ class Switch:
     def __init__(self, transport: Transport,
                  emulated_latency: float = 0.0,
                  scorer: PeerScorer | None = None,
-                 name: str = ""):
+                 name: str = "",
+                 telemetry_interval: float = TELEMETRY_FLUSH_INTERVAL):
         self.transport = transport
+        # fault-plane scope stamped on every MConnection
+        self.chaos_scope = name
+        self.telemetry_interval = telemetry_interval
         self.emulated_latency = emulated_latency
         # node-wide peer reputation: every layer's misbehavior reports
         # funnel through report_peer into this one scorer, which orders
@@ -60,6 +68,10 @@ class Switch:
         self._reconnect_tasks: dict[str, asyncio.Task] = {}
         # error teardowns in flight (stop() awaits them)
         self._teardowns: set[asyncio.Task] = set()
+        self._telemetry_task: asyncio.Task | None = None
+        # last flushed (bytes..., drops) per (peer_label, chan_name), so
+        # the flush increments counters by the delta
+        self._flushed: dict[tuple[str, str], tuple] = {}
         transport.on_accept = self._on_accepted
 
         # labeled per node id: multi-node in-process ensembles share the
@@ -100,6 +112,9 @@ class Switch:
         self._running = True
         for reactor in self.reactors.values():
             await reactor.start()
+        if self.telemetry_interval > 0:
+            self._telemetry_task = asyncio.create_task(
+                self._telemetry_routine())
 
     async def stop(self) -> None:
         self._running = False
@@ -107,6 +122,9 @@ class Switch:
         # let an in-flight reconnect dial land a peer after the removal
         # snapshot below, leaking its MConnection tasks
         tasks = list(self._reconnect_tasks.values())
+        if self._telemetry_task is not None:
+            tasks.append(self._telemetry_task)
+            self._telemetry_task = None
         for task in tasks:
             task.cancel()
         self._reconnect_tasks.clear()
@@ -190,6 +208,7 @@ class Switch:
         mconn = MConnection(conn, self._descriptors, on_receive, on_error,
                             emulated_latency=self.emulated_latency)
         mconn.on_rtt = self._m_rtt.observe
+        mconn.chaos_scope = self.chaos_scope
         peer = Peer(node_info, mconn, outbound, persistent, dial_addr)
         peer_box.append(peer)
         self.peers[peer.id] = peer
@@ -277,9 +296,13 @@ class Switch:
         if self._running and peer.persistent and peer.dial_addr:
             self._schedule_reconnect(peer.dial_addr)
 
+    async def stop_peer_gracefully(self, peer: Peer) -> None:
+        await self._remove_peer(peer, None)
+
     async def _remove_peer(self, peer: Peer, reason) -> None:
         self.peers.pop(peer.id, None)
         self._set_peer_gauges()
+        self._drop_peer_series(peer)
         for reactor in self.reactors.values():
             try:
                 reactor.remove_peer(peer, reason)
@@ -331,6 +354,80 @@ class Switch:
         task.add_done_callback(
             lambda _t: self._reconnect_tasks.pop(addr, None))
         self._reconnect_tasks[addr] = task
+
+    # ---------------------------------------------------------- telemetry
+
+    async def _telemetry_routine(self) -> None:
+        """Flush the per-peer plain counters into the peer-labelled
+        series every ``telemetry_interval`` (counters by their delta,
+        gauges set), off the packet path."""
+        while True:
+            await clock.sleep(self.telemetry_interval)
+            try:
+                self.flush_peer_telemetry()
+            except Exception:
+                pass          # a metrics fault never stops p2p
+
+    def flush_peer_telemetry(self) -> None:
+        for peer in list(self.peers.values()):
+            self._flush_one_peer(peer)
+
+    def _flush_one_peer(self, peer: Peer) -> None:
+        mets, node = self._m, self._m_node
+        pl = peer_label(peer.id)
+        mconn = peer.mconn
+        for ch in mconn.channels.values():
+            cname = ch.display_name
+            key = (pl, cname)
+            cur = (ch.sent_bytes, ch.recv_bytes, ch.sent_msgs,
+                   ch.recv_msgs, ch.queue_full_drops)
+            last = self._flushed.get(key, (0, 0, 0, 0, 0))
+            if cur[0] > last[0]:
+                mets.peer_send_bytes.inc(cur[0] - last[0], node=node,
+                                         peer=pl, channel=cname)
+            if cur[1] > last[1]:
+                mets.peer_recv_bytes.inc(cur[1] - last[1], node=node,
+                                         peer=pl, channel=cname)
+            if cur[2] > last[2]:
+                mets.peer_send_msgs.inc(cur[2] - last[2], node=node,
+                                        peer=pl, channel=cname)
+            if cur[3] > last[3]:
+                mets.peer_recv_msgs.inc(cur[3] - last[3], node=node,
+                                        peer=pl, channel=cname)
+            if cur[4] > last[4]:
+                mets.peer_queue_drops.inc(cur[4] - last[4], node=node,
+                                          peer=pl, channel=cname)
+                mets.queue_full_drops.inc(cur[4] - last[4], node=node,
+                                          channel=cname)
+            self._flushed[key] = cur
+            mets.peer_queue_depth.set(ch.queue.qsize(), node=node,
+                                      peer=pl, channel=cname)
+        mets.peer_send_rate.set(mconn.send_monitor.rate, node=node,
+                                peer=pl)
+        mets.peer_recv_rate.set(mconn.recv_monitor.rate, node=node,
+                                peer=pl)
+        mets.peer_score.set(self.scorer.score(peer.id), node=node,
+                            peer=pl)
+        if mconn.last_rtt_s is not None:
+            mets.peer_rtt.set(mconn.last_rtt_s, node=node, peer=pl)
+
+    def _drop_peer_series(self, peer: Peer) -> None:
+        """A departed peer's last counter deltas, then its gauges dropped
+        (counters stay: Prometheus counters only grow)."""
+        try:
+            self._flush_one_peer(peer)
+        except Exception:
+            pass                  # metrics never block a removal
+        pl = peer_label(peer.id)
+        mets, node = self._m, self._m_node
+        for key in [k for k in self._flushed if k[0] == pl]:
+            self._flushed.pop(key, None)
+            mets.peer_queue_depth.remove(node=node, peer=pl,
+                                         channel=key[1])
+        mets.peer_send_rate.remove(node=node, peer=pl)
+        mets.peer_recv_rate.remove(node=node, peer=pl)
+        mets.peer_rtt.remove(node=node, peer=pl)
+        mets.peer_score.remove(node=node, peer=pl)
 
     # ---------------------------------------------------------- broadcast
 

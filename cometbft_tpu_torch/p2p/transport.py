@@ -8,8 +8,10 @@ SecretConnection handshake (authenticated encryption) -> NodeInfo exchange
 compatibility).  Only then does the Switch see the peer.  The handshake
 checks the peer's challenge signature on the transport's ``device``
 (None: CUDA, raising without a card at construction; ``"cpu"``: the
-kernels' plain versions).  The JAX package's connection fuzzing comes
-with ``p2p/fuzz.py``.
+kernels' plain versions).  With a ``fuzz_config``
+(``p2p/fuzz.FuzzConnConfig``) every raw stream pair, dialed or accepted,
+is wrapped by the connection fuzzer before the upgrade
+(``p2p/transport.go:223``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import time
 
 from ..crypto import plan as _plan
 from ..libs import clock
+from .fuzz import fuzz_streams
 from .key import NodeKey, node_id
 from .metrics import p2p_metrics
 from .node_info import NodeInfo, NodeInfoError
@@ -32,16 +35,23 @@ class TransportError(Exception):
 
 
 class Transport:
-    def __init__(self, node_key: NodeKey, node_info_fn, device=None):
+    def __init__(self, node_key: NodeKey, node_info_fn, device=None,
+                 fuzz_config=None):
         _plan.resolve_devices(device)          # raises without a card
         self.node_key = node_key
         self.node_info_fn = node_info_fn      # () -> NodeInfo (fresh copy)
         self.device = device
+        self.fuzz_config = fuzz_config        # p2p.fuzz.FuzzConnConfig
         self._server: asyncio.AbstractServer | None = None
         self.listen_addr: str | None = None
         self.on_accept = None   # async (SecretConnection, NodeInfo) -> None
         # accepted connections still in their upgrade, closed by close()
         self._accepting: set[asyncio.Task] = set()
+
+    def _maybe_fuzz(self, reader, writer):
+        if self.fuzz_config is None:
+            return reader, writer
+        return fuzz_streams(reader, writer, self.fuzz_config)
 
     # ------------------------------------------------------------- listen
 
@@ -58,7 +68,8 @@ class Transport:
         self._accepting.add(task)
         try:
             try:
-                conn, ni = await self._timed_upgrade(reader, writer,
+                freader, fwriter = self._maybe_fuzz(reader, writer)
+                conn, ni = await self._timed_upgrade(freader, fwriter,
                                                      "inbound")
             except asyncio.CancelledError:
                 writer.close()
@@ -85,7 +96,8 @@ class Transport:
         host, port = addr.removeprefix("tcp://").rsplit(":", 1)
         reader, writer = await asyncio.open_connection(host, int(port))
         try:
-            return await self._timed_upgrade(reader, writer, "outbound")
+            freader, fwriter = self._maybe_fuzz(reader, writer)
+            return await self._timed_upgrade(freader, fwriter, "outbound")
         except BaseException:
             writer.close()
             raise

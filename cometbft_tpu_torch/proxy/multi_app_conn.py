@@ -4,10 +4,9 @@
 The reference maintains four logical connections (consensus, mempool,
 query, snapshot — ``proxy/multi_app_conn.go``) so mempool CheckTx traffic
 can't head-of-line-block consensus.  Here each logical connection is its own
-client instance (its own lock), produced by a ClientCreator
-(``proxy/client.go:16`` analogue).  The port has the in-process creator;
-the socket and gRPC creators come with ``abci/server.py`` and
-``SocketClient``.
+client instance (its own lock or socket), produced by a ClientCreator
+(``proxy/client.go:16`` analogue): in process, or over the ABCI socket
+(:func:`socket_client_creator`).  The gRPC creator is not ported.
 """
 
 from __future__ import annotations
@@ -17,11 +16,11 @@ import time
 from typing import Awaitable, Callable
 
 from ..abci.application import Application
-from ..abci.client import ABCIClient, LocalClient
+from ..abci.client import ABCIClient, LocalClient, SocketClient
 from ..libs import tracing
 
 __all__ = ["ClientCreator", "TracedAppConn", "local_client_creator",
-           "AppConns"]
+           "socket_client_creator", "AppConns"]
 
 ClientCreator = Callable[[], Awaitable[ABCIClient]]
 
@@ -79,6 +78,17 @@ def local_client_creator(app: Application) -> ClientCreator:
 
     async def create() -> ABCIClient:
         return LocalClient(app)
+
+    return create
+
+
+def socket_client_creator(host: str = "127.0.0.1", port: int = 26658,
+                          unix_path: str | None = None) -> ClientCreator:
+    """Each connection its own socket to an ``abci/server.ABCIServer``;
+    an unreachable server raises from :meth:`AppConns.start`."""
+
+    async def create() -> ABCIClient:
+        return await SocketClient.connect(host, port, unix_path)
 
     return create
 
