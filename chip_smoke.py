@@ -4,8 +4,9 @@ aggregate-commit verification paths, of lane-sharded commit
 verification over a device set, of the light client, of blocksync
 catch-up, of consensus in one process, of the networked node over
 loopback TCP, of BASELINE configs[4]'s mixed-key commits, of the RPC
-surface with light-client serving, of statesync, and of discovery under
-faults (networks/chaos.toml), on one card.
+surface with light-client serving, of statesync, of discovery under
+faults (networks/chaos.toml), and of networks/ci.toml run whole with one
+process per node through the command line, on one card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -222,17 +223,41 @@ Phases, each of which must pass or the script exits non-zero:
    and the socket app's round trips, busy share).  K5a and K5b must
    launch; every launch's shape is recorded and each held against its
    plain version there.
+18. one process per node (``phase_e2e``, in a fresh process of its own,
+   ``--child e2e``, beside phase 17): ``E2E_MANIFEST`` (networks/ci.toml)
+   whole through the port's ``e2e.Runner``, every node and the light
+   daemon a ``python -m cometbft_tpu_torch`` process on the card:
+   4 validators, validator02 SIGKILLed at 5 and restarted from its home
+   at 7, validator03 SIGSTOPped at 8 and resumed at 9, full01
+   blocksyncing from 4, light01 (``light``) from 6, 20 txs/s of load for
+   20 s; the runner's invariants (every live node at 12 with one block
+   hash, light01's verified header the chain's), then ``load`` and
+   ``load-report`` as processes, every process's ``/metrics``, and after
+   the stop ``doctor`` on validator02's home.  Each node's launch
+   counters (``crypto_kernel_calls_total`` on its ``/metrics``) must show
+   K5a and K5b launched, and no process a plain version or a standalone
+   hash kernel; the lane and key counts of the kernel-dispatch series
+   are held against the plain versions here.  Readings: start-up (spawn
+   to RPC), a height's wall (between commit times) and round,
+   catch-ups, light01's first verified header, the load's latency, the
+   card's utilization (``nvidia-smi``) and each process's allocator
+   memory.
 
-The fresh processes of phases 15-17 start right after the build
+The fresh processes of phases 15-18 start right after the build
 (``--after``): each reaches the card and loads the kernels, then waits
 for its turn, so that its set-up overlaps the phases before it.  In the
 whole run phases 15 and 16, one after the other, run beside phases 12
 and 13 (``fresh_beside``): all four are host-bound, the card busy under
 2% of their time; phase 16's timing of the tree kernel at 200,000
-leaves then shares the card with phase 13's one-lane launches.
+leaves then shares the card with phase 13's one-lane launches.  Phase
+18 runs beside phase 17 the same way, its ports from ``E2E_BASE_PORT``
+(below the kernel's ephemeral range, where phase 17's nodes bind).
 
-Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 are the main path: the launch counters
-are zeroed just before each and read just after; each phase's kernels
+Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18 are the main
+path: the launch counters are zeroed just before each and read just
+after (phase 18's are its processes' own counters, which start at 0
+with each process and are read over ``/metrics`` before the stop);
+each phase's kernels
 must have launched, no plain version may have run, and neither
 standalone hash kernel (``OFF_PATH``: the RLC lane stage hashes its
 lanes, the tree call its leaves) may have launched (phase 8 also no
@@ -256,7 +281,8 @@ with phase 13, ``--stress`` with phase 14, ``--rpc`` with phase 15 (its
 fixtures built in it: the 1,000-validator source chain and 10,000 keys),
 ``--statesync`` with phase 16 (options together run their phases;
 ``--stress --node`` gives phase 14 its part (e)); ``--chaos`` runs only
-phases 1, 2 and 17.
+phases 1, 2 and 17; ``--e2e [MANIFEST]`` only phases 1, 2 and 18 (over
+networks/ci.toml unless MANIFEST names another).
 
 The line before the last is a JSON object with one entry per kernel
 (launches on the main path, max_abs_err, times, bound); the last line is
@@ -5046,7 +5072,8 @@ def prespawn(names) -> None:
                 os.remove(f)
         _PRESPAWNED[name] = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--child", name,
-             path, "--after", go])
+             path, "--after", go,
+             *(("--e2e", E2E_MANIFEST) if name == "e2e" else ())])
 
 
 def phase_fresh(name: str):
@@ -6197,6 +6224,7 @@ def phase_chaos(pool, keys, dev):
     from cometbft_tpu_torch.abci.client import SocketClient
     from cometbft_tpu_torch.abci.grammar import RecordingApp
     from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.cmd import dial_until_up
     from cometbft_tpu_torch.config import Config, test_consensus_config
     from cometbft_tpu_torch.crypto import scheduler as vsched
     from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
@@ -6288,17 +6316,9 @@ def phase_chaos(pool, keys, dev):
             home=home, fast_sync=fast_sync, name=name)
 
     async def dial_seed(n, seed_addr):
-        """The JAX package's cmd dial_seed: retried, not persistent."""
-        delay = 0.5
-        for _ in range(30):
-            try:
-                await n.dial_peer(seed_addr, persistent=False)
-                return
-            except Exception as e:
-                if "duplicate peer" in str(e):
-                    return
-                await asyncio.sleep(delay)
-                delay = min(delay * 1.5, 5.0)
+        """The starter's seed dial (``cmd.dial_until_up``): retried, not
+        persistent."""
+        await dial_until_up(n, seed_addr, False)
 
     def file_pv(home):
         kp = os.path.join(home, "config", "priv_validator_key.json")
@@ -6843,13 +6863,407 @@ def report_chaos(cx, launches, card) -> None:
           f"{cx['checks']['check_s']:.1f} s  [{card}]")
 
 
+E2E_MANIFEST = os.path.join("networks", "ci.toml")   # --e2e MANIFEST
+# the runner's first port (three a node): below the kernel's ephemeral
+# range, where every in-process node of phases 12-17 binds port 0
+E2E_BASE_PORT = 26900
+E2E_DEADLINE_S = 240             # the runner's deadline
+E2E_LOAD_RATE, E2E_LOAD_S, E2E_TX_BYTES = 20.0, 5.0, 64  # `load`, after
+E2E_SETTLE_HEIGHTS = 3           # heights past the load before its report
+# dispatch kind -> kernel, for the shapes held against the plain versions
+E2E_KINDS = {"tables": "ed25519_tables", "gather": "ed25519_verify_gather",
+             "rlc_gather": "ed25519_rlc_gather"}
+E2E_NODE_KERNELS = ("ed25519_tables", "ed25519_verify_gather")  # every node
+
+
+def dispatch_series(text: str) -> dict:
+    """The kernel-dispatch series of a ``/metrics`` text
+    (``crypto/batch.py:_note_dispatch``): kind -> {"lanes": {lane count:
+    first dispatch s}, "count": dispatches, "seconds": their wall}."""
+    import re
+
+    out = {}
+    for ln in text.splitlines():
+        m = re.match(r"(crypto_kernel_first_dispatch_seconds|"
+                     r"crypto_kernel_dispatch_seconds_count|"
+                     r"crypto_kernel_dispatch_seconds_sum)\{([^}]*)\} (\S+)$",
+                     ln)
+        if not m:
+            continue
+        labels = dict(re.findall(r'(\w+)="([^"]*)"', m.group(2)))
+        k = out.setdefault(labels["kind"],
+                           {"lanes": {}, "count": 0, "seconds": 0.0})
+        v = float(m.group(3))
+        if m.group(1) == "crypto_kernel_first_dispatch_seconds":
+            k["lanes"][int(labels["lanes"])] = v
+            k["count"] += 1
+            k["seconds"] += v
+        elif m.group(1).endswith("_count"):
+            k["count"] += int(v)
+        else:
+            k["seconds"] += v
+    return out
+
+
+def process_counters(text: str) -> dict:
+    """A process's kernel calls and allocator memory from its ``/metrics``
+    text (``crypto/batch.py``): {"cuda": {kernel: launches}, "plain":
+    {kernel: plain runs}, "memory_mib": {device/kind: MiB}}."""
+    import re
+
+    out = {"cuda": {}, "plain": {}, "memory_mib": {}}
+    for m in re.finditer(r'^crypto_kernel_calls_total\{kernel="(\w+)",'
+                         r'route="(\w+)"\} (\S+)$', text, re.M):
+        out[m.group(2)][m.group(1)] = int(float(m.group(3)))
+    for m in re.finditer(r'^torch_cuda_memory_bytes\{device="([^"]+)",'
+                         r'kind="(\w+)"\} (\S+)$', text, re.M):
+        out["memory_mib"][f"{m.group(1)}/{m.group(2)}"] = (
+            float(m.group(3)) / 2**20)
+    return out
+
+
+def _rpc_get(port: int, path: str, timeout: float = 10.0) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=timeout) as r:
+        return r.read().decode()
+
+
+def _rpc_height(port: int) -> int:
+    return json.loads(_rpc_get(port, "/status"))["result"]["sync_info"][
+        "latest_block_height"]
+
+
+def phase_e2e(pool, keys, dev):
+    """Phase 18: an e2e manifest (``E2E_MANIFEST``, networks/ci.toml
+    unless ``--e2e`` names another) run whole through the port's
+    ``e2e.Runner``, the code ``python -m cometbft_tpu_torch e2e`` runs:
+    every node and the light daemon an OS process of its own started as
+    ``python -m cometbft_tpu_torch ... start`` (``light``) on the card
+    (no ``--device``: the card is the default), the JAX package's e2e
+    timeouts, the manifest's perturbations as real signals (SIGKILL and
+    a restart from the home, SIGSTOP and SIGCONT) and its load.  After
+    the runner's invariants (every live node at the final height with
+    one block hash, the light daemon's verified header the chain's),
+    before the stop: ``load`` at ``E2E_LOAD_RATE`` txs/s for
+    ``E2E_LOAD_S`` s and ``load-report`` as processes against the
+    runner's primary, every process's ``/metrics``.  After the stop:
+    ``doctor`` (report-only) as a process on the home of the node the
+    schedule killed.  The load tools and the doctor are the runner's own
+    command line (``Runner._cli``).
+
+    Each process's launches are its ``crypto_kernel_calls_total``
+    (``ops/_build.py``'s ``LAUNCHES``, added where a kernel launches, and
+    ``PLAIN_CALLS``), which start at 0 with the process, read from its
+    ``/metrics`` just before the stop: a restarted node's counts are its
+    last process's.  Every node must have launched K5a and K5b, no
+    process may have run a plain version or launched an ``OFF_PATH``
+    kernel.  The lane and key counts of the kernel-dispatch series'
+    ``lanes`` labels are then held against the plain versions in this
+    process (:func:`_ss_check_lanes`).  Readings: each process's
+    start-up (spawn to RPC answering), each height's wall (between its
+    commit time and the previous height's, each the BFT time of the
+    header after it: the median of the commit's precommit timestamps)
+    and round, a restarted or
+    late node's catch-up to the height the runner last logged, the light
+    daemon's first verified header, the load's latency, the card's
+    utilization (``nvidia-smi``, every process on the card), each
+    process's allocator memory and dispatch wall."""
+    import asyncio
+    import random
+    import shutil
+
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    from cometbft_tpu_torch.e2e import Runner, free_port_base, load_manifest
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.rpc import HTTPClient, RPCError
+    from cometbft_tpu_torch.rpc.json import from_jsonable
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    man_path = os.path.join(root, E2E_MANIFEST)
+    m = load_manifest(man_path)
+    stem = os.path.splitext(os.path.basename(man_path))[0]
+    base_dir = os.path.join(root, "build", f"e2e_{stem}")
+    base_port = free_port_base(3 * len(m.nodes), start=E2E_BASE_PORT)
+    t_ph = time.perf_counter()
+    out: dict = {"manifest": E2E_MANIFEST, "base_port": base_port,
+                 "setup_s": t_ph - _T_LOADED}
+    spawns: dict = {}       # name -> [{at_height, rpc_s, caught_up_s...}]
+    top = [0]               # the height the runner last logged
+    tasks: list = []
+    events: list = []
+    t0 = [time.perf_counter()]
+    retry = (OSError, EOFError, ValueError, RPCError, asyncio.TimeoutError)
+
+    async def probe(r, name, ent, proc):
+        """Spawn to RPC answering; then a light daemon's first verified
+        header, or a late or restarted node's catch-up to the height the
+        runner had logged when the node's RPC answered."""
+        cli = HTTPClient("127.0.0.1", r.rpc_port(name))
+        light = r.m.nodes[name].mode == "light"
+        try:
+            while True:
+                if proc.poll() is not None:
+                    ent["exited"] = proc.returncode
+                    return
+                try:
+                    await asyncio.wait_for(cli.call("status"), 2.0)
+                    break
+                except retry:
+                    await asyncio.sleep(0.05)
+            ent["rpc_s"] = time.perf_counter() - ent["t"]
+            if light:
+                while True:
+                    try:
+                        await asyncio.wait_for(cli.call("header"), 10.0)
+                        break
+                    except retry:
+                        await asyncio.sleep(0.1)
+                ent["first_header_s"] = time.perf_counter() - ent["t"]
+            elif ent["at_height"] > 1:
+                target = top[0]
+                while True:
+                    try:
+                        st = await asyncio.wait_for(cli.call("status"), 2.0)
+                        if st["sync_info"]["latest_block_height"] >= target:
+                            break
+                    except retry:
+                        pass
+                    if proc.poll() is not None:
+                        return
+                    await asyncio.sleep(0.1)
+                ent["caught_up_s"] = time.perf_counter() - ent["t"]
+                ent["caught_up_to"] = target
+        finally:
+            await cli.close()
+
+    class TimedRunner(Runner):
+        def _spawn(self, name):
+            super()._spawn(name)
+            ent = {"at_height": top[0], "t": time.perf_counter(),
+                   "at_s": time.perf_counter() - t0[0]}
+            spawns.setdefault(name, []).append(ent)
+            tasks.append(asyncio.get_running_loop().create_task(
+                probe(self, name, ent, self.procs[name])))
+
+    def log(msg):
+        if msg.startswith("[e2e] height "):
+            top[0] = int(msg.split()[-1])
+        else:
+            events.append((round(time.perf_counter() - t0[0], 3), top[0],
+                           msg))
+
+    def cli(*argv, timeout=120.0):
+        """A command of the runner's command line as a process."""
+        p = subprocess.run(runner._cli(*argv), cwd=root, capture_output=True,
+                           text=True, timeout=timeout)
+        return p.returncode, p.stdout, p.stderr
+
+    runner = TimedRunner(m, base_dir, base_port=base_port, log=log,
+                         rng=random.Random(18))
+    runner.setup()
+    primary = runner.rpc_port(runner._primary_name())
+
+    async def go():
+        t0[0] = time.perf_counter()
+        try:
+            report = await runner.run(deadline_s=E2E_DEADLINE_S)
+            out["run_s"] = time.perf_counter() - t0[0]
+            return report
+        finally:
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu,memory.used",
+         "--format=csv,noheader,nounits", "-lms", "250"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        try:
+            report = asyncio.run(go())
+        finally:
+            smi.terminate()
+            smi_out = smi.communicate(timeout=30)[0]
+        out["report"] = report
+        # every context on the card as nvidia-smi lists it; its pids are
+        # not this namespace's, so the lines stay unattributed
+        out["compute_apps"] = _run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"]).splitlines()
+        # the load tools as processes against the primary
+        t1 = time.perf_counter()
+        rc, lo, le = cli("load", "--rpc", f"127.0.0.1:{primary}",
+                         "--rate", str(E2E_LOAD_RATE), "--duration",
+                         str(E2E_LOAD_S), "--size", str(E2E_TX_BYTES))
+        if rc:
+            raise AssertionError(f"phase 18: load exited {rc}: {le[-2000:]}")
+        load = json.loads(lo)
+        h0 = _rpc_height(primary)
+        while _rpc_height(primary) < h0 + E2E_SETTLE_HEIGHTS:
+            if time.perf_counter() - t1 > 120:
+                raise AssertionError("phase 18: the chain stopped after "
+                                     "the load")
+            time.sleep(0.1)
+        rc, ro, re_ = cli("load-report", "--rpc", f"127.0.0.1:{primary}",
+                          "--run-id", load["run_id"])
+        if rc:
+            raise AssertionError(f"phase 18: load-report exited {rc}: "
+                                 f"{re_[-2000:]}")
+        load_report = json.loads(ro)
+        out["load"], out["load_report"] = load, load_report
+        out["load_s"] = time.perf_counter() - t1
+        if load["errors"] or load_report["txs"] != load["sent"]:
+            raise AssertionError(f"phase 18: load {load}, committed "
+                                 f"{load_report['txs']}")
+        # a height's commit time is the next header's (BFT time: the
+        # median of the commit's precommit timestamps)
+        heads = {}
+        for h in range(1, m.final_height + 2):
+            res = json.loads(_rpc_get(primary, f"/commit?height={h}"))[
+                "result"]
+            heads[h] = (from_jsonable(res["header"]).time_ns,
+                        from_jsonable(res["commit"]).round)
+        # every live process's counters and dispatch series
+        series, calls = {}, {}
+        for name, proc in runner.procs.items():
+            if proc.poll() is None:
+                text = _rpc_get(runner.rpc_port(name), "/metrics")
+                series[name] = dispatch_series(text)
+                calls[name] = process_counters(text)
+        out["lifetime_s"] = {n: time.perf_counter() - s[-1]["t"]
+                             for n, s in spawns.items()}
+    finally:
+        runner.stop()
+    out["main_path_s"] = time.perf_counter() - t_ph
+    killed = [n for n in runner.names
+              if any(a == "kill" for _, a in m.nodes[n].schedule())]
+    victim = killed[0] if killed else runner._primary_name()
+    rc, do, de = cli("--home", runner.home(victim), "doctor")
+    try:
+        doctor = json.loads(do)
+    except ValueError:
+        doctor = {"stdout": do[-2000:], "stderr": de[-2000:]}
+    out["doctor"] = {"node": victim, "rc": rc, "ok": doctor.get("ok"),
+                     "refused": doctor.get("refused")}
+    if rc:
+        raise AssertionError(f"phase 18: doctor on {victim}'s home exited "
+                             f"{rc}: {doctor}")
+
+    unread = {n: sorted(set(_build.KERNELS) - set(c["cuda"])
+                        | set(_build.KERNELS) - set(c["plain"]))
+              for n, c in calls.items()}
+    plain = {n: {k: v for k, v in c["plain"].items() if v}
+             for n, c in calls.items()}
+    off = {n: {k: c["cuda"][k] for k in OFF_PATH if c["cuda"].get(k)}
+           for n, c in calls.items()}
+    nodes = [n for n in calls if m.nodes[n].mode != "light"]
+    missing = {n: [k for k in E2E_NODE_KERNELS if not calls[n]["cuda"][k]]
+               for n in nodes}
+    if (any(unread.values()) or any(plain.values()) or any(off.values())
+            or any(missing.values()) or len(nodes) < 2):
+        raise AssertionError(
+            f"phase 18: kernels not launched in the node processes "
+            f"{missing}, plain versions run {plain}, standalone hash "
+            f"kernels launched {off}, counters not served {unread}")
+    launches = {k: sum(c["cuda"][k] for c in calls.values())
+                for k in _build.KERNELS}
+    out["launches_by_process"] = {
+        n: {k: v for k, v in c["cuda"].items() if v}
+        for n, c in calls.items()}
+    out["memory_mib"] = {n: c["memory_mib"] for n, c in calls.items()}
+    out["series"] = series
+
+    # readings
+    out["per_height_s"] = [[h, (heads[h + 1][0] - heads[h][0]) / 1e9]
+                           for h in range(2, m.final_height + 1)]
+    out["rounds"] = [[h, heads[h][1]] for h in range(2, m.final_height + 1)]
+    out["startup_s"] = {n: [e.get("rpc_s") for e in s]
+                        for n, s in spawns.items()}
+    out["catch_up"] = {n: [(e["at_height"], e.get("caught_up_s"),
+                            e.get("caught_up_to")) for e in s
+                           if e["at_height"] > 1]
+                       for n, s in spawns.items()
+                       if m.nodes[n].mode != "light"}
+    out["light"] = {n: {"startup_s": s[0].get("rpc_s"),
+                        "first_header_s": s[0].get("first_header_s"),
+                        "at_height": s[0]["at_height"]}
+                    for n, s in spawns.items()
+                    if m.nodes[n].mode == "light"}
+    util = [[float(x) for x in ln.split(",")] for ln in smi_out.splitlines()
+            if ln.count(",") == 1]
+    out["utilization"] = {
+        "samples": len(util),
+        "mean_pct": statistics.mean(u[0] for u in util) if util else None,
+        "max_pct": max(u[0] for u in util) if util else None,
+        "max_memory_mib": max(u[1] for u in util) if util else None}
+    out["dispatch_wall_share"] = {
+        n: sum(v["seconds"] for v in s.values()) / out["lifetime_s"][n]
+        for n, s in series.items()}
+    out["events"] = events
+
+    t1 = time.perf_counter()
+    seen = {k: {(n,) for s in series.values()
+                for n in s.get(kind, {}).get("lanes", {})}
+            for kind, k in E2E_KINDS.items()}
+    out["shapes"] = {k: sorted(v) for k, v in seen.items()}
+    privs = [Ed25519PrivKey.from_secret(b"e2e-check%d" % i)
+             for i in range(CX_CHECK_KEYS)]
+    lanes = _ss_check_lanes(seen, privs, dev)
+    out["checks"] = {"lanes": lanes, "check_s": time.perf_counter() - t1}
+    bad = {k: v for k, v in lanes["mismatches"].items() if v}
+    if bad:
+        raise AssertionError(f"phase 18: kernels against their plain "
+                             f"versions at the processes' shapes: {bad}")
+    shutil.rmtree(base_dir, ignore_errors=True)
+    return launches, out
+
+
+def report_e2e(e2e, launches, card) -> None:
+    """Phase 18's lines."""
+    walls = [s for _, s in e2e["per_height_s"]]
+    tops = [h for h, _ in e2e["per_height_s"]]
+    print(f"e2e (phase 18) {e2e['manifest']}: {e2e['phase_s']:.1f} s in "
+          f"its process (set-up {e2e['setup_s']:.1f} s, main path "
+          f"{e2e['main_path_s']:.1f} s, runner to its invariants "
+          f"{e2e['run_s']:.1f} s); launches "
+          f"{ {k: v for k, v in launches.items() if v} } (every other "
+          f"kernel 0); by process {e2e['launches_by_process']}  [{card}]")
+    print(f"e2e invariants: {e2e['report']}")
+    print(f"e2e heights 2-{max(tops, default=0)}, between commit times: a "
+          f"height {[round(x, 3) for x in walls]} s (mean "
+          f"{statistics.mean(walls) if walls else float('nan'):.3f}); "
+          f"rounds {e2e['rounds']}  [{card}]")
+    print(f"e2e start-up, spawn to RPC answering, s: {e2e['startup_s']}; "
+          f"catch-up (spawned at height, s, to height) {e2e['catch_up']}; "
+          f"light {e2e['light']}  [{card}]")
+    lr = e2e["load_report"]
+    print(f"e2e load: {e2e['load']['sent']} txs sent at "
+          f"{E2E_LOAD_RATE:g}/s, {lr['txs']} committed, latency p50 "
+          f"{lr['p50_s']} s max {lr['max_s']} s; report {lr}  [{card}]")
+    print(f"e2e card: utilization.gpu (nvidia-smi, every process) "
+          f"{e2e['utilization']}; allocator MiB by process "
+          f"{e2e['memory_mib']}; nvidia-smi's contexts (pid, MiB; pids "
+          f"unattributed) {e2e['compute_apps']}; dispatch wall share by "
+          f"process "
+          f"{ {n: round(v, 5) for n, v in e2e['dispatch_wall_share'].items()} }"
+          f"; busy share traced in a node process: not measured  [{card}]")
+    print(f"e2e doctor {e2e['doctor']}; events {e2e['events']}")
+    ck = e2e["checks"]["lanes"]
+    print(f"e2e shapes {e2e['shapes']}; K5a tables {ck['tables']}, K5b "
+          f"lanes {ck['per_lane']}, K6a {ck['verdicts']}: mismatches "
+          f"{ck['mismatches']} in {e2e['checks']['check_s']:.1f} s  [{card}]")
+
+
 CHILD_PHASES = {"rpc": (phase_rpc, BIG_VALS),
                 "statesync": (phase_statesync, SS_VALS),
-                "chaos": (phase_chaos, 0)}
+                "chaos": (phase_chaos, 0),
+                "e2e": (phase_e2e, 0)}
 
 
 def main(argv=None) -> int:
-    global _T_LOADED
+    global _T_LOADED, E2E_MANIFEST
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--record", default=None,
                     help="also write the full record as JSON to this path")
@@ -6872,6 +7286,10 @@ def main(argv=None) -> int:
                     help="run only the build, the kernel sweep and phase 16")
     ap.add_argument("--chaos", action="store_true",
                     help="run only the build and phase 17")
+    ap.add_argument("--e2e", nargs="?", const=E2E_MANIFEST, default=None,
+                    metavar="MANIFEST",
+                    help="run only the build and phase 18 over MANIFEST "
+                    f"(default {E2E_MANIFEST})")
     ap.add_argument("--serve-remote", nargs=2, metavar=("LISTENER", "DIR"),
                     default=None,
                     help="serve phase 17's remote app and signer (how "
@@ -6883,11 +7301,13 @@ def main(argv=None) -> int:
     ap.add_argument("--child", nargs=2, metavar=("NAME", "PATH"),
                     default=None,
                     help="run only phase NAME (rpc: 15, statesync: 16, "
-                    "chaos: 17), "
+                    "chaos: 17, e2e: 18), "
                     "over the kernels built, and write its launches and "
                     "record as JSON to PATH (how the other runs start "
                     "those phases, each in a fresh process)")
     args = ap.parse_args(argv)
+    if args.e2e:
+        E2E_MANIFEST = args.e2e
 
     import torch
 
@@ -6958,11 +7378,12 @@ def main(argv=None) -> int:
         or args.rpc or args.statesync
     prespawn([n for n, on in (("rpc", args.rpc),
                               ("statesync", args.statesync),
-                              ("chaos", args.chaos)) if on])
+                              ("chaos", args.chaos),
+                              ("e2e", args.e2e)) if on])
     if swept:
         fx = Fixtures(max(SIZES))
         print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
-    if swept or args.chaos:
+    if swept or args.chaos or args.e2e:
         rec = {k: {"mismatches": 0} for k in _build.KERNELS}
         t0 = time.perf_counter()
         if swept:
@@ -6979,6 +7400,8 @@ def main(argv=None) -> int:
             ss_launches, ss = phase_fresh("statesync")
         if args.chaos:
             cx_launches, cx = phase_fresh("chaos")
+        if args.e2e:
+            e2e_launches, e2e = phase_fresh("e2e")
         if args.blocksync or args.stress:
             ctx = multiprocessing.get_context("spawn")
             with ctx.Pool(os.cpu_count()) as pool:
@@ -7016,6 +7439,9 @@ def main(argv=None) -> int:
         if args.chaos:
             report_chaos(cx, cx_launches, card)
             part["chaos"] = cx
+        if args.e2e:
+            report_e2e(e2e, e2e_launches, card)
+            part["e2e"] = e2e
         if args.record:
             os.makedirs(os.path.dirname(os.path.abspath(args.record)),
                         exist_ok=True)
@@ -7026,8 +7452,8 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    # the fresh processes of phases 15-17 reach the card meanwhile
-    prespawn(("rpc", "statesync", "chaos"))
+    # the fresh processes of phases 15-18 reach the card meanwhile
+    prespawn(("rpc", "statesync", "chaos", "e2e"))
     fx = Fixtures(max(SIZES))
     print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
     rec = {k: {"name": k, "route": "cuda"} for k in _build.KERNELS}
@@ -7177,7 +7603,15 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         st_launches, st = phase_stress(pool, dev)
         st["phase_s"] = time.perf_counter() - t0
+    # phase 18 runs beside phase 17: both host-bound, their own ports
+    t_beside = time.perf_counter()
+    join_e2e = fresh_beside(("e2e",))
     cx_launches, cx = phase_fresh("chaos")
+    t_cx = time.perf_counter() - t_beside
+    ((e2e_launches, e2e),) = join_e2e()
+    print(f"phase 17 beside 18: {time.perf_counter() - t_beside:.1f} s "
+          f"(phase 17 {t_cx:.1f} s, phase 18 {e2e['phase_s']:.1f} s; one "
+          f"after another {t_cx + e2e['phase_s']:.1f} s)")
     report_blocksync(bs, bs_launches, card)
     # phases 15 and 16 run beside phases 12 and 13
     t_beside = time.perf_counter()
@@ -7201,6 +7635,7 @@ def main(argv=None) -> int:
     report_rpc(rp, rp_launches, card)
     report_statesync(ss, ss_launches, card)
     report_chaos(cx, cx_launches, card)
+    report_e2e(e2e, e2e_launches, card)
     print(f"light client (phase 10): fixtures {lc['fixture_s']}, first "
           f"calls {lc['first_call_s']} s, phase {lc['phase_s']:.1f} s; "
           f"launches {lc_launches}")
@@ -7274,7 +7709,8 @@ def main(argv=None) -> int:
              "light_client": lc_launches, "blocksync": bs_launches,
              "consensus": cs_launches, "node": nd_launches,
              "stress": st_launches, "rpc": rp_launches,
-             "statesync": ss_launches, "chaos": cx_launches}
+             "statesync": ss_launches, "chaos": cx_launches,
+             "e2e": e2e_launches}
 
     c = op_counts()
     print(f"field multiplications per group op: {c}")
@@ -7350,7 +7786,7 @@ def main(argv=None) -> int:
                        "light_client": lc, "blocksync": bs,
                        "consensus": cs, "node": nd, "stress": st,
                        "rpc": rp, "statesync": ss, "chaos": cx,
-                       "mesh": mesh,
+                       "e2e": e2e, "mesh": mesh,
                        "build_log": _build.build_log(),
                        "ptxas": usage}, f, indent=1,
                       default=str)

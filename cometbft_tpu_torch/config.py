@@ -1,22 +1,25 @@
 """Configuration tree (counterpart of ``cometbft_tpu/config.py``;
 reference: ``config/config.go:78-93``): one :class:`Config` of the
 sections the port's node reads, each field with the JAX package's
-default.
+default, persisted as ``config.toml`` (``config/toml.go``):
+:meth:`Config.save` writes every field, :meth:`Config.load` reads a file
+with the standard library's ``tomllib``.
 
 - Consensus timeouts are in nanoseconds; :func:`test_consensus_config`
   shrinks them to tens of milliseconds for in-process networks.
 - ``BaseConfig.device`` takes the place of ``signature_backend``: where
   every signature of the node is checked (``"cuda"`` by default, raising
   without a card; ``"cpu"`` for the kernels' plain versions, as the tests
-  run them).
-- The JAX package's fields that steer only its TPU host fallback or its
-  compile cache (``min_device_lanes``, ``device_wait_s``,
-  ``device_warmup``, ``compile_bundle_*``) have no counterpart, nor
-  the gRPC app and the SQL sink; TOML load and save come with ``cmd/``.
-- :meth:`Config.validate` holds the application, fuzzing, signer and
-  fault-plane fields, ``StateSyncConfig``, the storage doctor's and the
-  liveness watchdog's to the JAX package's bounds (``config.go``
-  ValidateBasic), raising :class:`ConfigError`.
+  run them).  A file the port writes carries ``base.device``, which the
+  JAX package's loader refuses.
+- The JAX package's keys that the port has no use for are
+  :data:`IGNORED_KEYS`, each with its reason: :meth:`Config.load`
+  accepts and drops them, so a home the JAX package wrote loads here.
+  Any other unknown section or key raises :class:`ConfigError`.
+- :meth:`Config.validate` holds every field to the JAX package's bounds
+  (``config.go`` ValidateBasic), raising :class:`ConfigError`; the gRPC
+  app and the SQL sink are not ported, so ``base.abci = "grpc"`` and
+  ``tx_index.indexer = "psql"`` are refused.
 - ``RPCConfig.laddr`` is ``tcp://127.0.0.1:26657`` as in the JAX
   package: a node started with it listens there; in-process networks
   give each node ``tcp://127.0.0.1:0`` (a free port) or ``""`` (no RPC
@@ -31,7 +34,7 @@ __all__ = ["NS", "MS", "ConsensusConfig", "test_consensus_config",
            "BaseConfig", "MempoolConfig", "P2PConfig", "RPCConfig",
            "BlockSyncConfig", "StateSyncConfig", "LightServeConfig",
            "StorageConfig", "TxIndexConfig", "InstrumentationConfig",
-           "ChaosConfig", "Config", "ConfigError"]
+           "ChaosConfig", "Config", "ConfigError", "IGNORED_KEYS"]
 
 NS = 1_000_000_000
 MS = 1_000_000
@@ -181,6 +184,8 @@ class RPCConfig:
 
 @dataclass
 class BlockSyncConfig:
+    # catch up by blocksync before consensus (the starter's fast_sync)
+    enable: bool = True
     # blocks whose commits fill one device batch during catch-up
     verify_window: int = 32
 
@@ -279,6 +284,13 @@ class BaseConfig:
     # where the node checks signatures: "cuda" (or a CUDA device),
     # "cpu" for the kernels' plain versions
     device: str = "cuda"
+    moniker: str = "node"
+    # the home (the command line sets it to --home); the paths below
+    # are relative to it
+    root_dir: str = "."
+    genesis_file: str = "config/genesis.json"
+    priv_validator_key_file: str = "config/priv_validator_key.json"
+    node_key_file: str = "config/node_key.json"
     # with a tcp://host:port here, the node's starter listens and the
     # remote signer dials in (privval/signer.py SignerListener) instead
     # of the file signer
@@ -329,30 +341,102 @@ class Config:
         default_factory=InstrumentationConfig)
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
 
+    # ------------------------------------------------------ persistence
+
+    def to_toml(self) -> str:
+        """The file :meth:`save` writes: every section and field in
+        declaration order, flat ``[section] key = value`` forms."""
+        import dataclasses
+
+        lines = ["# cometbft_tpu_torch node configuration", ""]
+        for sf in dataclasses.fields(self):
+            section = getattr(self, sf.name)
+            lines.append(f"[{sf.name}]")
+            for f_ in dataclasses.fields(section):
+                lines.append(
+                    f"{f_.name} = {_toml_value(getattr(section, f_.name))}")
+            lines.append("")
+        return "\n".join(lines)
+
+    def save(self, path: str) -> None:
+        import os
+
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            f.write(self.to_toml())
+
+    @classmethod
+    def load(cls, path: str) -> "Config":
+        """Read ``path`` over the defaults: keys of :data:`IGNORED_KEYS`
+        are dropped, the deprecated ``blocksync.batch_size`` is dropped
+        with a warning, and any other unknown section or key raises
+        :class:`ConfigError`; the result is validated."""
+        import tomllib
+
+        with open(path, "rb") as f:
+            doc = tomllib.load(f)
+        cfg = cls()
+        for section_name, values in doc.items():
+            section = getattr(cfg, section_name, None)
+            if section is None:
+                raise ConfigError(f"unknown config section {section_name!r}")
+            for k, v in values.items():
+                if (section_name, k) in IGNORED_KEYS or \
+                        (section_name, k) in _DEPRECATED_KEYS:
+                    continue
+                if not hasattr(section, k):
+                    raise ConfigError(
+                        f"unknown config key {section_name}.{k}")
+                setattr(section, k, v)
+        if "batch_size" in doc.get("blocksync", {}):
+            from .libs import log as _tmlog
+
+            _tmlog.logger("config").warn(
+                "blocksync.batch_size is deprecated and has no effect; "
+                "use blocksync.verify_window to size the cross-block "
+                "verification window", path=path)
+        cfg.validate()
+        return cfg
+
     def validate(self) -> None:
-        """The application, fuzzing, signer, statesync, storage-doctor,
-        liveness-watchdog and fault-plane bounds of the JAX package's
-        ``Config.validate`` (the gRPC app is not ported)."""
+        """Per-section bounds, in the JAX package's order and with its
+        messages (``config/config.go`` ValidateBasic); the gRPC app and
+        the SQL sink are not ported."""
         if self.base.abci not in ("builtin", "socket"):
             raise ConfigError(f"base.abci must be builtin|socket, "
                               f"got {self.base.abci!r}")
-        if self.p2p.fuzz_mode not in ("drop", "delay"):
-            raise ConfigError(f"p2p.fuzz_mode must be drop|delay, "
-                              f"got {self.p2p.fuzz_mode!r}")
-        if self.base.priv_validator_timeout_s < 0:
+        for name in ("timeout_propose", "timeout_prevote",
+                     "timeout_precommit", "timeout_commit"):
+            if getattr(self.consensus, name) <= 0:
+                raise ConfigError(f"consensus.{name} must be positive")
+        if self.mempool.size <= 0:
+            raise ConfigError("mempool.size must be positive")
+        if self.mempool.max_txs_bytes <= 0:
+            raise ConfigError("mempool.max_txs_bytes must be positive")
+        if not 1 <= self.mempool.shards <= 256:
+            raise ConfigError("mempool.shards must be in [1, 256]")
+        if self.mempool.coalesce_ms < 0:
+            raise ConfigError("mempool.coalesce_ms must be >= 0")
+        if self.mempool.coalesce_max < 1:
+            raise ConfigError("mempool.coalesce_max must be >= 1")
+        if self.mempool.gossip_mode not in ("announce", "full"):
             raise ConfigError(
-                "base.priv_validator_timeout_s must be >= 0")
-        if self.chaos.log_size < 16:
-            raise ConfigError("chaos.log_size must be >= 16")
-        if self.chaos.enable:
-            from .libs.failures import FaultSpecError, parse_fault_spec
-
-            for spec in self.chaos.faults:
-                try:
-                    parse_fault_spec(spec)
-                except FaultSpecError as e:
-                    raise ConfigError(f"bad chaos.faults entry: {e}") \
-                        from None
+                f"bad mempool.gossip_mode {self.mempool.gossip_mode!r} "
+                "(expected 'announce' or 'full')")
+        if self.mempool.fetch_timeout_s <= 0:
+            raise ConfigError("mempool.fetch_timeout_s must be positive")
+        if self.mempool.gossip_batch_bytes < 1024:
+            raise ConfigError(
+                "mempool.gossip_batch_bytes must be >= 1024")
+        if self.base.vote_sched_max_wait_ms < 0:
+            raise ConfigError("base.vote_sched_max_wait_ms must be >= 0")
+        if self.base.vote_sched_max_lanes < 1:
+            raise ConfigError("base.vote_sched_max_lanes must be >= 1")
+        if self.base.vote_sched_cache_size < 0:
+            raise ConfigError("base.vote_sched_cache_size must be >= 0")
+        if self.instrumentation.tracing_ring_size < 16:
+            raise ConfigError(
+                "instrumentation.tracing_ring_size must be >= 16")
         inst = self.instrumentation
         if inst.watchdog_stall_threshold_s < 0:
             raise ConfigError(
@@ -371,9 +455,60 @@ class Config:
             if inst.watchdog_wal_tail < 0:
                 raise ConfigError(
                     "instrumentation.watchdog_wal_tail must be >= 0")
+        p2p = self.p2p
+        if p2p.telemetry_flush_interval_s < 0:
+            raise ConfigError(
+                "p2p.telemetry_flush_interval_s must be >= 0")
+        if p2p.quality_disconnect_score <= 0 or p2p.quality_ban_score <= 0:
+            raise ConfigError(
+                "p2p.quality_{disconnect,ban}_score must be positive")
+        if p2p.quality_ban_score < p2p.quality_disconnect_score:
+            raise ConfigError(
+                "p2p.quality_ban_score must be >= quality_disconnect_score")
+        if p2p.quality_half_life_s <= 0:
+            raise ConfigError("p2p.quality_half_life_s must be positive")
+        if p2p.quality_ban_ttl_s <= 0 or \
+                p2p.quality_ban_ttl_max_s < p2p.quality_ban_ttl_s:
+            raise ConfigError(
+                "p2p.quality_ban_ttl_s must be positive and <= "
+                "quality_ban_ttl_max_s")
+        if self.rpc.max_concurrent_requests < 1:
+            raise ConfigError("rpc.max_concurrent_requests must be >= 1")
+        if self.rpc.max_queued_requests < 0:
+            raise ConfigError("rpc.max_queued_requests must be >= 0")
+        if self.rpc.shed_retry_after_s < 0:
+            raise ConfigError("rpc.shed_retry_after_s must be >= 0")
+        if self.storage.db_backend not in ("logdb", "native", "memdb"):
+            raise ConfigError(
+                f"storage.db_backend must be logdb|native|memdb, "
+                f"got {self.storage.db_backend!r}")
+        if self.tx_index.indexer not in ("kv", "null"):
+            raise ConfigError(
+                f"tx_index.indexer must be kv|null, "
+                f"got {self.tx_index.indexer!r}")
+        if p2p.fuzz_mode not in ("drop", "delay"):
+            raise ConfigError(f"p2p.fuzz_mode must be drop|delay, "
+                              f"got {p2p.fuzz_mode!r}")
+        if self.base.vote_sched_verify_timeout_s < 0:
+            raise ConfigError(
+                "base.vote_sched_verify_timeout_s must be >= 0")
+        if self.base.priv_validator_timeout_s < 0:
+            raise ConfigError(
+                "base.priv_validator_timeout_s must be >= 0")
         if self.storage.doctor_deep_scan_window < 0:
             raise ConfigError(
                 "storage.doctor_deep_scan_window must be >= 0")
+        ls = self.lightserve
+        if ls.header_cache_size < 0 or ls.proof_cache_blocks < 0 or \
+                ls.verify_cache_size < 0 or ls.header_cache_bytes < 0:
+            raise ConfigError(
+                "lightserve cache sizes must be >= 0")
+        if ls.trust_period_ns <= 0:
+            raise ConfigError("lightserve.trust_period_ns must be positive")
+        if ls.max_batch < 1:
+            raise ConfigError("lightserve.max_batch must be >= 1")
+        if ls.max_proofs < 1:
+            raise ConfigError("lightserve.max_proofs must be >= 1")
         ss = self.statesync
         if ss.chunk_timeout_s <= 0:
             raise ConfigError("statesync.chunk_timeout_s must be positive")
@@ -397,7 +532,68 @@ class Config:
                 "statesync.serve_concurrency must be >= 1")
         if ss.serve_queue < 0:
             raise ConfigError("statesync.serve_queue must be >= 0")
+        if not 2 <= self.blocksync.verify_window <= 4096:
+            # floor 2: the accumulator needs a vouching tail block
+            raise ConfigError(
+                "blocksync.verify_window must be in [2, 4096]")
+        if self.chaos.log_size < 16:
+            raise ConfigError("chaos.log_size must be >= 16")
+        if self.chaos.enable:
+            from .libs.failures import FaultSpecError, parse_fault_spec
+
+            for spec in self.chaos.faults:
+                try:
+                    parse_fault_spec(spec)
+                except FaultSpecError as e:
+                    raise ConfigError(f"bad chaos.faults entry: {e}") \
+                        from None
 
 
 class ConfigError(Exception):
     pass
+
+
+# The JAX package's keys with no use in the port, and why: load drops
+# them, save never writes them.
+IGNORED_KEYS = {
+    ("base", "signature_backend"): "base.device takes its place",
+    ("base", "min_device_lanes"): "steers the TPU host fallback, which "
+                                  "the port does not have",
+    ("base", "device_wait_s"): "bounds the wait before the TPU host "
+                               "fallback, which the port does not have",
+    ("base", "device_warmup"): "precompiles XLA shapes; the port's "
+                               "kernels are built before they are loaded",
+    ("base", "compile_bundle_enable"): "the XLA AOT bundle (ROADMAP "
+                                       "queue 1, warm boot)",
+    ("base", "compile_bundle_dir"): "the XLA AOT bundle (ROADMAP "
+                                    "queue 1, warm boot)",
+    ("base", "vote_sched_enable"): "the port's node always runs the "
+                                   "verification scheduler: it holds "
+                                   "the node's device",
+    ("base", "merkle_kernel_min_leaves"): "the tree route's threshold is "
+                                          "merkle.MERKLE_KERNEL_MIN_LEAVES, "
+                                          "to be settled on the card",
+    ("mempool", "broadcast"): "read by nothing in the JAX package",
+    ("p2p", "handshake_timeout"): "read by nothing in the JAX package",
+    ("p2p", "dial_timeout"): "read by nothing in the JAX package",
+    ("p2p", "send_rate"): "read by nothing in the JAX package",
+    ("p2p", "recv_rate"): "read by nothing in the JAX package",
+    ("storage", "discard_abci_responses"): "read by nothing in the JAX "
+                                          "package",
+}
+
+# a dead key that files written by older nodes carry: load drops it with
+# a warning, save never writes it
+_DEPRECATED_KEYS = {("blocksync", "batch_size")}
+
+
+def _toml_value(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, (int, float)):
+        return str(v)
+    if isinstance(v, str):
+        return '"' + v.replace("\\", "\\\\").replace('"', '\\"') + '"'
+    if isinstance(v, list):
+        return "[" + ", ".join(_toml_value(x) for x in v) + "]"
+    raise ConfigError(f"cannot emit TOML for {type(v).__name__}")

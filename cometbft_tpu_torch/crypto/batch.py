@@ -29,6 +29,21 @@ chunking.  ``DISPATCHES`` counts the verdict calls by route
 (``rlc_gather``, ``gather``, ``rlc``, ``verify`` and their ``_sharded``
 twins).
 
+Each dispatch is also recorded in the JAX package's kernel-dispatch
+series (``cometbft_tpu/crypto/batch.py:709-757``), which a node's
+``GET /metrics`` serves: ``crypto_kernel_first_dispatch_seconds{kind,
+lanes}`` and ``crypto_kernel_first_dispatch_total{kind}`` for the first
+dispatch of each (kind, lanes), ``crypto_kernel_dispatch_seconds{kind}``
+for the later ones.  ``kind`` is the route (``tables`` for a table
+build, whose ``lanes`` are its keys; the verdict routes above, whose
+``lanes`` are the batch's).  Beside them ``crypto_kernel_calls_total{
+kernel,route}`` serves the counters of ``ops/_build.py`` as they stand:
+``route="cuda"`` is ``LAUNCHES`` (one a launch, added at the launch
+site), ``route="plain"`` is ``PLAIN_CALLS`` (one a run of a plain
+version), every kernel listed, zeros included; and
+``torch_cuda_memory_bytes{device,kind}`` the process's caching
+allocator on each card it has used (``reserved``, ``peak_reserved``).
+
 :func:`device_call` runs a dispatch on the one device-owner thread (the
 counterpart of ``cometbft_tpu/crypto/batch.py:837 _device_call`` in its
 patient mode): blocksync's windows, packed on worker threads, and the
@@ -41,7 +56,9 @@ that never returns, stays the caller's.
 from __future__ import annotations
 
 import collections
+import functools
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -68,6 +85,87 @@ TABLE_CACHE_ENTRIES = 4
 DISPATCHES: collections.Counter = collections.Counter()
 # lanes BatchVerifier verified on the host, by key type
 HOST_LANES: collections.Counter = collections.Counter()
+
+
+@functools.cache
+def _kprof():
+    """The kernel-dispatch series, under the JAX package's names."""
+    from ..libs import metrics as m
+
+    return (
+        m.gauge("crypto_kernel_first_dispatch_seconds",
+                "first dispatch wall time per kernel route and lane count "
+                "(the kernels' load when cold)"),
+        m.counter("crypto_kernel_first_dispatch_total",
+                  "kernel route and lane counts first dispatched in this "
+                  "process"),
+        m.histogram("crypto_kernel_dispatch_seconds",
+                    "device kernel dispatch latency (seen lane counts)",
+                    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+                             0.05, 0.1, 0.25, 0.5, 1, 2.5)))
+
+
+_SEEN_SHAPES: set = set()
+_SEEN_LOCK = threading.Lock()
+
+
+def _note_dispatch(kind: str, lanes: int, seconds: float) -> None:
+    """Record one dispatch of route ``kind`` over ``lanes``: the first
+    (kind, lanes) sighting sets the first-dispatch gauge and counter and
+    a flight-recorder event, repeats go to the histogram."""
+    gauge, first, hist = _kprof()
+    with _SEEN_LOCK:
+        new = (kind, lanes) not in _SEEN_SHAPES
+        _SEEN_SHAPES.add((kind, lanes))
+    if new:
+        gauge.set(seconds, kind=kind, lanes=str(lanes))
+        first.inc(kind=kind)
+        from ..libs import tracing
+
+        tracing.event("crypto.kernel", "first_dispatch", kind=kind,
+                      lanes=lanes, dur_us=int(seconds * 1e6))
+    else:
+        hist.observe(seconds, kind=kind)
+
+
+def _kernel_calls():
+    for k in _build.KERNELS:
+        yield {"kernel": k, "route": "cuda"}, _build.LAUNCHES[k]
+        yield {"kernel": k, "route": "plain"}, _build.PLAIN_CALLS[k]
+
+
+def _cuda_memory():
+    if not torch.cuda.is_initialized():
+        return
+    for i in range(torch.cuda.device_count()):
+        if torch.cuda.max_memory_reserved(i):
+            yield ({"device": f"cuda:{i}", "kind": "reserved"},
+                   torch.cuda.memory_reserved(i))
+            yield ({"device": f"cuda:{i}", "kind": "peak_reserved"},
+                   torch.cuda.max_memory_reserved(i))
+
+
+def _serve_counters() -> None:
+    from ..libs import metrics as m
+
+    m.sampled("crypto_kernel_calls_total",
+              "kernel calls in this process: route cuda counts launches, "
+              "route plain runs of the plain version", "counter",
+              _kernel_calls)
+    m.sampled("torch_cuda_memory_bytes",
+              "the caching allocator's device memory in this process",
+              "gauge", _cuda_memory)
+
+
+_serve_counters()
+
+
+def _tables(pub_t):
+    """K5a over ``pub_t``'s keys, its dispatch recorded."""
+    t0 = time.perf_counter()
+    out = _ed.prepare_pubkey_tables(pub_t)
+    _note_dispatch("tables", pub_t.shape[0], time.perf_counter() - t0)
+    return out
 
 
 def _padded_lane_args(pubs, rs, ss, msgs, msg_lens, device):
@@ -112,7 +210,7 @@ def _per_lane_sharded(devices, head, lanes):
                          *lanes)
         for dev, (p, *part) in zip(devices,
                                    _mesh.split(devices, head[0], *lanes)):
-            tab, ok = _ed.prepare_pubkey_tables(p)
+            tab, ok = _tables(p)
             sidx = torch.arange(p.shape[0], dtype=torch.int32, device=dev)
             outs.append(_ed._verify_gather(tab, ok, sidx, *part))
     return torch.cat([o.to(d0) for o in outs])
@@ -131,15 +229,22 @@ def _lane_route(devices, head, lanes, rng_bytes):
     if b >= RLC_MIN_LANES:
         z = torch.from_numpy(_rlc.host_rlc_coeffs(
             b, rng_bytes=rng_bytes)).to(lanes[0].device)
-        DISPATCHES[("rlc_gather" if gather else "rlc") + suffix] += 1
+        route = ("rlc_gather" if gather else "rlc") + suffix
+        DISPATCHES[route] += 1
         fn = (_rlc.make_verify_batch_rlc_sharded(_mesh.Mesh(devices), gather)
               if suffix else _rlc.verify_batch_rlc_gather)
-        if bool(fn(*head, *lanes, z)):
+        t0 = time.perf_counter()
+        verdict = bool(fn(*head, *lanes, z))
+        _note_dispatch(route, b, time.perf_counter() - t0)
+        if verdict:
             return np.ones((b,), bool)
-    DISPATCHES[("gather" if gather else "verify") + suffix] += 1
+    route = ("gather" if gather else "verify") + suffix
+    DISPATCHES[route] += 1
+    t0 = time.perf_counter()
     out = (_per_lane_sharded(devices, head, lanes) if suffix
-           else _ed.verify_padded_gather(*head, *lanes))
-    return out.cpu().numpy()
+           else _ed.verify_padded_gather(*head, *lanes)).cpu().numpy()
+    _note_dispatch(route, b, time.perf_counter() - t0)
+    return out
 
 
 def device_verify_ed25519(pubs, rs, ss, msgs, msg_lens, device=None,
@@ -157,7 +262,7 @@ def device_verify_ed25519(pubs, rs, ss, msgs, msg_lens, device=None,
     lanes = _padded_lane_args(pubs, rs, ss, msgs, msg_lens, dev)
     if len(devices) > 1:
         return _lane_route(devices, (pub_t,), lanes, rng_bytes)
-    tab, ok = _ed.prepare_pubkey_tables(pub_t)
+    tab, ok = _tables(pub_t)
     idx = torch.arange(b, dtype=torch.int32, device=dev)
     return _lane_route(devices, (tab, ok, idx), lanes, rng_bytes)
 
@@ -183,7 +288,7 @@ def _valset_tables(valset_pubs: np.ndarray, devices) -> dict:
         reps = ent[1]
         for dev in dict.fromkeys(devices):
             if dev not in reps:
-                reps[dev] = _ed.prepare_pubkey_tables(torch.from_numpy(
+                reps[dev] = _tables(torch.from_numpy(
                     np.array(valset_pubs, np.uint8)).to(dev))
         return dict(reps)
 

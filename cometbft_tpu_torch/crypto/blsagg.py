@@ -27,12 +27,14 @@ validator.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..ops import blsg1
+from . import batch as _batch
 from . import bls12381 as _bls
 from . import plan as _plan
 
@@ -118,8 +120,11 @@ def verify_commit_aggregate(vals, signer_indices, msg: bytes,
         mask = np.zeros(tbl.cohort_mask.shape, np.bool_)
         mask[signers] = True
     rows = torch.from_numpy(mask[tbl.cohort].astype(np.int32)).to(dev)
-    out = blsg1.g1_masked_sum(_device_table(vals, tbl, dev), rows)
-    agg_pk = blsg1.xy_from_projective(out.cpu().numpy())
+    t0 = time.perf_counter()
+    out = blsg1.g1_masked_sum(_device_table(vals, tbl, dev), rows).cpu()
+    _batch._note_dispatch("bls_agg", rows.shape[0],
+                          time.perf_counter() - t0)
+    agg_pk = blsg1.xy_from_projective(out.numpy())
     if agg_pk is None:             # the signers' keys sum to infinity
         return False
     return _bls.verify_aggregate_affine(agg_pk, msg, agg_sig)

@@ -14,14 +14,18 @@ __all__ = ["resolve_device"]
 
 def resolve_device(device=None) -> torch.device:
     """``None`` -> ``cuda``; ``"cpu"``/``"cuda[:n]"``/``torch.device`` as
-    given.  Raises ``RuntimeError`` for CUDA without a card and
-    ``ValueError`` for any other device type."""
+    given.  Raises ``RuntimeError`` for CUDA without a card or past the
+    visible cards, and ``ValueError`` for any other device type."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA device requested but torch.cuda.is_available() is "
                 "False; pass device='cpu' to run the plain versions")
+        if dev.index is not None and dev.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"CUDA device {dev} requested but "
+                f"{torch.cuda.device_count()} are visible")
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device type {dev.type!r}")
     return dev

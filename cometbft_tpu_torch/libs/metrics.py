@@ -318,6 +318,21 @@ class _BoundHistogram:
         self._h._observe_key(self._key, value)
 
 
+class Sampled(_Metric):
+    """A metric whose samples ``fn`` yields at each scrape, as (labels,
+    value) pairs: counts kept elsewhere (the kernels' launch counters)
+    served as they stand, with no second count to keep in step."""
+
+    def __init__(self, name, help_, type_: str, fn):
+        super().__init__(name, help_)
+        self.TYPE = type_
+        self._fn = fn
+
+    def expose(self):
+        return [f"{self.name}{_label_str(labels)} {v}"
+                for labels, v in self._fn()]
+
+
 def counter(name: str, help_: str = "",
             registry: Registry | None = None,
             max_label_sets: int = DEFAULT_MAX_LABEL_SETS) -> Counter:
@@ -336,3 +351,8 @@ def histogram(name: str, help_: str = "", buckets=DEFAULT_BUCKETS,
               max_label_sets: int = DEFAULT_MAX_LABEL_SETS) -> Histogram:
     return (registry or DEFAULT).register(
         Histogram(name, help_, buckets, max_label_sets))
+
+
+def sampled(name: str, help_: str, type_: str, fn,
+            registry: Registry | None = None) -> Sampled:
+    return (registry or DEFAULT).register(Sampled(name, help_, type_, fn))

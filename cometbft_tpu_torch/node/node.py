@@ -47,8 +47,8 @@ the node's name for ``node=<name>`` fault rules.  ``app=None`` with
 ``base.proxy_app`` (raising if none answers; nothing falls back to a
 local app).  The remote signer is a ``priv_validator`` like any other
 (``privval/signer.SignerListener``).  Seeds and persistent peers are
-dialled by the node's starter, as the JAX package's ``cmd`` does; the
-port's ``cmd/`` comes later (``ROADMAP.md`` queue 1).
+dialled by the node's starter (``cmd.dial_until_up``), as the JAX
+package's ``cmd`` does.
 
 Not here: gRPC apps, the SQL event sink; the AOT warmup has no
 counterpart (``compile_bundle_info`` stays None: the port's kernels

@@ -31,12 +31,17 @@ def _primes(n: int):
 
 
 def _icbrt(x: int) -> int:
-    r = int(round(x ** (1 / 3)))
-    while r * r * r > x:
-        r -= 1
-    while (r + 1) ** 3 <= x:
-        r += 1
-    return r
+    """floor(cbrt(x)) by Newton's method on integers, from a power of two
+    at or above the root (a float guess of a 67-bit root is off by
+    millions and took seconds to walk one unit at a time)."""
+    if x < 2:
+        return x
+    r = 1 << -(-x.bit_length() // 3)
+    while True:
+        y = (2 * r + x // (r * r)) // 3
+        if y >= r:
+            return r
+        r = y
 
 
 _M64 = (1 << 64) - 1

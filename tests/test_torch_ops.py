@@ -67,6 +67,36 @@ def test_sha512_blocks_matches_jax_and_hashlib():
             msgs[i, :lens[i]].tobytes()).digest()
 
 
+def test_sha512_round_constants_match_jax():
+    """The 80 round constants and the IV, derived by integer Newton
+    cube roots and ``math.isqrt``, equal the JAX package's."""
+    assert sha512.K64 == jsha._K64 and len(sha512.K64) == 80
+    assert sha512.IV64 == jsha._IV64
+    for x in (0, 1, 7, 8, 26, 27, 28, (1 << 200) + 12345, 2 << 192):
+        r = sha512._icbrt(x)
+        assert r ** 3 <= x < (r + 1) ** 3
+
+
+def test_sha512_import_is_cheap():
+    """In a fresh interpreter ``ops/sha512`` spends under 50 ms of its
+    own time (``-X importtime``); its constants took seconds to derive
+    when a float guess of each cube root was walked one unit at a
+    time."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    out = subprocess.run(
+        [sys.executable, "-X", "importtime", "-c",
+         "import cometbft_tpu_torch.ops.sha512"],
+        capture_output=True, text=True, timeout=120,
+        cwd=str(Path(__file__).resolve().parents[1]))
+    line = next(ln for ln in out.stderr.splitlines()
+                if ln.rstrip().endswith("cometbft_tpu_torch.ops.sha512"))
+    self_us = int(line.split("|")[0].split(":")[1])
+    assert self_us < 50_000, line
+
+
 def test_sha512_scalar_plain_is_digest_mod_l():
     rng = np.random.default_rng(3)
     msgs, lens = _msgs_blocks(rng)
@@ -291,6 +321,15 @@ def test_device_resolution(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_device_resolution_refuses_a_card_past_the_visible(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert resolve_device("cuda:0") == torch.device("cuda", 0)
+    assert resolve_device(None) == torch.device("cuda")
+    with pytest.raises(RuntimeError, match="1 are visible"):
+        resolve_device("cuda:1")
 
 
 def test_generated_constants_header():
