@@ -5,8 +5,10 @@ verification over a device set, of the light client, of blocksync
 catch-up, of consensus in one process, of the networked node over
 loopback TCP, of BASELINE configs[4]'s mixed-key commits, of the RPC
 surface with light-client serving, of statesync, of discovery under
-faults (networks/chaos.toml), and of networks/ci.toml run whole with one
-process per node through the command line, on one card.
+faults (networks/chaos.toml), of networks/ci.toml run whole with one
+process per node through the command line, and of the scenario lab (the
+curated suite up to 100 nodes and the 50-node statesync fleet), on one
+card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -242,19 +244,41 @@ Phases, each of which must pass or the script exits non-zero:
    catch-ups, light01's first verified header, the load's latency, the
    card's utilization (``nvidia-smi``) and each process's allocator
    memory.
+19. the scenario lab (``phase_sim``, in a fresh process of its own,
+   ``--child sim``, beside phases 12-13): programs of ``SIM_REFERENCE``
+   (``tests/torch_sim_reference.json``, the JAX package's verdicts
+   written on the CPU by ``python tests/torch_sim_fixtures.py
+   --write``), in the whole run ``SIM_WHOLE`` (megamix-100,
+   bls-mixed-lab-12, asym-cut-gray-25 and fleet-bootstrap-50, for the
+   time limit), with ``--sim`` every one: the eight
+   curated scenarios (partitions, a one-way cut, gray failures, an
+   equivocator, an amnesiac, a spammer, tx flooders, a crash with a
+   wiped restart, a mixed BLS/Ed25519 set; 12 to 100 nodes) and the
+   statesync fleets (fleet-bootstrap-50: 10 validators, 4 seeds, 40
+   bootstrappers under drop and delay faults, one seed serving corrupt
+   chunks), each loaded from its dict and run on ``cuda:0`` on the
+   virtual clock, then the first again.  Each verdict must equal the
+   file's field by field (and each scenario's fault signature),
+   ``bench.py``'s checks of a verdict hold, the replay is identical,
+   K5a, K5b and K9 launch with no plain call and no oracle call, and
+   every launch of K5a and K5b (a seeded sample of K9's) recomputed by
+   the plain versions on the card gives 0 mismatches.  Readings: a
+   program's wall, virtual seconds per real second, one-lane checks and
+   their mean ms, launches by kernel, busy share (CUDA events around
+   each launch).
 
-The fresh processes of phases 15-18 start right after the build
+The fresh processes of phases 15-19 start right after the build
 (``--after``): each reaches the card and loads the kernels, then waits
 for its turn, so that its set-up overlaps the phases before it.  In the
 whole run phases 15 and 16, one after the other, run beside phases 12
-and 13 (``fresh_beside``): all four are host-bound, the card busy under
-2% of their time; phase 16's timing of the tree kernel at 200,000
+and 13 (``fresh_beside``), and phase 19 beside them on a thread of its
+own: all five are host-bound, the card busy under 2% of their time; phase 16's timing of the tree kernel at 200,000
 leaves then shares the card with phase 13's one-lane launches.  Phase
 18 runs beside phase 17 the same way, its ports from ``E2E_BASE_PORT``
 (below the kernel's ephemeral range, where phase 17's nodes bind).
 
-Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18 are the main
-path: the launch counters are zeroed just before each and read just
+Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19 are the
+main path: the launch counters are zeroed just before each and read just
 after (phase 18's are its processes' own counters, which start at 0
 with each process and are read over ``/metrics`` before the stop);
 each phase's kernels
@@ -282,7 +306,8 @@ fixtures built in it: the 1,000-validator source chain and 10,000 keys),
 ``--statesync`` with phase 16 (options together run their phases;
 ``--stress --node`` gives phase 14 its part (e)); ``--chaos`` runs only
 phases 1, 2 and 17; ``--e2e [MANIFEST]`` only phases 1, 2 and 18 (over
-networks/ci.toml unless MANIFEST names another).
+networks/ci.toml unless MANIFEST names another); ``--sim`` only phases
+1, 2 and 19.
 
 The line before the last is a JSON object with one entry per kernel
 (launches on the main path, max_abs_err, times, bound); the last line is
@@ -5056,11 +5081,12 @@ def _stop_prespawned() -> None:
     _PRESPAWNED.clear()
 
 
-def prespawn(names) -> None:
+def prespawn(names, whole: bool = False) -> None:
     """Start the children of :func:`phase_fresh` ahead of their turn
     (``--after GO``): each imports, reaches the card and loads the built
     kernels, then waits for its go file, so that its set-up overlaps the
-    phases before it.  A child never given its go is killed at exit."""
+    phases before it.  A child never given its go is killed at exit.
+    ``whole``: the whole run's children (phase 19 runs ``SIM_WHOLE``)."""
     import atexit
 
     if not _PRESPAWNED:
@@ -5073,7 +5099,9 @@ def prespawn(names) -> None:
         _PRESPAWNED[name] = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--child", name,
              path, "--after", go,
-             *(("--e2e", E2E_MANIFEST) if name == "e2e" else ())])
+             *(("--e2e", E2E_MANIFEST) if name == "e2e" else ()),
+             *(("--sim-programs", ",".join(SIM_WHOLE))
+               if name == "sim" and whole else ())])
 
 
 def phase_fresh(name: str):
@@ -5266,6 +5294,36 @@ def launch_shapes(seen: dict):
         yield seen
     finally:
         _build.launch = inner
+
+
+@contextlib.contextmanager
+def launch_events(out: dict):
+    """Record a pair of CUDA events around each kernel launch on the
+    launching stream into ``out[name]`` (their elapsed time is the
+    launch's device time; read after a synchronisation)."""
+    import torch
+
+    from cometbft_tpu_torch.ops import _build
+
+    inner = _build.launch
+
+    def launch(name, t, *args):
+        stream = torch.cuda.current_stream(t.device)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(stream)
+        try:
+            return inner(name, t, *args)
+        finally:
+            b.record(stream)
+            out.setdefault(name, []).append((a, b))
+
+    _build.launch = launch
+    try:
+        yield out
+    finally:
+        _build.launch = inner
+        _sync()
 
 
 class _Stamps:
@@ -7256,14 +7314,371 @@ def report_e2e(e2e, launches, card) -> None:
           f"{ck['mismatches']} in {e2e['checks']['check_s']:.1f} s  [{card}]")
 
 
+# ------------------------------------------------ phase 19: the scenario lab
+
+# the JAX package's verdicts, written on the CPU by
+# ``python tests/torch_sim_fixtures.py --write`` (the script reads the
+# file; it imports nothing of the JAX package)
+SIM_REFERENCE = os.path.join("tests", "torch_sim_reference.json")
+# the programs phase 19 runs (None: every one of the file, the eight
+# curated scenarios and both statesync programs; ``--sim``)
+SIM_NAMES = None
+# the whole run's cut, for its time limit (PERF.md section 4): the
+# largest scenario, the mixed-key one, one of 25 nodes and the 50-node
+# fleet; no program's size is cut
+SIM_WHOLE = ("asym-cut-gray-25", "bls-mixed-lab-12", "megamix-100",
+             "fleet-bootstrap-50")
+SIM_KERNELS = ("ed25519_tables", "ed25519_verify_gather",
+               "aggregate_g1_masked")
+SIM_RECHECK_G9 = 24              # K9 launches re-checked (a seeded sample)
+
+
+def _sim_capture():
+    """Wrap the wrappers of K5a, K5b and K9 so that each launch's inputs
+    and outputs are kept (on the card) for :func:`_sim_recheck`.
+    Returns (kept, restore)."""
+    import torch
+
+    from cometbft_tpu_torch.ops import blsg1 as G
+    from cometbft_tpu_torch.ops import ed25519 as ed
+
+    kept = {k: [] for k in SIM_KERNELS}
+    inner = (ed.prepare_pubkey_tables, ed.verify_padded_gather,
+             G.g1_masked_sum)
+
+    def tables(pub):
+        tab, ok = inner[0](pub)
+        kept["ed25519_tables"].append((pub.clone(), tab.clone(), ok.clone()))
+        return tab, ok
+
+    def gather(tab, ok_a, idx, *lanes):
+        out = inner[1](tab, ok_a, idx, *lanes)
+        rows = idx.long()          # the lanes' rows only, not the set's
+        kept["ed25519_verify_gather"].append((
+            (tab[rows], ok_a[rows],
+             torch.arange(idx.shape[0], dtype=torch.int32, device=idx.device),
+             *(a.clone() for a in lanes)), out.clone()))
+        return out
+
+    def fold(words, mask):
+        out = inner[2](words, mask)
+        kept["aggregate_g1_masked"].append(
+            (words.clone(), mask.clone(), out.clone()))
+        return out
+
+    ed.prepare_pubkey_tables, ed.verify_padded_gather = tables, gather
+    G.g1_masked_sum = fold
+
+    def restore():
+        ed.prepare_pubkey_tables, ed.verify_padded_gather = inner[:2]
+        G.g1_masked_sum = inner[2]
+
+    return kept, restore
+
+
+def _sim_recheck(kept: dict) -> dict:
+    """Every kept launch of K5a and of K5b recomputed by the plain
+    versions on the card, all keys in one call and all lanes in one
+    (each lane with its own table rows, blocks zero-padded to the widest
+    launch's count: the plain version reads a lane's active blocks
+    only), and a seeded sample of ``SIM_RECHECK_G9`` K9 launches: tables
+    compared canonical, verdicts and folds exactly.  Mismatches count
+    keys, lanes and folds."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.ops import blsg1 as G
+    from cometbft_tpu_torch.ops import ed25519 as ed
+
+    rng = np.random.default_rng(1919)
+    mism = dict.fromkeys(SIM_KERNELS, 0)
+    checked = dict.fromkeys(SIM_KERNELS, 0)
+    k5a = kept["ed25519_tables"]
+    if k5a:
+        pub = torch.cat([p for p, _, _ in k5a])
+        tab = torch.cat([t for _, t, _ in k5a])
+        ok = torch.cat([o for _, _, o in k5a])
+        tab_p, ok_p = ed._prepare_plain(pub)
+        mism["ed25519_tables"] = int(((ok != ok_p) | (
+            ed.tables_canonical(tab) != ed.tables_canonical(tab_p))
+            .flatten(1).any(1)).sum())
+        checked["ed25519_tables"] = pub.shape[0]
+    k5b = kept["ed25519_verify_gather"]
+    if k5b:
+        nb = max(a[5].shape[1] for a, _ in k5b)
+
+        def padded(blocks):
+            extra = nb - blocks.shape[1]
+            return blocks if not extra else torch.cat(
+                [blocks, blocks.new_zeros((blocks.shape[0], extra, 32))], 1)
+
+        tab = torch.cat([a[0] for a, _ in k5b])
+        ok_a = torch.cat([a[1] for a, _ in k5b])
+        rb, sb, active = (torch.cat([a[i] for a, _ in k5b])
+                          for i in (3, 4, 6))
+        blocks = torch.cat([padded(a[5]) for a, _ in k5b])
+        out = torch.cat([o for _, o in k5b])
+        idx = torch.arange(out.shape[0], dtype=torch.int32,
+                           device=out.device)
+        out_p = ed._verify_gather_plain(tab, ok_a, idx, rb, sb, blocks,
+                                        active)
+        mism["ed25519_verify_gather"] = int((out != out_p).sum())
+        checked["ed25519_verify_gather"] = out.shape[0]
+    k9 = kept["aggregate_g1_masked"]
+    if len(k9) > SIM_RECHECK_G9:
+        k9 = [k9[i] for i in sorted(rng.choice(len(k9), SIM_RECHECK_G9,
+                                               replace=False))]
+    for words, mask, out in k9:
+        out_p = G._masked_sum_plain(words, mask)
+        mism["aggregate_g1_masked"] += int(not torch.equal(out, out_p))
+        checked["aggregate_g1_masked"] += 1
+    shapes = {
+        "ed25519_tables": sorted({tuple(p.shape) for p, _, _ in
+                                  kept["ed25519_tables"]}),
+        "ed25519_verify_gather": sorted({
+            (a[2].shape[0], a[5].shape[1]) for a, _ in
+            kept["ed25519_verify_gather"]}),
+        "aggregate_g1_masked": sorted({
+            (w.shape[0], int(m.sum())) for w, m, _ in
+            kept["aggregate_g1_masked"]})}
+    return {"mismatches": mism, "checked": checked,
+            "launches_kept": {k: len(v) for k, v in kept.items()},
+            "shapes": shapes}
+
+
+def _sim_expect(kind: str, v: dict, d: dict) -> list:
+    """The checks ``bench.py --mode scenarios`` and ``--mode statesync``
+    hold (``bench.py:1377-1460``, ``:1840-1863``), on one verdict."""
+    bad = []
+    if kind == "scenario":
+        if not v["fork_free"]:
+            bad.append("fork")
+        if not v["reached_target"]:
+            bad.append(f"stuck at {v['common_height']}")
+        return bad
+    n = d["n_bootstrappers"]
+    t = v["syncer_tallies"]
+    if v["completed"] != n:
+        bad.append(f"only {v['completed']} of {n} completed")
+    if t.get("restore_resets", 0):
+        bad.append("a corrupt chunk caused a restore reset")
+    if t.get("chunk_hash_mismatches", 0) < 1:
+        bad.append("no corrupt chunk caught")
+    if len(v["byzantine_banned_by"]) < n:
+        bad.append(f"byzantine seed banned by "
+                   f"{len(v['byzantine_banned_by'])} of {n}")
+    if not v["restored_state_matches_chain"]:
+        bad.append("a restored app's state is not the chain's")
+    return bad
+
+
+def _json_diff(want, got, path="") -> str | None:
+    """The first field where two JSON values differ, or None."""
+    if isinstance(want, dict) and isinstance(got, dict):
+        for k in sorted(set(want) | set(got), key=str):
+            d = _json_diff(want.get(k), got.get(k), f"{path}.{k}")
+            if d:
+                return d
+        return None
+    if isinstance(want, list) and isinstance(got, list) and \
+            len(want) == len(got):
+        for i, (a, b) in enumerate(zip(want, got)):
+            d = _json_diff(a, b, f"{path}[{i}]")
+            if d:
+                return d
+        return None
+    return None if want == got else f"{path}: want {want!r}, got {got!r}"
+
+
+def phase_sim(pool, keys, dev):
+    """Phase 19: the scenario lab (``cometbft_tpu_torch/sim``) on the
+    card, in a process of its own (:func:`phase_fresh`, ``--child sim``:
+    the fault plane, the clock seam and the flight recorder are
+    process-wide).  Every program of ``SIM_REFERENCE`` in ``SIM_NAMES``
+    (all ten unless cut: the eight curated scenarios of 12 to 100 nodes
+    and both statesync programs, fleet-bootstrap-50's 10 validators, 4
+    seeds and 40 bootstrappers among them) runs from its dict through
+    the port's ``run_scenario``/``chaos_signature_of`` and
+    ``run_statesync_scenario`` on ``dev``, then the first again.
+
+    Checks: each verdict equal to the file's (the JAX package's, field
+    by field) and each scenario's fault signature too; the first
+    program's second run gives the same verdict JSON and signature;
+    ``bench.py``'s checks of a verdict (:func:`_sim_expect`).  K5a, K5b
+    and K9 must launch and no plain version run; the oracle's calls
+    must be 0; every launch of K5a and of K5b, and a seeded sample of
+    K9's, is recomputed by the plain versions on the card with 0
+    mismatches (:func:`_sim_recheck`).  Readings: the wall of each
+    program, virtual seconds per real second, one-lane checks
+    (``crypto/batch.py:device_call``) and their mean ms, launches by
+    kernel, and the device's busy share: each launch's device time
+    between two CUDA events recorded around it (:func:`launch_events`;
+    the profiler's trace of the whole phase took a minute to read),
+    summed, over the programs' wall."""
+    import torch
+
+    from cometbft_tpu_torch.crypto import batch as cb
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sim import scenario as S
+    from cometbft_tpu_torch.sim import statesync_lab as L
+
+    t_ph = time.perf_counter()
+    out: dict = {"setup_s": t_ph - _T_LOADED}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, SIM_REFERENCE)) as f:
+        ref = json.load(f)
+    progs = [("scenario", e) for e in ref["scenarios"]] + \
+        [("statesync", e) for e in ref["statesync"]]
+    if SIM_NAMES is not None:
+        progs = [p for p in progs if p[1]["dict"]["name"] in SIM_NAMES]
+    required = [k for k in SIM_KERNELS if k != "aggregate_g1_masked" or
+                any("bls12_381" in p[1]["dict"].get("key_types", ())
+                    for p in progs)]
+    calls, restore_oracle = _oracle_counter()
+    kept, restore_capture = _sim_capture()
+    dcall = {"n": 0, "s": 0.0}
+    inner_dc = cb.device_call
+
+    def device_call(fn):
+        t0 = time.perf_counter()
+        try:
+            return inner_dc(fn)
+        finally:
+            dcall["n"] += 1
+            dcall["s"] += time.perf_counter() - t0
+
+    cb.device_call = device_call
+    runs: list = []
+
+    def run_one(kind, e):
+        n0, s0 = dcall["n"], dcall["s"]
+        l0 = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        if kind == "scenario":
+            v, sig = S.chaos_signature_of(S.Scenario.from_dict(e["dict"]),
+                                          device=dev)
+            sig = [list(x) for x in sig]
+        else:
+            v = L.run_statesync_scenario(
+                L.StatesyncScenario.from_dict(e["dict"]), device=dev)
+            sig = None
+        wall = time.perf_counter() - t0
+        n = dcall["n"] - n0
+        runs.append({
+            "name": e["dict"]["name"], "kind": kind, "wall_s": wall,
+            "virtual_s": v["virtual_duration_s"],
+            "virtual_per_real": v["virtual_duration_s"] / wall,
+            "checks": n, "check_ms": (dcall["s"] - s0) * 1e3 / max(n, 1),
+            "check_share": (dcall["s"] - s0) / wall,
+            "launches": {k: _build.LAUNCHES.get(k, 0) - l0.get(k, 0)
+                         for k in _build.KERNELS
+                         if _build.LAUNCHES.get(k, 0) - l0.get(k, 0)}})
+        return v, sig
+
+    def main_path():
+        box = {"verdicts": []}
+        t0 = time.perf_counter()
+        for kind, e in progs:
+            box["verdicts"].append(run_one(kind, e))
+        kind, e = progs[0]
+        box["replay"] = run_one(kind, e)
+        box["wall_s"] = time.perf_counter() - t0
+        return box
+
+    events: dict = {}
+    try:
+        with launch_events(events):
+            launches, box = _path_launches(main_path, required)
+    finally:
+        cb.device_call = inner_dc
+        restore_capture()
+        restore_oracle()
+    out["main_path_s"] = time.perf_counter() - t_ph
+    out["runs"] = runs
+    device = {k: sum(a.elapsed_time(b) for a, b in v)
+              for k, v in events.items()}
+    out["device"] = {"wall_s": box["wall_s"], "kernels_ms": device,
+                     "busy_share": sum(device.values()) / 1e3
+                     / box["wall_s"]}
+    out["oracle_calls"] = calls[0]
+    out["programs"] = [e["dict"]["name"] for _, e in progs]
+    bad = []
+    if calls[0]:
+        bad.append(f"the host oracle was called {calls[0]} times")
+    diffs = {}
+    for (kind, e), (v, sig) in zip(progs, box["verdicts"]):
+        name = e["dict"]["name"]
+        d = _json_diff(e["verdict"], v)
+        if d:
+            diffs[name] = d
+        if sig is not None and sig != e["signature"]:
+            diffs[name + " signature"] = \
+                f"{len(sig)} entries, want {len(e['signature'])}"
+        for b in _sim_expect(kind, v, e["dict"]):
+            bad.append(f"{name}: {b}")
+    v1, sig1 = box["verdicts"][0]
+    v2, sig2 = box["replay"]
+    out["replay_identical"] = (json.dumps(v1, sort_keys=True) ==
+                               json.dumps(v2, sort_keys=True)
+                               and sig1 == sig2)
+    if not out["replay_identical"]:
+        bad.append(f"{progs[0][1]['dict']['name']}: replay diverged "
+                   f"({_json_diff(v1, v2)})")
+    out["verdict_diffs"] = diffs
+    if diffs:
+        bad.append(f"verdicts differ from {SIM_REFERENCE}: {diffs}")
+    t0 = time.perf_counter()
+    out["checks"] = _sim_recheck(kept)
+    out["checks"]["check_s"] = time.perf_counter() - t0
+    m = {k: x for k, x in out["checks"]["mismatches"].items() if x}
+    if m:
+        bad.append(f"kernels against their plain versions on the path's "
+                   f"inputs: {m}")
+    del kept
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("phase 19: " + "; ".join(bad))
+    out["checks_s"] = time.perf_counter() - t_ph - out["main_path_s"]
+    return launches, out
+
+
+def report_sim(sm, launches, card) -> None:
+    """Phase 19's lines."""
+    print(f"sim (phase 19): {sm['phase_s']:.1f} s in its process (set-up "
+          f"{sm['setup_s']:.1f} s, main path {sm['main_path_s']:.1f} s, "
+          f"checks {sm['checks_s']:.1f} s, exit {sm['exit_s']:.1f} s); "
+          f"programs {sm['programs']}; launches {launches}; oracle calls "
+          f"{sm['oracle_calls']}; every verdict the reference's, replay "
+          f"identical {sm['replay_identical']}")
+    for r in sm["runs"]:
+        print(f"sim {r['name']}: wall {r['wall_s']:.2f} s for "
+              f"{r['virtual_s']} virtual s ({r['virtual_per_real']:.3f} "
+              f"virtual s/s); one-lane checks {r['checks']}, "
+              f"{r['check_ms']:.3f} ms each, {100 * r['check_share']:.1f}% "
+              f"of the wall; launches {r['launches']}  [{card}]")
+    ck = sm["checks"]
+    print(f"sim kernels against their plain versions on the path's inputs: "
+          f"keys, lanes and folds re-checked {ck['checked']} over "
+          f"launches {ck['launches_kept']}, mismatches "
+          f"{ck['mismatches']} in {ck['check_s']:.1f} s; shapes "
+          f"{ck['shapes']}  [{card}]")
+    dv = sm["device"]
+    virt = sum(r["virtual_s"] for r in sm["runs"])
+    print(f"sim device: the programs' wall {dv['wall_s']:.1f} s, kernel "
+          f"device ms (CUDA events around each launch) {dv['kernels_ms']},"
+          f" busy {dv['busy_share']:.5f}; {virt:.2f} virtual s "
+          f"({virt / dv['wall_s']:.3f} virtual s/s)  [{card}]")
+
+
 CHILD_PHASES = {"rpc": (phase_rpc, BIG_VALS),
                 "statesync": (phase_statesync, SS_VALS),
                 "chaos": (phase_chaos, 0),
-                "e2e": (phase_e2e, 0)}
+                "e2e": (phase_e2e, 0),
+                "sim": (phase_sim, 0)}
 
 
 def main(argv=None) -> int:
-    global _T_LOADED, E2E_MANIFEST
+    global _T_LOADED, E2E_MANIFEST, SIM_NAMES
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--record", default=None,
                     help="also write the full record as JSON to this path")
@@ -7290,6 +7705,12 @@ def main(argv=None) -> int:
                     metavar="MANIFEST",
                     help="run only the build and phase 18 over MANIFEST "
                     f"(default {E2E_MANIFEST})")
+    ap.add_argument("--sim", action="store_true",
+                    help="run only the build and phase 19 (every program "
+                    f"of {SIM_REFERENCE})")
+    ap.add_argument("--sim-programs", default=None, metavar="NAMES",
+                    help="with --child sim: the comma-separated programs "
+                    "phase 19 runs (how the whole run passes SIM_WHOLE)")
     ap.add_argument("--serve-remote", nargs=2, metavar=("LISTENER", "DIR"),
                     default=None,
                     help="serve phase 17's remote app and signer (how "
@@ -7301,13 +7722,15 @@ def main(argv=None) -> int:
     ap.add_argument("--child", nargs=2, metavar=("NAME", "PATH"),
                     default=None,
                     help="run only phase NAME (rpc: 15, statesync: 16, "
-                    "chaos: 17, e2e: 18), "
+                    "chaos: 17, e2e: 18, sim: 19), "
                     "over the kernels built, and write its launches and "
                     "record as JSON to PATH (how the other runs start "
                     "those phases, each in a fresh process)")
     args = ap.parse_args(argv)
     if args.e2e:
         E2E_MANIFEST = args.e2e
+    if args.sim_programs:
+        SIM_NAMES = tuple(args.sim_programs.split(","))
 
     import torch
 
@@ -7379,11 +7802,12 @@ def main(argv=None) -> int:
     prespawn([n for n, on in (("rpc", args.rpc),
                               ("statesync", args.statesync),
                               ("chaos", args.chaos),
-                              ("e2e", args.e2e)) if on])
+                              ("e2e", args.e2e),
+                              ("sim", args.sim)) if on])
     if swept:
         fx = Fixtures(max(SIZES))
         print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
-    if swept or args.chaos or args.e2e:
+    if swept or args.chaos or args.e2e or args.sim:
         rec = {k: {"mismatches": 0} for k in _build.KERNELS}
         t0 = time.perf_counter()
         if swept:
@@ -7402,6 +7826,8 @@ def main(argv=None) -> int:
             cx_launches, cx = phase_fresh("chaos")
         if args.e2e:
             e2e_launches, e2e = phase_fresh("e2e")
+        if args.sim:
+            sm_launches, sm = phase_fresh("sim")
         if args.blocksync or args.stress:
             ctx = multiprocessing.get_context("spawn")
             with ctx.Pool(os.cpu_count()) as pool:
@@ -7442,6 +7868,9 @@ def main(argv=None) -> int:
         if args.e2e:
             report_e2e(e2e, e2e_launches, card)
             part["e2e"] = e2e
+        if args.sim:
+            report_sim(sm, sm_launches, card)
+            part["sim"] = sm
         if args.record:
             os.makedirs(os.path.dirname(os.path.abspath(args.record)),
                         exist_ok=True)
@@ -7452,8 +7881,8 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    # the fresh processes of phases 15-18 reach the card meanwhile
-    prespawn(("rpc", "statesync", "chaos", "e2e"))
+    # the fresh processes of phases 15-19 reach the card meanwhile
+    prespawn(("rpc", "statesync", "chaos", "e2e", "sim"), whole=True)
     fx = Fixtures(max(SIZES))
     print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
     rec = {k: {"name": k, "route": "cuda"} for k in _build.KERNELS}
@@ -7613,9 +8042,10 @@ def main(argv=None) -> int:
           f"(phase 17 {t_cx:.1f} s, phase 18 {e2e['phase_s']:.1f} s; one "
           f"after another {t_cx + e2e['phase_s']:.1f} s)")
     report_blocksync(bs, bs_launches, card)
-    # phases 15 and 16 run beside phases 12 and 13
+    # phases 15 and 16, and phase 19, run beside phases 12 and 13
     t_beside = time.perf_counter()
     join_fresh = fresh_beside(("rpc", "statesync"))
+    join_sim = fresh_beside(("sim",))
     t0 = time.perf_counter()
     cs_launches, cs = phase_consensus(dev)
     cs["phase_s"] = time.perf_counter() - t0
@@ -7624,10 +8054,13 @@ def main(argv=None) -> int:
     nd["phase_s"] = time.perf_counter() - t0
     t_nodes = time.perf_counter() - t_beside
     (rp_launches, rp), (ss_launches, ss) = join_fresh()
+    ((sm_launches, sm),) = join_sim()
     beside_s = time.perf_counter() - t_beside
-    print(f"phases 12-13 beside 15-16: {beside_s:.1f} s (phases 12-13 "
-          f"{t_nodes:.1f} s, 15-16 {rp['phase_s'] + ss['phase_s']:.1f} s;"
-          f" one after another {t_nodes + rp['phase_s'] + ss['phase_s']:.1f}"
+    print(f"phases 12-13 beside 15-16 and 19: {beside_s:.1f} s (phases "
+          f"12-13 {t_nodes:.1f} s, 15-16 "
+          f"{rp['phase_s'] + ss['phase_s']:.1f} s, 19 {sm['phase_s']:.1f} "
+          f"s; one after another "
+          f"{t_nodes + rp['phase_s'] + ss['phase_s'] + sm['phase_s']:.1f}"
           f" s)")
     report_consensus(cs, cs_launches, card)
     report_node(nd, nd_launches, card)
@@ -7636,6 +8069,7 @@ def main(argv=None) -> int:
     report_statesync(ss, ss_launches, card)
     report_chaos(cx, cx_launches, card)
     report_e2e(e2e, e2e_launches, card)
+    report_sim(sm, sm_launches, card)
     print(f"light client (phase 10): fixtures {lc['fixture_s']}, first "
           f"calls {lc['first_call_s']} s, phase {lc['phase_s']:.1f} s; "
           f"launches {lc_launches}")
@@ -7710,7 +8144,7 @@ def main(argv=None) -> int:
              "consensus": cs_launches, "node": nd_launches,
              "stress": st_launches, "rpc": rp_launches,
              "statesync": ss_launches, "chaos": cx_launches,
-             "e2e": e2e_launches}
+             "e2e": e2e_launches, "sim": sm_launches}
 
     c = op_counts()
     print(f"field multiplications per group op: {c}")
@@ -7786,7 +8220,7 @@ def main(argv=None) -> int:
                        "light_client": lc, "blocksync": bs,
                        "consensus": cs, "node": nd, "stress": st,
                        "rpc": rp, "statesync": ss, "chaos": cx,
-                       "e2e": e2e, "mesh": mesh,
+                       "e2e": e2e, "sim": sm, "mesh": mesh,
                        "build_log": _build.build_log(),
                        "ptxas": usage}, f, indent=1,
                       default=str)

@@ -55,6 +55,7 @@ that never returns, stays the caller's.
 
 from __future__ import annotations
 
+import asyncio
 import collections
 import functools
 import threading
@@ -75,7 +76,7 @@ from . import plan as _plan
 __all__ = ["RLC_MIN_LANES", "DISPATCHES", "HOST_LANES", "BatchVerifier",
            "create_batch_verifier", "verify_dense", "device_verify_ed25519",
            "device_verify_ed25519_cached", "device_call", "device_submit",
-           "DEVICE_THREAD_NAME"]
+           "device_await", "device_jobs_in_flight", "DEVICE_THREAD_NAME"]
 
 # Minimum Ed25519 lanes before the RLC verdict
 RLC_MIN_LANES = 128
@@ -311,6 +312,37 @@ def device_submit(fn):
             _DEVICE_POOL = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix=DEVICE_THREAD_NAME)
     return _DEVICE_POOL.submit(fn)
+
+
+# device_await jobs whose result the awaiting loop has not been handed
+_AWAITED = [0]
+_AWAITED_LOCK = threading.Lock()
+
+
+def _awaited_done(_f) -> None:
+    with _AWAITED_LOCK:
+        _AWAITED[0] -= 1
+
+
+def device_await(fn):
+    """``fn()`` on the device-owner thread (:func:`device_submit`) as an
+    ``asyncio`` future of the running loop.  The job counts in
+    :func:`device_jobs_in_flight` until its result has been queued to the
+    loop: the count drops after ``wrap_future``'s own callback has
+    written to the loop's self-pipe, so a virtual-time loop
+    (``sim/vtime.py``) that reads the count before polling its selector
+    never advances its clock while the job runs."""
+    with _AWAITED_LOCK:
+        _AWAITED[0] += 1
+    cfut = device_submit(fn)
+    fut = asyncio.wrap_future(cfut)
+    cfut.add_done_callback(_awaited_done)
+    return fut
+
+
+def device_jobs_in_flight() -> int:
+    """:func:`device_await` jobs not yet handed back to their loop."""
+    return _AWAITED[0]
 
 
 def device_call(fn):

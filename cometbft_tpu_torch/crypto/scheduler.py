@@ -485,16 +485,16 @@ class VerificationScheduler(BaseService):
                                h_hi=max(hs, default=0))
         err = None
         try:
-            oks = await asyncio.wrap_future(cryptobatch.device_submit(
-                lambda: self._verify_batch(batch)))
+            oks = await cryptobatch.device_await(
+                lambda: self._verify_batch(batch))
         except Exception as e:
             # not a signature verdict: every batchmate still deserves a
             # real one, so verify item by item, one lane a call
             self.log.error("batch dispatch failed; verifying items one "
                            "by one", err=repr(e))
             try:
-                oks = await asyncio.wrap_future(cryptobatch.device_submit(
-                    lambda: self._verify_items(batch)))
+                oks = await cryptobatch.device_await(
+                    lambda: self._verify_items(batch))
             except Exception as e2:
                 self.log.error("per-item verification failed",
                                err=repr(e2))

@@ -22,7 +22,7 @@ import torch
 __all__ = ["P_INT", "D_INT", "WIDTHS", "OFFSETS", "limbs_from_int",
            "int_from_limbs", "const", "add", "sub", "neg", "mul", "square",
            "freeze", "is_zero", "eq", "select", "from_bytes32", "pow22523",
-           "sqrt_ratio", "invert", "MUL_COUNT"]
+           "sqrt_ratio", "invert", "mul_many", "carry_many", "MUL_COUNT"]
 
 P_INT = 2**255 - 19
 D_INT = (-121665 * pow(121666, P_INT - 2, P_INT)) % P_INT
@@ -79,7 +79,8 @@ def _tensors(device):
             # limb 9's carry re-enters limb 0 times 19
             "wrap": torch.tensor([19] + [1] * (NL - 1),
                                  **i64).view(NL, 1),
-            "j": torch.tensor(_J, dtype=torch.long, device=device),
+            "jflat": torch.tensor(_J, dtype=torch.long,
+                                  device=device).reshape(-1),
             "coef": torch.tensor(_COEF_T, **i64).view(NL, NL, 1),
             "p2": torch.tensor(_P2, **i64).view(NL, 1),
         }
@@ -107,7 +108,7 @@ def _carry(h: torch.Tensor, passes: int) -> torch.Tensor:
         c = h >> t["shift"]
         # in place on fresh tensors: a third fewer operator calls than a
         # slice-and-cat, which is what a one-lane check pays for
-        h = (h & t["mask"]).add_(c.roll(1, 0).mul_(t["wrap"]))
+        h = (h & t["mask"]).addcmul_(c.roll(1, 0), t["wrap"])
     return h
 
 
@@ -140,15 +141,39 @@ def mul(a, b):
     n = max(a.shape[1], b.shape[1])
     MUL_COUNT.n += n
     t = _tensors(a.device)
-    a = a.expand(NL, n)
-    b = b.expand(NL, n)
-    bj = b[t["j"]]                                   # (10 k, 10 i, n)
+    if a.shape[1] != n:
+        a = a.expand(NL, n)
+    if b.shape[1] != n:
+        b = b.expand(NL, n)
+    bj = b.index_select(0, t["jflat"]).view(NL, NL, n)  # (10 k, 10 i, n)
     h = (a.unsqueeze(0) * bj * t["coef"]).sum(1)
     return _carry(h, 3)
 
 
 def square(a):
     return mul(a, a)
+
+
+def carry_many(raws):
+    """One carry pass over sums and differences of carried limbs
+    (``add``/``sub``/``neg`` before their carry), side by side: the same
+    limbs as carrying each alone, with one set of operator calls."""
+    n = raws[0].shape[1]
+    return _carry(torch.cat(raws, 1), 1).split(n, 1)
+
+
+def mul_many(pairs):
+    """``[mul(a, b) for a, b in pairs]`` as one :func:`mul` over the
+    pairs' lanes side by side: each lane's products are the same, and a
+    plain version over a few lanes pays its operator calls once instead
+    of once a pair (a one-lane check of the plain versions is mostly
+    operator calls)."""
+    n = max(max(a.shape[1], b.shape[1]) for a, b in pairs)
+    h = mul(torch.cat([a if a.shape[1] == n else a.expand(NL, n)
+                       for a, _ in pairs], 1),
+            torch.cat([b if b.shape[1] == n else b.expand(NL, n)
+                       for _, b in pairs], 1))
+    return h.split(n, 1)
 
 
 def select(mask, a, b):

@@ -68,40 +68,35 @@ def neg_ext(p: Ext) -> Ext:
     return Ext(fe.neg(p.x), p.y, p.z, fe.neg(p.t))
 
 
+# The independent products of each formula go through one fe.mul_many
+# call, and its independent sums and differences through one
+# fe.carry_many: the same limbs lane by lane, a fraction of the operator
+# calls.
+
 def dbl(p: Ext) -> Ext:
-    a = fe.square(p.x)
-    b = fe.square(p.y)
-    zz = fe.square(p.z)
-    c = fe.add(zz, zz)
-    h = fe.add(a, b)
-    e = fe.sub(h, fe.square(fe.add(p.x, p.y)))
-    g = fe.sub(a, b)
-    ff = fe.add(c, g)
-    return Ext(fe.mul(e, ff), fe.mul(g, h), fe.mul(ff, g), fe.mul(e, h))
+    xy = fe.add(p.x, p.y)
+    a, b, zz, xy2 = fe.mul_many(((p.x, p.x), (p.y, p.y), (p.z, p.z),
+                                 (xy, xy)))
+    c, h, g = fe.carry_many((zz + zz, a + b, a - b))
+    e, ff = fe.carry_many((h - xy2, c + g))
+    return Ext(*fe.mul_many(((e, ff), (g, h), (ff, g), (e, h))))
 
 
 def _finish(a, b, c, d) -> Ext:
-    e = fe.sub(b, a)
-    ff = fe.sub(d, c)
-    g = fe.add(d, c)
-    h = fe.add(b, a)
-    return Ext(fe.mul(e, ff), fe.mul(g, h), fe.mul(ff, g), fe.mul(e, h))
+    e, ff, g, h = fe.carry_many((b - a, d - c, d + c, b + a))
+    return Ext(*fe.mul_many(((e, ff), (g, h), (ff, g), (e, h))))
 
 
 def add_cached(p: Ext, q: Cached) -> Ext:
-    a = fe.mul(fe.sub(p.y, p.x), q.ymx)
-    b = fe.mul(fe.add(p.y, p.x), q.ypx)
-    c = fe.mul(p.t, q.t2d)
-    d = fe.mul(p.z, q.z2)
-    return _finish(a, b, c, d)
+    ymx, ypx = fe.carry_many((p.y - p.x, p.y + p.x))
+    return _finish(*fe.mul_many(((ymx, q.ymx), (ypx, q.ypx),
+                                 (p.t, q.t2d), (p.z, q.z2))))
 
 
 def add_niels(p: Ext, q: Niels) -> Ext:
-    a = fe.mul(fe.sub(p.y, p.x), q.ymx)
-    b = fe.mul(fe.add(p.y, p.x), q.ypx)
-    c = fe.mul(p.t, q.t2d)
-    d = fe.add(p.z, p.z)
-    return _finish(a, b, c, d)
+    ymx, ypx, z2 = fe.carry_many((p.y - p.x, p.y + p.x, p.z + p.z))
+    a, b, c = fe.mul_many(((ymx, q.ymx), (ypx, q.ypx), (p.t, q.t2d)))
+    return _finish(a, b, c, z2)
 
 
 def add_cc(p: Cached, q: Cached) -> Cached:

@@ -5,9 +5,13 @@ Counterpart of ``cometbft_tpu/ops/sha512.py``.  ``host_pad`` and
 numpy packers, so both packages hash the same ``(B, NB, 32)`` big-endian
 32-bit words.  ``sha512_blocks`` is the plain PyTorch version of the
 digest; the CUDA kernels compute it with native 64-bit words
-(``csrc/ed25519.cuh:sha512_lane``).  Here each 64-bit word is a pair of
-int64 tensors holding its high and low 32 bits, so every addition is
-exact and no signed shift ever overflows.
+(``csrc/ed25519.cuh:sha512_lane``), and so does the plain version: each
+64-bit word is an int64 tensor holding its bit pattern, additions wrap
+mod 2^64 as two's-complement integers do (on the CPU and on the card),
+a left shift drops the bits past 63 and a right shift is masked to a
+logical one.  A one-lane check of the plain versions is mostly operator
+calls, and a word in one tensor takes half the calls of a word in two
+halves.
 """
 
 from __future__ import annotations
@@ -86,53 +90,39 @@ def host_pad(msgs: np.ndarray, lens: np.ndarray, nb: int):
     return blocks, active.astype(np.int32)
 
 
-def _add(*xs):
-    hi = sum(x[0] for x in xs)
-    lo = sum(x[1] for x in xs)
-    hi = hi + (lo >> 32)
-    return hi & _M32, lo & _M32
+def _s64(v: int) -> int:
+    """An unsigned 64-bit value as the int64 with its bit pattern."""
+    return v - (1 << 64) if v >= 1 << 63 else v
 
 
 def _ror(x, n: int):
-    hi, lo = x
-    if n >= 32:
-        hi, lo, n = lo, hi, n - 32
-    if n == 0:
-        return hi, lo
-    return (((hi >> n) | (lo << (32 - n))) & _M32,
-            ((lo >> n) | (hi << (32 - n))) & _M32)
+    return ((x >> n) & ((1 << (64 - n)) - 1)) | (x << (64 - n))
 
 
 def _shr(x, n: int):
-    hi, lo = x
-    return hi >> n, ((lo >> n) | (hi << (32 - n))) & _M32
+    return (x >> n) & ((1 << (64 - n)) - 1)
 
 
-def _xor(*xs):
-    hi, lo = xs[0]
-    for x in xs[1:]:
-        hi, lo = hi ^ x[0], lo ^ x[1]
-    return hi, lo
-
-
-def _compress(state, w16):
-    """One compression; state and w16 are lists of (hi, lo) pairs."""
+def _compress(state, w16, k):
+    """One compression; state and w16 are lists of (B,) int64 words, k
+    the round constants as an int64 tensor."""
     w = list(w16)
     for t in range(16, 80):
-        s0 = _xor(_ror(w[t - 15], 1), _ror(w[t - 15], 8), _shr(w[t - 15], 7))
-        s1 = _xor(_ror(w[t - 2], 19), _ror(w[t - 2], 61), _shr(w[t - 2], 6))
-        w.append(_add(w[t - 16], s0, w[t - 7], s1))
+        a, b = w[t - 15], w[t - 2]
+        s0 = _ror(a, 1) ^ _ror(a, 8) ^ _shr(a, 7)
+        s1 = _ror(b, 19) ^ _ror(b, 61) ^ _shr(b, 6)
+        w.append(w[t - 16] + s0 + w[t - 7] + s1)
     a, b, c, d, e, f, g, h = state
     for t in range(80):
-        k = (K64[t] >> 32, K64[t] & _M32)
-        ch = ((e[0] & f[0]) ^ (~e[0] & _M32 & g[0]),
-              (e[1] & f[1]) ^ (~e[1] & _M32 & g[1]))
-        maj = ((a[0] & b[0]) ^ (a[0] & c[0]) ^ (b[0] & c[0]),
-               (a[1] & b[1]) ^ (a[1] & c[1]) ^ (b[1] & c[1]))
-        t1 = _add(h, _xor(_ror(e, 14), _ror(e, 18), _ror(e, 41)), ch, k, w[t])
-        t2 = _add(_xor(_ror(a, 28), _ror(a, 34), _ror(a, 39)), maj)
-        h, g, f, e, d, c, b, a = g, f, e, _add(d, t1), c, b, a, _add(t1, t2)
-    return [_add(s, n) for s, n in zip(state, (a, b, c, d, e, f, g, h))]
+        ch = (e & f) ^ (~e & g)
+        maj = (a & b) ^ (a & c) ^ (b & c)
+        t1 = h + (_ror(e, 14) ^ _ror(e, 18) ^ _ror(e, 41)) + ch + k[t] + w[t]
+        t2 = (_ror(a, 28) ^ _ror(a, 34) ^ _ror(a, 39)) + maj
+        h, g, f, e, d, c, b, a = g, f, e, d + t1, c, b, a, t1 + t2
+    return [s + n for s, n in zip(state, (a, b, c, d, e, f, g, h))]
+
+
+_K_T: dict = {}
 
 
 def sha512_blocks(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
@@ -142,24 +132,24 @@ def sha512_blocks(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     holds the uint32 bit pattern); active: (B,) real blocks per lane, the
     rest masked.  Returns the digests as (B, 64) int64 bytes."""
     words = blocks.to(torch.int64) & _M32
+    w64 = (words[..., 0::2] << 32) | words[..., 1::2]       # (B, NB, 16)
     act = active.to(torch.int64)
-    bsz, nb = words.shape[0], words.shape[1]
-    state = [(torch.full((bsz,), v >> 32, dtype=torch.int64,
-                         device=words.device),
-              torch.full((bsz,), v & _M32, dtype=torch.int64,
-                         device=words.device)) for v in IV64]
+    bsz, nb = w64.shape[0], w64.shape[1]
+    dev = w64.device
+    k = _K_T.get(dev)
+    if k is None:
+        k = _K_T[dev] = torch.tensor([_s64(v) for v in K64],
+                                     dtype=torch.int64, device=dev)
+    state = [torch.full((bsz,), _s64(v), dtype=torch.int64, device=dev)
+             for v in IV64]
     for j in range(nb):
-        w16 = [(words[:, j, 2 * i], words[:, j, 2 * i + 1])
-               for i in range(16)]
-        new = _compress(state, w16)
+        new = _compress(state, w64[:, j].T.unbind(0), k)
         live = j < act
-        state = [(torch.where(live, n[0], s[0]), torch.where(live, n[1], s[1]))
-                 for s, n in zip(state, new)]
+        state = [torch.where(live, n, s) for s, n in zip(state, new)]
     out = []
-    for hi, lo in state:
-        for word in (hi, lo):
-            for sh in (24, 16, 8, 0):
-                out.append((word >> sh) & 255)
+    for word in state:
+        for sh in range(56, -8, -8):
+            out.append((word >> sh) & 255)
     return torch.stack(out, 1)
 
 

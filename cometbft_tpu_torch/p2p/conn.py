@@ -99,14 +99,17 @@ class _Channel:
 class MConnection:
     def __init__(self, conn: SecretConnection,
                  channels: list[ChannelDescriptor],
-                 on_receive, on_error, emulated_latency: float = 0.0):
+                 on_receive, on_error,
+                 ping_interval: float = DEFAULT_PING_INTERVAL,
+                 pong_timeout: float = DEFAULT_PONG_TIMEOUT,
+                 emulated_latency: float = 0.0):
         self.conn = conn
         self.channels: dict[int, _Channel] = {
             d.channel_id: _Channel(d) for d in channels}
         self.on_receive = on_receive          # (chan_id, msg_bytes) -> None
         self.on_error = on_error              # (exc) -> None
-        self.ping_interval = DEFAULT_PING_INTERVAL
-        self.pong_timeout = DEFAULT_PONG_TIMEOUT
+        self.ping_interval = ping_interval
+        self.pong_timeout = pong_timeout
         self.send_monitor = Monitor()
         self.recv_monitor = Monitor()
         # one-way latency emulation (the reference injects tc-netem delays

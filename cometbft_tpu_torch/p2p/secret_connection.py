@@ -12,7 +12,7 @@ wire are the JAX package's, so a port node and a JAX node connect.
 - The challenge is signed by the native signer (``Ed25519PrivKey.sign``).
 - The peer's challenge signature is checked on ``device``: a one-lane
   ``BatchVerifier`` call queued on the device-owner thread
-  (``crypto/batch.py:device_submit``) and awaited, so the event loop
+  (``crypto/batch.py:device_await``) and awaited, so the event loop
   runs on while the device works.  Nothing verifies on the host.
 
 Frame layout: every sealed frame carries exactly ``DATA_LEN`` plaintext
@@ -161,7 +161,7 @@ async def verify_challenge(pub: Ed25519PubKey, challenge: bytes, sig: bytes,
         return bool(bv.verify()[1][0])
 
     HANDSHAKE_CHECKS[str(device)] += 1
-    return await asyncio.wrap_future(_batch.device_submit(run))
+    return await _batch.device_await(run)
 
 
 async def handshake(reader: asyncio.StreamReader,

@@ -19,7 +19,8 @@ import random
 from ..libs import aio, clock
 
 from ..libs import log as tmlog
-from .conn import (ConnectionLostError, MConnection, MConnectionError,
+from .conn import (DEFAULT_PING_INTERVAL, DEFAULT_PONG_TIMEOUT,
+                   ConnectionLostError, MConnection, MConnectionError,
                    PongTimeoutError)
 from .metrics import p2p_metrics, peer_label
 from .node_info import NodeInfo
@@ -45,12 +46,23 @@ class Switch:
                  emulated_latency: float = 0.0,
                  scorer: PeerScorer | None = None,
                  name: str = "",
-                 telemetry_interval: float = TELEMETRY_FLUSH_INTERVAL):
+                 telemetry_interval: float = TELEMETRY_FLUSH_INTERVAL,
+                 ping_interval: float = DEFAULT_PING_INTERVAL,
+                 pong_timeout: float = DEFAULT_PONG_TIMEOUT,
+                 reconnect_base_delay: float = RECONNECT_BASE_DELAY,
+                 reconnect_max_delay: float = RECONNECT_MAX_DELAY):
         self.transport = transport
         # fault-plane scope stamped on every MConnection
         self.chaos_scope = name
         self.telemetry_interval = telemetry_interval
         self.emulated_latency = emulated_latency
+        self.ping_interval = ping_interval
+        self.pong_timeout = pong_timeout
+        # reconnect pacing: a real node keeps the module defaults; the
+        # scenario lab shrinks them so that a healed partition re-knits in
+        # virtual seconds
+        self.reconnect_base_delay = reconnect_base_delay
+        self.reconnect_max_delay = reconnect_max_delay
         # node-wide peer reputation: every layer's misbehavior reports
         # funnel through report_peer into this one scorer, which orders
         # disconnects and timed bans (p2p/quality.py)
@@ -206,6 +218,8 @@ class Switch:
                           self._teardowns)
 
         mconn = MConnection(conn, self._descriptors, on_receive, on_error,
+                            ping_interval=self.ping_interval,
+                            pong_timeout=self.pong_timeout,
                             emulated_latency=self.emulated_latency)
         mconn.on_rtt = self._m_rtt.observe
         mconn.chaos_scope = self.chaos_scope
@@ -315,7 +329,7 @@ class Switch:
             return
 
         async def _reconnect():
-            delay = RECONNECT_BASE_DELAY
+            delay = self.reconnect_base_delay
             attempts = 0
             while True:
                 await clock.sleep(delay * (1 + 0.2 * random.random()))
@@ -348,7 +362,7 @@ class Switch:
                             "persistent-peer reconnect exhausted backoff; "
                             "continuing at max delay", addr=addr,
                             attempts=attempts, err=repr(e)[:80])
-                    delay = min(delay * 2, RECONNECT_MAX_DELAY)
+                    delay = min(delay * 2, self.reconnect_max_delay)
 
         task = asyncio.create_task(_reconnect())
         task.add_done_callback(

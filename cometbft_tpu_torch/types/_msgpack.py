@@ -87,14 +87,27 @@ def _pack_bool(obj, out: list) -> None:
     out.append(b"\xc3" if obj else b"\xc2")
 
 
+# The wire's messages repeat a few short strings (map keys, tags): their
+# packed bytes are kept, up to _STR_CACHE_MAX of them.
+_STR_CACHE: dict = {}
+_STR_CACHE_MAX = 4096
+_STR_CACHE_LEN = 32
+
+
 def _pack_str(obj, out: list) -> None:
-    raw = obj.encode("utf-8")
-    _pack_len(len(raw), 0xA0, 31, b"\xd9", b"\xda", b"\xdb", out)
-    out.append(raw)
+    b = _STR_CACHE.get(obj)
+    if b is None:
+        raw = obj.encode("utf-8")
+        head: list = []
+        _pack_len(len(raw), 0xA0, 31, b"\xd9", b"\xda", b"\xdb", head)
+        b = head[0] + raw
+        if len(raw) <= _STR_CACHE_LEN and len(_STR_CACHE) < _STR_CACHE_MAX:
+            _STR_CACHE[str(obj)] = b
+    out.append(b)
 
 
 def _pack_bin(obj, out: list) -> None:
-    raw = bytes(obj)
+    raw = obj if type(obj) is bytes else bytes(obj)
     n = len(raw)
     if n <= 0xFF:
         out.append(b"\xc4" + _B(n))
@@ -108,16 +121,38 @@ def _pack_bin(obj, out: list) -> None:
 
 
 def _pack_array(obj, out: list) -> None:
-    _pack_len(len(obj), 0x90, 15, None, b"\xdc", b"\xdd", out)
+    n = len(obj)
+    if n <= 15:
+        out.append(_FIXARRAY[n])
+    else:
+        _pack_len(n, 0x90, 15, None, b"\xdc", b"\xdd", out)
+    get = _PACKERS.get
     for x in obj:
-        _PACKERS.get(type(x), _pack_other)(x, out)
+        get(type(x), _pack_other)(x, out)
 
 
 def _pack_map(obj, out: list) -> None:
-    _pack_len(len(obj), 0x80, 15, None, b"\xde", b"\xdf", out)
+    n = len(obj)
+    if n <= 15:
+        out.append(_FIXMAP[n])
+    else:
+        _pack_len(n, 0x80, 15, None, b"\xde", b"\xdf", out)
+    get = _PACKERS.get
+    cached = _STR_CACHE.get
     for k, v in obj.items():
-        _PACKERS.get(type(k), _pack_other)(k, out)
-        _PACKERS.get(type(v), _pack_other)(v, out)
+        kb = cached(k) if type(k) is str else None
+        if kb is None:
+            get(type(k), _pack_other)(k, out)
+        else:
+            out.append(kb)
+        get(type(v), _pack_other)(v, out)
+
+
+def _pack_small_int(obj, out: list) -> None:
+    if 0 <= obj <= 0x7F:
+        out.append(_FIXINT[obj])
+    else:
+        _pack_int(obj, out)
 
 
 def _pack_other(obj, out: list) -> None:
@@ -139,8 +174,12 @@ def _pack_other(obj, out: list) -> None:
         raise TypeError(f"can not serialize {type(obj).__name__!r} object")
 
 
+_FIXINT = [bytes((i,)) for i in range(0x80)]
+_FIXARRAY = [bytes((0x90 | i,)) for i in range(16)]
+_FIXMAP = [bytes((0x80 | i,)) for i in range(16)]
+
 # exact type -> packer; a dict lookup instead of a chain of isinstance
-_PACKERS = {type(None): _pack_none, bool: _pack_bool, int: _pack_int,
+_PACKERS = {type(None): _pack_none, bool: _pack_bool, int: _pack_small_int,
             str: _pack_str, bytes: _pack_bin, bytearray: _pack_bin,
             memoryview: _pack_bin, list: _pack_array, tuple: _pack_array,
             dict: _pack_map}
@@ -183,38 +222,56 @@ def unpackb(raw: bytes):
             return b, off
         if b >= 0xE0:
             return b - 0x100, off
-        if 0xA0 <= b <= 0xBF:
-            stop = need(off, b & 0x1F)
+        if b >= 0xA0 and b <= 0xBF:
+            stop = off + (b & 0x1F)
+            if stop > end:
+                raise ValueError("msgpack: truncated input")
             return buf[off:stop].decode("utf-8"), stop
-        if 0x90 <= b <= 0x9F:
-            n, kind = b & 0x0F, "array"
-        elif 0x80 <= b <= 0x8F:
-            n, kind = b & 0x0F, "map"
-        elif b in _CONST:
-            return _CONST[b], off
-        else:
-            kind, width = _FIXED.get(b, (None, 0))
-            if kind is None:
-                raise ValueError(f"msgpack: unsupported type byte 0x{b:02x}")
-            stop = need(off, width)
-            if kind == "i":
-                return int.from_bytes(buf[off:stop], "big", signed=True), stop
-            n = int.from_bytes(buf[off:stop], "big")
-            off = stop
-            if kind == "u":
-                return n, off
-            if kind == "str":
-                stop = need(off, n)
-                return buf[off:stop].decode("utf-8"), stop
-            if kind == "bin":
-                stop = need(off, n)
-                return buf[off:stop], stop
-        if kind == "array":
-            out = []
+        if b == 0xC4:                       # bin8, the wire's hashes
+            if off >= end:
+                raise ValueError("msgpack: truncated input")
+            stop = off + 1 + buf[off]
+            if stop > end:
+                raise ValueError("msgpack: truncated input")
+            return buf[off + 1:stop], stop
+        if b <= 0x8F:
+            n = b & 0x0F
+            out = {}
+            for _ in range(n):
+                k, off = read(off)
+                out[k], off = read(off)
+            return out, off
+        if b <= 0x9F:
+            n = b & 0x0F
+            arr = []
             for _ in range(n):
                 x, off = read(off)
-                out.append(x)
-            return out, off
+                arr.append(x)
+            return arr, off
+        if b in _CONST:
+            return _CONST[b], off
+        kind, width = _FIXED.get(b, (None, 0))
+        if kind is None:
+            raise ValueError(f"msgpack: unsupported type byte 0x{b:02x}")
+        stop = need(off, width)
+        if kind == "i":
+            return int.from_bytes(buf[off:stop], "big", signed=True), stop
+        n = int.from_bytes(buf[off:stop], "big")
+        off = stop
+        if kind == "u":
+            return n, off
+        if kind == "str":
+            stop = need(off, n)
+            return buf[off:stop].decode("utf-8"), stop
+        if kind == "bin":
+            stop = need(off, n)
+            return buf[off:stop], stop
+        if kind == "array":
+            arr = []
+            for _ in range(n):
+                x, off = read(off)
+                arr.append(x)
+            return arr, off
         out = {}
         for _ in range(n):
             k, off = read(off)
