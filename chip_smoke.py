@@ -6,9 +6,10 @@ catch-up, of consensus in one process, of the networked node over
 loopback TCP, of BASELINE configs[4]'s mixed-key commits, of the RPC
 surface with light-client serving, of statesync, of discovery under
 faults (networks/chaos.toml), of networks/ci.toml run whole with one
-process per node through the command line, and of the scenario lab (the
-curated suite up to 100 nodes and the 50-node statesync fleet), on one
-card.
+process per node through the command line, of the scenario lab (the
+curated suite up to 100 nodes and the 50-node statesync fleet), and of
+multi-process verification over ``torch.distributed`` and the warm boot,
+on one card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -18,9 +19,11 @@ Phases, each of which must pass or the script exits non-zero:
 
 1. environment: the card's name and power limit, torch.version.cuda, nvcc;
 2. build: compiles the kernels from the six sources in
-   ``cometbft_tpu_torch/csrc`` (one nvcc per source, all at once) and
-   prints each function's registers, stack frame, spills and shared
-   memory from ``-Xptxas -v`` (``ptxas_usage``);
+   ``cometbft_tpu_torch/csrc`` (one nvcc per source, all at once) into
+   the kernel bundle (``crypto/aotbundle.py``: absent in a fresh
+   checkout, so built; its nvcc seconds, status and capability are
+   printed) and prints each function's registers, stack frame, spills
+   and shared memory from ``-Xptxas -v`` (``ptxas_usage``);
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the same inputs at the main path's shapes (valid, tampered and ZIP-215
    edge lanes; RLC accept, reject, garbage padding and torsion batches),
@@ -266,21 +269,53 @@ Phases, each of which must pass or the script exits non-zero:
    program's wall, virtual seconds per real second, one-lane checks and
    their mean ms, launches by kernel, busy share (CUDA events around
    each launch).
+20. multi-host verification and warm boot (``phase_multihost``, then
+   ``phase_warmboot`` twice, each in a fresh process of its own,
+   ``--child multihost``, ``warm_on``, ``warm_off``, beside phases
+   12-13): (a) phase 3's 1,000 signed lanes tiled to ``LANES`` against a
+   ``LANES``-row table, and the same with lane ``MH_BAD_LANE`` (the
+   first of rank 1's at 2 and at 4 ranks) bad, and ``MH_PAIRS`` merkle
+   pairs, through ``parallel/mesh.py``'s ``sharded_kernel`` of every
+   kind (``verify``, ``gather``, ``rlc``, ``rlc_gather``,
+   ``merkle_level``) by ``MH_WORLDS`` ranks, each a process
+   (``--multihost-rank``) on ``cuda:0`` of one gloo group from
+   ``init_multihost``: every rank's results equal, equal to the route of
+   one process (over one shard, and over as many shards), the RLC
+   verdicts to K6a's, the bad lane pinned alone, ``merkle_level`` equal
+   to hashlib; each rank's launches held against the plain versions on
+   the card (K5b and K5a on a sample of its lanes, K7's sums on them,
+   K7's combine on the gathered stack, K8b on a sample of its pairs);
+   readings: a verdict's p50 over ``REPS`` calls, its all-gathers' ms,
+   the rendezvous; (b) two processes that have not touched the card make
+   a ``WB_VALS``-validator commit, then one runs the node's warm boot
+   (``node/node.py:warm_boot``: the bundle loaded, the warmup) and the
+   other the bundle's load alone, each then ``WB_CALLS``
+   ``VerifyCommit`` calls: the bundle ``loaded``, its load seconds, the
+   first and fifth call's wall; the warmup's shapes against the plain
+   versions.  Phase 18's nodes must report their bundle ``loaded`` on
+   ``/status``.
 
-The fresh processes of phases 15-19 start right after the build
-(``--after``): each reaches the card and loads the kernels, then waits
-for its turn, so that its set-up overlaps the phases before it.  In the
-whole run phases 15 and 16, one after the other, run beside phases 12
-and 13 (``fresh_beside``), and phase 19 beside them on a thread of its
-own: all five are host-bound, the card busy under 2% of their time; phase 16's timing of the tree kernel at 200,000
-leaves then shares the card with phase 13's one-lane launches.  Phase
+The fresh processes of phases 15-20 start right after the build
+(``--after``): each reaches the card and loads the kernels (phase 20
+(b)'s only import, so that their boot is timed from a process that has
+not touched the card), then waits for its turn, so that its set-up
+overlaps the phases before it.  In the whole run phases 15 and 16, one
+after the other, run beside phases 12 and 13 (``fresh_beside``), and
+phases 19 and 20, one after the other, beside them on a thread of their
+own: all are
+host-bound, the card busy under 2% of their time; phase 16's timing of
+the tree kernel at 200,000 leaves then shares the card with phase 13's
+one-lane launches, and phase 20's readings, after phase 19's, share
+the host and the card with phase 16 (and with phases 12-13 where they
+outlast phase 19).  Phase
 18 runs beside phase 17 the same way, its ports from ``E2E_BASE_PORT``
 (below the kernel's ephemeral range, where phase 17's nodes bind).
 
-Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19 are the
-main path: the launch counters are zeroed just before each and read just
-after (phase 18's are its processes' own counters, which start at 0
-with each process and are read over ``/metrics`` before the stop);
+Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19 and 20 are
+the main path: the launch counters are zeroed just before each and read
+just after (phase 18's are its processes' own counters, which start at 0
+with each process and are read over ``/metrics`` before the stop; phase
+20's are its ranks' and its warm-boot processes');
 each phase's kernels
 must have launched, no plain version may have run, and neither
 standalone hash kernel (``OFF_PATH``: the RLC lane stage hashes its
@@ -307,7 +342,7 @@ fixtures built in it: the 1,000-validator source chain and 10,000 keys),
 ``--stress --node`` gives phase 14 its part (e)); ``--chaos`` runs only
 phases 1, 2 and 17; ``--e2e [MANIFEST]`` only phases 1, 2 and 18 (over
 networks/ci.toml unless MANIFEST names another); ``--sim`` only phases
-1, 2 and 19.
+1, 2 and 19; ``--multihost`` only phases 1, 2 and 20.
 
 The line before the last is a JSON object with one entry per kernel
 (launches on the main path, max_abs_err, times, bound); the last line is
@@ -5066,11 +5101,16 @@ def phase_rpc(pool, keys, dev):
 _PRESPAWNED: dict = {}           # name -> the child waiting for its go
 
 
-def _child_paths(name: str):
+def _build_file(name: str) -> str:
+    """``name`` in the checkout's ``build/`` (which git ignores)."""
     base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(base, exist_ok=True)
-    return (os.path.join(base, f"chip_smoke_{name}.json"),
-            os.path.join(base, f"chip_smoke_{name}.go"))
+    return os.path.join(base, name)
+
+
+def _child_paths(name: str):
+    return (_build_file(f"chip_smoke_{name}.json"),
+            _build_file(f"chip_smoke_{name}.go"))
 
 
 def _stop_prespawned() -> None:
@@ -7183,13 +7223,18 @@ def phase_e2e(pool, keys, dev):
                 "result"]
             heads[h] = (from_jsonable(res["header"]).time_ns,
                         from_jsonable(res["commit"]).round)
-        # every live process's counters and dispatch series
-        series, calls = {}, {}
+        # every live process's counters and dispatch series, and each
+        # node's kernel bundle from its warm boot
+        series, calls, bundles = {}, {}, {}
         for name, proc in runner.procs.items():
             if proc.poll() is None:
                 text = _rpc_get(runner.rpc_port(name), "/metrics")
                 series[name] = dispatch_series(text)
                 calls[name] = process_counters(text)
+                if m.nodes[name].mode != "light":
+                    bundles[name] = json.loads(_rpc_get(
+                        runner.rpc_port(name), "/status"))["result"][
+                        "compile_bundle"]
         out["lifetime_s"] = {n: time.perf_counter() - s[-1]["t"]
                              for n, s in spawns.items()}
     finally:
@@ -7209,6 +7254,12 @@ def phase_e2e(pool, keys, dev):
         raise AssertionError(f"phase 18: doctor on {victim}'s home exited "
                              f"{rc}: {doctor}")
 
+    out["compile_bundle"] = {
+        n: {k: b.get(k) for k in ("status", "load_s", "warm_s", "kernels")}
+        for n, b in bundles.items()}
+    if any(b.get("status") != "loaded" for b in bundles.values()):
+        raise AssertionError(f"phase 18: kernel bundles not loaded at the "
+                             f"nodes' warm boot: {bundles}")
     unread = {n: sorted(set(_build.KERNELS) - set(c["cuda"])
                         | set(_build.KERNELS) - set(c["plain"]))
               for n, c in calls.items()}
@@ -7293,6 +7344,8 @@ def report_e2e(e2e, launches, card) -> None:
           f"height {[round(x, 3) for x in walls]} s (mean "
           f"{statistics.mean(walls) if walls else float('nan'):.3f}); "
           f"rounds {e2e['rounds']}  [{card}]")
+    print(f"e2e warm boot by node (/status compile_bundle): "
+          f"{e2e['compile_bundle']}  [{card}]")
     print(f"e2e start-up, spawn to RPC answering, s: {e2e['startup_s']}; "
           f"catch-up (spawned at height, s, to height) {e2e['catch_up']}; "
           f"light {e2e['light']}  [{card}]")
@@ -7670,11 +7723,432 @@ def report_sim(sm, launches, card) -> None:
           f"({virt / dv['wall_s']:.3f} virtual s/s)  [{card}]")
 
 
+# ------------------------------- phase 20: multi-host and warm boot
+
+MH_WORLDS = (2, 4)               # (a): ranks, each a process on cuda:0
+MH_BAD_LANE = 5_000              # (a): rank 1's first lane at 2 and 4 ranks
+MH_PAIRS = 5_000                 # (a): merkle_level's pairs
+MH_SAMPLE = 64                   # (a): a rank's lanes held against plain
+MH_TIMEOUT_S = 300               # (a): a group's wait for its ranks
+MH_KERNELS = ("ed25519_tables", "ed25519_verify_gather",
+              "ed25519_rlc_sums", "ed25519_rlc_combine", "merkle_level")
+WB_VALS = BIG_VALS               # (b): the warm-boot processes' set
+WB_CALLS = 5                     # (b): VerifyCommit calls after the boot
+WARM_CHILDREN = ("warm_on", "warm_off")   # reach the card after the go
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mh_args(T, tab, ok, kind: str, bad: bool):
+    """The arguments of ``sharded_kernel(kind)`` over phase 20 (a)'s
+    tensors ``T`` (the bad lane's S flipped when ``bad``)."""
+    import torch
+
+    n = T["rb"].shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=T["rb"].device)
+    lanes = (T["rb"], T["sb_bad"] if bad else T["sb"], T["blocks"],
+             T["active"])
+    return {"verify": (T["pub"], *lanes),
+            "gather": (tab, ok, idx, *lanes),
+            "rlc": (T["pub"], *lanes, T["z"]),
+            "rlc_gather": (tab, ok, idx, *lanes, T["z"]),
+            "merkle_level": (T["left"], T["right"])}[kind]
+
+
+def _mh_cases(kind: str):
+    return ("valid",) if kind == "merkle_level" else ("valid", "bad")
+
+
+def multihost_rank(port: int, rank: int, world: int, src: str, dst: str,
+                   dev) -> None:
+    """A rank of phase 20 (a) (``--multihost-rank``): the kernels loaded,
+    ``init_multihost`` over gloo on ``dev``, the set's table built, then
+    with the launch counters at 0 every kind of ``sharded_kernel`` over
+    the whole batch ``REPS`` times (valid, and with the bad lane), each
+    call's wall and its collectives' seconds; then, not counted, this
+    rank's kernels against their plain versions on the card: K5b and K5a
+    at ``MH_SAMPLE`` of its lanes (the bad one among them where it holds
+    it), K7's sums on those lanes, K7's combine on the gathered stack,
+    ``merkle_level`` on ``MH_SAMPLE`` of its pairs.  Writes its results
+    and record to ``dst``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cometbft_tpu_torch.crypto import aotbundle
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import ed25519 as ed
+    from cometbft_tpu_torch.ops import rlc
+    from cometbft_tpu_torch.ops import sha256 as sha
+    from cometbft_tpu_torch.parallel import init_multihost
+    from cometbft_tpu_torch.parallel import mesh as M
+
+    rec = {"rank": rank, "world": world,
+           "import_s": time.perf_counter() - _T_LOADED}
+    t0 = time.perf_counter()
+    torch.zeros(1, device=dev)
+    rec["context_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for k in _build.KERNELS:
+        _build.load(k)
+    rec["load_s"], rec["bundle"] = (time.perf_counter() - t0,
+                                    aotbundle.info()["status"])
+    t0 = time.perf_counter()
+    mesh = init_multihost(f"127.0.0.1:{port}", world, rank, device=dev,
+                          timeout_s=MH_TIMEOUT_S)
+    rec["rendezvous_s"] = time.perf_counter() - t0
+    data = np.load(src)
+    T = {k: torch.from_numpy(data[k]).to(dev) for k in data.files}
+    tab, ok = ed.prepare_pubkey_tables(T["pub"])
+    fns = {k: M.sharded_kernel(k, mesh=mesh) for k in M.KINDS}
+    torch.cuda.synchronize()
+    dist.barrier(group=mesh.group)
+    _build.reset_launches()
+    out, ms, gather_ms = {}, {}, {}
+    for kind in M.KINDS:
+        for case in _mh_cases(kind):
+            args = _mh_args(T, tab, ok, kind, case == "bad")
+            walls, gathers = [], []
+            for _ in range(REPS):
+                g0, t0 = M.GATHER_STATS["seconds"], time.perf_counter()
+                r = fns[kind](*args)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+                gathers.append(1e3 * (M.GATHER_STATS["seconds"] - g0))
+            out[f"{kind}/{case}"] = r.cpu().numpy()
+            ms[f"{kind}/{case}"], gather_ms[f"{kind}/{case}"] = walls, gathers
+    rec["launches"] = {k: v for k, v in _build.LAUNCHES.items() if v}
+    rec["plain"] = {k: v for k, v in _build.PLAIN_CALLS.items() if v}
+    rec["ms"], rec["gather_ms"] = ms, gather_ms
+    rec["gather_bytes"] = M.GATHER_STATS["bytes"]
+
+    # not counted: this rank's launches against the plain versions
+    n = T["rb"].shape[0]
+    lo, hi = M.shard_bounds(n, world)[rank]
+    rng = np.random.default_rng(20 + rank)
+    pick = set(rng.choice(np.arange(lo, hi), MH_SAMPLE - 1, replace=False)
+               .tolist()) if hi > lo else set()
+    if lo <= MH_BAD_LANE < hi:
+        pick.add(MH_BAD_LANE)
+    s = torch.tensor(sorted(pick), dtype=torch.long, device=dev)
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    lane = [t[s] for t in (idx, T["rb"], T["sb_bad"], T["blocks"],
+                           T["active"])]
+    mism = {}
+    pv = ed._verify_gather_plain(tab, ok, *lane).cpu().numpy()
+    mism["ed25519_verify_gather"] = int(
+        (pv != out["gather/bad"][s.cpu().numpy()]).sum())
+    kt, kok = ed.prepare_pubkey_tables(T["pub"][s])
+    pt, pok = ed._prepare_plain(T["pub"][s])
+    mism["ed25519_tables"] = int(
+        ((ed.tables_canonical(kt) != ed.tables_canonical(pt)).flatten(1)
+         .any(1) | (kok != pok)).sum())
+    sums_args = (tab, ok, idx[s], T["rb"][s], T["sb"][s], T["blocks"][s],
+                 T["active"][s], T["z"][s])
+    ks = rlc.rlc_sums_gather(*sums_args)
+    ps = rlc._store_sums_plain(*sums_args, rlc.rlc_sums_buffers(1, dev), 0)
+    mism["ed25519_rlc_sums"] = (
+        sum(a != b for a, b in zip(_window_points(ks.sums[0]),
+                                   _window_points(ps.sums[0])))
+        + int((ks.zs != ps.zs).sum()) + int((ks.ok != ps.ok).sum()))
+    stack = rlc.rlc_sums_buffers(world, dev)
+    rlc._rlc_sums_card(tab, ok, idx[lo:hi], T["rb"][lo:hi],
+                       T["sb"][lo:hi], T["blocks"][lo:hi],
+                       T["active"][lo:hi], T["z"][lo:hi], [0, hi - lo],
+                       [rank], stack)
+    mesh.gather_slots(*stack)
+    kv = bool(rlc.rlc_combine(*stack))
+    mism["ed25519_rlc_combine"] = int(
+        kv != bool(rlc._rlc_combine_plain(*stack))) + int(
+        kv != bool(out["rlc_gather/valid"]))
+    plo, phi = M.shard_bounds(MH_PAIRS, world)[rank]
+    sp = torch.arange(plo, min(phi, plo + MH_SAMPLE), device=dev)
+    kp = sha.merkle_inner_level(T["left"][sp], T["right"][sp])
+    pp = sha._merkle_level_plain(torch.stack(
+        [T["left"][sp], T["right"][sp]], 1).reshape(-1, 8))
+    mism["merkle_level"] = int((kp != pp).any(1).sum())
+    rec["mismatches"] = mism
+    dist.barrier(group=mesh.group)
+    np.savez(dst, record=np.array(json.dumps(rec)), **out)
+
+
+def phase_multihost(pool, keys, dev):
+    """Phase 20 (a): phase 3's 1,000 signed lanes tiled to ``LANES``
+    against a ``LANES``-row table (and with lane ``MH_BAD_LANE``'s S
+    flipped), ``MH_PAIRS`` seeded merkle pairs; the single-process route
+    of each kind on the card, then ``MH_WORLDS`` ranks as processes of
+    one gloo group on ``dev`` (``multihost_rank``).  Every rank's results
+    equal, and equal to the single-process route, to the sharded route
+    of one process over as many shards, and (RLC) to K6a's one verdict;
+    the RLC verdict false with the bad lane, the per-lane kinds false at
+    it alone; ``merkle_level`` equal to hashlib.  Returns the ranks'
+    launches (summed over ranks and groups) and the readings."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.ops import ed25519 as ed
+    from cometbft_tpu_torch.ops import rlc
+    from cometbft_tpu_torch.ops import sha256 as sha
+    from cometbft_tpu_torch.parallel import mesh as M
+
+    t_ph = time.perf_counter()
+    fx = Fixtures(max(SIZES))
+    vals, commit = fx.commit(max(SIZES))
+    pubs, sigs, msgs, lens = lane_arrays(vals, commit)
+    lane = np.arange(LANES) % pubs.shape[0]
+    rb, sb, blocks, active = batch._padded_lane_args(
+        pubs[lane], sigs[lane, :32], sigs[lane, 32:], msgs[lane], lens[lane],
+        "cpu")
+    sb_bad = sb.clone()
+    sb_bad[MH_BAD_LANE, 0] ^= 1
+    rng = np.random.default_rng(2020)
+    arrays = {"pub": pubs[lane], "rb": rb.numpy(), "sb": sb.numpy(),
+              "sb_bad": sb_bad.numpy(), "blocks": blocks.numpy(),
+              "active": active.numpy(),
+              "z": rlc.host_rlc_coeffs(LANES, rng_bytes=rng.bytes(16 * LANES)),
+              "left": rng.integers(-2**31, 2**31, (MH_PAIRS, 8), np.int32),
+              "right": rng.integers(-2**31, 2**31, (MH_PAIRS, 8), np.int32)}
+    src = _build_file("chip_smoke_multihost_in.npz")
+    np.savez(src, **arrays)
+    hashed = np.stack([sha.bytes_to_words(np.frombuffer(hashlib.sha256(
+        b"\x01" + l.tobytes() + r.tobytes()).digest(), np.uint8))
+        for l, r in zip(sha.words_to_bytes(arrays["left"].view(np.uint32)),
+                        sha.words_to_bytes(arrays["right"].view(np.uint32)))
+    ]).view(np.int32)
+    T = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+    tab, ok = ed.prepare_pubkey_tables(T["pub"])
+    idx = torch.arange(LANES, dtype=torch.int32, device=dev)
+
+    def route(mesh):
+        return {f"{k}/{c}": M.sharded_kernel(k, mesh=mesh)(
+            *_mh_args(T, tab, ok, k, c == "bad")).cpu().numpy()
+            for k in M.KINDS for c in _mh_cases(k)}
+
+    single = route(M.batch_mesh([dev]))
+    k6a = {c: bool(rlc.verify_batch_rlc_gather(
+        tab, ok, idx, T["rb"], T["sb_bad"] if c == "bad" else T["sb"],
+        T["blocks"], T["active"], T["z"])) for c in ("valid", "bad")}
+    want_lanes = np.ones(LANES, bool)
+    want_lanes[MH_BAD_LANE] = False
+    bad = []
+    for c in ("valid", "bad"):
+        for k in ("rlc", "rlc_gather"):
+            if bool(single[f"{k}/{c}"]) != (c == "valid") or \
+                    k6a[c] != (c == "valid"):
+                bad.append(f"single {k}/{c}")
+        for k in ("verify", "gather"):
+            want = want_lanes if c == "bad" else np.ones(LANES, bool)
+            if not np.array_equal(single[f"{k}/{c}"], want):
+                bad.append(f"single {k}/{c}")
+    if not np.array_equal(single["merkle_level/valid"], hashed):
+        bad.append("single merkle_level against hashlib")
+    if bad:
+        raise AssertionError(f"phase 20 (a): the single-process route: {bad}")
+    setup_s = time.perf_counter() - t_ph
+
+    launches, groups = {}, {}
+    for world in MH_WORLDS:
+        in_proc = route(M.batch_mesh([dev] * world))
+        port, t0 = _free_port(), time.perf_counter()
+        dsts = [_build_file(f"chip_smoke_multihost_{world}_{r}.npz")
+                for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multihost-rank",
+             str(port), str(r), str(world), src, d],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r, d in enumerate(dsts)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=MH_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"phase 20 (a): a rank of {world} failed: "
+                                 f"{[l[-3000:] for l in logs]}")
+        ranks = [np.load(d) for d in dsts]
+        recs = [json.loads(str(r["record"])) for r in ranks]
+        diff = [f"rank {i} {key}" for i, r in enumerate(ranks)
+                for key in single
+                if not np.array_equal(r[key], single[key])
+                or not np.array_equal(r[key], in_proc[key])]
+        mism = {k: sum(r["mismatches"][k] for r in recs) for k in MH_KERNELS}
+        plain = [r["plain"] for r in recs if r["plain"]]
+        unlaunched = [k for k in MH_KERNELS
+                      if not sum(r["launches"].get(k, 0) for r in recs)]
+        if diff or any(mism.values()) or plain or unlaunched or any(
+                r["bundle"] != "loaded" for r in recs):
+            raise AssertionError(
+                f"phase 20 (a) over {world} ranks: results unlike one "
+                f"process's {diff}, against the plain versions {mism}, "
+                f"plain versions run {plain}, kernels not launched "
+                f"{unlaunched}, bundles {[r['bundle'] for r in recs]}")
+        for r in recs:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        r0 = recs[0]
+        groups[world] = {
+            "wall_s": time.perf_counter() - t0,
+            "p50_ms": {k: statistics.median(v) for k, v in r0["ms"].items()},
+            "gather_p50_ms": {k: statistics.median(v)
+                              for k, v in r0["gather_ms"].items()},
+            "rendezvous_s": [r["rendezvous_s"] for r in recs],
+            "import_s": [r["import_s"] for r in recs],
+            "context_s": [r["context_s"] for r in recs],
+            "load_s": [r["load_s"] for r in recs],
+            "launches_by_rank": [r["launches"] for r in recs],
+            "gather_bytes": r0["gather_bytes"], "mismatches": mism}
+    return launches, {"setup_s": setup_s, "groups": groups, "k6a": k6a,
+                      "main_path_s": time.perf_counter() - t_ph}
+
+
+def phase_warmboot(dev, warm: bool):
+    """Phase 20 (b), in a fresh process that has not touched the card: a
+    ``WB_VALS``-validator set and its commit made, the card reached, then
+    with ``warm`` the node's warm boot (``node/node.py:warm_boot``: the
+    bundle loaded, the warmup), without it the bundle's load alone; then
+    ``WB_CALLS`` ``VerifyCommit`` calls, each's wall.  Not counted: the
+    warmup's shapes (1 and ``RLC_MIN_LANES`` lanes of its invalid lanes)
+    against the plain versions.  First, the seconds of
+    ``ops/_build.py:generated_headers``, which a process's first launch
+    paid before the bundle."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.config import BaseConfig
+    from cometbft_tpu_torch.crypto import aotbundle
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.node.node import warm_boot
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import ed25519 as ed
+    from cometbft_tpu_torch.ops import rlc
+    from cometbft_tpu_torch.types import validation as V
+
+    rec = {"warm": warm}
+    # what a process's first launch spent before the bundle, generating
+    # the constants headers to find its build directory (host work; the
+    # kernels' path reads none of the caches it fills)
+    t0 = time.perf_counter()
+    _build.generated_headers()
+    rec["headers_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fx = Fixtures(WB_VALS)
+    vals, commit = fx.commit(WB_VALS)
+    rec["fixture_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.zeros(1, device=dev)
+    rec["context_s"] = time.perf_counter() - t0
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    if warm:
+        info = warm_boot(BaseConfig(), dev, len(vals.validators))
+    else:
+        info = aotbundle.load(device=dev)
+    rec["boot_s"] = time.perf_counter() - t0
+    rec.update({k: info.get(k) for k in ("status", "load_s", "warm_s",
+                                         "warm_shapes", "kernels")})
+    walls = []
+    for _ in range(WB_CALLS):
+        t0 = time.perf_counter()
+        V.VerifyCommit(CHAIN_ID, vals, commit.block_id, commit.height,
+                       commit, device=dev)
+        walls.append(time.perf_counter() - t0)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    rec["launches"] = launches
+    rec["walls_s"], rec["first_s"], rec["fifth_s"] = walls, walls[0], walls[-1]
+    need = ("ed25519_tables", "ed25519_rlc_gather") + (
+        ("ed25519_verify_gather",) if warm else ())
+    plain = {k: v for k, v in _build.PLAIN_CALLS.items() if v}
+    if info["status"] != "loaded" or plain or not all(
+            launches.get(k) for k in need):
+        raise AssertionError(f"phase 20 (b): bundle {info}, launches "
+                             f"{launches} (need {need}), plain {plain}")
+    mism = {}
+    for n in (1, batch.RLC_MIN_LANES):
+        pub = torch.zeros((n, 32), dtype=torch.uint8, device=dev)
+        tab, ok = ed.prepare_pubkey_tables(pub)
+        tab_p, ok_p = ed._prepare_plain(pub)
+        zeros = np.zeros((n, 32), np.uint8)
+        ones = zeros.copy()
+        ones[:, 0] = 1
+        msg_len = 2 * 128 - 64 - 17
+        lanes = batch._padded_lane_args(zeros, zeros, ones,
+                                        np.zeros((n, msg_len), np.uint8),
+                                        np.full((n,), msg_len), dev)
+        idx = torch.zeros((n,), dtype=torch.int32, device=dev)
+        kv = ed.verify_padded_gather(tab, ok, idx, *lanes)
+        pv = ed._verify_gather_plain(tab, ok, idx, *lanes)
+        mism[n] = (int((ed.tables_canonical(tab) != ed.tables_canonical(
+            tab_p)).flatten(1).any(1).sum()) + int((kv != pv).sum())
+            + int(bool(kv.any())))
+        if n >= batch.RLC_MIN_LANES:
+            z = torch.from_numpy(rlc.host_rlc_coeffs(n)).to(dev)
+            mism[n] += int(bool(rlc.verify_batch_rlc_gather(
+                tab, ok, idx, *lanes, z)) != bool(rlc._rlc_plain(
+                    tab, ok, idx, *lanes, z)))
+    rec["mismatches"] = mism
+    if any(mism.values()):
+        raise AssertionError(f"phase 20 (b): warm shapes against their "
+                             f"plain versions: {mism}")
+    return launches, rec
+
+
+def phase_warm_on(pool, keys, dev):
+    return phase_warmboot(dev, True)
+
+
+def phase_warm_off(pool, keys, dev):
+    return phase_warmboot(dev, False)
+
+
+def report_multihost(mh, launches, warm, card) -> None:
+    """Phase 20's lines."""
+    print(f"multihost (phase 20 a): {mh['phase_s']:.1f} s in its process "
+          f"(set-up {mh['setup_s']:.1f} s); launches {launches}; K6a "
+          f"verdicts {mh['k6a']}; every rank's results one process's, the "
+          f"bad lane {MH_BAD_LANE} pinned, merkle_level hashlib's")
+    for world, g in mh["groups"].items():
+        print(f"multihost {world} ranks on one card (gloo): group wall "
+              f"{g['wall_s']:.1f} s; verdict p50 ms {g['p50_ms']}; gather "
+              f"p50 ms {g['gather_p50_ms']} ({g['gather_bytes']} bytes a "
+              f"rank); rendezvous s {g['rendezvous_s']}; import s "
+              f"{g['import_s']}; context s {g['context_s']}; bundle loaded in s "
+              f"{g['load_s']}; "
+              f"mismatches against plain {g['mismatches']}  [{card}]")
+    print(f"multihost against one process: K6a 1.143 ms (PR 16), the "
+          f"sharded verdict in one process 2.079 ms (PR 6)")
+    for w in warm:
+        print(f"warm boot (phase 20 b) device_warmup={w['warm']}: bundle "
+              f"{w['status']} in {w['load_s']} s ({w['kernels']} kernels), "
+              f"boot {w['boot_s']:.3f} s (warmup {w['warm_s']} s, "
+              f"{w['warm_shapes']} shapes), context {w['context_s']:.2f} s, "
+              f"the headers the load no longer generates "
+              f"{w['headers_s']:.2f} s; "
+              f"VerifyCommit@{WB_VALS} first "
+              f"{1e3 * w['first_s']:.2f} ms, fifth {1e3 * w['fifth_s']:.2f} "
+              f"ms, all {[round(1e3 * x, 2) for x in w['walls_s']]} ms; "
+              f"launches {w['launches']}; warm shapes against plain "
+              f"{w['mismatches']}  [{card}]")
+
+
 CHILD_PHASES = {"rpc": (phase_rpc, BIG_VALS),
                 "statesync": (phase_statesync, SS_VALS),
                 "chaos": (phase_chaos, 0),
                 "e2e": (phase_e2e, 0),
-                "sim": (phase_sim, 0)}
+                "sim": (phase_sim, 0),
+                "multihost": (phase_multihost, 0),
+                "warm_on": (phase_warm_on, 0),
+                "warm_off": (phase_warm_off, 0)}
 
 
 def main(argv=None) -> int:
@@ -7708,6 +8182,13 @@ def main(argv=None) -> int:
     ap.add_argument("--sim", action="store_true",
                     help="run only the build and phase 19 (every program "
                     f"of {SIM_REFERENCE})")
+    ap.add_argument("--multihost", action="store_true",
+                    help="run only the build and phase 20 (multi-host "
+                    "verification over torch.distributed, warm boot)")
+    ap.add_argument("--multihost-rank", nargs=5, default=None,
+                    metavar=("PORT", "RANK", "WORLD", "IN", "OUT"),
+                    help="run one rank of phase 20 (a) (how phase 20 "
+                    "starts its ranks)")
     ap.add_argument("--sim-programs", default=None, metavar="NAMES",
                     help="with --child sim: the comma-separated programs "
                     "phase 19 runs (how the whole run passes SIM_WHOLE)")
@@ -7722,7 +8203,8 @@ def main(argv=None) -> int:
     ap.add_argument("--child", nargs=2, metavar=("NAME", "PATH"),
                     default=None,
                     help="run only phase NAME (rpc: 15, statesync: 16, "
-                    "chaos: 17, e2e: 18, sim: 19), "
+                    "chaos: 17, e2e: 18, sim: 19, multihost: 20 (a), "
+                    "warm_on and warm_off: 20 (b)), "
                     "over the kernels built, and write its launches and "
                     "record as JSON to PATH (how the other runs start "
                     "those phases, each in a fresh process)")
@@ -7745,11 +8227,16 @@ def main(argv=None) -> int:
     if args.serve_remote:
         serve_remote(*args.serve_remote)
         return 0
+    if args.multihost_rank:
+        port, rank, world, src, dst = args.multihost_rank
+        multihost_rank(int(port), int(rank), int(world), src, dst, dev)
+        return 0
     if args.child:
         if args.after:
-            torch.zeros(1, device=dev)
-            for k in _build.KERNELS:
-                _build.load(k)
+            if args.child[0] not in WARM_CHILDREN:
+                torch.zeros(1, device=dev)
+                for k in _build.KERNELS:
+                    _build.load(k)
             while not os.path.exists(args.after):
                 time.sleep(0.02)
             _T_LOADED = time.perf_counter()     # the phase starts here
@@ -7772,11 +8259,17 @@ def main(argv=None) -> int:
     print(f"device: {props.name}, {props.multi_processor_count} SMs, max SM "
           f"clock {sm_mhz:.0f} MHz -> {rate_ops / 1e12:.2f} T int32 ops/s")
 
+    from cometbft_tpu_torch.crypto import aotbundle
+
     t0 = time.perf_counter()
     for k in _build.KERNELS:
         _build.load(k)
-    print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"({_build.build_dir()})")
+    bundle = aotbundle.info()
+    print(f"build: {time.perf_counter() - t0:.1f} s ({_build.build_dir()}); "
+          f"kernel bundle {bundle['status']}, nvcc "
+          f"{bundle.get('build_s', 0.0):.1f} s, load "
+          f"{bundle.get('load_s', 0.0):.3f} s, {bundle['kernels']} kernels, "
+          f"capability {bundle.get('capability')}")
     usage = ptxas_usage(_build.build_log())
     for name, u in sorted(usage.items()):
         print(f"  ptxas {name}: {u.get('registers')} registers, "
@@ -7792,6 +8285,22 @@ def main(argv=None) -> int:
 
     if args.mesh_cards:
         mesh_cards(card, args.record)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if args.multihost:
+        prespawn(("multihost",) + WARM_CHILDREN)
+        mh_launches, mh = phase_fresh("multihost")
+        warm = [phase_fresh(n) for n in WARM_CHILDREN]
+        report_multihost(mh, mh_launches, [w for _, w in warm], card)
+        if args.record:
+            os.makedirs(os.path.dirname(os.path.abspath(args.record)),
+                        exist_ok=True)
+            with open(args.record, "w") as f:
+                json.dump({"card": card, "build": bundle, "multihost": mh,
+                           "warm_boot": [w for _, w in warm]}, f, indent=1,
+                          default=str)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -7881,8 +8390,10 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    # the fresh processes of phases 15-19 reach the card meanwhile
-    prespawn(("rpc", "statesync", "chaos", "e2e", "sim"), whole=True)
+    # the fresh processes of phases 15-20 reach the card meanwhile (the
+    # warm-boot processes only after their go)
+    prespawn(("rpc", "statesync", "chaos", "e2e", "sim", "multihost")
+             + WARM_CHILDREN, whole=True)
     fx = Fixtures(max(SIZES))
     print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
     rec = {k: {"name": k, "route": "cuda"} for k in _build.KERNELS}
@@ -8042,10 +8553,10 @@ def main(argv=None) -> int:
           f"(phase 17 {t_cx:.1f} s, phase 18 {e2e['phase_s']:.1f} s; one "
           f"after another {t_cx + e2e['phase_s']:.1f} s)")
     report_blocksync(bs, bs_launches, card)
-    # phases 15 and 16, and phase 19, run beside phases 12 and 13
+    # phases 15 and 16, and phases 19 and 20, run beside phases 12 and 13
     t_beside = time.perf_counter()
     join_fresh = fresh_beside(("rpc", "statesync"))
-    join_sim = fresh_beside(("sim",))
+    join_sim = fresh_beside(("sim", "multihost") + WARM_CHILDREN)
     t0 = time.perf_counter()
     cs_launches, cs = phase_consensus(dev)
     cs["phase_s"] = time.perf_counter() - t0
@@ -8054,13 +8565,14 @@ def main(argv=None) -> int:
     nd["phase_s"] = time.perf_counter() - t0
     t_nodes = time.perf_counter() - t_beside
     (rp_launches, rp), (ss_launches, ss) = join_fresh()
-    ((sm_launches, sm),) = join_sim()
+    (sm_launches, sm), (mh_launches, mh), *warm = join_sim()
+    mh_s = mh["phase_s"] + sum(w["phase_s"] for _, w in warm)
     beside_s = time.perf_counter() - t_beside
-    print(f"phases 12-13 beside 15-16 and 19: {beside_s:.1f} s (phases "
+    print(f"phases 12-13 beside 15-16, 19 and 20: {beside_s:.1f} s (phases "
           f"12-13 {t_nodes:.1f} s, 15-16 "
           f"{rp['phase_s'] + ss['phase_s']:.1f} s, 19 {sm['phase_s']:.1f} "
-          f"s; one after another "
-          f"{t_nodes + rp['phase_s'] + ss['phase_s'] + sm['phase_s']:.1f}"
+          f"s, 20 {mh_s:.1f} s; one after another "
+          f"{t_nodes + rp['phase_s'] + ss['phase_s'] + sm['phase_s'] + mh_s:.1f}"
           f" s)")
     report_consensus(cs, cs_launches, card)
     report_node(nd, nd_launches, card)
@@ -8070,6 +8582,9 @@ def main(argv=None) -> int:
     report_chaos(cx, cx_launches, card)
     report_e2e(e2e, e2e_launches, card)
     report_sim(sm, sm_launches, card)
+    report_multihost(mh, mh_launches, [w for _, w in warm], card)
+    wb_launches = {k: sum(w["launches"].get(k, 0) for _, w in warm)
+                   for k in _build.KERNELS}
     print(f"light client (phase 10): fixtures {lc['fixture_s']}, first "
           f"calls {lc['first_call_s']} s, phase {lc['phase_s']:.1f} s; "
           f"launches {lc_launches}")
@@ -8144,7 +8659,8 @@ def main(argv=None) -> int:
              "consensus": cs_launches, "node": nd_launches,
              "stress": st_launches, "rpc": rp_launches,
              "statesync": ss_launches, "chaos": cx_launches,
-             "e2e": e2e_launches, "sim": sm_launches}
+             "e2e": e2e_launches, "sim": sm_launches,
+             "multihost": mh_launches, "warm_boot": wb_launches}
 
     c = op_counts()
     print(f"field multiplications per group op: {c}")
@@ -8221,6 +8737,8 @@ def main(argv=None) -> int:
                        "consensus": cs, "node": nd, "stress": st,
                        "rpc": rp, "statesync": ss, "chaos": cx,
                        "e2e": e2e, "sim": sm, "mesh": mesh,
+                       "multihost": mh, "warm_boot": [w for _, w in warm],
+                       "build": bundle,
                        "build_log": _build.build_log(),
                        "ptxas": usage}, f, indent=1,
                       default=str)

@@ -310,6 +310,14 @@ class BaseConfig:
     vote_sched_max_lanes: int = 256
     vote_sched_cache_size: int = 65536
     vote_sched_verify_timeout_s: float = 0.0
+    # warm boot at node start on a card (node/node.py): load the kernel
+    # bundle (crypto/aotbundle.py; built where absent or stale), then
+    # launch the commit path's kernels once at the hot shapes and the
+    # validator set's size, off the event loop
+    device_warmup: bool = True
+    compile_bundle_enable: bool = True
+    # the bundles' directory; empty = <checkout>/build/cometbft_tpu_torch
+    compile_bundle_dir: str = ""
 
 
 @dataclass
@@ -561,12 +569,6 @@ IGNORED_KEYS = {
                                   "the port does not have",
     ("base", "device_wait_s"): "bounds the wait before the TPU host "
                                "fallback, which the port does not have",
-    ("base", "device_warmup"): "precompiles XLA shapes; the port's "
-                               "kernels are built before they are loaded",
-    ("base", "compile_bundle_enable"): "the XLA AOT bundle (ROADMAP "
-                                       "queue 1, warm boot)",
-    ("base", "compile_bundle_dir"): "the XLA AOT bundle (ROADMAP "
-                                    "queue 1, warm boot)",
     ("base", "vote_sched_enable"): "the port's node always runs the "
                                    "verification scheduler: it holds "
                                    "the node's device",

@@ -76,7 +76,8 @@ from . import plan as _plan
 __all__ = ["RLC_MIN_LANES", "DISPATCHES", "HOST_LANES", "BatchVerifier",
            "create_batch_verifier", "verify_dense", "device_verify_ed25519",
            "device_verify_ed25519_cached", "device_call", "device_submit",
-           "device_await", "device_jobs_in_flight", "DEVICE_THREAD_NAME"]
+           "device_await", "device_jobs_in_flight", "DEVICE_THREAD_NAME",
+           "warmup_device"]
 
 # Minimum Ed25519 lanes before the RLC verdict
 RLC_MIN_LANES = 128
@@ -190,13 +191,20 @@ def _padded_lane_args(pubs, rs, ss, msgs, msg_lens, device):
             put(blocks, np.int32), put(active))
 
 
-def _per_lane_sharded(devices, head, lanes):
-    """The per-lane ladder over lane shards of ``devices``, arguments as
+def _per_lane_sharded(mesh, head, lanes):
+    """The per-lane ladder over the lane shards of ``mesh``
+    (``parallel/mesh.py``: a device tuple or ``Mesh``, or a
+    ``ProcessMesh`` whose other ranks' shards this process skips and
+    gathers), arguments as
     :func:`_lane_route`'s: each shard runs its slab through the set's
     table replica on its device, or through a table of its own lanes'
     keys.  The batch is checked whole, once; the verdicts come back in
-    lane order on the first device."""
-    b, d0 = lanes[0].shape[0], devices[0]
+    lane order on the first (local) device."""
+    if not isinstance(mesh, _mesh.Mesh):
+        mesh = _mesh.Mesh(tuple(mesh))
+    devices = mesh.local_view()
+    b = lanes[0].shape[0]
+    d0 = next(d for d in devices if d is not None)
     outs = []
     if len(head) == 3:
         tabs, oks = (_mesh.replicate(t, devices) for t in head[:2])
@@ -204,17 +212,19 @@ def _per_lane_sharded(devices, head, lanes):
         _build.check_arg(oks[d0], "ok_a", torch.bool, (tabs[d0].shape[0],))
         _ed._check_lanes(head[2], tabs[d0].shape[0], *lanes)
         for dev, part in zip(devices, _mesh.split(devices, head[2], *lanes)):
-            outs.append(_ed._verify_gather(tabs[dev], oks[dev], *part))
+            if dev is not None:
+                outs.append(_ed._verify_gather(tabs[dev], oks[dev], *part))
     else:
         _build.check_arg(head[0], "pub", torch.uint8, (b, 32))
-        _ed._check_lanes(torch.arange(b, dtype=torch.int32, device=d0), b,
-                         *lanes)
-        for dev, (p, *part) in zip(devices,
-                                   _mesh.split(devices, head[0], *lanes)):
-            tab, ok = _tables(p)
-            sidx = torch.arange(p.shape[0], dtype=torch.int32, device=dev)
-            outs.append(_ed._verify_gather(tab, ok, sidx, *part))
-    return torch.cat([o.to(d0) for o in outs])
+        _ed._check_lanes(torch.arange(b, dtype=torch.int32,
+                                      device=lanes[0].device), b, *lanes)
+        for dev, part in zip(devices, _mesh.split(devices, head[0], *lanes)):
+            if dev is not None:
+                tab, ok = _tables(part[0])
+                sidx = torch.arange(part[0].shape[0], dtype=torch.int32,
+                                    device=dev)
+                outs.append(_ed._verify_gather(tab, ok, sidx, *part[1:]))
+    return mesh.gather_lanes(torch.cat([o.to(d0) for o in outs]), b)
 
 
 def _lane_route(devices, head, lanes, rng_bytes):
@@ -377,6 +387,56 @@ def device_verify_ed25519_cached(valset_pubs, scope, pubs_rows, rs, ss,
     return _lane_route(devices, (tab, ok, idx),
                        _padded_lane_args(pubs_rows, rs, ss, msgs, msg_lens,
                                          dev), rng_bytes)
+
+
+def _warm_call(n_keys: int, lanes: int, nb: int, device) -> None:
+    """One dispatch of ``lanes`` lanes of ``nb`` SHA-512 blocks through a
+    table of ``n_keys`` all-zero keys on ``device``, as the cached route
+    makes it (K5a, then K6a from ``RLC_MIN_LANES`` lanes, then K5b), on
+    the device-owner thread.  Key and R are the all-zero encoding (a
+    point of order 4) and S is 1, so every lane is invalid: the RLC
+    verdict rejects and the per-lane route runs.  The table is built for
+    this call and never enters ``_TABLES``."""
+    def run():
+        dev = _plan.resolve_devices(device)[0]
+        zeros = np.zeros((lanes, 32), np.uint8)
+        ones = zeros.copy()
+        ones[:, 0] = 1
+        msg_len = nb * 128 - 64 - 17     # the longest that fits nb blocks
+        tab, ok = _tables(torch.zeros((n_keys, 32), dtype=torch.uint8,
+                                      device=dev))
+        idx = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+        packed = _padded_lane_args(zeros, zeros, ones,
+                                   np.zeros((lanes, msg_len), np.uint8),
+                                   np.full((lanes,), msg_len), dev)
+        _lane_route((dev,), (tab, ok, idx), packed, None)
+    device_call(run)
+
+
+def warmup_device(lane_buckets=(256, 1024), block_buckets=(2,),
+                  device=None, valset_sizes=()) -> int:
+    """Launch the commit path's kernels once before the first real commit
+    (``cometbft_tpu/crypto/batch.py:443``, which compiles XLA shapes):
+    K5a, K6a and K5b at each of ``lane_buckets`` lanes (a table of as
+    many keys) and at each of ``valset_sizes`` lanes through a table of
+    that many keys (the node's validator set), each at every
+    ``block_buckets`` SHA-512 block count.  So the first commit does not
+    pay CUDA's lazy load of each kernel, the caching allocator's first
+    blocks, or a table build's first launch at the set's size.  Every
+    call runs on the device-owner thread (:func:`device_call`), behind
+    real work and never beside it; the tables it builds for its own
+    all-zero sets never enter, evict or replace an entry of the set
+    cache.  Unlike the JAX package's, an error is raised, not counted
+    (there is no host to fall back to).  Returns the shapes warmed."""
+    done = 0
+    for nb in block_buckets:
+        for lanes in lane_buckets:
+            _warm_call(lanes, lanes, nb, device)
+            done += 1
+        for n in valset_sizes:
+            _warm_call(n, n, nb, device)
+            done += 1
+    return done
 
 
 def verify_dense(pubs, sigs, msgs, lens, device=None, valset_pubs=None,

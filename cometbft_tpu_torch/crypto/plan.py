@@ -14,8 +14,8 @@ configured window stands on one device and over a device set alike
 
 Not ported, because the port's kernels take any lane count: the lane,
 block, table, merkle and BLS buckets, ``chunk_bucket``,
-``mesh_occupancy``, the warm set and ``plan_hash`` (the AOT bundle
-stands in ``ROADMAP.md``).  Nor are the plan's settable fields: the RLC
+``mesh_occupancy``, the warm set and ``plan_hash`` (the port's kernel
+bundle, ``crypto/aotbundle.py``, is keyed by its sources instead).  Nor are the plan's settable fields: the RLC
 threshold is the constant ``crypto/batch.py:RLC_MIN_LANES``, and the
 mesh shape and axis name have no reader here.
 """

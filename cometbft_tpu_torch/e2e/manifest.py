@@ -188,6 +188,13 @@ def manifest_to_toml(m: Manifest) -> str:
     return "\n".join(lines) + "\n"
 
 
+def loads_toml(text: str) -> dict:
+    """Manifest TOML text -> dict (``tomllib``; the JAX package's flat
+    parser serves only Pythons before 3.11, which the port does not
+    run on)."""
+    return tomllib.loads(text)
+
+
 def load_manifest(path: str) -> Manifest:
     with open(path, "rb") as f:
         doc = tomllib.load(f)

@@ -134,6 +134,53 @@ def event(sub: str, name: str, **attrs) -> None:
                   wall, t, t, attrs))
 
 
+class _SpanCM:
+    """Context-manager span: sets itself as the current parent for the
+    duration so nested ``span()``/``event()`` calls record ``parent``."""
+
+    __slots__ = ("_sub", "_name", "_attrs", "_open", "_tok")
+
+    def __init__(self, sub, name, attrs):
+        self._sub = sub
+        self._name = name
+        self._attrs = attrs
+        self._open = None
+        self._tok = None
+
+    def __enter__(self):
+        self._open = begin(self._sub, self._name, **self._attrs)
+        if self._open is not None:
+            self._tok = _CUR.set(self._open.id)
+        return self._open
+
+    def __exit__(self, *exc):
+        if self._open is not None:
+            _CUR.reset(self._tok)
+            finish(self._open)
+        return False
+
+
+class _NoopSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NOOP = _NoopSpan()
+
+
+def span(sub: str, name: str, **attrs):
+    """Context manager measuring one lexical scope.  Disabled tracing
+    returns a shared no-op instance: no per-call allocation."""
+    if not _ENABLED:
+        return _NOOP
+    return _SpanCM(sub, name, attrs)
+
+
 # ------------------------------------------------------------------ dump
 
 

@@ -50,16 +50,32 @@ local app).  The remote signer is a ``priv_validator`` like any other
 dialled by the node's starter (``cmd.dial_until_up``), as the JAX
 package's ``cmd`` does.
 
-Not here: gRPC apps, the SQL event sink; the AOT warmup has no
-counterpart (``compile_bundle_info`` stays None: the port's kernels
-build at first use).
+Warm boot (``base.device_warmup``, as the JAX node's start,
+``cometbft_tpu/node/node.py:552-628``): on a card, once its RPC server
+listens, :meth:`start` loads the commit path's host libraries and
+the kernel bundle (``crypto/aotbundle.py``, with
+``base.compile_bundle_enable``, from ``base.compile_bundle_dir``),
+builds it where it is absent or stale (the JAX node builds after its
+warmup; the port's kernels cannot launch before they are built), then
+launches the commit path's kernels once at the hot shapes and at the
+validator set's size (``crypto/batch.py:warmup_device``, on the
+device-owner thread), all off the event loop, and records
+``compile_bundle_info`` (``/status``'s ``compile_bundle``; the gauge
+``crypto_compile_bundle_info``).  A node on the CPU records
+``{"status": "skipped_no_device"}`` and launches nothing; an error is
+recorded as ``{"status": "error"}``, and the next device call builds
+again and raises.
+
+Not here: gRPC apps, the SQL event sink.
 """
 
 from __future__ import annotations
 
 import asyncio
 import os
+import time
 
+from .. import native as _native
 from ..abci.application import Application
 from ..blocksync.reactor import BlocksyncReactor
 from ..config import Config, test_consensus_config
@@ -67,6 +83,8 @@ from ..consensus.reactor import ConsensusReactor
 from ..consensus.replay import Handshaker
 from ..consensus.state import ConsensusState
 from ..consensus.wal import WAL
+from ..crypto import aotbundle as _aotbundle
+from ..crypto import batch as _batch
 from ..crypto import plan as _plan
 from ..crypto import scheduler as _vsched
 from ..evidence import EvidencePool, EvidenceReactor
@@ -96,7 +114,7 @@ from ..types.priv_validator import PrivValidator
 from .doctor import StorageDoctor
 from .watchdog import LivenessWatchdog, resolve_incident_dir
 
-__all__ = ["Node"]
+__all__ = ["Node", "warm_boot"]
 
 
 def _parse_laddr(laddr: str) -> tuple[str, int]:
@@ -129,6 +147,41 @@ async def _serve_prometheus(laddr: str):
             writer.close()
 
     return await asyncio.start_server(handle, host, port)
+
+
+def warm_boot(base, device, n_vals: int = 0, name: str = "node") -> dict:
+    """The warm boot of a node on ``device`` (module docstring), under
+    ``base`` (``config.BaseConfig``): the host libraries of the commit
+    path loaded (``native.py``), the kernel bundle loaded, or built
+    where it is absent or stale, then ``crypto/batch.py:warmup_device``
+    at one lane, ``RLC_MIN_LANES`` lanes and ``n_vals`` (the validator
+    set's size).  Returns the bundle's info with ``warm_shapes`` and
+    ``warm_s``, or ``{"status": "error", ...}``, and records it
+    (``crypto/aotbundle.py:set_info``)."""
+    t0 = time.perf_counter()
+    try:
+        # the commit path's host libraries too, as the JAX node's start
+        # warms its native verifiers: the sign-bytes encoder and the
+        # secp256k1 verifier (built with g++ where absent)
+        for lib in ("vote_sign_bytes", "secp256k1"):
+            _native.load(lib)
+        if base.compile_bundle_enable:
+            _aotbundle.configure(base.compile_bundle_dir or None)
+            info = _aotbundle.load(device=device)
+            if info["status"] != "loaded":
+                info = _aotbundle.build(device=device)
+        else:
+            info = {"status": "disabled"}
+        shapes = _batch.warmup_device(
+            lane_buckets=(1, _batch.RLC_MIN_LANES), device=device,
+            valset_sizes=(n_vals,) if n_vals else ())
+        info = {**info, "warm_shapes": shapes,
+                "warm_s": time.perf_counter() - t0}
+    except Exception as e:
+        tmlog.logger("node", node=name).error("warm boot failed",
+                                              err=repr(e))
+        info = {"status": "error", "error": repr(e)}
+    return _aotbundle.set_info(info)
 
 
 class Node:
@@ -166,7 +219,8 @@ class Node:
         self.statesync_done: asyncio.Task | None = None
         self.statesync_error: BaseException | None = None
         self.doctor_report = None
-        self.compile_bundle_info = None        # kernels build at first use
+        self.compile_bundle_info = None        # set by the warm boot
+        self.warm_boot: asyncio.Future | None = None
         self.fast_sync = False
         self.node_key: NodeKey | None = None
         self.transport: Transport | None = None
@@ -481,6 +535,16 @@ class Node:
                 await self.indexer_service.start()
             await self.pruner.start()
             await self._start_serving()
+            # after the RPC server: its start-up does not wait on the
+            # card's; before consensus, whose first checks queue on the
+            # device-owner thread behind (or before) the warm launches
+            if base.device_warmup:
+                if _plan.resolve_devices(self.device)[0].type == "cuda":
+                    self.warm_boot = asyncio.get_running_loop(
+                    ).run_in_executor(None, self._warm_boot)
+                else:
+                    self.compile_bundle_info = _aotbundle.set_info(
+                        {"status": "skipped_no_device"})
             if self.syncer is not None:
                 self.statesync_done = asyncio.create_task(
                     self._run_statesync())
@@ -490,6 +554,15 @@ class Node:
         except BaseException:
             await self.stop()
             raise
+
+    def _warm_boot(self) -> None:
+        """:func:`warm_boot` on an executor thread, for the validator set
+        of the stored state; records ``compile_bundle_info``."""
+        st = self.state_store.load()
+        n_vals = len(st.validators.validators) if st is not None else 0
+        self.compile_bundle_info = warm_boot(
+            self.config.base, _plan.resolve_devices(self.device)[0], n_vals,
+            name=self.name)
 
     async def _start_serving(self) -> None:
         """The RPC server, the Prometheus listener and the loop
@@ -541,7 +614,7 @@ class Node:
             await self.consensus.start()
 
     async def stop(self) -> None:
-        """Stop statesync, the liveness watchdog, the RPC server, the
+        """Wait for the warm boot; stop statesync, the liveness watchdog, the RPC server, the
         Prometheus listener, the loop watchdog, consensus, the switch
         (peers, reactors, listener), the indexer service, the pruner and
         the app connections; release the scheduler; close the WAL, every
@@ -549,6 +622,10 @@ class Node:
         node whose :meth:`start` failed."""
         if self._started:
             self._started = False
+            if self.warm_boot is not None:
+                # its device calls must not outlive the node
+                fut, self.warm_boot = self.warm_boot, None
+                await fut
             if self.statesync_done is not None:
                 task, self.statesync_done = self.statesync_done, None
                 task.cancel()

@@ -4,10 +4,12 @@ The sources in ``csrc/`` compile with ``nvcc`` into one shared library
 per source, each with plain C entry points that ``ctypes`` loads (no
 PyTorch headers, so a build takes seconds).  The ``nvcc`` processes, one
 per source, run at once.  The build happens at the first launch, never
-at import, and lands in ``build/cometbft_tpu_torch/<hash>/`` under the
-checkout, keyed by a hash of the sources, the generated constants
-headers and the flags, so an edited source rebuilds and an unchanged one
-loads.
+at import, into the kernel bundle (``crypto/aotbundle.py``:
+``build/cometbft_tpu_torch/bundle-<version>/`` under the checkout by
+default, keyed by a hash of the sources, the modules the constants
+headers are generated from and the flags, with a manifest of the
+compiler and the card), so an edited source rebuilds and an unchanged
+one loads, without generating a header.
 
 ``ed25519_consts.h`` is generated here from the port's own oracle
 (``crypto/_ed25519_py.py``) and from ``ops/fe.py``, ``ops/group.py``,
@@ -27,8 +29,6 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import fcntl
-import hashlib
 import os
 import shutil
 import subprocess
@@ -175,16 +175,11 @@ def _nvcc() -> str:
 
 
 def build_dir() -> Path:
-    h = hashlib.sha256()
-    h.update(" ".join(FLAGS).encode())
-    for name, text in generated_headers().items():
-        h.update(name.encode())
-        h.update(text.encode())
-    for f in sorted(CSRC.iterdir()):
-        if f.suffix in (".cu", ".cuh"):
-            h.update(f.name.encode())
-            h.update(f.read_bytes())
-    return ROOT / "build" / "cometbft_tpu_torch" / h.hexdigest()[:16]
+    """The kernel bundle's directory (``crypto/aotbundle.py:
+    default_path``), where the libraries are built and loaded."""
+    from ..crypto import aotbundle
+
+    return Path(aotbundle.default_path())
 
 
 def build_log() -> str:
@@ -230,25 +225,17 @@ def _build_all(out: Path) -> None:
 
 
 def load(name: str):
-    """The ctypes entry point of kernel ``name``; builds all kernels on
-    first use in a process (or after a source edit)."""
+    """The ctypes entry point of kernel ``name``; on first use in a
+    process every kernel is bound from the kernel bundle, which is built
+    (one nvcc per source, at once) where it is absent or does not match
+    the sources, the compiler or the card (``crypto/aotbundle.py:
+    ensure``).  A failed build raises."""
     fn = _LIBS.get(name)
     if fn is not None:
         return fn
-    out = build_dir()
-    out.mkdir(parents=True, exist_ok=True)
-    with open(out / "lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not all((out / f"lib{_lib_name(s)}.so").exists()
-                   for s in _sources()):
-            _build_all(out)
-    libs = {s: ctypes.CDLL(str(out / f"lib{_lib_name(s)}.so"))
-            for s in _sources()}
-    for k, (src, entry, argtypes) in KERNELS.items():
-        f = getattr(libs[src], entry)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
-        _LIBS[k] = f
+    from ..crypto import aotbundle
+
+    aotbundle.ensure()
     return _LIBS[name]
 
 

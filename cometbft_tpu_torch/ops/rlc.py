@@ -387,6 +387,9 @@ def make_verify_batch_rlc_sharded(mesh, gather: bool = False):
     grid over those lanes, each shard into its slot of stacked outputs on
     that device); the slots of other devices are copied to the first
     device, where :func:`rlc_combine` folds them and runs the one ladder.
+    Over a ``ProcessMesh`` each rank runs only its own shards and
+    all-gathers the slots (``ProcessMesh.gather_slots``), and every rank
+    folds the whole stack.
     The arguments are checked whole, once, before the split, every
     device's slab is copied before any kernel is enqueued
     (``parallel/mesh.py:split_by_device``), and every device is enqueued
@@ -396,21 +399,22 @@ def make_verify_batch_rlc_sharded(mesh, gather: bool = False):
     mask are replicated (a tensor, or a mapping from device to its
     replica); otherwise ``fn(pub, rb, sb, blocks, active, z)`` builds each
     device's tables from its own lanes' keys.  Returns a 0-d bool tensor
-    on the first device."""
-    devices = tuple(mesh.devices)
-    d0 = devices[0]
+    on the first (local) device."""
+    devices = mesh.local_view()
+    d0 = next(d for d in devices if d is not None)
 
     def combine(bufs):
         out = bufs[d0]
         for d, dev in enumerate(devices):
-            if dev != d0:
+            if dev is not None and dev != d0:
                 for o, t in zip(out, bufs[dev]):
                     o[d] = t[d].to(d0)
+        mesh.gather_slots(*out)
         return rlc_combine(*out)
 
     def buffers():
         return {dev: rlc_sums_buffers(len(devices), dev)
-                for dev in dict.fromkeys(devices)}
+                for dev in dict.fromkeys(devices) if dev is not None}
 
     if gather:
         def fn(tab, ok_a, idx, rb, sb, blocks, active, z):

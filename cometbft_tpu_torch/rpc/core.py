@@ -121,9 +121,9 @@ async def status(env: Environment) -> dict:
             "pub_key": pv.get_pub_key().bytes().hex() if pv else "",
         },
         "consensus_info": consensus_info,
-        # the storage doctor's boot report (node/doctor.py); the compile
-        # bundle's state is None on the port (its kernels build at first
-        # use), as on a JAX node without one
+        # the storage doctor's boot report (node/doctor.py) and the
+        # kernel bundle's state from the warm boot (crypto/aotbundle.py;
+        # None with base.device_warmup off)
         "doctor": (node.doctor_report.to_dict()
                    if getattr(node, "doctor_report", None) is not None
                    else None),

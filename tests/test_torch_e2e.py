@@ -249,3 +249,14 @@ def test_perturbations_hold_until_the_chain_moves(monkeypatch, tmp_path):
     assert fired == [("kill", "validator03", 5), ("pause", "validator02", 5),
                      ("resume", "validator02", 6),
                      ("restart", "validator03", 6)]
+
+
+@pytest.mark.parametrize("name", ["ci.toml", "chaos.toml", "large.toml"])
+def test_loads_toml_alike(name):
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "networks", name)
+    text = open(path).read()
+    assert t_man.loads_toml(text) == j_man.loads_toml(text)
+    assert t_man.manifest_from_dict(t_man.loads_toml(text)) == \
+        t_man.load_manifest(path)
+

@@ -177,7 +177,7 @@ def test_routes_over_http(net):
         assert st["node_info"]["network"] == "rpc-net"
         assert st["sync_info"]["latest_block_height"] >= h
         assert st["doctor"]["ok"] and st["doctor"]["refused"] is None
-        assert st["compile_bundle"] is None
+        assert st["compile_bundle"] == {"status": "skipped_no_device"}
         assert st["light_serve"]["anchors_ok"] >= 0
         ni = await cli.call("net_info")
         assert ni["n_peers"] == 1 and ni["peers"][0]["quality"] is not None

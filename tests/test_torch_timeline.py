@@ -236,3 +236,35 @@ def test_live_port_ring_attr_contract_and_route():
     assert out["buckets"] == list(jtl.BUCKETS)
     assert out["waterfalls"] == jtl.fold(recs, limit=4)
     assert {w["height"] for w in h2["waterfalls"]} == {2}
+
+
+def test_span_context_manager_like_the_jax_package():
+    """``tracing.span`` in both packages: a no-op when disabled, and
+    nested spans and events record the same kinds, names, attrs and
+    parent links."""
+    from cometbft_tpu.libs import tracing as jtr
+
+    def run(tr):
+        was = tr.is_enabled()
+        tr.clear()
+        try:
+            tr.configure(enabled=False)
+            with tr.span("crypto", "off") as o:
+                assert o is None
+            assert tr.snapshot() == []
+            tr.configure(enabled=True)
+            with tr.span("consensus", "outer", height=3):
+                with tr.span("crypto.agg", "verify", lanes=7):
+                    tr.event("wal", "fsync", height=3)
+            recs = tr.snapshot()
+        finally:
+            tr.configure(enabled=was)
+            tr.clear()
+        ids = {r[1]: i for i, r in enumerate(recs)}
+        return [(r[0], r[3], r[4], r[8], ids.get(r[2])) for r in recs]
+
+    got = run(ttr)
+    assert got == run(jtr)
+    assert [g[2] for g in got] == ["fsync", "verify", "outer"]
+    assert got[0][4] == 1 and got[1][4] == 2 and got[2][4] is None
+
