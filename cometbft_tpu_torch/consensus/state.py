@@ -221,10 +221,11 @@ class ConsensusState:
             mp.on_txs_available = None
         if self._task is not None:
             self._task.cancel()
-            try:
-                await self._task
-            except asyncio.CancelledError:
-                pass
+            # wait for the routine without raising how it ended: a routine
+            # that died (a SystemExit or an error from inside a handler)
+            # must not stop its node's stop() before the switch and the
+            # stores are closed
+            await asyncio.wait([self._task])
             self._task = None
         if self.wal is not None:
             try:

@@ -36,6 +36,7 @@ import torch
 from .crypto.bls12381 import Bls12381PubKey
 from .crypto.keys import Ed25519PubKey
 from .crypto.secp256k1 import Secp256k1PubKey
+from .device import resolve_device
 from .light.types import LightBlock
 from .ops import fe
 from .storage.statestore import State, state_from_dict
@@ -53,10 +54,12 @@ __all__ = ["tables_from_jax", "validator_set_from_arrays",
 _JAX_RADIX = 13
 
 
-def tables_from_jax(ypx, ymx, z2, t2d, ok, device="cpu"):
+def tables_from_jax(ypx, ymx, z2, t2d, ok, device=None):
     """JAX cached tables -> (tab (N, 16, 4, 10) int32 canonical limbs,
-    ok (N,) bool) on ``device``.  Each element's value is taken mod p,
-    so any limb form the JAX side holds converts exactly."""
+    ok (N,) bool) on ``device`` (None: the card, raising without one;
+    ``"cpu"`` as asked).  Each element's value is taken mod p, so any
+    limb form the JAX side holds converts exactly."""
+    device = resolve_device(device)
     comps = np.stack([np.asarray(c, np.int64) for c in (ypx, ymx, z2, t2d)])
     # (4, 16, 20, N) -> (N, 16, 4, 20) limbs of 13 bits
     limbs = comps.transpose(3, 1, 0, 2).astype(object)

@@ -1,21 +1,10 @@
-"""The port's CUDA kernel sources, built for the host under the sanitizers.
-
-``tests/torch_kernels_host.cpp`` includes the six sources of
-``cometbft_tpu_torch/csrc`` as they are and runs each kernel and launch
-sequence with host threads (a block's threads, a barrier for
-``__syncthreads``).  It is compiled with ``g++ -fsanitize=address,
-undefined``, so undefined behaviour in the device code (a signed
-overflow, a shift out of range, a read out of bounds) stops the run.
-What it computes must equal the plain PyTorch versions exactly: tables
-and window sums as field elements mod p (sums as group elements, since
-the two folds add in different orders), digests and verdicts bit for
-bit.  The tolerance is zero."""
+"""The host kernel harness (``tests/torch_kernels_host_fixtures.py``) on
+the Ed25519 kernels: the table kernel, the per-lane ladder, the RLC
+verdict's lane, window, comb and ladder launches, and the sharded
+verdict's sums and combine, each against its plain PyTorch version (and
+the oracle's verdicts), exactly."""
 
 import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,65 +12,17 @@ import torch
 
 from cometbft_tpu_torch.crypto import _ed25519_py as ref
 from cometbft_tpu_torch.crypto.batch import _padded_lane_args
-from cometbft_tpu_torch.crypto import bls12381 as tbls
-from cometbft_tpu_torch.ops import _build, blsg1, fe, sha256, sha512
 from cometbft_tpu_torch.ops import ed25519 as ted
+from cometbft_tpu_torch.ops import fe
 from cometbft_tpu_torch.ops import rlc as trlc
+
+from torch_kernels_host_fixtures import L, P, harness, needs_gxx  # noqa: F401
 
 # the plain versions run on tensors of a few lanes: one intra-op thread is
 # as fast, and leaves the cores to the other test workers
 torch.set_num_threads(1)
 
-pytestmark = [
-    pytest.mark.timeout(900),
-    pytest.mark.skipif(shutil.which("g++") is None,
-                       reason="needs g++ to build the kernel sources for "
-                              "the host"),
-]
-
-HERE = Path(__file__).resolve().parent
-L, P = ref.L, ref.P
-
-
-def _confine():
-    os.sched_setaffinity(0, sorted(os.sched_getaffinity(0))[:2])
-    os.nice(19)
-
-
-@pytest.fixture(scope="module")
-def harness(tmp_path_factory):
-    d = tmp_path_factory.mktemp("kernels_host")
-    for name, text in _build.generated_headers().items():
-        (d / name).write_text(text)
-    exe = d / "torch_kernels_host"
-    subprocess.run(
-        ["g++", "-std=c++20", "-O1", "-g", "-fsanitize=address,undefined",
-         "-fno-sanitize-recover=all", "-fno-omit-frame-pointer", "-Wall",
-         "-Werror", "-Wno-unknown-pragmas", "-pthread",
-         "-I", str(_build.CSRC), "-I", str(d), "-o", str(exe),
-         str(HERE / "torch_kernels_host.cpp")],
-        check=True, capture_output=True)
-    env = dict(os.environ, ASAN_OPTIONS="detect_leaks=0:abort_on_error=0",
-               UBSAN_OPTIONS="print_stacktrace=1")
-    count = [0]
-
-    def run(mode, args, inputs, outputs):
-        count[0] += 1
-        io = d / f"call{count[0]}"
-        io.mkdir()
-        for name, a in inputs.items():
-            np.ascontiguousarray(a).tofile(io / f"{name}.bin")
-        # a block is up to 128 host threads that meet at barriers: two
-        # CPUs at the lowest priority, so that other test processes do
-        # not starve beside it
-        proc = subprocess.run([str(exe), mode, str(io), *map(str, args)],
-                              capture_output=True, text=True, env=env,
-                              preexec_fn=_confine)
-        assert proc.returncode == 0, proc.stderr[-4000:]
-        return {name: np.fromfile(io / f"{name}.bin", dtype).reshape(shape)
-                for name, (dtype, shape) in outputs.items()}
-
-    return run
+pytestmark = [pytest.mark.timeout(900), needs_gxx]
 
 
 def _signed_lanes(n, n_keys, seed, lens=None):
@@ -235,111 +176,6 @@ def test_tables_match_plain(harness, n, lpb):
                        ted.tables_canonical(tab))
 
 
-def test_sha512_scalar_matches_plain_and_hashlib(harness):
-    rng = np.random.default_rng(32)
-    lens = np.array([0, 1, 111, 112, 127, 128, 17, 239], np.int64)
-    msgs = np.zeros((len(lens), 240), np.uint8)
-    for i, k in enumerate(lens):
-        msgs[i, :k] = np.frombuffer(rng.bytes(int(k)), np.uint8)
-    blocks, active = sha512.host_pad(msgs, lens, 2)
-    b = len(lens)
-    got = harness("sha", [b, 2], {"blocks": blocks, "active": active},
-                  {"h": (np.uint8, (b, 32))})["h"]
-    plain = sha512._sha512_scalar_plain(
-        torch.from_numpy(blocks.view(np.int32).copy()),
-        torch.from_numpy(active.copy()))
-    assert np.array_equal(got, plain.numpy())
-    for i, k in enumerate(lens):
-        want = int.from_bytes(hashlib.sha512(msgs[i, :k].tobytes()).digest(),
-                              "little") % L
-        assert int.from_bytes(got[i].tobytes(), "little") == want
-
-
-@pytest.mark.parametrize("words", [0, 1], ids=["bytes", "words"])
-def test_sha256_leaves_match_plain_and_hashlib(harness, words):
-    """Ragged one- and two-block leaves (55/56 and 119/120 bytes straddle
-    the block edges), active counts outside [0, NB] acting as the mask's
-    nearest end, at a lane count that leaves a partial thread block.  The
-    kernel's digest words are held against both public wrappers' plain
-    versions: ``sha256_blocks`` (bytes) and ``sha256_leaf_words``."""
-    rng = np.random.default_rng(39)
-    lens = np.array([0, 1, 55, 56, 63, 64, 100, 119] * 20 + [7, 9, 3],
-                    np.int64)
-    b, nb = len(lens), 2
-    msgs = np.zeros((b, 120), np.uint8)
-    for i, k in enumerate(lens):
-        msgs[i, :k] = np.frombuffer(rng.bytes(int(k)), np.uint8)
-    blocks, active = sha256.host_pad(msgs, lens, nb)
-    active[-3:] = [-1, 0, 5]
-    out = harness("sha256", [b, nb], {"blocks": blocks, "active": active},
-                  {"out": (np.uint32, (b, 8))})["out"]
-    got = sha256.words_to_bytes(out)
-    args = (torch.from_numpy(blocks.view(np.int32).copy()),
-            torch.from_numpy(active.copy()))
-    if words:
-        plain = sha256.sha256_leaf_words(*args).numpy()
-        assert np.array_equal(out.view(np.int32), plain)
-        plain = sha256.words_to_bytes(plain)
-    else:
-        plain = sha256.sha256_blocks(*args).numpy()
-    assert np.array_equal(got, plain)
-    empty = hashlib.sha256(b"").digest()
-    for i, k in enumerate(lens[:-3]):
-        assert got[i].tobytes() == hashlib.sha256(
-            msgs[i, :k].tobytes()).digest()
-    # active -1 and 0 leave the initial state; 5 runs both blocks
-    iv = sha256.words_to_bytes(sha256.IV)
-    assert got[-3].tobytes() == got[-2].tobytes() == iv.tobytes()
-    assert got[-1].tobytes() != empty
-
-
-@pytest.mark.parametrize("n", [1, 2, 3, 255, 256, 257, 600])
-def test_merkle_tree_matches_plain_and_hashlib(harness, n):
-    """Every level of trees around the kernel's runs of 256 children (one
-    block, one block plus one child, three blocks and a second launch),
-    against the plain level loop and against hashlib's level order."""
-    from cometbft_tpu_torch.crypto import merkle
-
-    rng = np.random.default_rng(50 + n)
-    leaves = np.frombuffer(rng.bytes(32 * n), np.uint8).reshape(n, 32)
-    words = sha256.bytes_to_words(leaves)
-    rows = sha256.tree_rows(n)
-    got = harness("merkle_tree", [n], {"leaves": words},
-                  {"levels": (np.uint32, (rows, 8))})["levels"]
-    buf = torch.zeros((rows, 8), dtype=torch.int32)
-    buf[:n] = torch.from_numpy(words.view(np.int32))
-    plain = sha256.merkle_tree(buf, n)
-    assert np.array_equal(got.view(np.int32), plain.numpy())
-    lv = [leaves[i].tobytes() for i in range(n)]
-    want = []
-    while True:
-        want += lv
-        if len(lv) == 1:
-            break
-        lv = [merkle.inner_hash(lv[2 * i], lv[2 * i + 1])
-              for i in range(len(lv) // 2)] + lv[len(lv) - len(lv) % 2:]
-    assert [r.tobytes() for r in sha256.words_to_bytes(got)] == want
-
-
-@pytest.mark.parametrize("n", [2, 7, 257])
-def test_merkle_level_matches_plain_and_hashlib(harness, n):
-    rng = np.random.default_rng(40 + n)
-    children = np.frombuffer(rng.bytes(32 * n), np.uint8).reshape(n, 32)
-    words = sha256.bytes_to_words(children)
-    m = (n + 1) // 2
-    got = harness("merkle", [n], {"children": words},
-                  {"parents": (np.uint32, (m, 8))})["parents"]
-    plain = sha256.merkle_level(torch.from_numpy(words.view(np.int32)))
-    assert np.array_equal(got.view(np.int32), plain.numpy())
-    parents = sha256.words_to_bytes(got)
-    for i in range(n // 2):
-        assert parents[i].tobytes() == hashlib.sha256(
-            b"\x01" + children[2 * i].tobytes()
-            + children[2 * i + 1].tobytes()).digest()
-    if n & 1:
-        assert parents[-1].tobytes() == children[-1].tobytes()
-
-
 def test_verify_gather_matches_plain_and_oracle(harness):
     rng = np.random.default_rng(33)
     lanes = _tampered(_signed_lanes(40, 12, 33), rng)
@@ -474,59 +310,6 @@ def test_ragged_blocks_match_plain(harness, lpb, case):
     assert [_point(c) for c in got["sums"]] == [_point(c) for c in rows]
 
 
-@pytest.mark.parametrize("nb", ["1", "2", "mixed"])
-@pytest.mark.parametrize("n", [1, 2, 255, 256, 257, 600])
-def test_merkle_tree_leaves_matches_plain_and_hashlib(harness, n, nb):
-    """The tree with its leaves in one call: the first launch hashes a run
-    of 256 leaves a block (a thread a leaf) into the shared memory its
-    subtree is built in, and writes them to the head of the level
-    buffer.  One-block leaves (0x00 || up to 54
-    bytes), two-block leaves (55 to 118 bytes), and a mix of both with
-    active counts cut to 1, 0 and -1 and pushed past NB; every level
-    against the plain version (the leaves' plain version, then the
-    tree's) and hashlib's level order (the leaves' digests under the
-    mask for the cut counts)."""
-    from cometbft_tpu_torch.crypto import merkle
-
-    rng = np.random.default_rng(130 + n)
-    lo, hi = {"1": (0, 55), "2": (55, 119), "mixed": (0, 119)}[nb]
-    items = [rng.bytes(int(k)) for k in rng.integers(lo, hi, size=n)]
-    blocks, active = merkle._leaf_blocks(items)
-    if nb == "mixed":
-        active = active.copy()
-        for i, a in zip(range(0, n, 7), (1, 0, -1, 3)):
-            active[i] = a
-    n_blocks = blocks.shape[1]
-    rows = sha256.tree_rows(n)
-    got = harness("merkle_tree_leaves", [n, n_blocks],
-                  {"blocks": blocks, "active": active},
-                  {"levels": (np.uint32, (rows, 8))})["levels"]
-    plain = sha256.merkle_tree_leaves(
-        torch.from_numpy(blocks.view(np.int32).copy()),
-        torch.from_numpy(active))
-    assert np.array_equal(got.view(np.int32), plain.numpy())
-    # a leaf whose count covers its blocks is hashlib's digest, a count of
-    # 0 or less the initial state; a count cut or pushed past its need
-    # hashes other blocks and is held against the plain version alone
-    iv = sha256.words_to_bytes(sha256.IV).tobytes()
-    lv = []
-    for i, it in enumerate(items):
-        used = min(max(int(active[i]), 0), n_blocks)
-        need = sha256.max_blocks_for_len(len(it) + 1)
-        lv.append(iv if used == 0 else
-                  merkle.leaf_hash(it) if used == need else
-                  sha256.words_to_bytes(got[i]).tobytes())
-    assert [sha256.words_to_bytes(r).tobytes() for r in got[:n]] == lv
-    want = []
-    while True:
-        want += lv
-        if len(lv) == 1:
-            break
-        lv = [merkle.inner_hash(lv[2 * i], lv[2 * i + 1])
-              for i in range(len(lv) // 2)] + lv[len(lv) - len(lv) % 2:]
-    assert [r.tobytes() for r in sha256.words_to_bytes(got)] == want
-
-
 def _cached_row(pt):
     """The oracle's extended point -> a cached row of 40 limbs."""
     zi = pow(pt[2], P - 2, P)
@@ -573,40 +356,6 @@ def test_ladder_windows_match_plain(harness, name):
         torch.from_numpy(okb)))
     expect = name in ("identity", "small order", "balanced")
     assert [bool(v) for v in got] == [plain, plain] == [expect, expect]
-
-
-@pytest.mark.parametrize("r", [1, 5, 64, 300])
-def test_blsg1_fold_matches_plain(harness, r):
-    """The G1 fold's launches on the word table (the harness's blocks of
-    8 rows: 5 rows in one launch, two additions at a time at the first
-    level; 64 rows in two; 300 rows, padded to 512, in three, the later
-    ones in place), against the plain version's (3, 32) projective limbs,
-    exactly: all rows, a random mask, an empty mask, and from 5 rows a
-    cancelling pair (row 0 and its negation) and a doubled point (row 1
-    twice)."""
-    rng = np.random.default_rng(60 + r)
-    pts = [tbls.pk_to_affine(tbls.sk_to_pk(int(s)))
-           for s in rng.integers(1, 1 << 62, size=r)]
-    masks = [np.ones(r, np.int32), (rng.random(r) < 0.5).astype(np.int32),
-             np.zeros(r, np.int32)]
-    if r >= 5:
-        pts[-1], pts[-2] = tbls.negate_affine(pts[0]), pts[1]
-        cancel = np.zeros(r, np.int32)
-        cancel[[0, r - 1]] = 1
-        double = np.zeros(r, np.int32)
-        double[[1, 2, r - 2]] = 1
-        masks += [cancel, double]
-    words = blsg1.words_from_limbs(torch.from_numpy(
-        np.stack([blsg1.limbs_from_xy(p) for p in pts])))
-    n2 = 1 << max(0, (r - 1).bit_length())
-    for mask in masks:
-        got = harness("blsg1", [r, n2], {"rows": words.numpy(),
-                                          "mask": mask},
-                      {"out": (np.int32, (3, 32))})["out"]
-        plain = blsg1.g1_masked_sum(words, torch.from_numpy(mask))
-        assert np.array_equal(got, plain.numpy())
-        if not mask.any() or (r >= 5 and mask is masks[3]):
-            assert blsg1.xy_from_projective(got) is None
 
 
 @pytest.mark.parametrize("d,n_lanes,tamper,cards,lpb", [

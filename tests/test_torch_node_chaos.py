@@ -24,7 +24,18 @@ round), and when ensure-peers rounds of several nodes overlap, two
 nodes dial each other at once, each keeps the connection it registered
 first and drops the other as a duplicate, and both go (the same race
 in the JAX package); on the card it takes milliseconds, and the smoke's
-phase 17 runs the periodic routine."""
+phase 17 runs the periodic routine.
+
+The links pex found are not persistent, and with the routine's ticks
+off nothing dials them again: a link that drops leaves its validator
+short of peers for the rest of the case.  The MConnection's 5 s pong
+deadline (``p2p/conn.py:DEFAULT_PONG_TIMEOUT``) counts the seconds the
+shared loop spends in plain checks, so under load (loop passes holding
+checks for 2-4.5 s) a pong is read only after its deadline and the link
+drops: with each check slowed by 0.6 s the case met its alarm in five
+runs of seven, validator04 cut off from all three peers from height 2
+on.  The nodes here wait 45 s for a pong (the reference's
+``p2p.pong_timeout``)."""
 
 import asyncio
 import os
@@ -48,6 +59,7 @@ torch.set_num_threads(1)
 pytestmark = pytest.mark.timeout(120)
 
 TOP = 4
+PONG_TIMEOUT_S = 45.0
 
 
 def test_seed_discovery_socket_app_remote_signer_under_fuzz(tmp_path,
@@ -105,6 +117,8 @@ def test_seed_discovery_socket_app_remote_signer_under_fuzz(tmp_path,
                                 config_=cfg()) for i in range(3)]
         vals.append(await Node_create_remote(doc, listener, vcfg))
         nodes = [seed] + vals
+        for n in nodes:
+            n.switch.pong_timeout = PONG_TIMEOUT_S
         try:
             for n in nodes:
                 await n.start(consensus=False)

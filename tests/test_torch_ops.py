@@ -252,7 +252,7 @@ def test_prepare_pubkey_tables_match_jax_and_convert_round_trips():
     assert ttab.shape == (LANES, 16, 4, 10) and ttab.dtype == torch.int32
     assert np.array_equal(tok.numpy(), np.asarray(jok))
     ctab, cok = convert.tables_from_jax(*[np.asarray(c) for c in jtab],
-                                        np.asarray(jok))
+                                        np.asarray(jok), device="cpu")
     assert torch.equal(cok, tok)
     live = tok.numpy()
     # every field element of every live row agrees mod p
@@ -265,6 +265,22 @@ def test_prepare_pubkey_tables_match_jax_and_convert_round_trips():
         na = ((-a[0]) % P, a[1], 1, (-a[3]) % P)
         ypx = fe.int_from_limbs(ctab[i, 1, 0].tolist())
         assert ypx == (na[1] + na[0]) % P
+
+
+def test_tables_from_jax_defaults_to_the_card():
+    """With no device the carried-over tables go to the card, as every
+    entry point's do: with no card that raises; ``device="cpu"`` is asked
+    for."""
+    z = np.zeros((16, 20, 1), np.int32)
+    args = (z, z, z, z, np.ones((1,), bool))
+    if torch.cuda.is_available():
+        assert convert.tables_from_jax(*args)[0].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            convert.tables_from_jax(*args)
+    tab, ok = convert.tables_from_jax(*args, device="cpu")
+    assert tab.shape == (1, 16, 4, 10) and tab.device.type == "cpu"
+    assert ok.tolist() == [True]
 
 
 def test_kernel_wrappers_check_their_arguments():

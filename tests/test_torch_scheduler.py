@@ -49,6 +49,14 @@ torch.set_num_threads(1)
 CHAIN = "sched-test"
 pytestmark = pytest.mark.timeout(120)
 
+# A verdict deadline that the plain versions cannot reach, for the cases
+# whose subject is flushing, dedup or the cache.  Under the default (1 s)
+# a 3-lane check of the plain versions, at 0.27-0.31 s on an idle host,
+# took up to 1.15 s with six test processes beside six busy ones on eight
+# cores; the deadline then fires and each caller checks its lane alone
+# ("overdue").  The deadline has its own case.
+QUIET_S = 60.0
+
 
 @pytest.fixture(autouse=True)
 def _no_global_scheduler():
@@ -159,7 +167,7 @@ def test_window_flush_fires_without_filling_lanes():
 
     async def main():
         s = VerificationScheduler(device="cpu", max_wait_ms=20,
-                                  max_lanes=256)
+                                  max_lanes=256, verify_timeout_s=QUIET_S)
         await s.start()
         try:
             w0, z0 = _flushes(s, "window"), _flushes(s, "size")
@@ -182,7 +190,7 @@ def test_size_flush_preempts_window():
 
     async def main():
         s = VerificationScheduler(device="cpu", max_wait_ms=30_000,
-                                  max_lanes=16)
+                                  max_lanes=16, verify_timeout_s=QUIET_S)
         await s.start()
         try:
             occ = s._m[0]
@@ -214,7 +222,7 @@ def test_mixed_batch_matches_jax_per_item_verdicts():
 
     async def main():
         s = VerificationScheduler(device="cpu", max_wait_ms=5,
-                                  max_lanes=256)
+                                  max_lanes=256, verify_timeout_s=QUIET_S)
         await s.start()
         try:
             got = await asyncio.gather(*(s.verify(*it) for it in tp))
@@ -244,7 +252,8 @@ def test_duplicate_suppression_counts():
         finally:
             await s.stop()
 
-    t = _run(main(VerificationScheduler(device="cpu", max_wait_ms=5), item))
+    t = _run(main(VerificationScheduler(device="cpu", max_wait_ms=5,
+                                        verify_timeout_s=QUIET_S), item))
     j = _run(main(jsched.VerificationScheduler(backend="cpu",
                                                max_wait_ms=5), jitem))
     for oks, st, after in (t, j):
@@ -289,7 +298,8 @@ def test_clean_stop_resolves_inflight_requests():
     tp, _ = _signed(5)
 
     async def main():
-        s = VerificationScheduler(device="cpu", max_wait_ms=60_000)
+        s = VerificationScheduler(device="cpu", max_wait_ms=60_000,
+                                  verify_timeout_s=QUIET_S)
         await s.start()
         tasks = [asyncio.create_task(s.verify(*it)) for it in tp]
         await asyncio.sleep(0.05)
@@ -338,7 +348,8 @@ def test_dispatch_failure_resolves_every_batchmate_with_real_verdicts():
     # the plain versions take about 0.4 s a lane here: a deadline past
     # the recovery's five lanes keeps the overdue path out of this case
     t = _run(main(VerificationScheduler(device="cpu", max_wait_ms=1.0,
-                                        verify_timeout_s=60), tp, bad_t, F))
+                                        verify_timeout_s=QUIET_S), tp, bad_t,
+                  F))
     j = _run(main(jsched.VerificationScheduler(backend="cpu",
                                                max_wait_ms=1.0), jp, bad_j,
                   JF))
@@ -360,7 +371,7 @@ def test_persistent_dispatch_error_reaches_the_caller(monkeypatch):
 
     async def main():
         s = VerificationScheduler(device="cpu", max_wait_ms=1.0,
-                                  verify_timeout_s=60)
+                                  verify_timeout_s=QUIET_S)
         await s.start()
         monkeypatch.setattr(VerificationScheduler, "_check_lanes", broken)
         try:
@@ -424,7 +435,8 @@ def _vote(vals, by_addr, i, bid, typ=PREVOTE_TYPE, height=3):
 def test_vote_set_rides_scheduler_cache():
     async def main():
         s = await vsched.acquire_scheduler(device="cpu", max_wait_ms=2,
-                                           max_lanes=64)
+                                           max_lanes=64,
+                                           verify_timeout_s=QUIET_S)
         try:
             vals, by_addr = _valset(4)
             bid = BlockID(b"\x07" * 32, PartSetHeader(1, b"\x08" * 32))
@@ -486,7 +498,8 @@ def _commit(vals, by_addr, bid, height):
 def test_verify_commit_consults_and_seeds_cache():
     async def main():
         s = await vsched.acquire_scheduler(device="cpu", max_wait_ms=2,
-                                           max_lanes=64)
+                                           max_lanes=64,
+                                           verify_timeout_s=QUIET_S)
         try:
             vals, by_addr = _valset(4)
             bid = BlockID(b"\x05" * 32, PartSetHeader(1, b"\x06" * 32))
@@ -515,7 +528,8 @@ def test_verify_commit_seeds_then_second_pass_free():
 
     async def main():
         s = await vsched.acquire_scheduler(device="cpu", max_wait_ms=2,
-                                           max_lanes=64)
+                                           max_lanes=64,
+                                           verify_timeout_s=QUIET_S)
         try:
             vs = VoteSet(CHAIN, 9, 0, PRECOMMIT_TYPE, vals)
             for v in votes:
@@ -652,7 +666,7 @@ def test_sync_check_waits_behind_a_queued_flush(monkeypatch):
 
     async def main():
         s = VerificationScheduler(device="cpu", max_wait_ms=0.0,
-                                  verify_timeout_s=60)
+                                  verify_timeout_s=QUIET_S)
         await s.start()
         try:
             task = asyncio.create_task(s.verify(*tp[0]))
@@ -679,7 +693,7 @@ def test_verify_sync_all_checks_misses_in_one_call():
 
     async def main():
         s = VerificationScheduler(device="cpu", max_wait_ms=0.0,
-                                  verify_timeout_s=60)
+                                  verify_timeout_s=QUIET_S)
         await s.start()
         try:
             assert s.verify_sync(*tp[0]) is True          # seeds tp[0]

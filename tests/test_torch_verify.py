@@ -166,7 +166,7 @@ def test_verify_padded_gather_matches_jax(jax_fns):
     assert jout.tolist() == tout.tolist() == want
     # the JAX package's own tables, carried over, give the same verdicts
     ctab, cok = convert.tables_from_jax(*[np.asarray(c) for c in jtab],
-                                        np.asarray(jok))
+                                        np.asarray(jok), device="cpu")
     cout = ted.verify_padded_gather(ctab, cok, *b.torch_args()).numpy()
     assert cout.tolist() == want
     # the uncached twin over the lanes' own keys

@@ -1,11 +1,13 @@
 // Host build of the port's CUDA kernels (cometbft_tpu_torch/csrc), for
-// tests/test_torch_kernels_host.py, which compiles it with
-// -fsanitize=address,undefined and compares what it computes with the
-// plain PyTorch versions.
+// tests/test_torch_kernels_host_*.py: their shared fixtures
+// (tests/torch_kernels_host_fixtures.py) compile it once with
+// -fsanitize=address,undefined, and the tests compare what it computes
+// with the plain PyTorch versions.
 //
 // Every kernel and launch sequence runs as written: a block is blockDim.x
-// host threads, each with its own threadIdx; blocks run one after another,
-// so a __shared__ array is a static one; __syncthreads is a barrier over
+// host threads, each with its own threadIdx; blocks run one after another
+// on the same threads (a launch starts its threads once), so a __shared__
+// array is a static one; __syncthreads is a barrier over
 // the block, and the quad exchange of ed25519.cuh (a shuffle among four
 // threads on the card) goes through static slots between two barriers
 // over the quad.
@@ -63,7 +65,7 @@ struct dim3 {
 
 static thread_local dim3 threadIdx, blockIdx;
 static dim3 blockDim, gridDim;
-static std::barrier<> *g_block_barrier;
+static thread_local std::barrier<> *g_block_barrier;
 static std::vector<std::unique_ptr<std::barrier<>>> g_quad_barriers;
 static unsigned char g_quad_slots[1024][64];
 
@@ -99,20 +101,28 @@ static void host_launch(dim3 grid, dim3 block, void (*kernel)(P...),
   for (unsigned q = 0; q < block.x; q += 4)
     g_quad_barriers.emplace_back(
         new std::barrier<>((std::ptrdiff_t)std::min(4u, block.x - q)));
-  for (unsigned y = 0; y < grid.y; y++)
-    for (unsigned x = 0; x < grid.x; x++) {
-      std::barrier<> bar((std::ptrdiff_t)block.x);
-      g_block_barrier = &bar;
-      std::vector<std::thread> threads;
-      for (unsigned t = 0; t < block.x; t++)
-        threads.emplace_back([&, t] {
-          threadIdx = dim3(t);
-          blockIdx = dim3(x, y);
-          kernel(args...);
-          bar.arrive_and_drop();
-        });
-      for (auto &th : threads) th.join();
-    }
+  // one set of threads runs every block in turn: a barrier a block, which
+  // a thread leaves when it returns from the kernel, and one between
+  // blocks that none leaves, so no thread starts a block before every
+  // thread has finished the one before (the static __shared__ arrays)
+  const unsigned n_blocks = grid.x * grid.y;
+  std::vector<std::unique_ptr<std::barrier<>>> bars;
+  for (unsigned b = 0; b < n_blocks; b++)
+    bars.emplace_back(new std::barrier<>((std::ptrdiff_t)block.x));
+  std::barrier<> step((std::ptrdiff_t)block.x);
+  std::vector<std::thread> threads;
+  for (unsigned t = 0; t < block.x; t++)
+    threads.emplace_back([&, t] {
+      threadIdx = dim3(t);
+      for (unsigned b = 0; b < n_blocks; b++) {
+        blockIdx = dim3(b % grid.x, b / grid.x);
+        g_block_barrier = bars[b].get();
+        kernel(args...);
+        bars[b]->arrive_and_drop();
+        step.arrive_and_wait();
+      }
+    });
+  for (auto &th : threads) th.join();
 }
 
 // two shards a pass of ed25519_rlc_sums_launch (64 on the card), so that

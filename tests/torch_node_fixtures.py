@@ -35,11 +35,37 @@ from cometbft_tpu_torch.types.priv_validator import MockPV
 
 
 def run(coro):
+    """``coro`` on a new event loop.  Where it does not finish (a failure
+    in another task, or the per-case alarm's ``SystemExit`` raised
+    wherever the loop was), the case's own ``finally`` still runs: the
+    coroutine is cancelled and the loop runs on while it stops its
+    nodes, servers and sockets; then every task left is cancelled.  So a
+    failure is reported once, by the case, and nothing it opened stays
+    open for the worker's next case."""
     loop = asyncio.new_event_loop()
+    main = loop.create_task(coro)
     try:
-        return loop.run_until_complete(coro)
+        return loop.run_until_complete(main)
+    except BaseException:
+        _unwind(loop, main)
+        raise
     finally:
         loop.close()
+
+
+def _unwind(loop, main):
+    _cancel(loop, [main])
+    _cancel(loop, [t for t in asyncio.all_tasks(loop) if not t.done()])
+
+
+def _cancel(loop, tasks, timeout=60.0):
+    for t in tasks:
+        t.cancel()
+    if tasks:
+        try:
+            loop.run_until_complete(asyncio.wait(tasks, timeout=timeout))
+        except BaseException:
+            pass          # the failure reported is the one that unwound
 
 
 @pytest.fixture(autouse=True)
