@@ -7,9 +7,10 @@ loopback TCP, of BASELINE configs[4]'s mixed-key commits, of the RPC
 surface with light-client serving, of statesync, of discovery under
 faults (networks/chaos.toml), of networks/ci.toml run whole with one
 process per node through the command line, of the scenario lab (the
-curated suite up to 100 nodes and the 50-node statesync fleet), and of
+curated suite up to 100 nodes and the 50-node statesync fleet), of
 multi-process verification over ``torch.distributed`` and the warm boot,
-on one card.
+and of the gRPC transports (an app over gRPC, the node's gRPC services)
+and the SQL event sink, on one card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -293,16 +294,28 @@ Phases, each of which must pass or the script exits non-zero:
    ``VerifyCommit`` calls: the bundle ``loaded``, its load seconds, the
    first and fifth call's wall; the warmup's shapes against the plain
    versions.  Phase 18's nodes must report their bundle ``loaded`` on
-   ``/status``.
+   ``/status``;
+21. the gRPC transports and the SQL event sink (``phase_grpc``, in a
+   fresh process of its own, ``--child grpc``, beside phases 12-13):
+   ``GR_POWERS`` validators in one process over TCP to height
+   ``GR_TOP``, validator04's app a process of its own serving the
+   kvstore over gRPC (``abci kvstore --grpc``), validator01 serving the
+   node's gRPC services and a ``PsqlEventSink`` over ``sqlite3`` on its
+   event bus: the services' blocks and block results equal JSON-RPC's
+   at every height, the retain height set and read back, the
+   latest-height stream each committed height once in order and its
+   subscription gone when the client leaves, the sink a row a height and
+   a row a committed tx; readings: the gRPC app's calls (phase 17 reads
+   the socket app's), each method's p50, the stream's lag.
 
-The fresh processes of phases 15-20 start right after the build
+The fresh processes of phases 15-21 start right after the build
 (``--after``): each reaches the card and loads the kernels (phase 20
 (b)'s only import, so that their boot is timed from a process that has
 not touched the card), then waits for its turn, so that its set-up
 overlaps the phases before it.  In the whole run phases 15 and 16, one
 after the other, run beside phases 12 and 13 (``fresh_beside``), and
 phases 19 and 20, one after the other, beside them on a thread of their
-own: all are
+own, and phase 21 on a third: all are
 host-bound, the card busy under 2% of their time; phase 16's timing of
 the tree kernel at 200,000 leaves then shares the card with phase 13's
 one-lane launches, and phase 20's readings, after phase 19's, share
@@ -311,8 +324,8 @@ outlast phase 19).  Phase
 18 runs beside phase 17 the same way, its ports from ``E2E_BASE_PORT``
 (below the kernel's ephemeral range, where phase 17's nodes bind).
 
-Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19 and 20 are
-the main path: the launch counters are zeroed just before each and read
+Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20 and 21
+are the main path: the launch counters are zeroed just before each and read
 just after (phase 18's are its processes' own counters, which start at 0
 with each process and are read over ``/metrics`` before the stop; phase
 20's are its ranks' and its warm-boot processes');
@@ -342,7 +355,8 @@ fixtures built in it: the 1,000-validator source chain and 10,000 keys),
 ``--stress --node`` gives phase 14 its part (e)); ``--chaos`` runs only
 phases 1, 2 and 17; ``--e2e [MANIFEST]`` only phases 1, 2 and 18 (over
 networks/ci.toml unless MANIFEST names another); ``--sim`` only phases
-1, 2 and 19; ``--multihost`` only phases 1, 2 and 20.
+1, 2 and 19; ``--multihost`` only phases 1, 2 and 20; ``--grpc`` only
+phases 1, 2 and 21 (with ``--chaos``, phase 17's socket app beside).
 
 The line before the last is a JSON object with one entry per kernel
 (launches on the main path, max_abs_err, times, bound); the last line is
@@ -3652,13 +3666,16 @@ def _nd_genesis(powers, tag: bytes, ext_height: int = 0):
 async def _nd_node(doc, pv, name: str, dev, *, home=None, fast_sync=False,
                    latency_ms: float = 0.0, db_backend: str = "logdb",
                    rpc_laddr: str = "", app=None,
-                   discovery_s: float | None = None, **kw):
-    """A port ``Node`` of the kvstore app (``app``, else a new one) on
+                   discovery_s: float | None = None, grpc_laddr: str = "",
+                   grpc_app: str = "", **kw):
+    """A port ``Node`` of the kvstore app (``app``, else a new one; with
+    ``grpc_app``, the ABCI gRPC server at that ``host:port``) on
     ``dev``: the JAX package's test timeouts, a loopback listener on port
     0, ``db_backend`` stores under ``home`` (else in memory), an RPC
-    server on ``rpc_laddr`` (none by default), a statesync discovery
-    round of ``discovery_s`` (else the default), the configuration
-    validated; ``kw`` goes to ``Node.create``."""
+    server on ``rpc_laddr`` and the gRPC services on ``grpc_laddr`` (none
+    by default), a statesync discovery round of ``discovery_s`` (else
+    the default), the configuration validated; ``kw`` goes to
+    ``Node.create``."""
     from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
     from cometbft_tpu_torch.config import Config, test_consensus_config
     from cometbft_tpu_torch.node import Node
@@ -3672,9 +3689,14 @@ async def _nd_node(doc, pv, name: str, dev, *, home=None, fast_sync=False,
     cfg.storage.db_backend = db_backend if home else "memdb"
     if discovery_s is not None:
         cfg.statesync.discovery_time_s = discovery_s
+    cfg.rpc.grpc_laddr = grpc_laddr
+    if grpc_app:
+        cfg.base.abci = "grpc"
+        cfg.base.proxy_app = f"tcp://{grpc_app}"
     cfg.validate()
     return await Node.create(
-        doc, app or KVStoreApplication(device=dev), priv_validator=pv,
+        doc, None if grpc_app else app or KVStoreApplication(device=dev),
+        priv_validator=pv,
         config=cfg, node_key=NodeKey.from_secret(b"smoke-" + name.encode()),
         home=home, fast_sync=fast_sync, name=name, **kw)
 
@@ -8141,6 +8163,321 @@ def report_multihost(mh, launches, warm, card) -> None:
               f"{w['mismatches']}  [{card}]")
 
 
+# ---------------- phase 21: the gRPC transports and the SQL event sink
+
+GR_POWERS = (10, 10, 10, 10)     # ci.toml's 4 validators
+GR_TOP = 6                       # heights every node reaches
+GR_TXS = 8                       # txs injected on validator01
+GR_RETAIN = 2                    # the pruning service's retain height
+GR_REPS = 5                      # timed calls of version and get-retain
+GR_TIMEOUT_S = 240               # the phase's wait for its heights
+GR_APP_WAIT_S = 120              # the app process's wait to answer
+
+
+def grpc_app_cmd(port: int) -> list:
+    """validator04's app: the kvstore served over gRPC on the card by
+    the port's command line."""
+    return [sys.executable, "-m", "cometbft_tpu_torch", "abci", "kvstore",
+            "--grpc", "--port", str(port)]
+
+
+def _p50_max(ms: list) -> dict:
+    return {"n": len(ms), "p50": statistics.median(ms) if ms else None,
+            "max": max(ms) if ms else None}
+
+
+def phase_grpc(pool, keys, dev):
+    """Phase 21: the gRPC transports (the port's own HTTP/2,
+    ``libs/_h2.py``, and gRPC, ``libs/_grpc.py``) and the SQL event sink
+    on the card: ``GR_POWERS`` validators as port ``Node``s in one
+    process over loopback TCP, the JAX package's test timeouts, to
+    height ``GR_TOP`` (``GR_TXS`` txs injected on validator01).
+    validator04's app is a process of its own, ``python -m
+    cometbft_tpu_torch abci kvstore --grpc`` on the card
+    (``grpc_app_cmd``), reached over gRPC (``base.abci = "grpc"``);
+    validator01 serves JSON-RPC and the gRPC services
+    (``rpc.grpc_laddr``), and a ``PsqlEventSink`` over ``sqlite3``
+    follows its event bus through the node's ``IndexerService``.
+
+    Checked: the heights agree; ``GRPCServicesClient``'s block and block
+    results at every height equal JSON-RPC's ``/block`` and
+    ``/block_results``; the retain height ``GR_RETAIN`` set and read
+    back; the latest-height stream, opened before consensus starts,
+    yields each committed height once, in order, and its event-bus
+    subscription goes once the client leaves the stream; the sink holds
+    one ``blocks`` row a height validator01 committed and one
+    ``tx_results`` row a committed tx, every injected tx among them.
+    Readings: validator04's app calls (p50, max; phase 17 reads the
+    socket app's), each service method's p50, the stream's lag behind
+    validator01's NewBlock event, the wall and rounds of each height.
+    The launch counters are zeroed just before and read just after the
+    network's run: K5a and K5b must have launched (validator04's votes
+    are checked on the card like every other node's); the host oracle
+    must not be called."""
+    import asyncio
+    import signal
+    import sqlite3
+    from types import SimpleNamespace
+
+    from cometbft_tpu_torch.abci.grpc import GRPCClient
+    from cometbft_tpu_torch.crypto import scheduler as vsched
+    from cometbft_tpu_torch.indexer import IndexerService
+    from cometbft_tpu_torch.indexer.psql import PsqlEventSink
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+    from cometbft_tpu_torch.rpc.grpc import GRPCServicesClient
+
+    loop = asyncio.new_event_loop()
+    run = loop.run_until_complete
+    out: dict = {}
+    app_ms: list = []
+    grpc_call = GRPCClient.call
+
+    async def timed_call(self, method, **params):
+        t0 = time.perf_counter()
+        try:
+            return await grpc_call(self, method, **params)
+        finally:
+            app_ms.append((time.perf_counter() - t0) * 1e3)
+
+    port = _free_port()
+    log_path = _build_file("chip_smoke_grpc_app.log")
+    t_spawn = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            grpc_app_cmd(port), stdout=log, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    async def app_up():
+        client = await GRPCClient.connect(port=port)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(
+                        f"phase 21: the app process exited with "
+                        f"{proc.returncode} (log: {log_path})")
+                try:
+                    return await client.echo("up")
+                except Exception:        # not listening yet
+                    await asyncio.sleep(0.1)
+        finally:
+            await client.close()
+
+    doc, pvs = _nd_genesis(GR_POWERS, b"gr")
+    names = [f"validator0{i + 1}" for i in range(len(pvs))]
+    sink = PsqlEventSink(conn=sqlite3.connect(":memory:"),
+                         chain_id=CHAIN_ID)
+    nodes: list = []
+    keep: dict = {}
+
+    def subs(node) -> list:
+        return [k for k in node.event_bus._subs
+                if k.startswith("grpc-latest-height")]
+
+    async def wait_for(cond, timeout):
+        async def poll():
+            while not cond():
+                await asyncio.sleep(0.005)
+        await asyncio.wait_for(poll(), timeout)
+
+    def network():
+        for i, pv in enumerate(pvs[:-1]):
+            nodes.append(run(_nd_node(
+                doc, pv, names[i], dev,
+                rpc_laddr="tcp://127.0.0.1:0" if i == 0 else "",
+                grpc_laddr="tcp://127.0.0.1:0" if i == 0 else "")))
+        run(asyncio.wait_for(app_up(), GR_APP_WAIT_S))
+        out["app_up_s"] = time.perf_counter() - t_spawn
+        nodes.append(run(_nd_node(doc, pvs[-1], names[-1], dev,
+                                  grpc_app=f"127.0.0.1:{port}")))
+        v01 = nodes[0]
+        svc = IndexerService(v01.event_bus, sink, sink.block_indexer(),
+                             name="grpc.idx")
+        keep["svc"] = svc
+        run(svc.start())
+        committed_at: dict = {}
+        publish = v01.event_bus.publish
+
+        def stamped(event_type, data, attrs=None):
+            if event_type == "NewBlock":
+                committed_at[data["block"].header.height] = \
+                    time.perf_counter()
+            return publish(event_type, data, attrs)
+
+        v01.event_bus.publish = stamped
+        walls, seen = [], {}
+        t0 = time.perf_counter()
+        for n in nodes:
+            run(n.start(consensus=False))
+        mesh_s = run(_nd_mesh(nodes, walls))
+        client = run(GRPCServicesClient.connect("127.0.0.1",
+                                                v01.grpc_server.port))
+        keep["client"] = client
+        stream = client.latest_height_stream()
+        first = run(stream.__anext__())["height"]
+        streamed: list = []
+
+        async def follow():
+            async for item in stream:
+                streamed.append((item["height"], time.perf_counter()))
+
+        follower = loop.create_task(follow())
+        for n in nodes:
+            run(n.start_consensus())
+        for i in range(GR_TXS):
+            run(v01.mempool.check_tx(b"gr%d=tx%d" % (i, i)))
+        run(asyncio.wait_for(_watch_heights(SimpleNamespace(nodes=nodes),
+                                            GR_TOP, t0, seen),
+                             GR_TIMEOUT_S))
+        run(wait_for(lambda: streamed and streamed[-1][0] >= GR_TOP, 60))
+        wall = time.perf_counter() - t0
+        summary = _nd_summary(nodes, GR_TOP, walls, mesh_s, seen, wall,
+                              vsched.get_scheduler().stats())
+        # before the retain height below lets validator01 prune
+        _nd_agree(nodes, GR_TOP, "phase 21")
+        # leaving the stream: RST_STREAM(CANCEL), the server's generator
+        # closed, its subscription gone
+        t_leave = time.perf_counter()
+        follower.cancel()
+        run(asyncio.wait([follower]))
+        run(wait_for(lambda: not subs(v01), 10))
+        out["subscription_gone_s"] = time.perf_counter() - t_leave
+        heights = [first] + [h for h, _ in streamed]
+        if heights[1:] != list(range(first + 1, heights[-1] + 1)):
+            raise AssertionError(f"phase 21: the stream yielded {heights}")
+        lag = [(t - committed_at[h]) * 1e3 for h, t in streamed]
+        out["stream"] = {"heights": heights, "lag_ms": _p50_max(lag)}
+
+        # the services against JSON-RPC, at every height
+        rpc = HTTPClient(*v01.rpc_addr)
+        ms: dict = {"GetByHeight": [], "GetBlockResults": [],
+                    "GetVersion": [], "SetBlockRetainHeight": [],
+                    "GetBlockRetainHeight": []}
+
+        async def timed(name, call):
+            t = time.perf_counter()
+            res = await call
+            ms[name].append((time.perf_counter() - t) * 1e3)
+            return res
+
+        async def services():
+            for h in range(1, GR_TOP + 1):
+                got = await timed("GetByHeight",
+                                  client.get_block_by_height(h))
+                if got != await rpc.call("block", height=h):
+                    raise AssertionError(f"phase 21: GetByHeight({h}) "
+                                         "differs from /block")
+                got = await timed("GetBlockResults",
+                                  client.get_block_results(h))
+                if got != await rpc.call("block_results", height=h):
+                    raise AssertionError(f"phase 21: GetBlockResults({h}) "
+                                         "differs from /block_results")
+            for _ in range(GR_REPS):
+                out["version"] = await timed("GetVersion",
+                                             client.get_version())
+            set_ = await timed("SetBlockRetainHeight",
+                               client.set_block_retain_height(GR_RETAIN))
+            for _ in range(GR_REPS):
+                got = await timed("GetBlockRetainHeight",
+                                  client.get_block_retain_height())
+            if set_["data_companion_retain_height"] != GR_RETAIN or \
+                    got["pruning_service_retain_height"] != GR_RETAIN:
+                raise AssertionError(f"phase 21: retain height {set_}, "
+                                     f"read back {got}")
+            await rpc.close()
+
+        run(services())
+        out["services_ms"] = {k: _p50_max(v) for k, v in ms.items()}
+        return summary
+
+    calls, restore = _oracle_counter()
+    GRPCClient.call = timed_call
+    t_ph = time.perf_counter()
+    try:
+        launches, summary = _path_launches(
+            network, ("ed25519_tables", "ed25519_verify_gather"))
+        out["main_path_s"] = time.perf_counter() - t_ph
+    finally:
+        GRPCClient.call = grpc_call
+        restore()
+        if "client" in keep:
+            run(keep["client"].close())
+        for n in nodes:
+            run(n.stop())
+        if "svc" in keep:
+            # the pump's last events, then the sink's rows
+            top = nodes[0].block_store.height()
+
+            def pumped():
+                cur = sink.conn.cursor()
+                cur.execute("SELECT MAX(height) FROM blocks")
+                return (cur.fetchone()[0] or 0) >= top
+
+            try:
+                run(wait_for(pumped, 10))
+            finally:
+                run(keep["svc"].stop())
+        proc.send_signal(signal.SIGINT)     # the command line's clean stop
+        out["app_exit"] = proc.wait(timeout=30)
+    out.update(summary)
+    out["oracle_calls"] = calls[0]
+    if calls[0]:
+        raise AssertionError(f"phase 21: the host oracle was called "
+                             f"{calls[0]} times on the path")
+    cur = sink.conn.cursor()
+    cur.execute("SELECT height FROM blocks ORDER BY height")
+    rows = [h for (h,) in cur.fetchall()]
+    cur.execute("SELECT tx_result FROM tx_results")
+    txs = [bytes.fromhex(json.loads(r)["tx"]) for (r,) in cur.fetchall()]
+    # validator01's heights; the txs from validator02, which keeps every
+    # block (validator01 prunes below the retain height)
+    top = nodes[0].block_store.height()
+    committed = [bytes(tx) for h in range(1, top + 1)
+                 for tx in nodes[1].block_store.load_block(h).data.txs]
+    want = {b"gr%d=tx%d" % (i, i) for i in range(GR_TXS)}
+    if rows != list(range(1, top + 1)) or sorted(txs) != sorted(committed) \
+            or not want <= set(txs):
+        raise AssertionError(f"phase 21: the sink holds heights {rows} and "
+                             f"{len(txs)} txs; validator01 committed "
+                             f"{top} heights, {len(committed)} txs")
+    out["sink"] = {"blocks": len(rows), "tx_results": len(txs),
+                   "heights": top}
+    out["app_ms"] = _p50_max(app_ms)
+    sink.close()
+    loop.close()
+    return launches, out
+
+
+def report_grpc(gr, launches, card, cx=None) -> None:
+    """Phase 21's lines (with phase 17's socket app beside, where it
+    ran)."""
+    print(f"grpc (phase 21): main path {gr['main_path_s']:.1f} s; launches "
+          f"{launches}; the app process answered {gr['app_up_s']:.1f} s "
+          f"after its spawn, exited {gr['app_exit']}; oracle calls "
+          f"{gr['oracle_calls']}")
+    per = gr["per_height_s"]
+    print(f"grpc {len(GR_POWERS)} validators (validator04's app over gRPC) "
+          f"to height {gr['heights']}: {gr['wall_s']:.2f} s, a height "
+          f"{[round(x, 3) for x in per]} s (mean over heights "
+          f"2-{gr['heights']}: {gr['mean_height_s'] or 0:.3f}); rounds "
+          f"{gr['rounds']}  [{card}]")
+    a = gr["app_ms"]
+    line = (f"grpc app calls {a['n']}: p50 {a['p50']:.3f} ms, max "
+            f"{a['max']:.2f} ms")
+    if cx is not None:
+        am = cx["app_ms"]
+        line += (f"; socket app (phase 17) calls {len(am)}: p50 "
+                 f"{statistics.median(am):.3f} ms, max {max(am):.2f} ms")
+    print(line + f"  [{card}]")
+    sv = {k: round(v["p50"], 3) for k, v in gr["services_ms"].items()}
+    st = gr["stream"]
+    print(f"grpc services p50 ms {sv}; equal to JSON-RPC at heights "
+          f"1-{GR_TOP}; retain height {GR_RETAIN} read back; stream "
+          f"{st['heights']}, lag behind NewBlock p50 "
+          f"{st['lag_ms']['p50']:.3f} ms, max {st['lag_ms']['max']:.3f} "
+          f"ms; subscription gone {gr['subscription_gone_s'] * 1e3:.1f} ms "
+          f"after the client left; sink {gr['sink']}  [{card}]")
+
+
 CHILD_PHASES = {"rpc": (phase_rpc, BIG_VALS),
                 "statesync": (phase_statesync, SS_VALS),
                 "chaos": (phase_chaos, 0),
@@ -8148,7 +8485,8 @@ CHILD_PHASES = {"rpc": (phase_rpc, BIG_VALS),
                 "sim": (phase_sim, 0),
                 "multihost": (phase_multihost, 0),
                 "warm_on": (phase_warm_on, 0),
-                "warm_off": (phase_warm_off, 0)}
+                "warm_off": (phase_warm_off, 0),
+                "grpc": (phase_grpc, 0)}
 
 
 def main(argv=None) -> int:
@@ -8185,6 +8523,9 @@ def main(argv=None) -> int:
     ap.add_argument("--multihost", action="store_true",
                     help="run only the build and phase 20 (multi-host "
                     "verification over torch.distributed, warm boot)")
+    ap.add_argument("--grpc", action="store_true",
+                    help="run only the build and phase 21 (the gRPC "
+                    "transports and the SQL event sink)")
     ap.add_argument("--multihost-rank", nargs=5, default=None,
                     metavar=("PORT", "RANK", "WORLD", "IN", "OUT"),
                     help="run one rank of phase 20 (a) (how phase 20 "
@@ -8204,7 +8545,7 @@ def main(argv=None) -> int:
                     default=None,
                     help="run only phase NAME (rpc: 15, statesync: 16, "
                     "chaos: 17, e2e: 18, sim: 19, multihost: 20 (a), "
-                    "warm_on and warm_off: 20 (b)), "
+                    "warm_on and warm_off: 20 (b), grpc: 21), "
                     "over the kernels built, and write its launches and "
                     "record as JSON to PATH (how the other runs start "
                     "those phases, each in a fresh process)")
@@ -8312,11 +8653,12 @@ def main(argv=None) -> int:
                               ("statesync", args.statesync),
                               ("chaos", args.chaos),
                               ("e2e", args.e2e),
-                              ("sim", args.sim)) if on])
+                              ("sim", args.sim),
+                              ("grpc", args.grpc)) if on])
     if swept:
         fx = Fixtures(max(SIZES))
         print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
-    if swept or args.chaos or args.e2e or args.sim:
+    if swept or args.chaos or args.e2e or args.sim or args.grpc:
         rec = {k: {"mismatches": 0} for k in _build.KERNELS}
         t0 = time.perf_counter()
         if swept:
@@ -8337,6 +8679,8 @@ def main(argv=None) -> int:
             e2e_launches, e2e = phase_fresh("e2e")
         if args.sim:
             sm_launches, sm = phase_fresh("sim")
+        if args.grpc:
+            gr_launches, gr = phase_fresh("grpc")
         if args.blocksync or args.stress:
             ctx = multiprocessing.get_context("spawn")
             with ctx.Pool(os.cpu_count()) as pool:
@@ -8380,6 +8724,9 @@ def main(argv=None) -> int:
         if args.sim:
             report_sim(sm, sm_launches, card)
             part["sim"] = sm
+        if args.grpc:
+            report_grpc(gr, gr_launches, card, part.get("chaos"))
+            part["grpc"] = gr
         if args.record:
             os.makedirs(os.path.dirname(os.path.abspath(args.record)),
                         exist_ok=True)
@@ -8390,10 +8737,10 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    # the fresh processes of phases 15-20 reach the card meanwhile (the
+    # the fresh processes of phases 15-21 reach the card meanwhile (the
     # warm-boot processes only after their go)
-    prespawn(("rpc", "statesync", "chaos", "e2e", "sim", "multihost")
-             + WARM_CHILDREN, whole=True)
+    prespawn(("rpc", "statesync", "chaos", "e2e", "sim", "multihost",
+              "grpc") + WARM_CHILDREN, whole=True)
     fx = Fixtures(max(SIZES))
     print(f"fixtures: {len(fx.privs)} keys in {fx.key_seconds:.1f} s")
     rec = {k: {"name": k, "route": "cuda"} for k in _build.KERNELS}
@@ -8553,10 +8900,12 @@ def main(argv=None) -> int:
           f"(phase 17 {t_cx:.1f} s, phase 18 {e2e['phase_s']:.1f} s; one "
           f"after another {t_cx + e2e['phase_s']:.1f} s)")
     report_blocksync(bs, bs_launches, card)
-    # phases 15 and 16, and phases 19 and 20, run beside phases 12 and 13
+    # phases 15 and 16, phases 19 and 20, and phase 21 run beside phases
+    # 12 and 13
     t_beside = time.perf_counter()
     join_fresh = fresh_beside(("rpc", "statesync"))
     join_sim = fresh_beside(("sim", "multihost") + WARM_CHILDREN)
+    join_grpc = fresh_beside(("grpc",))
     t0 = time.perf_counter()
     cs_launches, cs = phase_consensus(dev)
     cs["phase_s"] = time.perf_counter() - t0
@@ -8566,14 +8915,16 @@ def main(argv=None) -> int:
     t_nodes = time.perf_counter() - t_beside
     (rp_launches, rp), (ss_launches, ss) = join_fresh()
     (sm_launches, sm), (mh_launches, mh), *warm = join_sim()
+    ((gr_launches, gr),) = join_grpc()
     mh_s = mh["phase_s"] + sum(w["phase_s"] for _, w in warm)
     beside_s = time.perf_counter() - t_beside
-    print(f"phases 12-13 beside 15-16, 19 and 20: {beside_s:.1f} s (phases "
-          f"12-13 {t_nodes:.1f} s, 15-16 "
+    alone = t_nodes + rp["phase_s"] + ss["phase_s"] + sm["phase_s"] + mh_s \
+        + gr["phase_s"]
+    print(f"phases 12-13 beside 15-16, 19-20 and 21: {beside_s:.1f} s "
+          f"(phases 12-13 {t_nodes:.1f} s, 15-16 "
           f"{rp['phase_s'] + ss['phase_s']:.1f} s, 19 {sm['phase_s']:.1f} "
-          f"s, 20 {mh_s:.1f} s; one after another "
-          f"{t_nodes + rp['phase_s'] + ss['phase_s'] + sm['phase_s'] + mh_s:.1f}"
-          f" s)")
+          f"s, 20 {mh_s:.1f} s, 21 {gr['phase_s']:.1f} s; one after "
+          f"another {alone:.1f} s)")
     report_consensus(cs, cs_launches, card)
     report_node(nd, nd_launches, card)
     report_stress(st, st_launches, card, nd)
@@ -8583,6 +8934,7 @@ def main(argv=None) -> int:
     report_e2e(e2e, e2e_launches, card)
     report_sim(sm, sm_launches, card)
     report_multihost(mh, mh_launches, [w for _, w in warm], card)
+    report_grpc(gr, gr_launches, card, cx)
     wb_launches = {k: sum(w["launches"].get(k, 0) for _, w in warm)
                    for k in _build.KERNELS}
     print(f"light client (phase 10): fixtures {lc['fixture_s']}, first "
@@ -8660,7 +9012,8 @@ def main(argv=None) -> int:
              "stress": st_launches, "rpc": rp_launches,
              "statesync": ss_launches, "chaos": cx_launches,
              "e2e": e2e_launches, "sim": sm_launches,
-             "multihost": mh_launches, "warm_boot": wb_launches}
+             "multihost": mh_launches, "warm_boot": wb_launches,
+             "grpc": gr_launches}
 
     c = op_counts()
     print(f"field multiplications per group op: {c}")
@@ -8738,7 +9091,7 @@ def main(argv=None) -> int:
                        "rpc": rp, "statesync": ss, "chaos": cx,
                        "e2e": e2e, "sim": sm, "mesh": mesh,
                        "multihost": mh, "warm_boot": [w for _, w in warm],
-                       "build": bundle,
+                       "grpc": gr, "build": bundle,
                        "build_log": _build.build_log(),
                        "ptxas": usage}, f, indent=1,
                       default=str)

@@ -9,4 +9,7 @@ CUDA device unless the caller passes ``device="cpu"``; on a CPU tensor each
 kernel wrapper runs its plain PyTorch version instead of the kernel.
 """
 
-__all__ = ["device"]
+__all__ = ["device", "__version__"]
+
+# the JAX package's version: the gRPC version service reports it
+__version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """ABCI 2.0: the application interface (counterpart of
 ``cometbft_tpu/abci``; reference: ``abci/``), the in-process and socket
 clients, the socket server, the call-grammar checker and the kvstore
-application.  The gRPC client is not ported (it needs ``grpc``)."""
+application.  The gRPC server and client are in ``abci/grpc.py``."""
 
 from .application import Application
 from .client import ABCIClient, ABCIClientError, LocalClient, SocketClient

@@ -11,7 +11,7 @@ the card.  The top-level ``--device`` (``--device cpu`` runs the
 kernels' plain versions, as the tests do) overrides it for the command;
 ``start`` also takes ``-o base.device=cpu``.  A node that cannot reach
 its device raises at ``Node.create`` and the process exits non-zero.
-``abci kvstore --grpc`` is refused: the port does not serve gRPC.
+``abci kvstore --grpc`` serves the kvstore over the port's own gRPC.
 """
 
 from __future__ import annotations

@@ -2,9 +2,9 @@
 the reference's standalone ``abci-cli`` tool (``abci/cmd/abci-cli/
 abci-cli.go``): poke any ABCI server over the socket protocol with
 one-shot commands, a console REPL, or a batch script, run the example
-kvstore server, and run a conformance sequence against an app.  The
-kvstore serves the socket protocol only: ``--grpc`` is refused, since
-the port does not import ``grpc``.
+kvstore server (over the socket protocol, or over gRPC with ``--grpc``:
+``abci/grpc.py`` on the port's own HTTP/2), and run a conformance
+sequence against an app.
 
 Tx/data arguments accept the reference's literal forms: ``0xDEADBEEF`` is
 hex, ``"quoted"`` is raw bytes, anything else is raw bytes too.
@@ -171,19 +171,16 @@ async def _run_repl(args, interactive: bool) -> int:
 
 def _run_kvstore(args) -> int:
     """Serve the example kvstore app over the ABCI socket protocol
-    (abci-cli.go:266); its app hash is computed on ``--device`` (the card
-    by default)."""
+    (abci-cli.go:266), or over gRPC with ``--grpc``; its app hash is
+    computed on ``--device`` (the card by default)."""
+    from ..abci.grpc import GRPCABCIServer
     from ..abci.kvstore import KVStoreApplication
     from ..abci.server import ABCIServer
 
-    if args.grpc:
-        print("abci kvstore --grpc is not available: cometbft_tpu_torch "
-              "does not serve gRPC", file=sys.stderr)
-        return 2
-
     async def main():
-        server = ABCIServer(KVStoreApplication(device=args.device),
-                            port=args.port)
+        serve = GRPCABCIServer if args.grpc else ABCIServer
+        server = serve(KVStoreApplication(device=args.device),
+                       port=args.port)
         await server.start()
         print(f"ABCI kvstore server listening on "
               f"{server.host}:{server.port}", flush=True)
@@ -256,8 +253,8 @@ def register(sub) -> None:
             ap.add_argument("args", nargs="*")
         ap.set_defaults(fn=cmd_abci)
     ap = asub.add_parser("kvstore", help="run the example kvstore app "
-                         "as an ABCI socket server")
+                         "as an ABCI socket (or --grpc) server")
     ap.add_argument("--port", type=int, default=26658)
     ap.add_argument("--grpc", action="store_true",
-                    help="not available in this package (no gRPC)")
+                    help="serve over gRPC instead of the socket protocol")
     ap.set_defaults(fn=cmd_abci)

@@ -17,9 +17,12 @@ with the standard library's ``tomllib``.
   accepts and drops them, so a home the JAX package wrote loads here.
   Any other unknown section or key raises :class:`ConfigError`.
 - :meth:`Config.validate` holds every field to the JAX package's bounds
-  (``config.go`` ValidateBasic), raising :class:`ConfigError`; the gRPC
-  app and the SQL sink are not ported, so ``base.abci = "grpc"`` and
-  ``tx_index.indexer = "psql"`` are refused.
+  (``config.go`` ValidateBasic), raising :class:`ConfigError` with its
+  messages.
+- ``P2PConfig.pong_timeout`` is the port's second key: the seconds an
+  MConnection waits for a pong (upstream MConnection's 45 s).  The JAX
+  package has no key for it and holds 5 s; its loader refuses the key,
+  as it refuses ``base.device``.
 - ``RPCConfig.laddr`` is ``tcp://127.0.0.1:26657`` as in the JAX
   package: a node started with it listens there; in-process networks
   give each node ``tcp://127.0.0.1:0`` (a free port) or ``""`` (no RPC
@@ -150,12 +153,15 @@ class P2PConfig:
     quality_half_life_s: float = 120.0
     quality_ban_ttl_s: float = 60.0
     quality_ban_ttl_max_s: float = 3600.0
+    # seconds a ping waits for its pong before the link is dropped
+    # (upstream config.P2PConfig.PongTimeout)
+    pong_timeout: float = 45.0
 
 
 @dataclass
 class RPCConfig:
     laddr: str = "tcp://127.0.0.1:26657"
-    grpc_laddr: str = ""              # not served by the port (no grpc)
+    grpc_laddr: str = ""              # block/version/pruning gRPC services
     max_open_connections: int = 900
     max_subscription_clients: int = 100
     unsafe: bool = False              # dial_seeds/dial_peers/flush_mempool
@@ -251,7 +257,9 @@ class StorageConfig:
 
 @dataclass
 class TxIndexConfig:
-    indexer: str = "kv"               # kv | null (psql is not ported)
+    indexer: str = "kv"               # kv | psql | null
+    # DSN for indexer="psql" (state/indexer/sink/psql); the port imports
+    # no psycopg2, so a DSN alone raises the sink's PsqlSinkError
     psql_conn: str = ""
 
 
@@ -297,8 +305,9 @@ class BaseConfig:
     priv_validator_laddr: str = ""
     # deadline of one remote-signer round trip in seconds (0: none)
     priv_validator_timeout_s: float = 5.0
-    # the application: "builtin" (in process) or "socket" (an ABCI
-    # socket server at proxy_app, abci/server.py)
+    # the application: "builtin" (in process), "socket" (an ABCI socket
+    # server at proxy_app, abci/server.py) or "grpc" (an ABCI gRPC server
+    # there, abci/grpc.py)
     abci: str = "builtin"
     proxy_app: str = "kvstore"
     # the file signer's last-sign state under the home (read by the
@@ -408,10 +417,9 @@ class Config:
 
     def validate(self) -> None:
         """Per-section bounds, in the JAX package's order and with its
-        messages (``config/config.go`` ValidateBasic); the gRPC app and
-        the SQL sink are not ported."""
-        if self.base.abci not in ("builtin", "socket"):
-            raise ConfigError(f"base.abci must be builtin|socket, "
+        messages (``config/config.go`` ValidateBasic)."""
+        if self.base.abci not in ("builtin", "socket", "grpc"):
+            raise ConfigError(f"base.abci must be builtin|socket|grpc, "
                               f"got {self.base.abci!r}")
         for name in ("timeout_propose", "timeout_prevote",
                      "timeout_precommit", "timeout_commit"):
@@ -480,6 +488,8 @@ class Config:
             raise ConfigError(
                 "p2p.quality_ban_ttl_s must be positive and <= "
                 "quality_ban_ttl_max_s")
+        if p2p.pong_timeout <= 0:
+            raise ConfigError("p2p.pong_timeout must be positive")
         if self.rpc.max_concurrent_requests < 1:
             raise ConfigError("rpc.max_concurrent_requests must be >= 1")
         if self.rpc.max_queued_requests < 0:
@@ -490,10 +500,13 @@ class Config:
             raise ConfigError(
                 f"storage.db_backend must be logdb|native|memdb, "
                 f"got {self.storage.db_backend!r}")
-        if self.tx_index.indexer not in ("kv", "null"):
+        if self.tx_index.indexer not in ("kv", "psql", "null"):
             raise ConfigError(
-                f"tx_index.indexer must be kv|null, "
+                f"tx_index.indexer must be kv|psql|null, "
                 f"got {self.tx_index.indexer!r}")
+        if self.tx_index.indexer == "psql" and not self.tx_index.psql_conn:
+            raise ConfigError(
+                "tx_index.indexer='psql' requires tx_index.psql_conn")
         if p2p.fuzz_mode not in ("drop", "delay"):
             raise ConfigError(f"p2p.fuzz_mode must be drop|delay, "
                               f"got {p2p.fuzz_mode!r}")

@@ -51,8 +51,8 @@ class NodeManifest:
     key_type: str = "ed25519"
     database: str = "logdb"            # storage.db_backend sweep axis
     abci_protocol: str = "builtin"     # builtin | socket | grpc (the
-    #   runner spawns an external kvstore app process for socket; the
-    #   port's runner refuses grpc, which the port does not serve)
+    #   runner spawns an external kvstore app process for socket and
+    #   grpc, the latter serving with --grpc)
     # "action:height" entries, applied when the chain passes height
     perturb: list[str] = field(default_factory=list)
 

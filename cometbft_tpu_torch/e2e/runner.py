@@ -12,9 +12,8 @@ real kill/pause signals).
 
 Where the JAX runner differs: every process it starts checks signatures
 on ``device`` (``None``: the card; ``"cpu"`` is passed as ``--device cpu``
-to each), where the JAX runner pins its nodes to the host; a manifest
-node with ``abci_protocol = "grpc"`` is refused (the port does not serve
-gRPC); a node process that exits without the schedule killing it fails
+to each), where the JAX runner pins its nodes to the host; a node
+process that exits without the schedule killing it fails
 the run; a node's next perturbation waits until the chain has passed the
 height its previous one fired at; each new height the watched node
 reports is logged (``[e2e] height H``); and the load's random bytes
@@ -69,12 +68,6 @@ class Runner:
                  base_port: int = 26656, fast_timeouts: bool = True,
                  log=print, device: str | None = None,
                  rng: random.Random | None = None):
-        grpc = sorted(n for n, nd in manifest.nodes.items()
-                      if nd.abci_protocol == "grpc")
-        if grpc:
-            raise RunnerError(f"{', '.join(grpc)}: abci_protocol 'grpc' is "
-                              "not available (cometbft_tpu_torch does not "
-                              "serve gRPC)")
         self.m = manifest
         self.device = device
         self.rng = rng if rng is not None else random.Random()
@@ -224,6 +217,8 @@ class Runner:
             # topology the reference's generator sweeps)
             app_cmd = self._cli("abci", "kvstore", "--port",
                                 str(self.app_port(name)))
+            if node.abci_protocol == "grpc":
+                app_cmd.append("--grpc")
             app_log = open(os.path.join(self.base_dir,
                                         f"{name}.app.log"), "ab")
             self.log(f"[e2e] starting {name} app ({node.abci_protocol})")

@@ -42,11 +42,13 @@ connection fuzzer (``p2p/fuzz.py``); with ``p2p.pex`` an address book
 (``p2p/addrbook.py``, a JSON file under the home) that the peer scorer
 records its timed bans in, and the pex reactor (``p2p/pex.py``; in
 ``p2p.seed_mode`` it crawls and hangs up); every MConnection scoped by
-the node's name for ``node=<name>`` fault rules.  ``app=None`` with
-``base.abci = "socket"`` connects to an ABCI socket server at
-``base.proxy_app`` (raising if none answers; nothing falls back to a
-local app).  The remote signer is a ``priv_validator`` like any other
-(``privval/signer.SignerListener``).  Seeds and persistent peers are
+the node's name for ``node=<name>`` fault rules, and its pong deadline
+``p2p.pong_timeout``.  ``app=None`` with ``base.abci = "socket"``
+connects to an ABCI socket server at ``base.proxy_app``, with
+``base.abci = "grpc"`` to an ABCI gRPC server there (``abci/grpc.py``,
+over the port's own HTTP/2); an app that does not answer raises
+(nothing falls back to a local app).  The remote signer is a
+``priv_validator`` like any other (``privval/signer.SignerListener``).  Seeds and persistent peers are
 dialled by the node's starter (``cmd.dial_until_up``), as the JAX
 package's ``cmd`` does.
 
@@ -66,7 +68,13 @@ device-owner thread), all off the event loop, and records
 recorded as ``{"status": "error"}``, and the next device call builds
 again and raises.
 
-Not here: gRPC apps, the SQL event sink.
+With ``rpc.grpc_laddr`` set, :meth:`start` serves the node's gRPC
+services (``rpc/grpc.py``: version, blocks, block results, the pruning
+service, the latest-height stream) there and :meth:`stop` stops them;
+``tx_index.indexer = "psql"`` pumps the event bus into the SQL event
+sink (``indexer/psql.py``), which needs a DB-API connection: the port
+imports no ``psycopg2``, so a DSN alone raises its ``PsqlSinkError``
+at :meth:`create`, as the JAX package does without ``psycopg2``.
 """
 
 from __future__ import annotations
@@ -89,6 +97,7 @@ from ..crypto import plan as _plan
 from ..crypto import scheduler as _vsched
 from ..evidence import EvidencePool, EvidenceReactor
 from ..indexer import BlockIndexer, IndexerService, TxIndexer
+from ..indexer.psql import PsqlEventSink
 from ..libs import failures as _failures
 from ..libs import log as tmlog
 from ..libs import metrics as _metrics
@@ -101,9 +110,11 @@ from ..mempool.reactor import MempoolReactor
 from ..p2p import (AddrBook, NodeInfo, NodeKey, PeerScorer, PexReactor,
                    Switch, Transport)
 from ..p2p.fuzz import FuzzConnConfig
-from ..proxy.multi_app_conn import (AppConns, local_client_creator,
+from ..proxy.multi_app_conn import (AppConns, grpc_client_creator,
+                                    local_client_creator,
                                     socket_client_creator)
 from ..rpc import RPCServer
+from ..rpc.grpc import GRPCServer
 from ..sm.execution import BlockExecutor
 from ..sm.pruner import Pruner
 from ..statesync import StatesyncReactor, Syncer
@@ -209,6 +220,7 @@ class Node:
         self.light_serve: LightServeTier | None = None
         self.rpc_server: RPCServer | None = None
         self.rpc_addr: tuple[str, int] | None = None
+        self.grpc_server: GRPCServer | None = None
         self.prometheus_server = None
         self.loop_watchdog: LoopWatchdog | None = None
         self.liveness_watchdog: LivenessWatchdog | None = None
@@ -247,7 +259,7 @@ class Node:
                      state_sync_provider=None,
                      name: str = "node") -> "Node":
         """Build a node of ``app`` (in process; ``None`` with
-        ``base.abci = "socket"`` for the socket app at
+        ``base.abci = "socket"`` or ``"grpc"`` for the app at
         ``base.proxy_app``) on ``config.base.device`` (raising without a
         card unless it is ``"cpu"``).  With ``home``
         the stores are ``config.storage.db_backend`` files and the WAL a
@@ -255,9 +267,10 @@ class Node:
         :meth:`stop`; without, everything is in memory.  The storage
         doctor's refusal (``doctor.DoctorError``) raises here."""
         cfg = config or Config(consensus=test_consensus_config())
-        if app is None and cfg.base.abci != "socket":
+        if app is None and cfg.base.abci not in ("socket", "grpc"):
             raise ValueError("no application: pass app or configure "
-                             "base.abci='socket' with base.proxy_app addr")
+                             "base.abci='socket'|'grpc' with "
+                             "base.proxy_app addr")
         self = cls()
         self.name = name
         self.home = home
@@ -308,11 +321,13 @@ class Node:
 
         if app is not None:
             creator = local_client_creator(app)
-        else:
+        elif cfg.base.abci == "socket":
             # out-of-process app over the ABCI socket (proxy/client.go's
             # remote creator)
             creator = socket_client_creator(*_parse_laddr(
                 cfg.base.proxy_app))
+        else:
+            creator = grpc_client_creator(*_parse_laddr(cfg.base.proxy_app))
         self.app_conns = AppConns(creator, node=name)
         await self.app_conns.start()
         self.event_bus = EventBus()
@@ -413,7 +428,8 @@ class Node:
         self.switch = Switch(
             self.transport, emulated_latency=p2p.emulated_latency_ms / 1e3,
             scorer=scorer, name=name,
-            telemetry_interval=p2p.telemetry_flush_interval_s)
+            telemetry_interval=p2p.telemetry_flush_interval_s,
+            pong_timeout=p2p.pong_timeout)
         self.switch.add_reactor("consensus", self.consensus_reactor)
         self.switch.add_reactor("mempool", self.mempool_reactor)
         self.switch.add_reactor("blocksync", self.blocksync_reactor)
@@ -433,10 +449,19 @@ class Node:
             self.indexer_service = IndexerService(
                 self.event_bus, self.tx_indexer, self.block_indexer,
                 name=f"{name}.idx")
+        elif cfg.tx_index.indexer == "psql":
+            # external SQL sink (state/indexer/sink/psql): the same pump,
+            # rows instead of kv postings; write-only from the node
+            sink = PsqlEventSink(dsn=cfg.tx_index.psql_conn,
+                                 chain_id=genesis_doc.chain_id)
+            self.tx_indexer = sink
+            self.block_indexer = sink.block_indexer()
+            self.indexer_service = IndexerService(
+                self.event_bus, sink, self.block_indexer,
+                name=f"{name}.idx")
         elif cfg.tx_index.indexer not in ("", "null"):
             raise ValueError(f"tx_index.indexer {cfg.tx_index.indexer!r}: "
-                             "the port indexes with kv or null (the SQL "
-                             "sink needs psycopg2)")
+                             "the node indexes with kv, psql or null")
         if cfg.lightserve.enable:
             # passive: read by the light_* routes in worker threads
             ls = cfg.lightserve
@@ -565,13 +590,17 @@ class Node:
             name=self.name)
 
     async def _start_serving(self) -> None:
-        """The RPC server, the Prometheus listener and the loop
-        watchdog, as configured."""
+        """The RPC server, the gRPC services, the Prometheus listener and
+        the loop watchdog, as configured."""
         cfg = self.config
         if cfg.rpc.laddr:
             self.rpc_server = RPCServer(self)
             self.rpc_addr = await self.rpc_server.listen(
                 *_parse_laddr(cfg.rpc.laddr))
+        if cfg.rpc.grpc_laddr:
+            self.grpc_server = GRPCServer(
+                self, *_parse_laddr(cfg.rpc.grpc_laddr))
+            await self.grpc_server.start()
         inst = cfg.instrumentation
         if inst.prometheus:
             self.prometheus_server = await _serve_prometheus(
@@ -614,8 +643,8 @@ class Node:
             await self.consensus.start()
 
     async def stop(self) -> None:
-        """Wait for the warm boot; stop statesync, the liveness watchdog, the RPC server, the
-        Prometheus listener, the loop watchdog, consensus, the switch
+        """Wait for the warm boot; stop statesync, the liveness watchdog,
+        the RPC server, the gRPC services, the Prometheus listener, the loop watchdog, consensus, the switch
         (peers, reactors, listener), the indexer service, the pruner and
         the app connections; release the scheduler; close the WAL, every
         store and the data-directory lock.  Idempotent, and safe on a
@@ -639,6 +668,9 @@ class Node:
             if self.rpc_server is not None:
                 server, self.rpc_server = self.rpc_server, None
                 await server.close()
+            if self.grpc_server is not None:
+                gserver, self.grpc_server = self.grpc_server, None
+                await gserver.stop()
             if self.prometheus_server is not None:
                 prom, self.prometheus_server = self.prometheus_server, None
                 prom.close()

@@ -4,9 +4,10 @@
 The reference maintains four logical connections (consensus, mempool,
 query, snapshot — ``proxy/multi_app_conn.go``) so mempool CheckTx traffic
 can't head-of-line-block consensus.  Here each logical connection is its own
-client instance (its own lock or socket), produced by a ClientCreator
-(``proxy/client.go:16`` analogue): in process, or over the ABCI socket
-(:func:`socket_client_creator`).  The gRPC creator is not ported.
+client instance (its own lock, socket or gRPC channel), produced by a
+ClientCreator (``proxy/client.go:16`` analogue): in process, over the
+ABCI socket (:func:`socket_client_creator`) or over gRPC
+(:func:`grpc_client_creator`).
 """
 
 from __future__ import annotations
@@ -17,10 +18,11 @@ from typing import Awaitable, Callable
 
 from ..abci.application import Application
 from ..abci.client import ABCIClient, LocalClient, SocketClient
+from ..abci.grpc import GRPCClient
 from ..libs import tracing
 
 __all__ = ["ClientCreator", "TracedAppConn", "local_client_creator",
-           "socket_client_creator", "AppConns"]
+           "socket_client_creator", "grpc_client_creator", "AppConns"]
 
 ClientCreator = Callable[[], Awaitable[ABCIClient]]
 
@@ -89,6 +91,19 @@ def socket_client_creator(host: str = "127.0.0.1", port: int = 26658,
 
     async def create() -> ABCIClient:
         return await SocketClient.connect(host, port, unix_path)
+
+    return create
+
+
+def grpc_client_creator(host: str = "127.0.0.1",
+                        port: int = 26658) -> ClientCreator:
+    """Remote app over gRPC (``proxy/client.go`` grpc creator); each
+    connection its own channel to an ``abci/grpc.GRPCABCIServer``.  A
+    channel connects at its first call, so an unreachable server raises
+    from the handshake's first call, not from :meth:`AppConns.start`."""
+
+    async def create() -> ABCIClient:
+        return await GRPCClient.connect(host, port)
 
     return create
 

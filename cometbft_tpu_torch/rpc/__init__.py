@@ -1,8 +1,7 @@
 """The RPC surface (counterpart of ``cometbft_tpu/rpc``): the JSON-RPC,
 URI and WebSocket server with its routes, and the HTTP and WebSocket
 clients, and inspect mode (``rpc/inspect.py``: the routes over a stopped
-node's home).  gRPC (``rpc/grpc.py``) needs ``grpc`` and is not
-ported."""
+node's home).  The node's gRPC services are ``rpc/grpc.py``."""
 
 from .client import HTTPClient, WSClient
 from .core import ROUTES, Environment, RPCError

@@ -16,7 +16,8 @@ package's (``cometbft_tpu/cmd``), through ``main(argv)`` of each:
   and ``load-report`` at a low rate (the JAX package's report against
   the port's node alike), and a SIGTERM exit of 0;
 - ``abci kvstore --device cpu`` as a process, ``abci test`` and
-  ``abci echo`` from both packages against it, ``--grpc`` refused."""
+  ``abci echo`` from both packages against it; ``abci kvstore --grpc``
+  answering both packages' gRPC clients alike."""
 
 import asyncio
 import json
@@ -421,8 +422,37 @@ def test_abci_console_against_a_kvstore_process(tmp_path, capsys):
     finally:
         proc.send_signal(signal.SIGINT)
         proc.wait(timeout=30)
-    rc, _, err = _main(t_cmd, ["abci", "kvstore", "--grpc"], capsys)
-    assert rc == 2 and "not available" in err
+    # over gRPC: echo and info through each package's gRPC client (the
+    # abci-cli verbs of both packages speak the socket protocol only)
+    from cometbft_tpu.abci.grpc import GRPCClient as JClient
+    from cometbft_tpu_torch.abci.grpc import GRPCClient as TClient
+
+    port = free_port_base(1)
+    proc = _spawn(["--device", "cpu", "abci", "kvstore", "--grpc",
+                   "--port", str(port)], str(tmp_path / "grpc.log"))
+
+    async def poke(cls):
+        client = await cls.connect(port=port)
+        try:
+            info = await client.info()
+            return await client.echo("hi"), info.data, info.app_version
+        finally:
+            await client.close()
+
+    def up():
+        try:
+            asyncio.run(poke(TClient))
+            return True
+        except Exception:
+            return False
+
+    try:
+        _wait(up, [proc], 60, "grpc kvstore up")
+        got = [asyncio.run(poke(cls)) for cls in (JClient, TClient)]
+        assert got[0] == got[1] and got[0][:2] == ("hi", "kvstore")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        proc.wait(timeout=30)
 
 
 def _series(text: str) -> set:

@@ -98,9 +98,9 @@ def test_ignored_keys_are_the_jax_only_keys():
         jax_only
     assert all(isinstance(r, str) and r for r in
                t_config.IGNORED_KEYS.values())
-    # the port's own key the JAX loader refuses
+    # the port's own keys the JAX loader refuses
     assert set(_fields(t_config.Config())) - set(_fields(
-        j_config.Config())) == {("base", "device")}
+        j_config.Config())) == {("base", "device"), ("p2p", "pong_timeout")}
 
 
 def test_port_written_file_refused_by_jax_loader(tmp_path):
@@ -130,6 +130,9 @@ def test_deprecated_batch_size_loads_in_both(tmp_path):
     "[p2p]\nquality_ban_score = 1.0\n",
     "[lightserve]\nmax_batch = 0\n",
     "[instrumentation]\ntracing_ring_size = 8\n",
+    "[base]\nabci = \"http\"\n",
+    "[tx_index]\nindexer = \"psql\"\n",
+    "[tx_index]\nindexer = \"sql\"\n",
 ])
 def test_bad_files_raise_the_jax_messages(tmp_path, text):
     path = str(tmp_path / "config.toml")
@@ -144,15 +147,19 @@ def test_bad_files_raise_the_jax_messages(tmp_path, text):
 
 
 def test_port_refuses_what_it_does_not_serve(tmp_path):
-    for text, msg in (("[base]\nabci = \"grpc\"\n", "base.abci"),
+    """The gRPC app and the SQL sink: both loaders accept the keys, and
+    read the same values."""
+    for text, key in (("[base]\nabci = \"grpc\"\nproxy_app = "
+                       "\"tcp://127.0.0.1:26658\"\n", ("base", "abci")),
                       ("[tx_index]\nindexer = \"psql\"\npsql_conn = "
-                       "\"x\"\n", "tx_index.indexer")):
+                       "\"postgres://x/y\"\n", ("tx_index", "indexer"))):
         path = str(tmp_path / "config.toml")
         with open(path, "w") as f:
             f.write(text)
-        j_config.Config.load(path)
-        with pytest.raises(t_config.ConfigError, match=msg):
-            t_config.Config.load(path)
+        jf = _fields(j_config.Config.load(path))
+        tf = _fields(t_config.Config.load(path))
+        assert {k: tf[k] for k in SHARED} == {k: jf[k] for k in SHARED}
+        assert tf[key] in ("grpc", "psql")
 
 
 OVERRIDES = [
@@ -199,6 +206,18 @@ def test_bad_overrides_raise_the_jax_messages(options):
     assert errs[0] == errs[1]
 
 
+def test_pong_timeout_key():
+    """The port's pong deadline: 45 s by default, read from the file and
+    from ``-o``, held positive."""
+    cfg = t_config.Config()
+    assert cfg.p2p.pong_timeout == 45.0
+    t_cmd._apply_overrides(cfg, ["p2p.pong_timeout=7"])
+    assert cfg.p2p.pong_timeout == 7.0
+    cfg.p2p.pong_timeout = 0
+    with pytest.raises(t_config.ConfigError, match="p2p.pong_timeout"):
+        cfg.validate()
+
+
 def test_device_override_and_refused_device_free_keys():
     cfg = t_config.Config()
     t_cmd._apply_overrides(cfg, ["base.device=cpu"])
@@ -207,3 +226,25 @@ def test_device_override_and_refused_device_free_keys():
                        match="unknown config key 'base.signature_backend'"):
         t_cmd._apply_overrides(t_config.Config(),
                                ["base.signature_backend=cpu"])
+
+
+def test_node_switch_takes_the_pong_timeout():
+    """A node's MConnections wait ``p2p.pong_timeout`` for a pong: 7 s
+    where the file says 7, upstream's 45 s by default."""
+    import asyncio
+
+    import torch_node_fixtures as tnf
+
+    async def main():
+        doc, pvs = tnf.genesis(1, chain_id="pong-net", tag=b"pong")
+        out = []
+        for timeout in (7, None):
+            cfg = tnf.config(db_backend="memdb")
+            if timeout is not None:
+                t_cmd._apply_overrides(cfg, [f"p2p.pong_timeout={timeout}"])
+            node = await tnf.make_node(doc, pvs[0], 0, config_=cfg)
+            out.append(node.switch.pong_timeout)
+            await node.stop()
+        return out
+
+    assert asyncio.run(main()) == [7.0, 45.0]

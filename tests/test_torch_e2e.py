@@ -2,9 +2,9 @@
 e2e``) against the JAX package's: the same validation errors, the same
 generated manifests for seeds 1-50 (and their TOML round trip), the same
 homes from ``Runner.setup`` for ``networks/ci.toml`` apart from the
-device, a grpc node refused, the free port helper, and live runs on the
-CPU: a node process that cannot reach its device fails the run, and
-validator01, full01 (start_at 2, kill:3, restart:4) and light01
+device, a grpc node's setup and app command, the free port helper, and
+live runs on the CPU: a node process that cannot reach its device fails
+the run, and validator01, full01 (start_at 2, kill:3, restart:4) and light01
 (start_at 3) reach height 6 with the runner's invariants, every process
 started through ``python -m cometbft_tpu_torch --device cpu``."""
 
@@ -102,11 +102,41 @@ def test_ci_setup_alike(tmp_path):
         assert docs[0].chain_id == docs[1].chain_id == "e2e-ci"
 
 
-def test_grpc_node_refused(tmp_path):
-    m = t_man.manifest_from_dict({"node": {
-        "validator01": {}, "validator02": {"abci_protocol": "grpc"}}})
-    with pytest.raises(t_e2e.RunnerError, match="validator02"):
-        t_e2e.Runner(m, str(tmp_path / "net"))
+def test_grpc_node_refused(tmp_path, monkeypatch):
+    """A grpc node is run, not refused: the first generated manifest
+    with one sets up in both runners alike (its config names the gRPC
+    app at its app port), and the port's runner starts its app as
+    ``abci kvstore --grpc`` on that port."""
+    import cometbft_tpu_torch.e2e.runner as t_runner
+
+    seed = next(s for s in range(1, 51) if any(
+        nd.abci_protocol == "grpc"
+        for nd in t_gen.generate_manifest(s).nodes.values()))
+    runners = [P.Runner(G.generate_manifest(seed), str(tmp_path / tag),
+                        base_port=40000, log=lambda *_: None)
+               for P, G, tag in ((j_e2e, j_gen, "j"), (t_e2e, t_gen, "t"))]
+    for r in runners:
+        r.setup()
+    t = runners[1]
+    name = next(n for n in t.names
+                if t.m.nodes[n].abci_protocol == "grpc")
+    cfgs = [Config.load(os.path.join(r.home(name), "config",
+                                     "config.toml")) for r in runners]
+    assert cfgs[0] == cfgs[1]
+    assert cfgs[1].base.abci == "grpc"
+    assert cfgs[1].base.proxy_app == f"127.0.0.1:{t.app_port(name)}"
+    started = []
+
+    class Proc:
+        def __init__(self, cmd, **kw):
+            started.append(cmd)
+
+    monkeypatch.setattr(t_runner.subprocess, "Popen", Proc)
+    monkeypatch.setattr(t, "_wait_for_port", lambda port, timeout: None)
+    t._spawn(name)
+    assert started[0][1:] == ["-m", "cometbft_tpu_torch", "abci", "kvstore",
+                              "--port", str(t.app_port(name)), "--grpc"]
+    assert started[1][-1] == "start"
 
 
 def test_processes_get_the_runners_device(tmp_path):

@@ -248,10 +248,13 @@ def test_pruner_prunes_like_jax(kv_chain, retain):
 
 def test_config_defaults_match_jax():
     """Every field of the port's config sections has the JAX package's
-    default; ``device`` stands for ``signature_backend``."""
+    default; ``device`` stands for ``signature_backend``, and
+    ``p2p.pong_timeout`` (the port's own key) is upstream's 45 s where
+    the JAX package holds a fixed 5 s."""
     import dataclasses
 
     from cometbft_tpu import config as jcfg
+    from cometbft_tpu.p2p import conn as jconn
     from cometbft_tpu_torch import config as tcfg
 
     port, jax = tcfg.Config(), jcfg.Config()
@@ -261,6 +264,10 @@ def test_config_defaults_match_jax():
             if f.name == "device":
                 assert ours.device == "cuda"
                 assert theirs.signature_backend == "auto"
+                continue
+            if (sec.name, f.name) == ("p2p", "pong_timeout"):
+                assert ours.pong_timeout == 45.0
+                assert jconn.DEFAULT_PONG_TIMEOUT == 5.0
                 continue
             assert getattr(ours, f.name) == getattr(theirs, f.name), \
                 (sec.name, f.name)
